@@ -1,0 +1,176 @@
+"""Minibatch GraphSAGE on the CGTrans substrate (the paper's workload), forward.
+
+Vertex features live owner-sharded on the storage tier, ``(P, part, F)``;
+a batch carries only ids. Layer 1's remote feature aggregation is the
+CGTrans step (``cgtrans.aggregate_multi``); layer 2 aggregates the locally
+materialised subgraph. Parameters are a flat dict of tensors named as in
+the JAX package (``w0``, ``b0``, ``w1``, ``b1``, ``w_out``, ``b_out``), so
+``params_from_jax`` carries them across unchanged.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Mapping, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.common.schema import ParamDef
+from repro_torch.core import cgtrans
+from repro_torch.device import DeviceLike, resolve_device
+
+
+@dataclasses.dataclass(frozen=True)
+class GCNConfig:
+    n_features: int
+    hidden: int = 128
+    n_classes: int = 16
+    fanout: int = 50             # paper: GraphSAGE samples 50 neighbors
+    aggregate: str = "add"       # add | max
+    dataflow: str = "cgtrans"    # cgtrans | baseline
+    n_layers: int = 2
+    impl: str = "ref"            # ref | kernel — GAS backend for aggregation
+    request_chunk: Optional[int] = None  # command-queue depth (rows per
+                                         # sampled-aggregation burst)
+    scheduled: Optional[bool] = None     # destination-binned edge schedule;
+                                         # None → on exactly when
+                                         # impl="kernel"
+    coalesce: bool = True                # self-row lookup + 2-hop requests
+                                         # in ONE command block
+    wire: str = "f32"                    # collective transport format
+    features: str = "dense"              # dense | sparse
+    sparse_capacity: Optional[int] = None
+    partition: str = "interval"          # interval | island
+
+
+def gcn_schema(cfg: GCNConfig) -> Dict[str, ParamDef]:
+    F, H, C = cfg.n_features, cfg.hidden, cfg.n_classes
+    s: Dict[str, ParamDef] = {}
+    d_in = F
+    for i in range(cfg.n_layers):
+        # SAGE concat [self ‖ aggregated] → weight is (2·d_in, H)
+        s[f"w{i}"] = ParamDef((2 * d_in, H), ("embed", "ff"), init="lecun")
+        s[f"b{i}"] = ParamDef((H,), ("ff",), init="zeros")
+        d_in = H
+    s["w_out"] = ParamDef((d_in, C), ("embed", None), init="lecun")
+    s["b_out"] = ParamDef((C,), (None,), init="zeros")
+    return s
+
+
+def params_from_jax(params: Mapping[str, np.ndarray],
+                    device: DeviceLike = "cuda") -> Dict[str, torch.Tensor]:
+    """Carry parameters across from the JAX package (any mapping of names
+    to arrays, e.g. ``repro.common.schema.init_params(gcn_schema(cfg),
+    key)``): float32 tensors on ``device``, values unchanged."""
+    dev = resolve_device(device)
+    return {k: torch.from_numpy(np.array(v, dtype=np.float32, copy=True)
+                                ).to(dev)
+            for k, v in params.items()}
+
+
+def _check_partition_knob(cfg: GCNConfig, relabel) -> None:
+    if cfg.partition not in ("interval", "island"):
+        raise ValueError(f"unknown cfg.partition {cfg.partition!r} "
+                         "(expected 'interval' or 'island')")
+    if cfg.partition == "island" or relabel is not None:
+        raise NotImplementedError(
+            "partition='island' is not ported yet (ROADMAP Queue 1, "
+            "graph/partition.py islandize)")
+
+
+def _batch_tensors(batch: Mapping, device: torch.device):
+    return {k: (v if torch.is_tensor(v) else torch.from_numpy(np.array(v))
+                ).to(device)
+            for k, v in batch.items()}
+
+
+def lookup_rows(feats, ids, *, mesh=None, dataflow="cgtrans", impl="ref",
+                request_chunk=None, scheduled=None, wire="f32",
+                features="dense", sparse_capacity=None):
+    """Row lookup: ids (P, B_loc) → (P, B_loc, F)."""
+    nbrs = ids[..., None]
+    mask = torch.ones_like(nbrs, dtype=torch.bool)
+    return cgtrans.aggregate_sampled(feats, nbrs, mask, mesh=mesh,
+                                     dataflow=dataflow, impl=impl,
+                                     request_chunk=request_chunk,
+                                     scheduled=scheduled, wire=wire,
+                                     features=features,
+                                     sparse_capacity=sparse_capacity)
+
+
+@torch.no_grad()
+def sage_forward(params: Mapping[str, torch.Tensor], feats: torch.Tensor,
+                 batch: Mapping, cfg: GCNConfig, *, mesh=None, relabel=None
+                 ) -> torch.Tensor:
+    """2-layer minibatch GraphSAGE, forward.
+
+    ``feats``: (P, part, F) float32 on the device the work runs on.
+    ``batch`` (numpy arrays or tensors, leading dim P):
+      seeds (P, B), nbrs1/mask1 (P, B, K1), nbrs2/mask2 (P, B·(1+K1), K2).
+    Returns (P, B, C) logits.
+    """
+    _check_partition_knob(cfg, relabel)
+    b = _batch_tensors(batch, feats.device)
+    Pn, B = b["seeds"].shape
+    K1 = b["nbrs1"].shape[-1]
+    seeds = b["seeds"].to(torch.int32)
+    ids1 = torch.cat([seeds[..., None], b["nbrs1"].to(torch.int32)], dim=-1)
+    flat1 = ids1.reshape(Pn, B * (1 + K1))
+    nbrs2 = b["nbrs2"].to(torch.int32)
+    mask2 = b["mask2"].to(torch.bool)
+    knobs = dict(mesh=mesh, dataflow=cfg.dataflow, impl=cfg.impl,
+                 request_chunk=cfg.request_chunk, scheduled=cfg.scheduled,
+                 wire=cfg.wire, features=cfg.features,
+                 sparse_capacity=cfg.sparse_capacity)
+
+    # the CGTrans step: self features + 2-hop neighbourhood aggregation
+    if cfg.coalesce:
+        x_self, x_agg = cgtrans.aggregate_multi(
+            feats, ((flat1[..., None], torch.ones(flat1.shape + (1,),
+                                                  dtype=torch.bool,
+                                                  device=feats.device)),
+                    (nbrs2, mask2)), **knobs)
+    else:
+        x_self = lookup_rows(feats, flat1, **knobs)
+        x_agg = cgtrans.aggregate_sampled(feats, nbrs2, mask2, **knobs)
+
+    h1 = torch.cat([x_self, x_agg], dim=-1)
+    h1 = torch.relu(torch.einsum("pbf,fh->pbh", h1, params["w0"])
+                    + params["b0"])
+    h1 = h1.reshape(Pn, B, 1 + K1, -1)
+
+    # local step: aggregate the 1-hop h1 per seed
+    m1 = b["mask1"].to(h1.dtype)[..., None]
+    agg1 = (h1[:, :, 1:] * m1).sum(2) / torch.clamp(m1.sum(2), min=1.0)
+    h2 = torch.cat([h1[:, :, 0], agg1], dim=-1)
+    h2 = torch.relu(torch.einsum("pbf,fh->pbh", h2, params["w1"])
+                    + params["b1"])
+    return torch.einsum("pbh,hc->pbc", h2, params["w_out"]) + params["b_out"]
+
+
+@torch.no_grad()
+def sage_loss(params, feats, batch, cfg: GCNConfig, *, mesh=None,
+              relabel=None):
+    """(mean NLL, {"loss", "acc"}) of ``sage_forward``'s logits — the value
+    only; training comes with the backward kernels."""
+    logits = sage_forward(params, feats, batch, cfg, mesh=mesh,
+                          relabel=relabel)
+    labels = _batch_tensors({"labels": batch["labels"]},
+                            logits.device)["labels"].long()
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    nll = -torch.gather(logp, -1, labels[..., None])[..., 0]
+    acc = (logits.argmax(-1) == labels).float()
+    return nll.mean(), {"loss": nll.mean(), "acc": acc.mean()}
+
+
+def feature_table(feats: np.ndarray, n_parts: int = 1, *,
+                  device: DeviceLike = "cuda") -> torch.Tensor:
+    """(V, F) host features → the (P, V/P, F) float32 owner-sharded layout
+    ``sage_forward`` reads, on ``device``."""
+    dev = resolve_device(device)
+    V, F = feats.shape
+    if V % n_parts:
+        raise ValueError(f"V={V} must divide into {n_parts} parts")
+    return torch.from_numpy(np.ascontiguousarray(feats, np.float32)).to(
+        dev).reshape(n_parts, V // n_parts, F)

@@ -1,0 +1,303 @@
+"""FAST-GAS scatter kernels: build, bind and launch, beside their plain versions.
+
+The kernels live in ``csrc/gas_scatter.cu`` (CUDA C++ for ``sm_90a``; the
+source note there says which TPU kernel each one replaces and what bounds
+it). They are compiled with ``nvcc`` into a shared library with a plain C
+interface the first time a wrapper launches on a CUDA tensor, and loaded
+with ``ctypes``. Nothing is built when this module is imported.
+
+Each wrapper takes the same arguments as the Pallas entry it replaces and
+dispatches on where its tensors lie:
+
+* CUDA tensors launch the kernel on PyTorch's current stream (and add one
+  to the wrapper's ``launches`` count); a refused launch raises;
+* CPU tensors run the plain PyTorch version in this module, which walks the
+  same work list or occupancy map, one vectorised step per work row;
+* anything else raises. There is no fallback from the kernel to the plain
+  version on a CUDA tensor.
+
+Tile constants: 128 output rows and 128 edges per round, as on the TPU;
+the feature block is 32 (one warp's width) where the TPU used 128 lanes, so
+feature-block liveness columns of a work list are per 32 features.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+from typing import Optional
+
+import torch
+
+ROW_BLOCK = 128
+EDGE_TILE = 128
+FEAT_BLOCK = 32
+
+OPS = {"add": 0, "max": 1, "min": 2}
+
+_SOURCE = Path(__file__).resolve().parent / "csrc" / "gas_scatter.cu"
+_BUILD_DIR = Path(__file__).resolve().parent / "build"
+_NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+               "-O3", "-shared", "-Xcompiler", "-fPIC")
+
+_lib: Optional[ctypes.CDLL] = None
+_lib_lock = threading.Lock()
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    path = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                        "bin", "nvcc")
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found: put the CUDA toolkit's bin "
+                           "directory on PATH or set CUDA_HOME")
+    return path
+
+
+def library_path() -> Path:
+    """Where the built library lives: named by the source's content hash, so
+    an edited source builds anew and a stale library is never loaded."""
+    digest = hashlib.sha1(_SOURCE.read_bytes()
+                          + " ".join(_NVCC_FLAGS).encode()).hexdigest()[:16]
+    return _BUILD_DIR / f"libgas_scatter-{digest}.so"
+
+
+def build() -> Path:
+    """Compile ``csrc/gas_scatter.cu`` unless this source's library exists.
+    Returns the library path. Raises with nvcc's output on failure."""
+    out = library_path()
+    if out.exists():
+        return out
+    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *_NVCC_FLAGS, "-o", str(tmp), str(_SOURCE)]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                           f"{proc.stdout}{proc.stderr}")
+    os.replace(tmp, out)
+    return out
+
+
+def _load() -> ctypes.CDLL:
+    global _lib
+    with _lib_lock:
+        if _lib is None:
+            lib = ctypes.CDLL(str(build()))
+            p, i = ctypes.c_void_p, ctypes.c_int
+            lib.gas_scatter_banded_f32.argtypes = [p, i, i, p, p, p, p, i, i,
+                                                   i, p]
+            lib.gas_scatter_banded_f32.restype = i
+            lib.gas_scatter_dense_f32.argtypes = [p, i, p, p, p, p, i, i, i,
+                                                  p]
+            lib.gas_scatter_dense_f32.restype = i
+            _lib = lib
+    return _lib
+
+
+# ---------------------------------------------------------------------------
+# argument checks shared by both wrappers
+# ---------------------------------------------------------------------------
+
+def _check_common(dst, values, n_rows: int, op: str, weights):
+    if op not in OPS:
+        raise ValueError(f"unknown op {op!r}")
+    if op != "add" and weights is not None:
+        raise ValueError("compare ops do not consume edge weights")
+    if values.dim() != 2:
+        raise ValueError(f"values must be (E, F), got {tuple(values.shape)}")
+    E, F = values.shape
+    if E % EDGE_TILE or F % FEAT_BLOCK or n_rows % ROW_BLOCK:
+        raise ValueError(
+            f"shapes must be tile multiples: E={E} % {EDGE_TILE}, "
+            f"F={F} % {FEAT_BLOCK}, n_rows={n_rows} % {ROW_BLOCK}")
+    if values.dtype != torch.float32:
+        raise TypeError(f"values must be float32, got {values.dtype}")
+    if dst.dtype != torch.int32 or tuple(dst.shape) != (E,):
+        raise TypeError(f"dst must be int32 of shape ({E},), got "
+                        f"{dst.dtype} {tuple(dst.shape)}")
+    if weights is not None and (weights.dtype != torch.float32
+                                or tuple(weights.shape) != (E,)):
+        raise TypeError(f"weights must be float32 of shape ({E},)")
+    return E, F
+
+
+def _check_cuda(*tensors):
+    dev = tensors[0].device
+    for t in tensors:
+        if t is None:
+            continue
+        if t.device != dev:
+            raise ValueError(f"tensors on different devices: {t.device} "
+                             f"and {dev}")
+        if not t.is_contiguous():
+            raise ValueError("kernel inputs must be contiguous")
+
+
+def _ptr(t) -> Optional[int]:
+    return None if t is None else t.data_ptr()
+
+
+def _identity(op: str) -> float:
+    return {"add": 0.0, "max": float("-inf"), "min": float("inf")}[op]
+
+
+def _reduce_rows(acc, rel, contrib, op: str):
+    """acc (128, F) ⊕= contrib (n, F) at rows rel (n,): one vectorised step."""
+    if op == "add":
+        acc.index_add_(0, rel, contrib)
+    else:
+        idx = rel[:, None].expand(-1, acc.shape[1])
+        acc.scatter_reduce_(0, idx, contrib, "amax" if op == "max" else "amin",
+                            include_self=True)
+
+
+def _round_plain(acc, dst, values, weights, op: str, tile: int, row0: int,
+                 feat_live=None):
+    """One (row block × edge tile) round of the plain version."""
+    sl = slice(tile * EDGE_TILE, (tile + 1) * EDGE_TILE)
+    rel = dst[sl].long() - row0
+    hit = (rel >= 0) & (rel < ROW_BLOCK)
+    contrib = values[sl]
+    if weights is not None:
+        contrib = contrib * weights[sl, None]
+    if feat_live is not None:
+        # a feature block flagged dead contributes nothing this round
+        cols = feat_live.repeat_interleave(FEAT_BLOCK).bool()
+        contrib = torch.where(cols[None, :], contrib,
+                              torch.zeros((), dtype=contrib.dtype,
+                                          device=contrib.device))
+    _reduce_rows(acc, rel[hit], contrib[hit], op)
+
+
+# ---------------------------------------------------------------------------
+# the banded (scheduled) walk
+# ---------------------------------------------------------------------------
+
+def gas_scatter_banded_plain(work, dst, values, n_rows: int, *,
+                             op: str = "add", weights=None):
+    """Plain PyTorch version of the banded kernel: walks the work list row
+    by row — an init row resets its row block to the identity, a live row
+    reduces its edge tile into the block (gated per feature block when the
+    list carries liveness columns)."""
+    E, F = _check_common(dst, values, n_rows, op, weights)
+    out = torch.empty((n_rows, F), dtype=values.dtype, device=values.device)
+    feat_skip = work.shape[1] > 4
+    for row in work.tolist():
+        rb, tile, live, init = row[:4]
+        acc = out[rb * ROW_BLOCK:(rb + 1) * ROW_BLOCK]
+        if init == 1:
+            acc.fill_(_identity(op))
+        if live != 1:
+            continue
+        fl = (torch.tensor(row[4:], device=values.device) if feat_skip
+              else None)
+        _round_plain(acc, dst, values, weights, op, tile, rb * ROW_BLOCK, fl)
+    return out
+
+
+def gas_scatter_banded(work, dst, values, n_rows: int, *, op: str = "add",
+                       weights=None):
+    """Scheduled FAST-GAS scatter-reduce: walks each row block's own run of
+    the work list (``ops.schedule_edges``). ``work``: (W, 4 [+ F/32]) int32
+    rows [row_block, tile, live, init, feature-block live…] ordered by row
+    block; dst (E,) int32 with dead edges at ``n_rows``; values (E, F)
+    float32; weights (E,) float32 or None (add only). Returns (n_rows, F).
+    """
+    E, F = _check_common(dst, values, n_rows, op, weights)
+    if work.dtype != torch.int32 or work.dim() != 2 or \
+            work.shape[1] not in (4, 4 + F // FEAT_BLOCK):
+        raise ValueError(f"work must be int32 (W, 4) or (W, {4 + F // FEAT_BLOCK}),"
+                         f" got {work.dtype} {tuple(work.shape)}")
+    if work.shape[1] > 4 and op != "add":
+        raise ValueError("feature-block liveness gates add rounds only")
+    if values.device.type == "cpu":
+        return gas_scatter_banded_plain(work, dst, values, n_rows, op=op,
+                                        weights=weights)
+    if values.device.type != "cuda":
+        raise ValueError(f"no kernel for device {values.device}")
+    _check_cuda(values, work, dst, weights)
+    out = torch.empty((n_rows, F), dtype=values.dtype, device=values.device)
+    if n_rows == 0 or F == 0:
+        return out
+    stream = torch.cuda.current_stream(values.device).cuda_stream
+    rc = _load().gas_scatter_banded_f32(
+        _ptr(work), work.shape[0], work.shape[1], _ptr(dst), _ptr(weights),
+        _ptr(values), _ptr(out), n_rows, F, OPS[op], stream)
+    if rc != 0:
+        raise RuntimeError(f"gas_scatter_banded launch failed: CUDA error {rc}")
+    gas_scatter_banded.launches += 1
+    return out
+
+
+gas_scatter_banded.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# the dense grid, gated by the occupancy bitmap
+# ---------------------------------------------------------------------------
+
+def gas_scatter_dense_plain(dst, values, occupancy, n_rows: int, *,
+                            op: str = "add", weights=None):
+    """Plain PyTorch version of the dense-grid kernel: every row block
+    starts at the identity and reduces each edge tile its occupancy bit
+    marks."""
+    E, F = _check_common(dst, values, n_rows, op, weights)
+    out = torch.full((n_rows, F), _identity(op), dtype=values.dtype,
+                     device=values.device)
+    for rb, tile in torch.nonzero(occupancy > 0).tolist():
+        _round_plain(out[rb * ROW_BLOCK:(rb + 1) * ROW_BLOCK], dst, values,
+                     weights, op, tile, rb * ROW_BLOCK)
+    return out
+
+
+def gas_scatter_dense(dst, values, occupancy, n_rows: int, *,
+                      op: str = "add", weights=None):
+    """Unscheduled FAST-GAS scatter-reduce over the (n_rows/128, F/32) grid;
+    each CTA walks every edge tile and skips those whose occupancy bit
+    ``occupancy[row_block, tile]`` is 0 (``ops.occupancy_map``). Arguments
+    as in ``gas_scatter_banded``."""
+    E, F = _check_common(dst, values, n_rows, op, weights)
+    T = E // EDGE_TILE
+    if occupancy.dtype != torch.int32 or \
+            tuple(occupancy.shape) != (n_rows // ROW_BLOCK, T):
+        raise ValueError(f"occupancy must be int32 ({n_rows // ROW_BLOCK}, "
+                         f"{T}), got {occupancy.dtype} "
+                         f"{tuple(occupancy.shape)}")
+    if values.device.type == "cpu":
+        return gas_scatter_dense_plain(dst, values, occupancy, n_rows, op=op,
+                                       weights=weights)
+    if values.device.type != "cuda":
+        raise ValueError(f"no kernel for device {values.device}")
+    _check_cuda(values, occupancy, dst, weights)
+    out = torch.empty((n_rows, F), dtype=values.dtype, device=values.device)
+    if n_rows == 0 or F == 0:
+        return out
+    stream = torch.cuda.current_stream(values.device).cuda_stream
+    rc = _load().gas_scatter_dense_f32(
+        _ptr(occupancy), T, _ptr(dst), _ptr(weights), _ptr(values), _ptr(out),
+        n_rows, F, OPS[op], stream)
+    if rc != 0:
+        raise RuntimeError(f"gas_scatter_dense launch failed: CUDA error {rc}")
+    gas_scatter_dense.launches += 1
+    return out
+
+
+gas_scatter_dense.launches = 0
+
+
+def reset_launch_counts() -> None:
+    gas_scatter_banded.launches = 0
+    gas_scatter_dense.launches = 0
+
+
+def launch_counts() -> dict:
+    return {"gas_scatter_banded": gas_scatter_banded.launches,
+            "gas_scatter_dense": gas_scatter_dense.launches}

@@ -1,0 +1,86 @@
+"""The port stands alone: ``repro_torch`` imports neither JAX nor the JAX
+package, builds nothing when imported, and its entry points never fall back
+to the CPU without being asked."""
+
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+REPO = Path(__file__).resolve().parents[1]
+PORT = REPO / "src" / "repro_torch"
+
+
+def _modules():
+    return sorted(
+        ".".join(p.relative_to(REPO / "src").with_suffix("").parts)
+        .removesuffix(".__init__")
+        for p in PORT.rglob("*.py"))
+
+
+def test_every_module_imports_without_jax_or_repro():
+    code = (
+        "import importlib, sys\n"
+        f"for m in {_modules()!r}:\n"
+        "    importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'repro'))\n"
+        "assert not bad, bad\n"
+        "from repro_torch.kernels.gas_scatter import kernel\n"
+        "assert kernel._lib is None\n"
+        "print('ok', len(sys.modules))\n")
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, env=env, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.startswith("ok")
+
+
+def _imported_roots(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield node.lineno, alias.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            yield node.lineno, node.module.split(".")[0]
+
+
+@pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")) +
+                         [REPO / "chip_smoke.py"],
+                         ids=lambda p: str(p.relative_to(REPO)))
+def test_no_jax_or_repro_import_in_source(path):
+    bad = [(line, root) for line, root in _imported_roots(path)
+           if root in ("jax", "jaxlib", "repro")]
+    assert not bad, bad
+
+
+def test_entry_points_refuse_to_run_without_a_card():
+    import torch
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; nothing to refuse")
+    from repro_torch.common.schema import init_params
+    from repro_torch.core.gcn import (GCNConfig, feature_table, gcn_schema,
+                                      params_from_jax)
+    from repro_torch.launch import serve
+    from repro_torch.serving import ServingEngine
+
+    feats = np.zeros((4, 3), np.float32)
+    indptr, indices = np.zeros(5, np.int64), np.zeros(0, np.int64)
+    calls = [
+        lambda: ServingEngine(feats, indptr, indices),
+        lambda: init_params(gcn_schema(GCNConfig(n_features=3))),
+        lambda: params_from_jax({"w": feats}),
+        lambda: feature_table(feats),
+        lambda: serve.main(["--requests", "1"]),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+    assert ServingEngine(feats, indptr, indices, device="cpu").device.type \
+        == "cpu"
