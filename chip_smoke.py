@@ -7,8 +7,10 @@ Phases, each failing hard (exit status 1, no result line):
 
 1. build the FAST-GAS kernels from ``src/repro_torch/kernels/gas_scatter/csrc``;
 2. hold each kernel against its plain PyTorch version on the card, at the
-   shapes phases 3 and 4 launch (op add with weights, max and min; integer
-   data bit-exact, normal data within rtol = atol = 1e-5), and time the
+   shapes phases 3 and 4 launch (op add with unit and with integer
+   weights, with and without all-zero feature blocks; max and min, also
+   with NaN values; integer data bit-exact, NaN cells where the plain
+   version has them, normal data within rtol = atol = 1e-5), and time the
    kernel, the plain version, one library call computing the same function
    (``torch.sparse.mm`` / ``scatter_reduce``, never used by the port) and
    the memory-bound floor;
@@ -219,15 +221,22 @@ def library_fn(torch, call):
 # ---------------------------------------------------------------------------
 
 def segment_calls(torch, ops, table, nbrs, mask, op, schedule, data,
-                  zero_blocks):
+                  zero_blocks, weights="unit"):
     """The kernel call the main path makes for one fan-out segment: the
     (R, K) ids gathered from the table, seed destinations
-    ``repeat(arange(R), K)``, unit weights for add."""
+    ``repeat(arange(R), K)``, unit weights for add. ``data``: "normal"
+    (the table's rows), "int" (rounded to integers) or "nan" (integers with
+    a NaN in every 97th edge's every 13th feature); ``weights="int"`` swaps
+    the unit weights for integers in [-3, 3] made from a seed."""
+    import numpy as np
+
     R, K = nbrs.shape
     own = mask & (nbrs >= 0) & (nbrs < table.shape[0])
     rows = table[nbrs.clamp(0, table.shape[0] - 1).reshape(-1).long()]
-    if data == "int":
+    if data in ("int", "nan"):
         rows = torch.round(rows * 4)
+    if data == "nan":
+        rows[::97, ::13] = float("nan")
     if zero_blocks:
         rows = rows.clone()
         rows[:, 64:192] = 0.0
@@ -235,9 +244,22 @@ def segment_calls(torch, ops, table, nbrs, mask, op, schedule, data,
                         device=table.device).repeat_interleave(K)
     sched = (ops.schedule_edges(seed, own.reshape(-1), R, assume_sorted=True)
              if schedule else None)
-    w = torch.ones(R * K, device=table.device) if op == "add" else None
+    w = None
+    if op == "add":
+        w = (torch.ones(R * K, device=table.device) if weights == "unit"
+             else torch.from_numpy(np.random.default_rng(2).integers(
+                 -3, 4, R * K).astype(np.float32)).to(table.device))
     return ops.fused_call(seed, rows.contiguous(), w, own.reshape(-1), R,
                           op=op, schedule=sched)
+
+
+# (op, data, feature skip, weights) of every phase-2 comparison
+CASES = ([("add", data, zb, "unit") for data in ("int", "normal")
+          for zb in (False, True)]
+         + [("add", data, zb, "int") for data in ("int", "normal")
+            for zb in (False, True)]
+         + [(op, data, False, None) for op in ("max", "min")
+            for data in ("int", "normal", "nan")])
 
 
 def phase_kernels(torch, ops, K, table, shapes):
@@ -247,32 +269,33 @@ def phase_kernels(torch, ops, K, table, shapes):
     for name, (nbrs, mask) in shapes.items():
         scheduled = name == "gas_scatter_banded"
         max_err = 0.0
-        for op in ("add", "max", "min"):
-            for data in ("int", "normal"):
-                for zero_blocks in ((False, True) if op == "add"
-                                    else (False,)):
-                    call = segment_calls(torch, ops, table, nbrs, mask, op,
-                                         scheduled, data, zero_blocks)
-                    check(call.kernel == name, f"{call.kernel} != {name}")
-                    got = call.run()
-                    want = call.run_plain()
-                    torch.cuda.synchronize()
-                    check(torch.equal(torch.isinf(got), torch.isinf(want)),
-                          f"{name} {op} {data}: identity rows differ")
-                    fin = torch.isfinite(want)
-                    err = float((got[fin] - want[fin]).abs().max()) \
-                        if fin.any() else 0.0
-                    if data == "int":
-                        check(torch.equal(got, want),
-                              f"{name} {op} int: not bit-exact (err {err})")
-                    else:
-                        check(torch.allclose(got[fin], want[fin], rtol=1e-5,
-                                             atol=1e-5),
-                              f"{name} {op} normal: err {err}")
-                        max_err = max(max_err, err)
-                    log(f"  {name} op={op} data={data} "
-                        f"feature_skip={zero_blocks}: max_abs_err={err:.3g}"
-                        f" ok")
+        for op, data, zero_blocks, weights in CASES:
+            call = segment_calls(torch, ops, table, nbrs, mask, op,
+                                 scheduled, data, zero_blocks, weights)
+            check(call.kernel == name, f"{call.kernel} != {name}")
+            got = call.run()
+            want = call.run_plain()
+            torch.cuda.synchronize()
+            label = (f"{name} op={op} data={data} feature_skip={zero_blocks}"
+                     f" weights={weights}")
+            check(torch.equal(torch.isinf(got), torch.isinf(want)),
+                  f"{label}: identity rows differ")
+            check(torch.equal(torch.isnan(got), torch.isnan(want)),
+                  f"{label}: NaN cells differ")
+            check(data != "nan" or bool(torch.isnan(want).any()),
+                  f"{label}: no NaN reached the output")
+            fin = torch.isfinite(want)
+            err = float((got[fin] - want[fin]).abs().max()) \
+                if fin.any() else 0.0
+            if data in ("int", "nan"):
+                num = ~torch.isnan(want)
+                check(torch.equal(got[num], want[num]),
+                      f"{label}: not bit-exact (err {err})")
+            else:
+                check(torch.allclose(got[fin], want[fin], rtol=1e-5,
+                                     atol=1e-5), f"{label}: err {err}")
+                max_err = max(max_err, err)
+            log(f"  {label}: max_abs_err={err:.3g} ok")
         # timings at the main path's op: add with unit weights, normal data
         call = segment_calls(torch, ops, table, nbrs, mask, "add", scheduled,
                              "normal", False)

@@ -11,7 +11,9 @@
 // Both compute out[r, f] = reduce_{e : dst[e] == r} w[e] * values[e, f] for
 // op = add (w = 1 without weights), or the max / min of values[e, f] over the
 // same edges; rows with no edge hold the identity (0, -inf, +inf). Dead edges
-// carry dst = n_rows (the padded row count) and so match no row.
+// carry dst = n_rows (the padded row count) and so match no row. A NaN value
+// on a matched edge makes its row's max / min NaN, as jnp.maximum / minimum
+// and scatter_reduce's amax / amin do (fmaxf / fminf would drop it).
 //
 // What bounds it: memory. One pass moves the value stream E*F*4 bytes, the
 // ids and weights E*8 bytes, and writes n_rows*F*4 bytes; at 3.35 TB/s that
@@ -106,9 +108,9 @@ __device__ __forceinline__ void tile_round(Tile& s, int op, const int* dst,
     if (op == kAdd) {
       a = fmaf(s.w[j], v, a);
     } else if (op == kMax) {
-      a = fmaxf(a, v);
+      a = (v > a || v != v) ? v : a;  // a NaN value wins, as in jnp.maximum
     } else {
-      a = fminf(a, v);
+      a = (v < a || v != v) ? v : a;
     }
   }
 }

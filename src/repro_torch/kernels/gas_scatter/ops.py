@@ -32,9 +32,6 @@ ROW_BLOCK = K.ROW_BLOCK
 EDGE_TILE = K.EDGE_TILE
 FEAT_BLOCK = K.FEAT_BLOCK
 
-_FILL = {"add": 0.0, "max": float("-inf"), "min": float("inf")}
-
-
 # ---------------------------------------------------------------------------
 # dispatch counting (the deterministic "how many kernel calls" view)
 # ---------------------------------------------------------------------------
@@ -135,9 +132,9 @@ def _edge_bins(dst: torch.Tensor, mask: Optional[torch.Tensor], n_rows: int):
     return bins.to(torch.int32), n_blocks
 
 
-def _tile_bounds(bins: torch.Tensor, n_blocks: int, edge_tile: int):
+def _tile_bounds(bins: torch.Tensor, n_blocks: int):
     """Per-tile (min, max) live block of a (padded) bin stream."""
-    t = _pad_to(bins, edge_tile, 0, n_blocks).reshape(-1, edge_tile)
+    t = _pad_to(bins, EDGE_TILE, 0, n_blocks).reshape(-1, EDGE_TILE)
     live = t < n_blocks
     blk_min = torch.where(live, t, torch.full_like(t, n_blocks)).amin(1)
     blk_max = torch.where(live, t, torch.full_like(t, -1)).amax(1)
@@ -183,7 +180,7 @@ def _work_list(blk_min: torch.Tensor, blk_max: torch.Tensor,
 
 
 def schedule_edges(dst: torch.Tensor, mask: Optional[torch.Tensor],
-                   n_rows: int, *, edge_tile: Optional[int] = None,
+                   n_rows: int, *,
                    assume_sorted: bool = False) -> EdgeSchedule:
     """Bin the edge stream by destination row block (stable sort).
 
@@ -192,7 +189,6 @@ def schedule_edges(dst: torch.Tensor, mask: Optional[torch.Tensor],
     skips the sort (``perm`` is the identity) for streams binned by
     construction, e.g. the sampled path's ``repeat(arange(R), K)`` seeds.
     """
-    edge_tile = EDGE_TILE if edge_tile is None else edge_tile
     bins, n_blocks = _edge_bins(dst, mask, n_rows)
     iota = torch.arange(dst.shape[0], dtype=torch.int32, device=dst.device)
     if assume_sorted:
@@ -200,7 +196,7 @@ def schedule_edges(dst: torch.Tensor, mask: Optional[torch.Tensor],
     else:
         sorted_bins, perm = torch.sort(bins, stable=True)
         perm = perm.to(torch.int32)
-    blk_min, blk_max = _tile_bounds(sorted_bins, n_blocks, edge_tile)
+    blk_min, blk_max = _tile_bounds(sorted_bins, n_blocks)
     return EdgeSchedule(perm, blk_min, blk_max,
                         _work_list(blk_min, blk_max, n_blocks))
 
@@ -219,21 +215,19 @@ def dense_skip_stats(dst: torch.Tensor, mask: Optional[torch.Tensor],
     same edge stream, as ``gas_scatter_fused`` dispatches it."""
     R = _padded_rows(n_rows)
     _, routed = _dead_routed(dst, mask, n_rows, R)
-    occ = occupancy_map(_pad_to(routed, EDGE_TILE, 0, R), R // ROW_BLOCK,
-                        EDGE_TILE)
+    occ = occupancy_map(_pad_to(routed, EDGE_TILE, 0, R), R // ROW_BLOCK)
     return int(occ.sum()), int(occ.numel())
 
 
-def occupancy_map(dst: torch.Tensor, n_row_blocks: int,
-                  edge_tile: int) -> torch.Tensor:
+def occupancy_map(dst: torch.Tensor, n_row_blocks: int) -> torch.Tensor:
     """(row_blocks, edge_tiles) int32: does edge tile e touch row block r?
     One bincount over (block, tile) pairs: O(E + R·T)."""
     E = dst.shape[0]
-    T = E // edge_tile
+    T = E // EDGE_TILE
     blk = torch.div(dst.long(), ROW_BLOCK, rounding_mode="floor")
     dead = (blk < 0) | (blk >= n_row_blocks)
     idx = torch.where(dead, torch.full_like(blk, n_row_blocks), blk)
-    flat = idx * T + torch.arange(E, device=dst.device) // edge_tile
+    flat = idx * T + torch.arange(E, device=dst.device) // EDGE_TILE
     counts = torch.bincount(flat, minlength=(n_row_blocks + 1) * T)
     return (counts[: n_row_blocks * T].reshape(n_row_blocks, T) > 0
             ).to(torch.int32)
@@ -286,18 +280,8 @@ def _gas_scatter(dst, values, n_rows: int, *, op: str):
         return torch.clamp(out, min=0).to(values.dtype)
     if values.dim() == 1:
         return _gas_scatter(dst, values[:, None], n_rows, op=op)[:, 0]
-    E, F = values.shape
-    R = _padded_rows(n_rows)
-    fill = _FILL[op]
-    ok, routed = _dead_routed(dst, None, n_rows, R)
-    dstp = _pad_to(routed, EDGE_TILE, 0, R)
-    valp = torch.where(ok[:, None], values,
-                       torch.full((), fill, dtype=values.dtype,
-                                  device=values.device))
-    valp = _pad_to(_pad_to(valp, EDGE_TILE, 0, fill), FEAT_BLOCK, 1, fill)
-    occ = occupancy_map(dstp, R // ROW_BLOCK, EDGE_TILE)
-    out = K.gas_scatter_dense(dstp, valp.contiguous(), occ, R, op=op)
-    return out[:n_rows, :F]
+    call = fused_call(dst, values, None, None, n_rows, op=op)
+    return call.run()[:n_rows, :values.shape[1]]
 
 
 def fused_call(dst: torch.Tensor, values: torch.Tensor,
@@ -321,7 +305,7 @@ def fused_call(dst: torch.Tensor, values: torch.Tensor,
     if op == "add" and weights is not None:
         wp = _pad_to(weights.to(torch.float32), EDGE_TILE, 0, 0.0).contiguous()
     if schedule is None:
-        occ = occupancy_map(dstp, n_blocks, EDGE_TILE)
+        occ = occupancy_map(dstp, n_blocks)
         return KernelCall("gas_scatter_dense", (dstp, valp, occ, R),
                           {"op": op, "weights": wp})
     T = dstp.shape[0] // EDGE_TILE

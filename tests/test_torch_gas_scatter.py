@@ -97,7 +97,7 @@ def test_occupancy_map_equals_reference(E, n_blocks):
     rng = np.random.default_rng(E)
     dst = rng.integers(-50, n_blocks * 128 + 50, E).astype(np.int32)
     a = jops.occupancy_map(_j(dst), n_blocks, 128)
-    b = ops.occupancy_map(_t(dst), n_blocks, 128)
+    b = ops.occupancy_map(_t(dst), n_blocks)
     np.testing.assert_array_equal(np.asarray(a), b.numpy())
 
 
@@ -165,6 +165,22 @@ def test_fused_normal_data_within_tolerance(op, weighted, scheduled):
     np.testing.assert_array_equal(np.isinf(a), np.isinf(b))
     fin = np.isfinite(a)
     np.testing.assert_allclose(b[fin], a[fin], **TOL)
+
+
+@pytest.mark.parametrize("op", ["max", "min"])
+@pytest.mark.parametrize("scheduled", [True, False])
+def test_fused_compare_propagates_nan(op, scheduled):
+    """A NaN value on a matched edge makes its row's extremum NaN, as
+    ``jnp.maximum`` / ``minimum`` do in the reference; a NaN on a dead edge
+    is never read. ``chip_smoke.py`` holds the CUDA kernel to the same."""
+    rng = np.random.default_rng(17)
+    E, n_rows, F = 500, 200, 12
+    dst, mask = _edges(rng, E, n_rows)
+    vals = _values(rng, E, F, "int", zero_blocks=False)
+    vals[rng.random((E, F)) < 0.01] = np.nan
+    a, b = _fused_pair(dst, vals, None, mask, n_rows, op, scheduled, False)
+    assert np.isnan(a).any()
+    np.testing.assert_array_equal(a, b)     # NaN positions must agree too
 
 
 @pytest.mark.parametrize("op", ["add", "max", "min", "or"])
