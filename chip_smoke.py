@@ -5,9 +5,10 @@
 
 Phases, each failing hard (exit status 1, no result line):
 
-1. build the FAST-GAS kernels from ``src/repro_torch/kernels/gas_scatter/csrc``;
-2. hold each kernel against its plain PyTorch version on the card, at the
-   shapes phases 3 and 4 launch (op add with unit and with integer
+1. build both kernel sources (``src/repro_torch/kernels/*/csrc/*.cu``), one
+   ``nvcc`` each, started together;
+2. hold each FAST-GAS kernel against its plain PyTorch version on the card,
+   at the shapes phases 3 and 4 launch (op add with unit and with integer
    weights, with and without all-zero feature blocks; max and min, also
    with NaN values; integer data bit-exact, NaN cells where the plain
    version has them, normal data within rtol = atol = 1e-5), and time the
@@ -24,31 +25,63 @@ Phases, each failing hard (exit status 1, no result line):
    H=256, C=41, K1=K2=50, B=64, 16-row command queue, banded walk) on a
    ``GraphBatchStream`` batch; the logits are finite and match
    ``impl="ref"`` within rtol = atol = 1e-4 (the f32 sums run in another
-   order through two layers).
+   order through two layers);
+5. hold the flash-attention kernel against its plain version on the card:
+   the six cases of ``tests/test_kernels_flash.py`` in float32 (rtol = atol
+   = 1e-5) and bfloat16 (atol = 2e-2, rtol = 1e-2: p is rounded to bf16
+   before PV in both), whisper-base's encoder shape (B·H = 32, S = T = 1536,
+   hd 64, kv_len 1500, non-causal, bf16) and a gemma2-2b local-layer shape
+   (H 8 / Hkv 4, hd 256, window 4096, softcap 50, S = T = 4096, causal,
+   bf16); time the kernel, the plain version, ``scaled_dot_product_attention``
+   (the library yardstick, never used by the port) and the bounds;
+6. LM serving: whisper-base at full width (d_model 512, 8 heads, 6 + 6
+   layers, vocab 51865, enc_seq 1500, bf16 compute) through
+   ``launch.serve``'s LM path: 4 requests of 48 prompt tokens, 24
+   generated tokens, weights and frames from a seed. The encoder runs on
+   the flash kernel: exactly 6 launches per prefill with ``impl="kernel"``,
+   none with ``impl="ref"``, and no call of the plain version. In float32
+   the kernel path matches ``impl="ref"`` on the prefill logits and on 23
+   teacher-forced decode steps within rtol = 1e-4, atol = 1e-3; in bf16
+   the logits are finite and within 2e-2·max|ref| of ``impl="ref"``.
 
-Each kernel's launch count is set to 0 just before each path of phases 3
-and 4 and read just after; a kernel that a path should launch and did not
-fails the run. The last lines are the kernels' JSON, the card's name and
-power limit, and ``{"ok": true, "device": {...}}``.
+Each kernel's launch count is set to 0 just before each path of phases 3,
+4 and 6 and read just after; a kernel that a path should launch and did
+not fails the run. The last lines are the kernels' JSON, the card's name
+and power limit, and ``{"ok": true, "device": {...}}``.
+``--phases`` runs a subset (for example ``--phases 15``); the default runs
+every phase.
 """
 
 from __future__ import annotations
 
+import argparse
+import dataclasses
 import json
 import os
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-CSRC = "src/repro_torch/kernels/gas_scatter/csrc/gas_scatter.cu"
+CSRC = {
+    "gas_scatter_banded": "src/repro_torch/kernels/gas_scatter/csrc/gas_scatter.cu",
+    "gas_scatter_dense": "src/repro_torch/kernels/gas_scatter/csrc/gas_scatter.cu",
+    "flash_attention":
+        "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
+}
 REPLACES = {
     "gas_scatter_banded": "src/repro/kernels/gas_scatter/kernel.py:211",
     "gas_scatter_dense": "src/repro/kernels/gas_scatter/kernel.py:266",
+    "flash_attention": "src/repro/kernels/flash_attention/kernel.py:84",
 }
 # NVIDIA H100 SXM data sheet, at the full 700 W power limit
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+BF16_TENSOR_OPS_PER_S = 989e12
+
+# phase 6: whisper-base serving, the repo's LM example traffic
+LM_ARCH, LM_BATCH, LM_PROMPT, LM_GEN = "whisper-base", 4, 48, 24
 
 V, DEGREE, F = 1 << 20, 16, 602
 FANOUT, REQUESTS, TENANTS, MAX_BATCH, CACHE = 50, 64, 4, 8, 32
@@ -128,8 +161,9 @@ def device_ms(torch, fn, kernel_symbol, iters=50):
 
 def profile_call(torch, fn, top=8):
     """Profile one call: (profiled wall ms, device kernel ms, top host ops
-    as (name, count, self CPU ms)). The wall includes the profiler's own
-    overhead, so the busy share derived from it is a lower bound."""
+    as (name, count, self CPU ms), top device kernels as (name, count,
+    device ms)). The wall includes the profiler's own overhead, so the
+    busy share derived from it is a lower bound."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -145,8 +179,12 @@ def profile_call(torch, fn, top=8):
                  if e.device_type == DeviceType.CUDA) / 1e3
     hosts = sorted(avgs, key=lambda e: e.self_cpu_time_total,
                    reverse=True)[:top]
-    return wall, device, [(e.key, e.count, e.self_cpu_time_total / 1e3)
-                          for e in hosts]
+    kernels = sorted((e for e in avgs if e.device_type == DeviceType.CUDA),
+                     key=lambda e: e.device_time_total, reverse=True)[:top]
+    return (wall, device,
+            [(e.key, e.count, e.self_cpu_time_total / 1e3) for e in hosts],
+            [(e.key[:60], e.count, e.device_time_total / 1e3)
+             for e in kernels])
 
 
 def bound(call):
@@ -368,15 +406,248 @@ def compare_serving(ref, got, label):
         f"(max |agg diff| {err:.3g})")
 
 
-def main() -> int:
-    import numpy as np
-    import torch
+# ---------------------------------------------------------------------------
+# phase 5: the flash kernel against its plain version
+# ---------------------------------------------------------------------------
 
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device; this script runs on the card",
-              file=sys.stderr)
-        return 1
-    sys.path.insert(0, os.path.join(ROOT, "src"))
+# the six cases of tests/test_kernels_flash.py: (B, S, T, H, Hkv, hd, masks)
+FLASH_CASES = [
+    (1, 256, 256, 4, 2, 32, dict(causal=True)),
+    (2, 128, 128, 2, 1, 64, dict(causal=True, window=64)),
+    (1, 200, 200, 4, 4, 16, dict(causal=True, softcap=50.0)),
+    (1, 128, 384, 2, 2, 32, dict(causal=False)),
+    (1, 130, 130, 2, 2, 8, dict(causal=True)),
+    (1, 256, 256, 8, 2, 16, dict(causal=True, window=100, softcap=30.0)),
+]
+FLASH_TOL = {"float32": dict(rtol=1e-5, atol=1e-5),
+             "bfloat16": dict(rtol=1e-2, atol=2e-2)}
+
+
+def flash_inputs(torch, FK, B, S, T, H, Hkv, hd, dtype, seed):
+    """Kernel arguments as ``ops.flash_attention`` builds them: heads
+    flattened, S and T padded to 128; q pre-scaled by hd^-0.5."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    pad = lambda n: -n % FK.BLOCK_Q
+
+    def draw(L, heads, scale=1.0):
+        x = torch.randn((B * heads, L, hd), generator=g, device="cuda") * scale
+        return torch.nn.functional.pad(x, (0, 0, 0, pad(L))).to(dtype)
+
+    return (draw(S, H, hd ** -0.5), draw(T, Hkv), draw(T, Hkv))
+
+
+def flash_bound(S, T, H, Hkv, B, hd, kw, itemsize):
+    """(bound_ms, bound_by, f32 CUDA-core ms): 4·hd operations per visible
+    (query, key) pair over the bf16 tensor-core peak, against q, k, v and
+    out (as padded for the kernel) read or written once over HBM."""
+    import numpy as np
+
+    qpos = np.arange(S)[:, None]
+    kpos = np.arange(T)[None, :]
+    ok = np.ones((S, T), bool)
+    if kw.get("causal"):
+        ok &= qpos >= kpos
+    if kw.get("window"):
+        ok &= qpos - kpos < kw["window"]
+    ops = 4 * hd * int(ok.sum()) * B * H
+    Sp, Tp = -(-S // 128) * 128, -(-T // 128) * 128
+    nbytes = itemsize * hd * (2 * B * H * Sp + 2 * B * Hkv * Tp)
+    t_ops = ops / BF16_TENSOR_OPS_PER_S * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return (max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes",
+            ops / F32_OPS_PER_S * 1e3)
+
+
+def phase_flash(torch, FK, smi):
+    """Returns the JSON fields measured at whisper-base's encoder shape."""
+    import torch.nn.functional as Fn
+
+    def compare(label, args, kw, dtype, n_rows):
+        got = FK.flash_attention_fwd(*args, **kw)
+        want = FK.flash_attention_plain(*args, **kw)
+        torch.cuda.synchronize()
+        got, want = got[:, :n_rows].float(), want[:, :n_rows].float()
+        check(bool(torch.isfinite(got).all()), f"{label}: non-finite output")
+        err = float((got - want).abs().max())
+        check(torch.allclose(got, want, **FLASH_TOL[dtype]),
+              f"{label}: max_abs_err {err}")
+        log(f"  {label}: max_abs_err={err:.3g} ok")
+        return err
+
+    for i, (B, S, T, H, Hkv, hd, masks) in enumerate(FLASH_CASES):
+        for dtype in ("float32", "bfloat16"):
+            args = flash_inputs(torch, FK, B, S, T, H, Hkv, hd,
+                                getattr(torch, dtype), seed=i)
+            kw = dict(causal=masks["causal"], window=masks.get("window", 0),
+                      softcap=masks.get("softcap", 0.0), kv_len=T,
+                      n_kv_heads=Hkv)
+            compare(f"case{i} B={B} S={S} T={T} H={H}/{Hkv} hd={hd} {masks}"
+                    f" {dtype}", args, kw, dtype, S)
+
+    shapes = {
+        # whisper-base's encoder self-attention: 4 requests x 8 heads
+        "whisper-base encoder": (4, 1500, 1500, 8, 8, 64,
+                                 dict(causal=False)),
+        # gemma2-2b's local layer at a 4096-token prefill
+        "gemma2-2b local": (1, 4096, 4096, 8, 4, 256,
+                            dict(causal=True, window=4096, softcap=50.0)),
+    }
+    out = {}
+    for name, (B, S, T, H, Hkv, hd, masks) in shapes.items():
+        args = flash_inputs(torch, FK, B, S, T, H, Hkv, hd, torch.bfloat16,
+                            seed=7)
+        kw = dict(causal=masks["causal"], window=masks.get("window", 0),
+                  softcap=masks.get("softcap", 0.0), kv_len=T, n_kv_heads=Hkv)
+        err = compare(f"{name} B·H={B * H} S=T={args[0].shape[1]} hd={hd} "
+                      f"kv_len={T} {masks} bfloat16", args, kw, "bfloat16", S)
+        run = lambda: FK.flash_attention_fwd(*args, **kw)
+        slow = S >= 4096
+        ms = event_ms(torch, run, 5 if slow else 20)
+        dev_ms = device_ms(torch, run, "flash_fwd_kernel", 5 if slow else 20)
+        plain_ms = event_ms(torch, lambda: FK.flash_attention_plain(*args, **kw),
+                            2, warm=1)
+        # the library yardstick on the unpadded (B, H, S, hd) layout, kv
+        # heads repeated to H; it has no softcap, so at gemma2's shape it
+        # computes a nearby function
+        lq = args[0][:, :S].reshape(B, H, S, hd).contiguous()
+        lk, lv = (t[:, :T].reshape(B, Hkv, T, hd)
+                  .repeat_interleave(H // Hkv, dim=1).contiguous()
+                  for t in args[1:])
+        lib_ms = event_ms(torch, lambda: Fn.scaled_dot_product_attention(
+            lq, lk, lv, is_causal=masks["causal"], scale=1.0),
+            5 if slow else 20)
+        bound_ms, bound_by, f32_ms = flash_bound(S, T, H, Hkv, B, hd, masks, 2)
+        entry = {"max_abs_err": err, "ms": ms, "device_ms": dev_ms,
+                 "plain_ms": plain_ms, "library_ms": lib_ms,
+                 "bound_ms": bound_ms, "bound_by": bound_by,
+                 "bound_f32_cuda_core_ms": f32_ms}
+        log(f"  {name} [{smi}]: {json.dumps(entry)}")
+        out.setdefault("flash_attention", entry)
+        FK.reset_launch_counts()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 6: whisper-base serving at full width
+# ---------------------------------------------------------------------------
+
+def phase_lm(torch, FK, smi):
+    """Returns the flash kernel's launches on the counted main-path run."""
+    from repro_torch import configs
+    from repro_torch.common.schema import count_params, init_params
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as T
+
+    cfg = configs.get_config(LM_ARCH)
+    argv = ["--workload", "lm", "--arch", LM_ARCH, "--batch", str(LM_BATCH),
+            "--prompt-len", str(LM_PROMPT), "--gen", str(LM_GEN)]
+    FK.reset_launch_counts()
+    check(serve.main(argv) == 0, f"serve.main({argv}) failed")
+    launches = FK.launch_counts()["flash_attention"]
+    plain = FK.flash_attention_plain.calls
+    log(f"  launch.serve {' '.join(argv)}: {launches} flash launches, "
+        f"{plain} plain calls")
+    check(launches == cfg.n_enc_layers,
+          f"the prefill launched flash {launches} times, expected "
+          f"{cfg.n_enc_layers}")
+    check(plain == 0, f"the card path called the plain version {plain} times")
+
+    schema = T.model_schema(cfg, max_seq=LM_PROMPT + LM_GEN)
+    params = init_params(schema, 0, device="cuda")
+    batch = serve.lm_batch(cfg, LM_BATCH, LM_PROMPT, seed=0)
+    log(f"  {LM_ARCH}: {count_params(schema) / 1e6:.2f} M params, "
+        f"{LM_BATCH} x {LM_PROMPT} prompt, {LM_GEN} generated, enc_seq "
+        f"{cfg.enc_seq}")
+
+    def run(c, impl, forced=None):
+        FK.reset_launch_counts()
+        out = serve.generate(params, batch, c, gen=LM_GEN,
+                             use_flash=impl == "kernel", forced=forced)
+        n = FK.launch_counts()["flash_attention"]
+        want = c.n_enc_layers if impl == "kernel" else 0
+        check(n == want, f"{c.compute_dtype} impl={impl}: {n} flash launches,"
+              f" expected {want}")
+        check(FK.flash_attention_plain.calls == 0,
+              "the card path called the plain flash version")
+        for lg in out["logits"]:
+            check(tuple(lg.shape) == (LM_BATCH, cfg.vocab_padded),
+                  f"logits shape {tuple(lg.shape)}")
+            check(bool(torch.isfinite(lg[:, :cfg.vocab]).all()),
+                  f"{c.compute_dtype} impl={impl}: non-finite logits")
+        steps = LM_GEN - 1
+        log(f"  {c.compute_dtype} impl={impl}: {n} flash launches; prefill "
+            f"{out['prefill_s'] * 1e3:.2f} ms, decode "
+            f"{out['decode_s'] * 1e3 / steps:.3f} ms/step, "
+            f"{LM_BATCH * steps / out['decode_s']:.1f} tok/s [{smi}]")
+        return out
+
+    # float32: kernel vs ref on the prefill and 23 teacher-forced steps
+    c32 = dataclasses.replace(cfg, compute_dtype="float32")
+    k32 = run(c32, "kernel")
+    r32 = run(c32, "ref", forced=k32["tokens"])
+    err = 0.0
+    for i, (a, b) in enumerate(zip(k32["logits"], r32["logits"])):
+        a, b = a[:, :cfg.vocab], b[:, :cfg.vocab]
+        d = float((a - b).abs().max())
+        err = max(err, d)
+        check(torch.allclose(a, b, rtol=1e-4, atol=1e-3),
+              f"float32 {'prefill' if i == 0 else f'decode step {i}'} logits "
+              f"off impl=ref by {d}")
+    log(f"  float32: prefill + {LM_GEN - 1} teacher-forced decode logits "
+        f"match impl=ref, max |diff| {err:.3g} (logits up to "
+        f"{float(r32['logits'][0][:, :cfg.vocab].abs().max()):.1f})")
+
+    # bfloat16, the published compute dtype
+    kb = run(cfg, "kernel")
+    rb = run(cfg, "ref")
+    a, b = kb["logits"][0][:, :cfg.vocab], rb["logits"][0][:, :cfg.vocab]
+    scale = float(b.abs().max())
+    d = float((a - b).abs().max())
+    check(d <= 2e-2 * scale, f"bfloat16 prefill logits off impl=ref by {d} "
+          f"(limit {2e-2 * scale:.3g})")
+    agree = float((kb["tokens"] == rb["tokens"]).float().mean())
+    log(f"  bfloat16: prefill logits max |kernel - ref| {d:.3g} of "
+        f"{scale:.1f}; greedy tokens agree {100 * agree:.1f}%")
+
+    # warm bf16 timings on the host clock, in turns
+    timed = {"kernel": [], "ref": []}
+    for impl in ("kernel", "ref", "ref", "kernel"):
+        timed[impl].append(serve.generate(params, batch, cfg, gen=LM_GEN,
+                                          use_flash=impl == "kernel"))
+    steps = LM_GEN - 1
+    for impl, outs in timed.items():
+        log(f"  warm bf16 impl={impl} [{smi}]: prefill "
+            + ", ".join(f"{o['prefill_s'] * 1e3:.2f}" for o in outs)
+            + " ms; decode "
+            + ", ".join(f"{o['decode_s'] * 1e3 / steps:.3f}" for o in outs)
+            + " ms/step; "
+            + ", ".join(f"{LM_BATCH * steps / o['decode_s']:.1f}"
+                        for o in outs) + " tok/s")
+
+    from repro_torch.train import make_prefill_step
+    pre = make_prefill_step(cfg, cache_len=LM_PROMPT + LM_GEN,
+                            use_flash=True)
+    tb = {k: torch.from_numpy(v).cuda() for k, v in batch.items()}
+    profile_call(torch, lambda: pre(params, tb))  # the profiler's own set-up
+    for label, fn in (
+            ("one warm bf16 kernel prefill", lambda: pre(params, tb)),
+            (f"one warm bf16 kernel request (prefill + {steps} steps)",
+             lambda: serve.generate(params, batch, cfg, gen=LM_GEN,
+                                    use_flash=True))):
+        wall, device, hosts, kernels = profile_call(torch, fn)
+        log(f"  profile of {label} (profiler on): wall {wall:.1f} ms, "
+            f"device time {device:.2f} ms ({100 * device / wall:.1f}% busy);"
+            " top host ops (self CPU ms): "
+            + "; ".join(f"{k} x{n} {ms:.1f}" for k, n, ms in hosts)
+            + "; top device kernels (ms): "
+            + "; ".join(f"{k} x{n} {ms:.2f}" for k, n, ms in kernels))
+    return launches
+
+
+def graph_phases(torch, phases, dev, measured, launches):
+    """Phases 2-4: the FAST-GAS kernels, graph serving and inference."""
+    import numpy as np
+
     from repro_torch.configs.graphic_gcn import CONFIG, PALLAS_CONFIG
     from repro_torch.core.gcn import (feature_table, gcn_schema, sage_forward,
                                       sage_loss)
@@ -388,18 +659,6 @@ def main() -> int:
     from repro_torch.launch.serve import replay_traffic
     from repro_torch.serving import ServingEngine
 
-    smi = smi_line()
-    log(smi)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    dev = torch.device("cuda")
-    t_start = time.perf_counter()
-
-    log("phase 1: build")
-    t0 = time.perf_counter()
-    lib = K.build()
-    log(f"  built {lib.name} in {time.perf_counter() - t0:.2f} s")
-
     t0 = time.perf_counter()
     g = uniform_graph(V, DEGREE * V, seed=0, n_features=F)
     indptr, indices, _ = g.to_csr()
@@ -410,97 +669,138 @@ def main() -> int:
     log(f"  graph V={V} E={DEGREE * V} F={F} and batch made in "
         f"{time.perf_counter() - t0:.1f} s")
 
-    log("phase 2: kernels against their plain versions")
-    table = feature_table(g.features, device=dev).reshape(V, F)
-    chunk = PALLAS_CONFIG.request_chunk
-    req_rng = np.random.default_rng(1)
-    serve_seeds = req_rng.integers(0, V, 3)
-    from repro_torch.graph import host_sample_csr
-    s_nbrs, s_mask = host_sample_csr(indptr, indices, serve_seeds, FANOUT,
-                                     seed=0)
-    shapes = {
-        # inference: one 16-row command-queue chunk of the 2-hop segment
-        "gas_scatter_banded": (
-            torch.from_numpy(batch["nbrs2"][0, :chunk]).to(dev),
-            torch.from_numpy(batch["mask2"][0, :chunk].copy()).to(dev)),
-        # serving, scheduled=False: one 3-seed request's fan-out segment
-        "gas_scatter_dense": (torch.from_numpy(s_nbrs).to(dev),
-                              torch.from_numpy(s_mask).to(dev)),
-    }
-    measured = phase_kernels(torch, ops, K, table, shapes)
-    del table
-    torch.cuda.empty_cache()
+    if "2" in phases:
+        log("phase 2: kernels against their plain versions")
+        table = feature_table(g.features, device=dev).reshape(V, F)
+        chunk = PALLAS_CONFIG.request_chunk
+        req_rng = np.random.default_rng(1)
+        serve_seeds = req_rng.integers(0, V, 3)
+        from repro_torch.graph import host_sample_csr
+        s_nbrs, s_mask = host_sample_csr(indptr, indices, serve_seeds, FANOUT,
+                                         seed=0)
+        shapes = {
+            # inference: one 16-row command-queue chunk of the 2-hop segment
+            "gas_scatter_banded": (
+                torch.from_numpy(batch["nbrs2"][0, :chunk]).to(dev),
+                torch.from_numpy(batch["mask2"][0, :chunk].copy()).to(dev)),
+            # serving, scheduled=False: one 3-seed request's fan-out segment
+            "gas_scatter_dense": (torch.from_numpy(s_nbrs).to(dev),
+                                  torch.from_numpy(s_mask).to(dev)),
+        }
+        measured.update(phase_kernels(torch, ops, K, table, shapes))
+        del table
+        torch.cuda.empty_cache()
 
-    log("phase 3: serving")
-    launches = {name: 0 for name in REPLACES}
-    ref = serve(ServingEngine, replay_traffic, g.features, indptr, indices,
-                impl="ref")
-    for scheduled, kernel in ((True, "gas_scatter_banded"),
-                              (False, "gas_scatter_dense")):
+    if "3" in phases:
+        log("phase 3: serving")
+        ref = serve(ServingEngine, replay_traffic, g.features, indptr, indices,
+                    impl="ref")
+        for scheduled, kernel in ((True, "gas_scatter_banded"),
+                                  (False, "gas_scatter_dense")):
+            K.reset_launch_counts()
+            got = serve(ServingEngine, replay_traffic, g.features, indptr,
+                        indices, impl="kernel", scheduled=scheduled)
+            counts = K.launch_counts()
+            log(f"  launches with scheduled={scheduled}: {counts}")
+            check(counts[kernel] > 0, f"serving never launched {kernel}")
+            for name in counts:
+                launches[name] += counts[name]
+            compare_serving(ref, got, f"scheduled={scheduled}")
+
+    if "4" in phases:
+        log("phase 4: inference")
+        feats = feature_table(g.features, device=dev)
+        params = init_params(gcn_schema(PALLAS_CONFIG), 0, device=dev)
+        torch.cuda.synchronize()
         K.reset_launch_counts()
-        got = serve(ServingEngine, replay_traffic, g.features, indptr,
-                    indices, impl="kernel", scheduled=scheduled)
-        counts = K.launch_counts()
-        log(f"  launches with scheduled={scheduled}: {counts}")
-        check(counts[kernel] > 0, f"serving never launched {kernel}")
-        for name in launches:
-            launches[name] += counts[name]
-        compare_serving(ref, got, f"scheduled={scheduled}")
-
-    log("phase 4: inference")
-    feats = feature_table(g.features, device=dev)
-    params = init_params(gcn_schema(PALLAS_CONFIG), 0, device=dev)
-    torch.cuda.synchronize()
-    K.reset_launch_counts()
-    t0 = time.perf_counter()
-    logits = sage_forward(params, feats, batch, PALLAS_CONFIG)
-    torch.cuda.synchronize()
-    t_kernel = time.perf_counter() - t0
-    counts = K.launch_counts()
-    log(f"  launches: {counts}")
-    check(counts["gas_scatter_banded"] > 0,
-          "inference never launched gas_scatter_banded")
-    for name in launches:
-        launches[name] += counts[name]
-    want = sage_forward(params, feats, batch, CONFIG)
-    # warm timings, after the counted run: one more call of each
-    timed = {}
-    for label, cfg in (("kernel", PALLAS_CONFIG), ("ref", CONFIG)):
-        torch.cuda.synchronize()
         t0 = time.perf_counter()
-        sage_forward(params, feats, batch, cfg)
+        logits = sage_forward(params, feats, batch, PALLAS_CONFIG)
         torch.cuda.synchronize()
-        timed[label] = time.perf_counter() - t0
-    check(tuple(logits.shape) == (1, BATCH, CONFIG.n_classes),
-          f"logits shape {tuple(logits.shape)}")
-    check(bool(torch.isfinite(logits).all()), "non-finite logits")
-    err = float((logits - want).abs().max())
-    check(torch.allclose(logits, want, rtol=1e-4, atol=1e-4),
-          f"logits off the ref by {err}")
-    loss, metrics = sage_loss(params, feats, batch, PALLAS_CONFIG)
-    check(bool(torch.isfinite(loss)), "non-finite loss")
-    wall, device, hosts = profile_call(
-        torch, lambda: sage_forward(params, feats, batch, PALLAS_CONFIG))
-    log(f"  profile of one warm kernel sage_forward (profiler on): wall "
-        f"{wall:.1f} ms, device time {device:.2f} ms "
-        f"({100 * device / wall:.1f}% busy); top host ops (self CPU ms): "
-        + "; ".join(f"{k} x{n} {ms:.1f}" for k, n, ms in hosts))
-    log(f"  logits {tuple(logits.shape)} finite, max |kernel - ref| "
-        f"{err:.3g}; loss {float(loss):.4f}; sage_forward {t_kernel * 1e3:.1f}"
-        f" ms (kernel, first call); warm {timed['kernel'] * 1e3:.1f} ms "
-        f"(kernel, {PALLAS_CONFIG.request_chunk}-row chunks) vs "
-        f"{timed['ref'] * 1e3:.1f} ms (ref, unchunked)")
+        t_kernel = time.perf_counter() - t0
+        counts = K.launch_counts()
+        log(f"  launches: {counts}")
+        check(counts["gas_scatter_banded"] > 0,
+              "inference never launched gas_scatter_banded")
+        for name in counts:
+            launches[name] += counts[name]
+        want = sage_forward(params, feats, batch, CONFIG)
+        # warm timings, after the counted run: one more call of each
+        timed = {}
+        for label, cfg in (("kernel", PALLAS_CONFIG), ("ref", CONFIG)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            sage_forward(params, feats, batch, cfg)
+            torch.cuda.synchronize()
+            timed[label] = time.perf_counter() - t0
+        check(tuple(logits.shape) == (1, BATCH, CONFIG.n_classes),
+              f"logits shape {tuple(logits.shape)}")
+        check(bool(torch.isfinite(logits).all()), "non-finite logits")
+        err = float((logits - want).abs().max())
+        check(torch.allclose(logits, want, rtol=1e-4, atol=1e-4),
+              f"logits off the ref by {err}")
+        loss, metrics = sage_loss(params, feats, batch, PALLAS_CONFIG)
+        check(bool(torch.isfinite(loss)), "non-finite loss")
+        wall, device, hosts, _ = profile_call(
+            torch, lambda: sage_forward(params, feats, batch, PALLAS_CONFIG))
+        log(f"  profile of one warm kernel sage_forward (profiler on): wall "
+            f"{wall:.1f} ms, device time {device:.2f} ms "
+            f"({100 * device / wall:.1f}% busy); top host ops (self CPU ms): "
+            + "; ".join(f"{k} x{n} {ms:.1f}" for k, n, ms in hosts))
+        log(f"  logits {tuple(logits.shape)} finite, max |kernel - ref| "
+            f"{err:.3g}; loss {float(loss):.4f}; sage_forward {t_kernel * 1e3:.1f}"
+            f" ms (kernel, first call); warm {timed['kernel'] * 1e3:.1f} ms "
+            f"(kernel, {PALLAS_CONFIG.request_chunk}-row chunks) vs "
+            f"{timed['ref'] * 1e3:.1f} ms (ref, unchunked)")
+
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--phases", default="123456",
+                    help="the phases to run, as digits (default: all)")
+    phases = set(ap.parse_args(argv).phases)
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script runs on the card",
+              file=sys.stderr)
+        return 1
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.kernels.gas_scatter import kernel as K
+
+    smi = smi_line()
+    log(smi)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    t_start = time.perf_counter()
+
+    log("phase 1: build")
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(2) as pool:
+        libs = list(pool.map(lambda m: m.build(), (K, FK)))
+    log(f"  built {', '.join(lib.name for lib in libs)} in "
+        f"{time.perf_counter() - t0:.2f} s")
+    for line in libs[1].with_suffix(".log").read_text().splitlines():
+        if "registers" in line or "spill" in line:
+            log(f"  ptxas: {line.strip()}")
+
+    measured, launches = {}, {name: 0 for name in REPLACES}
+    if phases & set("234"):
+        graph_phases(torch, phases, dev, measured, launches)
+    if "5" in phases:
+        log("phase 5: flash attention against its plain version")
+        measured.update(phase_flash(torch, FK, smi))
+    if "6" in phases:
+        log("phase 6: whisper-base serving at full width")
+        launches["flash_attention"] = phase_lm(torch, FK, smi)
 
     kernels = []
     for name, entry in measured.items():
-        kernels.append({
-            "name": name, "route": "cuda", "source": CSRC,
-            "replaces": REPLACES[name], "launches": launches[name],
-            "max_abs_err": entry["max_abs_err"], "ms": entry["ms"],
-            "device_ms": entry["device_ms"], "plain_ms": entry["plain_ms"],
-            "bound_ms": entry["bound_ms"], "bound_by": entry["bound_by"],
-            "library_ms": entry["library_ms"],
-        })
+        kernels.append({"name": name, "route": "cuda", "source": CSRC[name],
+                        "replaces": REPLACES[name],
+                        "launches": launches[name], **entry})
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

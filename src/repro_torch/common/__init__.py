@@ -1,3 +1,6 @@
-from repro_torch.common.schema import ParamDef, init_params
+from repro_torch.common.config import LAYER_KINDS, ModelConfig, reduced
+from repro_torch.common.schema import (ParamDef, count_params, init_params,
+                                       stack)
 
-__all__ = ["ParamDef", "init_params"]
+__all__ = ["LAYER_KINDS", "ModelConfig", "ParamDef", "count_params",
+           "init_params", "reduced", "stack"]

@@ -1,0 +1,195 @@
+"""Blocked flash attention: the Hopper kernel's wrapper, beside its plain version.
+
+The kernel lives in ``csrc/flash_attention.cu`` (CUDA C++ for ``sm_90a``;
+the source note there says which TPU kernel it replaces, what bounds it
+and how it is laid out). It is compiled with ``nvcc`` into a shared
+library with a plain C interface the first time the wrapper launches on a
+CUDA tensor, and loaded with ``ctypes``. Nothing is built when this module
+is imported.
+
+``flash_attention_fwd`` takes the arguments of the Pallas entry it
+replaces and dispatches on where its tensors lie:
+
+* CUDA tensors launch the kernel on PyTorch's current stream (and add one
+  to ``flash_attention_fwd.launches``); a refused launch raises;
+* CPU tensors run ``flash_attention_plain``, the same blocked walk in
+  PyTorch;
+* anything else raises. There is no fallback from the kernel to the plain
+  version on a CUDA tensor.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import threading
+from pathlib import Path
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import _build
+
+NEG_INF = -2.3819763e38
+BLOCK_Q = 128
+BLOCK_K = 128
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
+
+_lib: Optional[ctypes.CDLL] = None
+_lib_lock = threading.Lock()
+
+
+def build() -> Path:
+    """Compile ``csrc/flash_attention.cu`` unless this source's library
+    exists (``kernels._build``). Returns the library path."""
+    return _build.build(_SOURCE)
+
+
+def _load() -> ctypes.CDLL:
+    global _lib
+    with _lib_lock:
+        if _lib is None:
+            lib = ctypes.CDLL(str(build()))
+            p, i = ctypes.c_void_p, ctypes.c_int
+            lib.flash_attention_fwd.argtypes = [i, p, p, p, p, i, i, i, i, i,
+                                                i, i, i, ctypes.c_float, i, p]
+            lib.flash_attention_fwd.restype = i
+            _lib = lib
+    return _lib
+
+
+def _check(q, k, v, kv_len: int, n_kv_heads: int):
+    """(H, G): query heads per batch row and query heads per kv head."""
+    if q.dim() != 3 or k.dim() != 3 or k.shape != v.shape:
+        raise ValueError(f"q must be (B·H, S, hd) and k, v (B·Hkv, T, hd); "
+                         f"got {tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    BH, S, hd = q.shape
+    BKV, T, hdk = k.shape
+    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"q, k, v must share one dtype of float32 or "
+                        f"bfloat16; got {q.dtype}, {k.dtype}, {v.dtype}")
+    if S % BLOCK_Q or T % BLOCK_K:
+        raise ValueError(f"S={S} and T={T} must be multiples of {BLOCK_Q}")
+    if hdk != hd or hd % 8 or not 0 < hd <= 256:
+        raise ValueError(f"head dim {hd} (k: {hdk}) must be a multiple of 8 "
+                         f"up to 256")
+    if n_kv_heads < 1 or BKV % n_kv_heads:
+        raise ValueError(f"{BKV} kv rows do not split into {n_kv_heads} "
+                         f"heads")
+    batch = BKV // n_kv_heads
+    if BH % batch or (BH // batch) % n_kv_heads:
+        raise ValueError(f"{BH} query rows do not group over {batch} batch "
+                         f"rows of {n_kv_heads} kv heads")
+    if not 0 <= kv_len <= T:
+        raise ValueError(f"kv_len={kv_len} outside [0, {T}]")
+    H = BH // batch
+    return H, H // n_kv_heads
+
+
+def flash_attention_plain(q, k, v, *, causal: bool, window: int,
+                          softcap: float, kv_len: int, n_kv_heads: int):
+    """Plain PyTorch version of the kernel: the TPU kernel's blocked
+    online-softmax walk, 128 × 128 blocks, the same band skip and the same
+    finite ``NEG_INF``, one vectorised step per kv block over every
+    (bh, q block) at once. Arguments as in ``flash_attention_fwd``."""
+    flash_attention_plain.calls += 1
+    H, G = _check(q, k, v, kv_len, n_kv_heads)
+    BH, S, hd = q.shape
+    T = k.shape[1]
+    dev = q.device
+    bh = torch.arange(BH, device=dev)
+    kv_rows = (bh // H) * n_kv_heads + (bh % H) // G
+    nq = S // BLOCK_Q
+    qb = q.reshape(BH, nq, BLOCK_Q, hd).float()
+    q_start = torch.arange(nq) * BLOCK_Q          # on the host: the band skip
+    qpos = (q_start[:, None] + torch.arange(BLOCK_Q)).to(dev)[:, :, None]
+    neg = torch.tensor(NEG_INF, device=dev)
+    m = torch.full((BH, nq, BLOCK_Q), NEG_INF, device=dev)
+    l = torch.zeros((BH, nq, BLOCK_Q), device=dev)
+    acc = torch.zeros((BH, nq, BLOCK_Q, hd), device=dev)
+    for k_start in range(0, T, BLOCK_K):
+        visible = torch.ones(nq, dtype=torch.bool)
+        if causal:
+            visible &= k_start <= q_start + BLOCK_Q - 1
+        if window:
+            visible &= k_start + BLOCK_K - 1 > q_start - window
+        if not bool(visible.any()):
+            continue
+        visible = visible.to(dev)
+        kt = k[kv_rows, k_start:k_start + BLOCK_K].float()
+        vt = v[kv_rows, k_start:k_start + BLOCK_K]
+        s = torch.einsum("bnqd,bkd->bnqk", qb, kt)
+        if softcap:
+            s = softcap * torch.tanh(s / softcap)
+        kpos = k_start + torch.arange(BLOCK_K, device=dev)
+        ok = (kpos < kv_len).expand(nq, BLOCK_Q, BLOCK_K)
+        if causal:
+            ok = ok & (qpos >= kpos)
+        if window:
+            ok = ok & (qpos - kpos < window)
+        s = torch.where(ok, s, neg)
+        m_cur = torch.maximum(m, s.amax(-1))
+        alpha = torch.exp(m - m_cur)
+        p = torch.exp(s - m_cur[..., None])
+        l_new = l * alpha + p.sum(-1)
+        acc_new = acc * alpha[..., None] + torch.einsum(
+            "bnqk,bkd->bnqd", p.to(v.dtype).float(), vt.float())
+        vis = visible[None, :, None]
+        m = torch.where(vis, m_cur, m)
+        l = torch.where(vis, l_new, l)
+        acc = torch.where(vis[..., None], acc_new, acc)
+    out = acc / torch.clamp(l, min=1e-30)[..., None]
+    return out.reshape(BH, S, hd).to(q.dtype)
+
+
+def flash_attention_fwd(q, k, v, *, causal: bool, window: int,
+                        softcap: float, kv_len: int, n_kv_heads: int):
+    """Blocked attention, forward only. q: (B·H, S, hd) pre-scaled; k, v:
+    (B·Hkv, T, hd); heads flattened b-major, h-minor, and query head h of
+    batch row b reads kv head ``b·Hkv + h // (H/Hkv)``. S and T multiples
+    of 128; keys at ``kv_len`` and past it are padding. float32 or bfloat16
+    in, float32 statistics and accumulator, out in q's dtype."""
+    H, _ = _check(q, k, v, kv_len, n_kv_heads)
+    kw = dict(causal=causal, window=window, softcap=softcap, kv_len=kv_len,
+              n_kv_heads=n_kv_heads)
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, **kw)
+    if q.device.type != "cuda":
+        raise ValueError(f"no kernel for device {q.device}")
+    for t in (k, v):
+        if t.device != q.device:
+            raise ValueError(f"tensors on different devices: {t.device} and "
+                             f"{q.device}")
+    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
+        raise ValueError("kernel inputs must be contiguous")
+    BH, S, hd = q.shape
+    out = torch.empty_like(q)
+    if BH == 0:
+        return out
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    rc = _load().flash_attention_fwd(
+        _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        out.data_ptr(), BH, S, k.shape[1], hd, H, n_kv_heads, int(causal),
+        int(window), float(softcap), kv_len, stream)
+    if rc != 0:
+        raise RuntimeError(f"flash_attention_fwd launch failed: CUDA error "
+                           f"{rc}")
+    flash_attention_fwd.launches += 1
+    return out
+
+
+flash_attention_fwd.launches = 0
+flash_attention_plain.calls = 0
+
+
+def reset_launch_counts() -> None:
+    """Set the kernel's launch count and the plain version's call count
+    to 0."""
+    flash_attention_fwd.launches = 0
+    flash_attention_plain.calls = 0
+
+
+def launch_counts() -> dict:
+    return {"flash_attention": flash_attention_fwd.launches}

@@ -24,15 +24,13 @@ feature-block liveness columns of a work list are per 32 features.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
 import threading
 from pathlib import Path
 from typing import Optional
 
 import torch
+
+from repro_torch.kernels import _build
 
 ROW_BLOCK = 128
 EDGE_TILE = 128
@@ -41,49 +39,15 @@ FEAT_BLOCK = 32
 OPS = {"add": 0, "max": 1, "min": 2}
 
 _SOURCE = Path(__file__).resolve().parent / "csrc" / "gas_scatter.cu"
-_BUILD_DIR = Path(__file__).resolve().parent / "build"
-_NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
 _lib: Optional[ctypes.CDLL] = None
 _lib_lock = threading.Lock()
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    path = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
-                        "bin", "nvcc")
-    if not os.path.exists(path):
-        raise RuntimeError("nvcc not found: put the CUDA toolkit's bin "
-                           "directory on PATH or set CUDA_HOME")
-    return path
-
-
-def library_path() -> Path:
-    """Where the built library lives: named by the source's content hash, so
-    an edited source builds anew and a stale library is never loaded."""
-    digest = hashlib.sha1(_SOURCE.read_bytes()
-                          + " ".join(_NVCC_FLAGS).encode()).hexdigest()[:16]
-    return _BUILD_DIR / f"libgas_scatter-{digest}.so"
-
-
 def build() -> Path:
-    """Compile ``csrc/gas_scatter.cu`` unless this source's library exists.
-    Returns the library path. Raises with nvcc's output on failure."""
-    out = library_path()
-    if out.exists():
-        return out
-    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *_NVCC_FLAGS, "-o", str(tmp), str(_SOURCE)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{proc.stdout}{proc.stderr}")
-    os.replace(tmp, out)
-    return out
+    """Compile ``csrc/gas_scatter.cu`` unless this source's library exists
+    (``kernels._build``). Returns the library path."""
+    return _build.build(_SOURCE)
 
 
 def _load() -> ctypes.CDLL:

@@ -1,17 +1,27 @@
-"""Graph serving launcher: the GraphSAGE serving engine under synthetic
-multi-tenant traffic.
+"""Serving launcher: two workloads behind one front door.
 
-Concurrent callers with zipf-skewed seed popularity enqueue into the
-size-or-deadline ``RequestQueue``; every drain fuses the pending requests
-into ONE ``aggregate_multi`` command block, the hot-vertex cache absorbs
-repeat self-row lookups, and the run closes with the engine's health
-snapshot. Runs on the card through the FAST-GAS kernels by default::
+* ``--workload graph`` (the default here; the JAX launcher defaults to
+  ``lm``): the GraphSAGE serving engine under synthetic multi-tenant
+  traffic. Concurrent callers with zipf-skewed seed popularity enqueue
+  into the size-or-deadline ``RequestQueue``; every drain fuses the
+  pending requests into ONE ``aggregate_multi`` command block, the
+  hot-vertex cache absorbs repeat self-row lookups, and the run closes
+  with the engine's health snapshot::
 
-    PYTHONPATH=src python -m repro_torch.launch.serve \\
-        --requests 48 --tenants 4 --cache 32 --batch 8
+      PYTHONPATH=src python -m repro_torch.launch.serve \\
+          --requests 48 --tenants 4 --cache 32 --batch 8
 
-``--device cpu`` runs the same path on the CPU (the kernels' plain
-versions).
+* ``--workload lm``: batched prefill + greedy decode of an LM
+  (``--arch``), with tokens and, for an encoder-decoder, frames drawn from
+  ``--seed``. ``--impl kernel`` runs the encoder's self-attention through
+  the flash kernel; ``--impl ref`` takes the plain chunked attention, the
+  path the JAX launcher takes::
+
+      PYTHONPATH=src python -m repro_torch.launch.serve --workload lm \\
+          --arch whisper-base --batch 4 --prompt-len 48 --gen 24
+
+Both run on the card by default; ``--device cpu`` runs the same path on
+the CPU (the kernels' plain versions).
 """
 
 from __future__ import annotations
@@ -19,9 +29,10 @@ from __future__ import annotations
 import argparse
 import sys
 import time
-from typing import List, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
+import torch
 
 
 def zipf_popularity(n_vertices: int, rng: np.random.Generator) -> np.ndarray:
@@ -51,6 +62,90 @@ def replay_traffic(eng, *, requests: int, tenants: int,
         eng.poll()                    # dispatches when size/deadline fires
     eng.flush()
     return rids, per_tenant
+
+
+def lm_batch(cfg, batch: int, prompt_len: int, seed: int = 0
+             ) -> Dict[str, np.ndarray]:
+    """Prompt tokens (batch, prompt_len) int32 and, for an
+    encoder-decoder, stub frame embeddings (batch, enc_seq, d_model)
+    float32, drawn from ``seed``."""
+    rng = np.random.default_rng(seed)
+    out = {"tokens": rng.integers(0, cfg.vocab, (batch, prompt_len)
+                                  ).astype(np.int32)}
+    if cfg.is_encoder_decoder:
+        out["frames"] = rng.standard_normal(
+            (batch, cfg.enc_seq, cfg.d_model), dtype=np.float32)
+    return out
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def generate(params, batch: Dict[str, Any], cfg, *, gen: int,
+             use_flash: bool, forced: Optional[torch.Tensor] = None
+             ) -> Dict[str, Any]:
+    """Prefill, then ``gen - 1`` greedy decode steps. ``forced`` (B, gen)
+    teacher-forces the decode inputs (step i reads ``forced[:, i]``)
+    instead of the greedy tokens. Returns the prefill and per-step logits,
+    the greedy tokens (B, gen), and the host-clock seconds of the prefill
+    and of the decode loop, each ending in a device synchronise."""
+    from repro_torch.train import make_decode_step, make_prefill_step
+
+    dev = params["embed"]["table"].device
+    P = batch["tokens"].shape[1]
+    prefill = make_prefill_step(cfg, cache_len=P + gen, use_flash=use_flash)
+    decode = make_decode_step(cfg)
+    batch = {k: torch.from_numpy(np.asarray(v)).to(dev)
+             for k, v in batch.items()}
+    _sync(dev)
+    t0 = time.perf_counter()
+    logits, caches = prefill(params, batch)
+    _sync(dev)
+    t_prefill = time.perf_counter() - t0
+    out_logits = [logits]
+    tok = logits.argmax(-1, keepdim=True)
+    tokens = [tok]
+    t0 = time.perf_counter()
+    for i in range(gen - 1):
+        feed = tok if forced is None else forced[:, i:i + 1]
+        logits, caches = decode(params, feed, caches, P + i)
+        out_logits.append(logits)
+        tok = logits.argmax(-1, keepdim=True)
+        tokens.append(tok)
+    _sync(dev)
+    return {"logits": out_logits, "tokens": torch.cat(tokens, dim=1),
+            "prefill_s": t_prefill, "decode_s": time.perf_counter() - t0}
+
+
+def _main_lm(args) -> int:
+    from repro_torch import configs
+    from repro_torch.common.schema import init_params
+    from repro_torch.device import resolve_device
+    from repro_torch.models import transformer as T
+
+    dev = resolve_device(args.device)
+    if not args.arch:
+        print("--workload lm requires --arch", file=sys.stderr)
+        return 2
+    cfg = (configs.smoke_config(args.arch) if args.reduced
+           else configs.get_config(args.arch))
+    params = init_params(T.model_schema(cfg, max_seq=args.prompt_len
+                                        + args.gen), args.seed, device=dev)
+    batch = lm_batch(cfg, args.batch, args.prompt_len, args.seed)
+    out = generate(params, batch, cfg, gen=args.gen,
+                   use_flash=args.impl == "kernel")
+    steps = max(args.gen - 1, 1)
+    toks = args.batch * (args.gen - 1)
+    print(f"{cfg.name} on {dev} impl={args.impl}: prefill "
+          f"{args.batch}x{args.prompt_len} tokens in "
+          f"{out['prefill_s'] * 1e3:.1f} ms")
+    print(f"decode: {toks} tokens in {out['decode_s'] * 1e3:.1f} ms "
+          f"({toks / max(out['decode_s'], 1e-9):.1f} tok/s batch, "
+          f"{out['decode_s'] * 1e3 / steps:.2f} ms/step)")
+    print("generated ids[0]:", out["tokens"][0].tolist())
+    return 0
 
 
 def _main_graph(args) -> int:
@@ -103,7 +198,15 @@ def _main_graph(args) -> int:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--batch", type=int, default=8, help="queue max_batch")
+    ap.add_argument("--workload", choices=("lm", "graph"), default="graph")
+    # lm workload
+    ap.add_argument("--arch")
+    ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--prompt-len", type=int, default=32)
+    ap.add_argument("--gen", type=int, default=16)
+    # graph workload
+    ap.add_argument("--batch", type=int, default=8,
+                    help="graph: queue max_batch; lm: prefill batch")
     ap.add_argument("--requests", type=int, default=48)
     ap.add_argument("--tenants", type=int, default=4)
     ap.add_argument("--vertices", type=int, default=256)
@@ -116,7 +219,8 @@ def main(argv=None) -> int:
     ap.add_argument("--impl", choices=("kernel", "ref"), default="kernel")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--seed", type=int, default=0)
-    return _main_graph(ap.parse_args(argv))
+    args = ap.parse_args(argv)
+    return _main_lm(args) if args.workload == "lm" else _main_graph(args)
 
 
 if __name__ == "__main__":

@@ -32,6 +32,8 @@ def test_every_module_imports_without_jax_or_repro():
         "assert not bad, bad\n"
         "from repro_torch.kernels.gas_scatter import kernel\n"
         "assert kernel._lib is None\n"
+        "from repro_torch.kernels.flash_attention import kernel as fk\n"
+        "assert fk._lib is None\n"
         "print('ok', len(sys.modules))\n")
     env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
@@ -67,7 +69,9 @@ def test_entry_points_refuse_to_run_without_a_card():
     from repro_torch.common.schema import init_params
     from repro_torch.core.gcn import (GCNConfig, feature_table, gcn_schema,
                                       params_from_jax)
+    from repro_torch.configs import smoke_config
     from repro_torch.launch import serve
+    from repro_torch.models import transformer
     from repro_torch.serving import ServingEngine
 
     feats = np.zeros((4, 3), np.float32)
@@ -78,6 +82,11 @@ def test_entry_points_refuse_to_run_without_a_card():
         lambda: params_from_jax({"w": feats}),
         lambda: feature_table(feats),
         lambda: serve.main(["--requests", "1"]),
+        lambda: init_params(transformer.model_schema(
+            smoke_config("whisper-base"))),
+        lambda: transformer.params_from_jax({"embed": {"table": feats}}),
+        lambda: serve.main(["--workload", "lm", "--arch", "whisper-base",
+                            "--reduced"]),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="device='cpu'"):
