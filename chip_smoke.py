@@ -6,15 +6,18 @@
 Phases, each failing hard (exit status 1, no result line):
 
 1. build both kernel sources (``src/repro_torch/kernels/*/csrc/*.cu``), one
-   ``nvcc`` each, started together;
+   ``nvcc`` each, started together; print ptxas's registers and spills;
 2. hold each FAST-GAS kernel against its plain PyTorch version on the card,
    at the shapes phases 3 and 4 launch (op add with unit and with integer
    weights, with and without all-zero feature blocks; max and min, also
    with NaN values; integer data bit-exact, NaN cells where the plain
-   version has them, normal data within rtol = atol = 1e-5), and time the
-   kernel, the plain version, one library call computing the same function
-   (``torch.sparse.mm`` / ``scatter_reduce``, never used by the port) and
-   the memory-bound floor;
+   version has them, normal data within rtol = atol = 1e-5; a second
+   launch on the same inputs returns the same bits), print the banded
+   launch's grid and cluster (at least 132 CTAs on one inference chunk),
+   and time, for add, max and min, the kernel (per call and on the
+   device), the plain version, one library call computing the same
+   function (``torch.sparse.mm`` / ``scatter_reduce_``, never used by the
+   port) and the memory-bound floor;
 3. serving: the GraphSAGE serving engine over a uniform graph of 2^20
    vertices, 16 edges per vertex and Reddit's 602 features, 64 zipf-skewed
    requests of 1–3 seeds from 4 tenants, fan-out 50, ``max_batch=8``, a
@@ -27,19 +30,24 @@ Phases, each failing hard (exit status 1, no result line):
    ``impl="ref"`` within rtol = atol = 1e-4 (the f32 sums run in another
    order through two layers);
 5. hold the flash-attention kernel against its plain version on the card:
-   the six cases of ``tests/test_kernels_flash.py`` in float32 (rtol = atol
-   = 1e-5) and bfloat16 (atol = 2e-2, rtol = 1e-2: p is rounded to bf16
-   before PV in both), whisper-base's encoder shape (B·H = 32, S = T = 1536,
-   hd 64, kv_len 1500, non-causal, bf16) and a gemma2-2b local-layer shape
-   (H 8 / Hkv 4, hd 256, window 4096, softcap 50, S = T = 4096, causal,
-   bf16); time the kernel, the plain version, ``scaled_dot_product_attention``
+   the six cases of ``tests/test_kernels_flash.py`` plus hd 128 and 256
+   cases, in float32 on the CUDA-core route (rtol = atol = 1e-5) and in
+   bfloat16 on the tensor-core route (atol = 2e-2, rtol = 1e-2: p is
+   rounded to bf16 before PV in both), each launch on the route its dtype
+   names; whisper-base's encoder shape (B·H = 32, S = T = 1536, hd 64,
+   kv_len 1500, non-causal, bf16) and a gemma2-2b local-layer shape (H 8 /
+   Hkv 4, hd 256, window 4096, softcap 50, S = T = 4096, causal, bf16);
+   count the tensor-core instructions (HMMA / HGMMA) in each flash
+   kernel's SASS (``cuobjdump -sass``; the bf16 kernel must have some);
+   time the kernel, the plain version, ``scaled_dot_product_attention``
    (the library yardstick, never used by the port) and the bounds;
 6. LM serving: whisper-base at full width (d_model 512, 8 heads, 6 + 6
    layers, vocab 51865, enc_seq 1500, bf16 compute) through
    ``launch.serve``'s LM path: 4 requests of 48 prompt tokens, 24
    generated tokens, weights and frames from a seed. The encoder runs on
    the flash kernel: exactly 6 launches per prefill with ``impl="kernel"``,
-   none with ``impl="ref"``, and no call of the plain version. In float32
+   all on the route of the compute dtype, none with ``impl="ref"``, and no
+   call of the plain version. In float32
    the kernel path matches ``impl="ref"`` on the prefill logits and on 23
    teacher-forced decode steps within rtol = 1e-4, atol = 1e-3; in bf16
    the logits are finite and within 2e-2·max|ref| of ``impl="ref"``.
@@ -300,6 +308,10 @@ CASES = ([("add", data, zb, "unit") for data in ("int", "normal")
             for data in ("int", "normal", "nan")])
 
 
+KERNEL_SYMBOL = {"gas_scatter_banded": "banded_cluster_kernel",
+                 "gas_scatter_dense": "dense_kernel"}
+
+
 def phase_kernels(torch, ops, K, table, shapes):
     """shapes: {kernel: (nbrs, mask)} from the main path. Returns the JSON
     entries' measured fields per kernel."""
@@ -312,10 +324,13 @@ def phase_kernels(torch, ops, K, table, shapes):
                                  scheduled, data, zero_blocks, weights)
             check(call.kernel == name, f"{call.kernel} != {name}")
             got = call.run()
+            again = call.run()
             want = call.run_plain()
             torch.cuda.synchronize()
             label = (f"{name} op={op} data={data} feature_skip={zero_blocks}"
                      f" weights={weights}")
+            check(torch.equal(got.view(torch.int32), again.view(torch.int32)),
+                  f"{label}: two launches on the same inputs differ")
             check(torch.equal(torch.isinf(got), torch.isinf(want)),
                   f"{label}: identity rows differ")
             check(torch.equal(torch.isnan(got), torch.isnan(want)),
@@ -333,25 +348,33 @@ def phase_kernels(torch, ops, K, table, shapes):
                 check(torch.allclose(got[fin], want[fin], rtol=1e-5,
                                      atol=1e-5), f"{label}: err {err}")
                 max_err = max(max_err, err)
-            log(f"  {label}: max_abs_err={err:.3g} ok")
-        # timings at the main path's op: add with unit weights, normal data
-        call = segment_calls(torch, ops, table, nbrs, mask, "add", scheduled,
-                             "normal", False)
-        symbol = "banded_kernel" if scheduled else "dense_kernel"
-        entry = {
-            "max_abs_err": max_err,
-            "ms": event_ms(torch, call.run, 200),
-            "device_ms": device_ms(torch, call.run, symbol),
-            "plain_ms": event_ms(torch, call.run_plain, 10),
-            "library_ms": event_ms(torch, library_fn(torch, call), 200),
-        }
-        entry["bound_ms"], entry["bound_by"] = bound(call)
-        for op in ("max", "min"):
+            log(f"  {label}: max_abs_err={err:.3g}, repeat launch "
+                f"bit-identical ok")
+        if scheduled:
+            work, _, vals, R = call.args
+            plan = K.banded_plan(work.shape[0], R, vals.shape[1])
+            ctas = plan.grid[0] * plan.grid[1]
+            log(f"  {name} launch at values {tuple(vals.shape)} rows {R} "
+                f"work {tuple(work.shape)}: grid {plan.grid}, cluster "
+                f"({plan.cluster}, 1, 1), {ctas} CTAs of {plan.threads} "
+                f"threads, {plan.smem_bytes} B shared")
+            check(ctas >= 132, f"{name}: only {ctas} CTAs on one chunk")
+        # timings per op, unit weights and normal data, as the main path
+        symbol = KERNEL_SYMBOL[name]
+        per_op = {}
+        for op in ("add", "max", "min"):
             c = segment_calls(torch, ops, table, nbrs, mask, op, scheduled,
                               "normal", False)
-            log(f"  {name} op={op}: kernel {event_ms(torch, c.run, 200):.4f}"
-                f" ms, library {event_ms(torch, library_fn(torch, c), 200):.4f}"
-                f" ms, bound {bound(c)[0]:.6f} ms")
+            t = {"ms": event_ms(torch, c.run, 200),
+                 "device_ms": device_ms(torch, c.run, symbol),
+                 "plain_ms": event_ms(torch, c.run_plain, 10),
+                 "library_ms": event_ms(torch, library_fn(torch, c), 200)}
+            t["bound_ms"], t["bound_by"] = bound(c)
+            if op == "add":
+                call = c
+            per_op[op] = t
+            log(f"  {name} op={op}: {json.dumps(t)}")
+        entry = {"max_abs_err": max_err, **per_op["add"], "ops": per_op}
         work_shape = tuple(call.args[0].shape) if scheduled else None
         log(f"  {name} add+w at values {tuple(call.args[2 if scheduled else 1].shape)}"
             f" rows {call.args[3]} work {work_shape}: {json.dumps(entry)}")
@@ -410,7 +433,8 @@ def compare_serving(ref, got, label):
 # phase 5: the flash kernel against its plain version
 # ---------------------------------------------------------------------------
 
-# the six cases of tests/test_kernels_flash.py: (B, S, T, H, Hkv, hd, masks)
+# the six cases of tests/test_kernels_flash.py, then hd 128 and 256 (every
+# head-dim instance of both routes): (B, S, T, H, Hkv, hd, masks)
 FLASH_CASES = [
     (1, 256, 256, 4, 2, 32, dict(causal=True)),
     (2, 128, 128, 2, 1, 64, dict(causal=True, window=64)),
@@ -418,7 +442,10 @@ FLASH_CASES = [
     (1, 128, 384, 2, 2, 32, dict(causal=False)),
     (1, 130, 130, 2, 2, 8, dict(causal=True)),
     (1, 256, 256, 8, 2, 16, dict(causal=True, window=100, softcap=30.0)),
+    (1, 200, 320, 2, 1, 128, dict(causal=False)),
+    (1, 512, 512, 2, 1, 256, dict(causal=True, window=200, softcap=50.0)),
 ]
+FLASH_SYMBOL = {"mma_bf16": "flash_mma_kernel", "fma_f32": "flash_fwd_kernel"}
 FLASH_TOL = {"float32": dict(rtol=1e-5, atol=1e-5),
              "bfloat16": dict(rtol=1e-2, atol=2e-2)}
 
@@ -458,12 +485,45 @@ def flash_bound(S, T, H, Hkv, B, hd, kw, itemsize):
             ops / F32_OPS_PER_S * 1e3)
 
 
+def sass_tensor_ops(lib):
+    """{kernel function: number of HMMA / HGMMA instructions} in a built
+    library's SASS, from ``cuobjdump -sass``."""
+    from repro_torch.kernels import _build
+
+    tool = os.path.join(os.path.dirname(_build.nvcc()), "cuobjdump")
+    res = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                         text=True, timeout=300)
+    check(res.returncode == 0, f"cuobjdump failed: {res.stderr[-2000:]}")
+    counts, fn = {}, None
+    for line in res.stdout.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :", 1)[1].strip()
+            counts[fn] = 0
+        elif fn is not None and ("HMMA" in line or "HGMMA" in line):
+            counts[fn] += 1
+    return counts
+
+
 def phase_flash(torch, FK, smi):
     """Returns the JSON fields measured at whisper-base's encoder shape."""
     import torch.nn.functional as Fn
 
+    tensor_ops = sass_tensor_ops(FK.build())
+    for fn, n in tensor_ops.items():
+        log(f"  SASS {fn}: {n} HMMA/HGMMA")
+    for route, symbol in FLASH_SYMBOL.items():
+        n = sum(v for k, v in tensor_ops.items() if symbol in k)
+        log(f"  route {route} ({symbol}): {n} tensor-core instructions")
+        check(route != "mma_bf16" or n > 0,
+              f"{symbol} has no tensor-core instruction in its SASS")
+
     def compare(label, args, kw, dtype, n_rows):
+        FK.reset_launch_counts()
         got = FK.flash_attention_fwd(*args, **kw)
+        route = FK.ROUTES[args[0].dtype]
+        check(FK.route_launch_counts()[route] == 1,
+              f"{label}: not launched on route {route} "
+              f"({FK.route_launch_counts()})")
         want = FK.flash_attention_plain(*args, **kw)
         torch.cuda.synchronize()
         got, want = got[:, :n_rows].float(), want[:, :n_rows].float()
@@ -471,7 +531,7 @@ def phase_flash(torch, FK, smi):
         err = float((got - want).abs().max())
         check(torch.allclose(got, want, **FLASH_TOL[dtype]),
               f"{label}: max_abs_err {err}")
-        log(f"  {label}: max_abs_err={err:.3g} ok")
+        log(f"  {label} [{route}]: max_abs_err={err:.3g} ok")
         return err
 
     for i, (B, S, T, H, Hkv, hd, masks) in enumerate(FLASH_CASES):
@@ -503,7 +563,8 @@ def phase_flash(torch, FK, smi):
         run = lambda: FK.flash_attention_fwd(*args, **kw)
         slow = S >= 4096
         ms = event_ms(torch, run, 5 if slow else 20)
-        dev_ms = device_ms(torch, run, "flash_fwd_kernel", 5 if slow else 20)
+        dev_ms = device_ms(torch, run, FLASH_SYMBOL["mma_bf16"],
+                           5 if slow else 20)
         plain_ms = event_ms(torch, lambda: FK.flash_attention_plain(*args, **kw),
                             2, warm=1)
         # the library yardstick on the unpadded (B, H, S, hd) layout, kv
@@ -520,7 +581,23 @@ def phase_flash(torch, FK, smi):
         entry = {"max_abs_err": err, "ms": ms, "device_ms": dev_ms,
                  "plain_ms": plain_ms, "library_ms": lib_ms,
                  "bound_ms": bound_ms, "bound_by": bound_by,
-                 "bound_f32_cuda_core_ms": f32_ms}
+                 "bound_f32_cuda_core_ms": f32_ms,
+                 "tflops": f32_ms * F32_OPS_PER_S / ms / 1e12}
+        if name == "whisper-base encoder":
+            # the float32 route (the CUDA-core kernel) on the same values
+            a32 = tuple(t.float() for t in args)
+            run32 = lambda: FK.flash_attention_fwd(*a32, **kw)
+            l32 = tuple(t.float() for t in (lq, lk, lv))
+            entry["f32_route_ms"] = event_ms(torch, run32, 20)
+            entry["f32_route_device_ms"] = device_ms(
+                torch, run32, FLASH_SYMBOL["fma_f32"], 20)
+            entry["f32_route_plain_ms"] = event_ms(
+                torch, lambda: FK.flash_attention_plain(*a32, **kw), 2,
+                warm=1)
+            entry["f32_route_library_ms"] = event_ms(
+                torch, lambda: Fn.scaled_dot_product_attention(
+                    *l32, is_causal=masks["causal"], scale=1.0), 20)
+            entry["f32_route_bound_ms"] = f32_ms
         log(f"  {name} [{smi}]: {json.dumps(entry)}")
         out.setdefault("flash_attention", entry)
         FK.reset_launch_counts()
@@ -532,7 +609,8 @@ def phase_flash(torch, FK, smi):
 # ---------------------------------------------------------------------------
 
 def phase_lm(torch, FK, smi):
-    """Returns the flash kernel's launches on the counted main-path run."""
+    """Returns the flash kernel's launches on the counted main-path run,
+    all and per route."""
     from repro_torch import configs
     from repro_torch.common.schema import count_params, init_params
     from repro_torch.launch import serve
@@ -544,9 +622,13 @@ def phase_lm(torch, FK, smi):
     FK.reset_launch_counts()
     check(serve.main(argv) == 0, f"serve.main({argv}) failed")
     launches = FK.launch_counts()["flash_attention"]
+    routes = FK.route_launch_counts()
     plain = FK.flash_attention_plain.calls
-    log(f"  launch.serve {' '.join(argv)}: {launches} flash launches, "
-        f"{plain} plain calls")
+    log(f"  launch.serve {' '.join(argv)}: {launches} flash launches "
+        f"{routes}, {plain} plain calls")
+    main_route = FK.ROUTES[getattr(torch, cfg.compute_dtype)]
+    check(routes[main_route] == launches,
+          f"the {cfg.compute_dtype} prefill left route {main_route}: {routes}")
     check(launches == cfg.n_enc_layers,
           f"the prefill launched flash {launches} times, expected "
           f"{cfg.n_enc_layers}")
@@ -567,6 +649,10 @@ def phase_lm(torch, FK, smi):
         want = c.n_enc_layers if impl == "kernel" else 0
         check(n == want, f"{c.compute_dtype} impl={impl}: {n} flash launches,"
               f" expected {want}")
+        route = FK.ROUTES[getattr(torch, c.compute_dtype)]
+        check(FK.route_launch_counts()[route] == n,
+              f"{c.compute_dtype} impl={impl}: launches off route {route}: "
+              f"{FK.route_launch_counts()}")
         check(FK.flash_attention_plain.calls == 0,
               "the card path called the plain flash version")
         for lg in out["logits"]:
@@ -575,7 +661,8 @@ def phase_lm(torch, FK, smi):
             check(bool(torch.isfinite(lg[:, :cfg.vocab]).all()),
                   f"{c.compute_dtype} impl={impl}: non-finite logits")
         steps = LM_GEN - 1
-        log(f"  {c.compute_dtype} impl={impl}: {n} flash launches; prefill "
+        log(f"  {c.compute_dtype} impl={impl}: {n} flash launches on "
+            f"{route if n else 'no route'}; prefill "
             f"{out['prefill_s'] * 1e3:.2f} ms, decode "
             f"{out['decode_s'] * 1e3 / steps:.3f} ms/step, "
             f"{LM_BATCH * steps / out['decode_s']:.1f} tok/s [{smi}]")
@@ -641,7 +728,7 @@ def phase_lm(torch, FK, smi):
             + "; ".join(f"{k} x{n} {ms:.1f}" for k, n, ms in hosts)
             + "; top device kernels (ms): "
             + "; ".join(f"{k} x{n} {ms:.2f}" for k, n, ms in kernels))
-    return launches
+    return launches, routes
 
 
 def graph_phases(torch, phases, dev, measured, launches):
@@ -782,9 +869,11 @@ def main(argv=None) -> int:
         libs = list(pool.map(lambda m: m.build(), (K, FK)))
     log(f"  built {', '.join(lib.name for lib in libs)} in "
         f"{time.perf_counter() - t0:.2f} s")
-    for line in libs[1].with_suffix(".log").read_text().splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"  ptxas: {line.strip()}")
+    for lib in libs:
+        for line in lib.with_suffix(".log").read_text().splitlines():
+            if ("registers" in line or "spill" in line
+                    or "Compiling entry" in line):
+                log(f"  ptxas: {line.strip()}")
 
     measured, launches = {}, {name: 0 for name in REPLACES}
     if phases & set("234"):
@@ -794,7 +883,9 @@ def main(argv=None) -> int:
         measured.update(phase_flash(torch, FK, smi))
     if "6" in phases:
         log("phase 6: whisper-base serving at full width")
-        launches["flash_attention"] = phase_lm(torch, FK, smi)
+        launches["flash_attention"], routes = phase_lm(torch, FK, smi)
+        measured.setdefault("flash_attention", {})[
+            "launches_by_route"] = routes
 
     kernels = []
     for name, entry in measured.items():

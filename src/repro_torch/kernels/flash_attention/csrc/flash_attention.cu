@@ -17,28 +17,57 @@
 // What bounds it: at the shapes it serves (whisper-base's encoder: 32 heads
 // x 1536 x 1536, hd 64) the work is 4 * hd operations per visible (query,
 // key) pair against 4 * S * hd bytes of q, k, v and out, so the operations
-// bound it. This first kernel runs them as float32 FMAs on the CUDA cores,
-// not on the tensor cores (wgmma, TMA and pipelining are later work).
+// bound it: the bf16 tensor cores for bf16 inputs.
 //
-// Design. The TPU kernel walks a sequential grid (bh, q block, kv block)
-// and keeps m, l and acc in VMEM from one kv step to the next. Blocks on
-// Hopper run in no order, so one CTA owns one (bh, 64-row query tile) and
-// loops over the key sub-tiles of its band itself, holding m, l and the
-// (64 x hd) accumulator in registers. The query tile and each 64-key
-// sub-tile of k sit transposed in shared memory ([d][row], float32) so that
-// a thread reads 4 query rows and 4 keys as two float4 loads per d; v sits
-// row-major. 256 threads: thread (ty, tx) = (tid / 16, tid % 16) owns query
-// rows 4ty..4ty+3, the score columns 4tx..4tx+3 of each sub-tile and the
-// output columns tx + 16j. A row's max and sum reduce over the 16 lanes of
-// its half-warp with shuffles. Sub-tiles are 64 x 64 where the TPU used
+// Two routes, chosen by dtype (the wrapper's FlashPlan):
+//
+// * bfloat16 -> flash_mma_kernel, on the tensor cores. One CTA of 4 warps
+//   owns a (bh, 64-row query tile); warp w owns query rows 16w..16w+15.
+//   QK^T and PV are mma.sync.m16n8k16 bf16 products with f32 accumulators.
+//   Operands come from shared memory through ldmatrix (V with .trans); each
+//   shared row is padded by 16 bytes, so the 8 rows an ldmatrix phase reads
+//   fall on 8 distinct groups of 4 banks. S, the running max m and sum l
+//   and the 16 x hd output accumulator stay in registers in f32; a row's
+//   statistics reduce over the quad of lanes that share it. P is rounded to
+//   bf16 in registers and fed to the PV mma as its A operand directly: the
+//   accumulator layout of two adjacent 8-key n-tiles is the A layout of one
+//   16-key k-step, so P never goes through shared memory. K and V sub-tiles
+//   (64 keys; 32 at hd 256, where the output accumulator alone takes 128
+//   registers a thread) arrive through a two-stage cp.async ring, one
+//   block-wide barrier per sub-tile: the next sub-tile loads while this one
+//   is multiplied. The query fragments stay in registers up to hd 128 and
+//   are re-read from shared memory per k-step at hd 256. Head dims pad to
+//   16, 32, 64, 128 or 256 with zero columns (hd 8 to the mma's k of 16).
+//   Masks run only on sub-tiles that straddle kv_len, the diagonal or the
+//   window edge; softcap (tanhf) runs before them. exp is ex2.approx of
+//   (s - m) * log2(e): the difference comes first, so NEG_INF - NEG_INF is 0
+//   and a masked key's 2^(-huge) is 0.
+// * float32 -> flash_fwd_kernel, the first kernel: f32 FMAs on the CUDA
+//   cores out of shared memory, which keeps the 1e-5 agreement with the
+//   plain version that full f32 products give (tensor cores would round the
+//   inputs).
+//
+// Both routes: blocks on Hopper run in no order, so where the TPU kernel
+// walks a sequential (bh, q block, kv block) grid with m, l and acc in
+// VMEM, one CTA loops over the key sub-tiles of its band itself. A sub-tile
+// outside the causal or window band, or past kv_len, is not visited: every
+// block the TPU skips is skipped here, and the extra skips drop only keys
+// that would be masked, which changes nothing for a row that sees any key.
+//
+// flash_fwd_kernel's layout: the query tile and each 64-key sub-tile of k
+// sit transposed in shared memory ([d][row], float32) so that a thread reads
+// 4 query rows and 4 keys as two float4 loads per d; v sits row-major. 256
+// threads: thread (ty, tx) = (tid / 16, tid % 16) owns query rows
+// 4ty..4ty+3, the score columns 4tx..4tx+3 of each sub-tile and the output
+// columns tx + 16j. A row's max and sum reduce over the 16 lanes of its
+// half-warp with shuffles. Sub-tiles are 64 x 64 where the TPU used
 // 128 x 128 (at hd = 256 the float32 tiles then take 217 KB of shared
-// memory), and a sub-tile is skipped when it lies outside the causal or
-// window band, or past kv_len: every block the TPU skips is skipped here,
-// and the extra skips drop only keys that would be masked, which changes
-// nothing for a row that sees any key. expf and tanhf, no fast math.
+// memory). expf and tanhf, no fast math.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <cstdint>
 
 namespace {
 
@@ -203,37 +232,355 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(Args a) {
   }
 }
 
-template <typename T, int HDP>
-int launch(const Args& a, int BH, cudaStream_t stream) {
-  const size_t bytes = smem_bytes(a.hd, HDP);
-  cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel<T, HDP>,
+// ---------------------------------------------------------------------------
+// bfloat16 route: mma.sync on the tensor cores
+// ---------------------------------------------------------------------------
+
+namespace mma {
+
+constexpr int kBQ = 64;       // query rows per CTA: 4 warps x 16
+constexpr int kWarps = 4;
+constexpr int kThreads = kWarps * 32;
+constexpr int kStages = 2;    // cp.async ring depth of the K / V sub-tiles
+constexpr int kPad = 8;       // bf16 elements of padding per shared row
+constexpr float kLog2e = 1.4426950408889634f;
+
+typedef __nv_bfloat16 bf16;
+
+template <int HDP> constexpr int block_k() { return HDP >= 256 ? 32 : 64; }
+
+template <int HDP> constexpr size_t smem_bytes() {
+  return sizeof(bf16) * static_cast<size_t>(kBQ + 2 * kStages * block_k<HDP>()) *
+         (HDP + kPad);
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_u32(dst)),
+               "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N> __device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+
+// c (16 x 8, f32) += a (16 x 16, bf16, row) * b (16 x 8, bf16, col)
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// 2^x on the special-function unit; 2^-inf = +0
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 t = __floats2bfloat162_rn(lo, hi);  // .x (low half) = lo
+  return *reinterpret_cast<uint32_t*>(&t);
+}
+
+// Fragment layouts of m16n8k16 (g = lane / 4, t = lane % 4): the f32
+// accumulator of an n-tile holds (row g, cols 2t, 2t+1) in c[0..1] and
+// (row g+8, the same cols) in c[2..3]; the A operand holds (row g, k 2t..)
+// in a[0], (row g+8, k 2t..) in a[1], (row g, k 8+2t..) in a[2] and
+// (row g+8, k 8+2t..) in a[3]. ldmatrix.x4 returns matrix i (rows given by
+// lanes 8i..8i+7) in r[i], lane l holding row l / 4, cols 2(l % 4)..+1.
+// Up to head pad 64 the kernel fits 128 registers, so four CTAs share an SM.
+template <int HDP, int BK>
+__global__ void __launch_bounds__(kThreads, HDP <= 64 ? 4 : 1) flash_mma_kernel(Args a) {
+  constexpr int LD = HDP + kPad;  // shared row stride in bf16 elements
+  constexpr bool kQInRegs = HDP <= 128;
+  extern __shared__ uint4 smem_u4[];
+  bf16* qs = reinterpret_cast<bf16*>(smem_u4);  // [kBQ][LD]
+  bf16* ks = qs + kBQ * LD;                     // [kStages][BK][LD]
+  bf16* vs = ks + kStages * BK * LD;            // [kStages][BK][LD]
+
+  const int hd = a.hd;
+  const int bh = blockIdx.y;
+  const int q0 = blockIdx.x * kBQ;
+  const int h = bh % a.H;
+  const int kvh = (bh / a.H) * a.Hkv + h / (a.H / a.Hkv);
+  const bf16* q = static_cast<const bf16*>(a.q) + (static_cast<long long>(bh) * a.S + q0) * hd;
+  const bf16* k = static_cast<const bf16*>(a.k) + static_cast<long long>(kvh) * a.T * hd;
+  const bf16* v = static_cast<const bf16*>(a.v) + static_cast<long long>(kvh) * a.T * hd;
+
+  const int tid = threadIdx.x;
+  const int warp = tid / 32, lane = tid % 32;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int chunks = hd / 8;  // 16-byte chunks per row
+
+  // zero the head-dim padding [hd, HDP) of every shared row once: cp.async
+  // writes only [0, hd), so it stays zero and adds nothing to either product
+  if (hd < HDP) {
+    const int pc = (HDP - hd) / 8;
+    for (int i = tid; i < (kBQ + 2 * kStages * BK) * pc; i += kThreads) {
+      *reinterpret_cast<uint4*>(qs + (i / pc) * LD + hd + (i % pc) * 8) = make_uint4(0, 0, 0, 0);
+    }
+  }
+
+  // the band: key sub-tiles [kb_lo, kb_hi)
+  int kb_hi = (a.kv_len + BK - 1) / BK;
+  if (a.causal) kb_hi = min(kb_hi, (q0 + kBQ - 1) / BK + 1);
+  int kb_lo = 0;
+  if (a.window) {
+    const int x = q0 - a.window - BK + 1;  // sub-tiles with kb * BK <= x are left of it
+    if (x >= 0) kb_lo = x / BK + 1;
+  }
+
+  auto load_kv = [&](int kb, int stage) {
+    const long long base = static_cast<long long>(kb) * BK * hd;
+    bf16* kd = ks + stage * BK * LD;
+    bf16* vd = vs + stage * BK * LD;
+    for (int i = tid; i < BK * chunks; i += kThreads) {
+      const int r = i / chunks, c = (i % chunks) * 8;
+      cp_async16(kd + r * LD + c, k + base + static_cast<long long>(r) * hd + c);
+      cp_async16(vd + r * LD + c, v + base + static_cast<long long>(r) * hd + c);
+    }
+  };
+
+  for (int i = tid; i < kBQ * chunks; i += kThreads) {
+    const int r = i / chunks, c = (i % chunks) * 8;
+    cp_async16(qs + r * LD + c, q + static_cast<long long>(r) * hd + c);
+  }
+  cp_async_commit();
+  if (kb_lo < kb_hi) load_kv(kb_lo, 0);
+  cp_async_commit();
+  cp_async_wait<1>();  // the query tile has landed
+  __syncthreads();
+
+  // lane l addresses row l % 16, column block l / 16 of a 16 x 16 A tile
+  const bf16* qa = qs + (warp * 16 + (lane & 15)) * LD + ((lane >> 4) << 3);
+  uint32_t qf[kQInRegs ? HDP / 16 : 1][4];
+  if constexpr (kQInRegs) {
+#pragma unroll
+    for (int kk = 0; kk < HDP / 16; ++kk) ldmatrix_x4(qf[kk], qa + kk * 16);
+  }
+  // K (non-trans) and V (trans) ldmatrix.x4 lane offsets within a sub-tile
+  const int k_off = ((lane & 7) + ((lane >> 4) << 3)) * LD + (((lane >> 3) & 1) << 3);
+  const int v_off = ((lane & 7) + (((lane >> 3) & 1) << 3)) * LD + ((lane >> 4) << 3);
+
+  float o[HDP / 8][4];
+#pragma unroll
+  for (int n = 0; n < HDP / 8; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.0f;
+  float m_lo = kNegInf, m_hi = kNegInf;  // rows g and g + 8 of the warp's 16
+  float l_lo = 0.0f, l_hi = 0.0f;        // this lane's share of their sums
+  const int qpos_lo = q0 + warp * 16 + g;
+
+  for (int kb = kb_lo, it = 0; kb < kb_hi; ++kb, ++it) {
+    cp_async_wait<0>();
+    __syncthreads();  // sub-tile kb landed; every warp is done with kb - 1's stage
+    if (kb + 1 < kb_hi) load_kv(kb + 1, (it + 1) & 1);
+    cp_async_commit();
+    const bf16* kt = ks + (it & 1) * BK * LD;
+    const bf16* vt = vs + (it & 1) * BK * LD;
+    const int k0 = kb * BK;
+
+    // S = Q K^T: BK / 8 n-tiles of 8 keys
+    float s[BK / 8][4];
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.0f;
+#pragma unroll
+    for (int kk = 0; kk < HDP / 16; ++kk) {
+      uint32_t af[4];
+      if constexpr (kQInRegs) {
+        af[0] = qf[kk][0]; af[1] = qf[kk][1]; af[2] = qf[kk][2]; af[3] = qf[kk][3];
+      } else {
+        ldmatrix_x4(af, qa + kk * 16);
+      }
+#pragma unroll
+      for (int nj = 0; nj < BK / 16; ++nj) {
+        uint32_t b[4];
+        ldmatrix_x4(b, kt + nj * 16 * LD + kk * 16 + k_off);
+        mma_bf16(s[2 * nj], af, b[0], b[1]);
+        mma_bf16(s[2 * nj + 1], af, b[2], b[3]);
+      }
+    }
+
+    // softcap, then the masks where the sub-tile straddles an edge
+    const bool edge = k0 + BK > a.kv_len || (a.causal && k0 + BK - 1 > q0) ||
+                      (a.window && q0 + kBQ - 1 - k0 >= a.window);
+    float mx_lo = kNegInf, mx_hi = kNegInf;
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = s[j][e];
+        if (a.softcap != 0.0f) x = a.softcap * tanhf(x / a.softcap);
+        if (edge) {
+          const int kpos = k0 + j * 8 + 2 * t4 + (e & 1);
+          const int qpos = qpos_lo + (e >> 1) * 8;
+          bool ok = kpos < a.kv_len;
+          if (a.causal) ok = ok && qpos >= kpos;
+          if (a.window) ok = ok && qpos - kpos < a.window;
+          x = ok ? x : kNegInf;
+        }
+        s[j][e] = x;
+      }
+      mx_lo = fmaxf(mx_lo, fmaxf(s[j][0], s[j][1]));
+      mx_hi = fmaxf(mx_hi, fmaxf(s[j][2], s[j][3]));
+    }
+#pragma unroll
+    for (int off = 1; off <= 2; off <<= 1) {
+      mx_lo = fmaxf(mx_lo, __shfl_xor_sync(0xffffffffu, mx_lo, off));
+      mx_hi = fmaxf(mx_hi, __shfl_xor_sync(0xffffffffu, mx_hi, off));
+    }
+    const float mn_lo = fmaxf(m_lo, mx_lo), mn_hi = fmaxf(m_hi, mx_hi);
+    const float al_lo = ex2((m_lo - mn_lo) * kLog2e);
+    const float al_hi = ex2((m_hi - mn_hi) * kLog2e);
+    m_lo = mn_lo;
+    m_hi = mn_hi;
+    float rs_lo = 0.0f, rs_hi = 0.0f;
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j) {
+      s[j][0] = ex2((s[j][0] - mn_lo) * kLog2e);
+      s[j][1] = ex2((s[j][1] - mn_lo) * kLog2e);
+      s[j][2] = ex2((s[j][2] - mn_hi) * kLog2e);
+      s[j][3] = ex2((s[j][3] - mn_hi) * kLog2e);
+      rs_lo += s[j][0] + s[j][1];
+      rs_hi += s[j][2] + s[j][3];
+    }
+    l_lo = l_lo * al_lo + rs_lo;
+    l_hi = l_hi * al_hi + rs_hi;
+#pragma unroll
+    for (int n = 0; n < HDP / 8; ++n) {
+      o[n][0] *= al_lo;
+      o[n][1] *= al_lo;
+      o[n][2] *= al_hi;
+      o[n][3] *= al_hi;
+    }
+
+    // O += P V: P rounded to bf16 in registers, n-tiles 2kk and 2kk + 1 of
+    // S forming the A operand of k-step kk
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      uint32_t pa[4];
+      pa[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
+      pa[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
+      pa[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
+      pa[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+#pragma unroll
+      for (int dn = 0; dn < HDP / 16; ++dn) {
+        uint32_t b[4];
+        ldmatrix_x4_trans(b, vt + kk * 16 * LD + dn * 16 + v_off);
+        mma_bf16(o[2 * dn], pa, b[0], b[1]);
+        mma_bf16(o[2 * dn + 1], pa, b[2], b[3]);
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int off = 1; off <= 2; off <<= 1) {
+    l_lo += __shfl_xor_sync(0xffffffffu, l_lo, off);
+    l_hi += __shfl_xor_sync(0xffffffffu, l_hi, off);
+  }
+  const float d_lo = fmaxf(l_lo, 1e-30f), d_hi = fmaxf(l_hi, 1e-30f);
+  bf16* out = static_cast<bf16*>(a.o) + (static_cast<long long>(bh) * a.S + q0 + warp * 16) * hd;
+#pragma unroll
+  for (int n = 0; n < HDP / 8; ++n) {
+    const int col = n * 8 + 2 * t4;
+    if (col < hd) {  // hd is a multiple of 8, so col + 1 < hd too
+      *reinterpret_cast<uint32_t*>(out + g * hd + col) = pack_bf16(o[n][0] / d_lo, o[n][1] / d_lo);
+      *reinterpret_cast<uint32_t*>(out + (g + 8) * hd + col) =
+          pack_bf16(o[n][2] / d_hi, o[n][3] / d_hi);
+    }
+  }
+}
+
+template <int HDP>
+int launch(const Args& a, int BH, int bk, int smem, cudaStream_t stream) {
+  constexpr int BK = block_k<HDP>();
+  constexpr size_t bytes = smem_bytes<HDP>();
+  if (bk != BK || static_cast<size_t>(smem) != bytes) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaError_t err = cudaFuncSetAttribute(flash_mma_kernel<HDP, BK>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(bytes));
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(a.S / kBQ, BH);
-  flash_fwd_kernel<T, HDP><<<grid, kThreads, bytes, stream>>>(a);
+  flash_mma_kernel<HDP, BK><<<grid, kThreads, bytes, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int dispatch(const Args& a, int BH, cudaStream_t stream) {
-  if (a.hd <= 16) return launch<T, 16>(a, BH, stream);
-  if (a.hd <= 32) return launch<T, 32>(a, BH, stream);
-  if (a.hd <= 64) return launch<T, 64>(a, BH, stream);
-  if (a.hd <= 128) return launch<T, 128>(a, BH, stream);
-  return launch<T, 256>(a, BH, stream);
+}  // namespace mma
+
+// ---------------------------------------------------------------------------
+// float32 route: flash_fwd_kernel
+// ---------------------------------------------------------------------------
+
+template <int HDP>
+int launch_f32(const Args& a, int BH, int bk, int smem, cudaStream_t stream) {
+  const size_t bytes = smem_bytes(a.hd, HDP);
+  if (bk != kBK || static_cast<size_t>(smem) != bytes) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel<float, HDP>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(bytes));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(a.S / kBQ, BH);
+  flash_fwd_kernel<float, HDP><<<grid, kThreads, bytes, stream>>>(a);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// dtype: 0 float32, 1 bfloat16. q (BH, S, hd), k and v (BH / H * Hkv, T, hd),
-// out like q; S and T multiples of 128, hd a multiple of 8 up to 256 (the
-// wrapper checks). Returns the launch's cudaError_t.
+// dtype: 0 float32 (flash_fwd_kernel), 1 bfloat16 (flash_mma_kernel).
+// q (BH, S, hd), k and v (BH / H * Hkv, T, hd), out like q; S and T
+// multiples of 128, hd a multiple of 8 up to 256 (the wrapper checks).
+// hdp, block_k and smem are the wrapper's plan (padded head dim, keys per
+// sub-tile, dynamic shared bytes); a plan this file does not build is
+// refused with cudaErrorInvalidValue. Returns the launch's cudaError_t.
 extern "C" int flash_attention_fwd(int dtype, const void* q, const void* k, const void* v,
                                    void* out, int BH, int S, int T, int hd, int H, int Hkv,
-                                   int causal, int window, float softcap, int kv_len,
-                                   void* stream) {
+                                   int causal, int window, float softcap, int kv_len, int hdp,
+                                   int block_k, int smem, void* stream) {
   const Args a{q, k, v, out, S, T, hd, H, Hkv, causal, window, kv_len, softcap};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return dtype == 1 ? dispatch<__nv_bfloat16>(a, BH, st) : dispatch<float>(a, BH, st);
+  if (hd > hdp) return static_cast<int>(cudaErrorInvalidValue);
+  if (dtype == 1) {
+    switch (hdp) {
+      case 16: return mma::launch<16>(a, BH, block_k, smem, st);
+      case 32: return mma::launch<32>(a, BH, block_k, smem, st);
+      case 64: return mma::launch<64>(a, BH, block_k, smem, st);
+      case 128: return mma::launch<128>(a, BH, block_k, smem, st);
+      case 256: return mma::launch<256>(a, BH, block_k, smem, st);
+    }
+  } else if (dtype == 0) {
+    switch (hdp) {
+      case 16: return launch_f32<16>(a, BH, block_k, smem, st);
+      case 32: return launch_f32<32>(a, BH, block_k, smem, st);
+      case 64: return launch_f32<64>(a, BH, block_k, smem, st);
+      case 128: return launch_f32<128>(a, BH, block_k, smem, st);
+      case 256: return launch_f32<256>(a, BH, block_k, smem, st);
+    }
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }

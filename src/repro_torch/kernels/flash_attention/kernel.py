@@ -11,7 +11,11 @@ is imported.
 replaces and dispatches on where its tensors lie:
 
 * CUDA tensors launch the kernel on PyTorch's current stream (and add one
-  to ``flash_attention_fwd.launches``); a refused launch raises;
+  to ``flash_attention_fwd.launches`` and to its route's count); a refused
+  launch raises. The route follows the dtype (``flash_plan``): bfloat16
+  runs ``flash_mma_kernel`` on the tensor cores, float32 runs
+  ``flash_fwd_kernel`` on the CUDA cores, whose full f32 products keep the
+  1e-5 agreement with the plain version;
 * CPU tensors run ``flash_attention_plain``, the same blocked walk in
   PyTorch;
 * anything else raises. There is no fallback from the kernel to the plain
@@ -23,7 +27,7 @@ from __future__ import annotations
 import ctypes
 import threading
 from pathlib import Path
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -34,6 +38,8 @@ BLOCK_Q = 128
 BLOCK_K = 128
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+ROUTES = {torch.float32: "fma_f32", torch.bfloat16: "mma_bf16"}
+_HEAD_PADS = (16, 32, 64, 128, 256)
 _SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
 
 _lib: Optional[ctypes.CDLL] = None
@@ -53,10 +59,46 @@ def _load() -> ctypes.CDLL:
             lib = ctypes.CDLL(str(build()))
             p, i = ctypes.c_void_p, ctypes.c_int
             lib.flash_attention_fwd.argtypes = [i, p, p, p, p, i, i, i, i, i,
-                                                i, i, i, ctypes.c_float, i, p]
+                                                i, i, i, ctypes.c_float, i, i,
+                                                i, i, p]
             lib.flash_attention_fwd.restype = i
             _lib = lib
     return _lib
+
+
+class FlashPlan(NamedTuple):
+    """How the kernel runs one call: the route, the head dim padded to a
+    template instance, query rows and keys per CTA tile, threads per CTA
+    and the CTA's dynamic shared memory in bytes. The CUDA side refuses a
+    plan it does not build."""
+    route: str
+    head_pad: int
+    block_q: int
+    block_k: int
+    threads: int
+    smem_bytes: int
+
+
+def flash_plan(dtype: torch.dtype, hd: int) -> FlashPlan:
+    """The launch plan for ``dtype`` inputs of head dim ``hd``.
+
+    ``mma_bf16``: 4 warps × 16 query rows; bf16 q tile plus a two-stage
+    ring of k and v sub-tiles (64 keys, 32 at head pad 256), each shared
+    row padded by 8 elements. ``fma_f32``: 256 threads; f32 q and k
+    tiles transposed (row stride 68), a 64-key v sub-tile and the p tile.
+    """
+    if dtype not in ROUTES:
+        raise TypeError(f"no flash route for {dtype}")
+    if hd % 8 or not 0 < hd <= 256:
+        raise ValueError(f"head dim {hd} must be a multiple of 8 up to 256")
+    pad = next(p for p in _HEAD_PADS if hd <= p)
+    if ROUTES[dtype] == "mma_bf16":
+        bq, bk, stages = 64, (32 if pad == 256 else 64), 2
+        smem = 2 * (bq + 2 * stages * bk) * (pad + 8)
+        return FlashPlan("mma_bf16", pad, bq, bk, 128, smem)
+    bq = bk = 64
+    smem = 4 * (2 * hd * (bq + 4) + bk * pad + bk * (bq + 4))
+    return FlashPlan("fma_f32", pad, bq, bk, 256, smem)
 
 
 def _check(q, k, v, kv_len: int, n_kv_heads: int):
@@ -164,7 +206,11 @@ def flash_attention_fwd(q, k, v, *, causal: bool, window: int,
                              f"{q.device}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("kernel inputs must be contiguous")
+    for t in (q, k, v):
+        if t.data_ptr() % 16:
+            raise ValueError("kernel inputs must be 16-byte aligned")
     BH, S, hd = q.shape
+    plan = flash_plan(q.dtype, hd)
     out = torch.empty_like(q)
     if BH == 0:
         return out
@@ -172,24 +218,35 @@ def flash_attention_fwd(q, k, v, *, causal: bool, window: int,
     rc = _load().flash_attention_fwd(
         _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
         out.data_ptr(), BH, S, k.shape[1], hd, H, n_kv_heads, int(causal),
-        int(window), float(softcap), kv_len, stream)
+        int(window), float(softcap), kv_len, plan.head_pad, plan.block_k,
+        plan.smem_bytes, stream)
     if rc != 0:
-        raise RuntimeError(f"flash_attention_fwd launch failed: CUDA error "
-                           f"{rc}")
+        raise RuntimeError(f"flash_attention_fwd launch failed ({plan}): "
+                           f"CUDA error {rc}")
     flash_attention_fwd.launches += 1
+    flash_attention_fwd.route_launches[plan.route] += 1
     return out
 
 
 flash_attention_fwd.launches = 0
+flash_attention_fwd.route_launches = {r: 0 for r in ROUTES.values()}
 flash_attention_plain.calls = 0
 
 
 def reset_launch_counts() -> None:
-    """Set the kernel's launch count and the plain version's call count
-    to 0."""
+    """Set the kernel's launch counts (all and per route) and the plain
+    version's call count to 0."""
     flash_attention_fwd.launches = 0
+    for r in flash_attention_fwd.route_launches:
+        flash_attention_fwd.route_launches[r] = 0
     flash_attention_plain.calls = 0
 
 
 def launch_counts() -> dict:
     return {"flash_attention": flash_attention_fwd.launches}
+
+
+def route_launch_counts() -> dict:
+    """Launches per route since the last reset: ``mma_bf16`` and
+    ``fma_f32``."""
+    return dict(flash_attention_fwd.route_launches)

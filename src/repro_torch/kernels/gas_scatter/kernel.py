@@ -19,6 +19,11 @@ dispatches on where its tensors lie:
 Tile constants: 128 output rows and 128 edges per round, as on the TPU;
 the feature block is 32 (one warp's width) where the TPU used 128 lanes, so
 feature-block liveness columns of a work list are per 32 features.
+
+The banded kernel runs one thread-block cluster per (row block × feature
+block); ``banded_plan`` picks its size from the shapes alone (no read of
+the work list, so no device-to-host sync) and ``cluster_share`` is the
+split of a row block's run over the cluster's CTAs that the kernel makes.
 """
 
 from __future__ import annotations
@@ -26,7 +31,7 @@ from __future__ import annotations
 import ctypes
 import threading
 from pathlib import Path
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -37,6 +42,16 @@ EDGE_TILE = 128
 FEAT_BLOCK = 32
 
 OPS = {"add": 0, "max": 1, "min": 2}
+
+CLUSTER_MAX = 8               # CTAs per cluster, the portable limit
+BANDED_THREADS = 256
+BANDED_WINDOW = BANDED_THREADS  # work rows compacted per pass
+# the banded CTA's shared memory: its partial tile, two value blocks, two
+# id and weight stages, the window's live-round list and two sets of 8
+# warp counts
+BANDED_SMEM = 4 * (ROW_BLOCK * FEAT_BLOCK + 2 * EDGE_TILE * FEAT_BLOCK
+                   + 2 * 2 * EDGE_TILE + BANDED_WINDOW
+                   + 2 * (BANDED_THREADS // 32))
 
 _SOURCE = Path(__file__).resolve().parent / "csrc" / "gas_scatter.cu"
 
@@ -57,7 +72,7 @@ def _load() -> ctypes.CDLL:
             lib = ctypes.CDLL(str(build()))
             p, i = ctypes.c_void_p, ctypes.c_int
             lib.gas_scatter_banded_f32.argtypes = [p, i, i, p, p, p, p, i, i,
-                                                   i, p]
+                                                   i, i, i, p]
             lib.gas_scatter_banded_f32.restype = i
             lib.gas_scatter_dense_f32.argtypes = [p, i, p, p, p, p, i, i, i,
                                                   p]
@@ -167,6 +182,37 @@ def gas_scatter_banded_plain(work, dst, values, n_rows: int, *,
     return out
 
 
+class BandedPlan(NamedTuple):
+    """The banded kernel's launch: CTAs per cluster, the grid (row blocks ×
+    cluster, feature blocks), threads per CTA and dynamic shared bytes."""
+    cluster: int
+    grid: tuple
+    threads: int
+    smem_bytes: int
+
+
+def banded_plan(W: int, n_rows: int, F: int) -> BandedPlan:
+    """One cluster per (row block × feature block), as many CTAs as the
+    mean run of the work list has rows (``ceil(W / row_blocks)``), between
+    1 and ``CLUSTER_MAX``. One inference chunk (W = 9, one row block,
+    F = 608) gets 8 × 19 = 152 CTAs."""
+    n_blocks = n_rows // ROW_BLOCK
+    per_block = -(-W // n_blocks) if n_blocks else 0
+    cluster = max(1, min(CLUSTER_MAX, per_block))
+    return BandedPlan(cluster, (n_blocks * cluster, F // FEAT_BLOCK),
+                      BANDED_THREADS, BANDED_SMEM)
+
+
+def cluster_share(lo: int, hi: int, rank: int, cluster: int):
+    """Work rows [start, end) that CTA ``rank`` of a cluster applies from
+    its row block's run [lo, hi): the rank-th of ``cluster`` contiguous
+    shares, as the kernel splits it (empty when the run is shorter than
+    the cluster). The partials combine in rank order, which is stream
+    order."""
+    n = hi - lo
+    return lo + n * rank // cluster, lo + n * (rank + 1) // cluster
+
+
 def gas_scatter_banded(work, dst, values, n_rows: int, *, op: str = "add",
                        weights=None):
     """Scheduled FAST-GAS scatter-reduce: walks each row block's own run of
@@ -188,15 +234,20 @@ def gas_scatter_banded(work, dst, values, n_rows: int, *, op: str = "add",
     if values.device.type != "cuda":
         raise ValueError(f"no kernel for device {values.device}")
     _check_cuda(values, work, dst, weights)
+    if values.data_ptr() % 16:
+        raise ValueError("values must be 16-byte aligned")
     out = torch.empty((n_rows, F), dtype=values.dtype, device=values.device)
     if n_rows == 0 or F == 0:
         return out
+    plan = banded_plan(work.shape[0], n_rows, F)
     stream = torch.cuda.current_stream(values.device).cuda_stream
     rc = _load().gas_scatter_banded_f32(
         _ptr(work), work.shape[0], work.shape[1], _ptr(dst), _ptr(weights),
-        _ptr(values), _ptr(out), n_rows, F, OPS[op], stream)
+        _ptr(values), _ptr(out), n_rows, F, OPS[op], plan.cluster,
+        plan.smem_bytes, stream)
     if rc != 0:
-        raise RuntimeError(f"gas_scatter_banded launch failed: CUDA error {rc}")
+        raise RuntimeError(f"gas_scatter_banded launch failed ({plan}): "
+                           f"CUDA error {rc}")
     gas_scatter_banded.launches += 1
     return out
 
