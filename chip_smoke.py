@@ -12,12 +12,15 @@ Phases, each failing hard (exit status 1, no result line):
    weights, with and without all-zero feature blocks; max and min, also
    with NaN values; integer data bit-exact, NaN cells where the plain
    version has them, normal data within rtol = atol = 1e-5; a second
-   launch on the same inputs returns the same bits), print the banded
-   launch's grid and cluster (at least 132 CTAs on one inference chunk),
-   and time, for add, max and min, the kernel (per call and on the
-   device), the plain version, one library call computing the same
-   function (``torch.sparse.mm`` / ``scatter_reduce_``, never used by the
-   port) and the memory-bound floor;
+   launch on the same inputs returns the same bits), and the dense grid
+   also over 1024 rows and 520 edge tiles with sorted and with shuffled
+   dst; print both launch plans (grid, cluster, CTAs, shared bytes; at
+   least 132 CTAs on one inference chunk and on one serving segment), and
+   time, for add, max and min, the kernel (per call, on the device, and
+   the wrapper's host µs per call by piece), the plain version, one
+   library call computing the same function (``torch.sparse.mm`` /
+   ``scatter_reduce_``, never used by the port) and the memory-bound
+   floor;
 3. serving: the GraphSAGE serving engine over a uniform graph of 2^20
    vertices, 16 edges per vertex and Reddit's 602 features, 64 zipf-skewed
    requests of 1–3 seeds from 4 tenants, fan-out 50, ``max_batch=8``, a
@@ -145,6 +148,54 @@ def event_ms(torch, fn, iters, warm=3):
     return start.elapsed_time(end) / iters
 
 
+def host_us(torch, fn, iters=200, warm=10):
+    """Mean host µs per call over ``iters`` back-to-back calls: the time to
+    enqueue, not to run (nothing synchronises inside the window)."""
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return dt / iters * 1e6
+
+
+def wrapper_host_us(torch, K, call):
+    """Host µs per call of a GAS wrapper on the card, whole and by piece:
+    the output's allocation (``new_empty``, as the wrapper makes it, and
+    ``torch.empty``), the stream query (the raw one the wrapper makes, and
+    the public ``current_stream``), the ctypes entry alone (its launch
+    included; these launches count nowhere) and the rest (the signature
+    lookup and the per-call checks)."""
+    banded = call.kernel == "gas_scatter_banded"
+    if banded:
+        meta, dst, vals, R = call.args
+    else:
+        dst, vals, meta, R = call.args
+    w = call.kwargs.get("weights")
+    shape, dev, index = (R, vals.shape[1]), vals.device, vals.get_device()
+    fn, stream = K._load()[0 if banded else 1], K._load()[2]
+    call.run()  # the signature is checked and cached
+    checked = K._SIGNATURES[K._signature("banded" if banded else "dense",
+                                         meta, dst, vals, R,
+                                         call.kwargs["op"], w)]
+    out = vals.new_empty(shape)
+    args = (checked.address, meta.data_ptr(), dst.data_ptr(),
+            None if w is None else w.data_ptr(), vals.data_ptr(),
+            out.data_ptr(), stream(index))
+    t = {"call": host_us(torch, call.run),
+         "new_empty": host_us(torch, lambda: vals.new_empty(shape)),
+         "empty": host_us(torch, lambda: torch.empty(shape, device=dev)),
+         "raw_stream": host_us(torch, lambda: stream(index)),
+         "current_stream": host_us(
+             torch, lambda: torch.cuda.current_stream(dev).cuda_stream),
+         "entry": host_us(torch, lambda: fn(*args))}
+    t["rest"] = t["call"] - t["new_empty"] - t["raw_stream"] - t["entry"]
+    return t
+
+
 def device_ms(torch, fn, kernel_symbol, iters=50):
     """Mean device time of the kernel named ``kernel_symbol`` per call, from
     the profiler's trace; None when the trace shows no device time."""
@@ -266,19 +317,10 @@ def library_fn(torch, call):
 # phase 2: each kernel against its plain version, at the main path's shapes
 # ---------------------------------------------------------------------------
 
-def segment_calls(torch, ops, table, nbrs, mask, op, schedule, data,
-                  zero_blocks, weights="unit"):
-    """The kernel call the main path makes for one fan-out segment: the
-    (R, K) ids gathered from the table, seed destinations
-    ``repeat(arange(R), K)``, unit weights for add. ``data``: "normal"
-    (the table's rows), "int" (rounded to integers) or "nan" (integers with
-    a NaN in every 97th edge's every 13th feature); ``weights="int"`` swaps
-    the unit weights for integers in [-3, 3] made from a seed."""
-    import numpy as np
-
-    R, K = nbrs.shape
-    own = mask & (nbrs >= 0) & (nbrs < table.shape[0])
-    rows = table[nbrs.clamp(0, table.shape[0] - 1).reshape(-1).long()]
+def _call_values(torch, rows, data, zero_blocks):
+    """``data``: "normal" (the rows as they are), "int" (rounded to
+    integers) or "nan" (integers with a NaN in every 97th edge's every 13th
+    feature); ``zero_blocks`` zeroes features 64-191 (whole 32-blocks)."""
     if data in ("int", "nan"):
         rows = torch.round(rows * 4)
     if data == "nan":
@@ -286,17 +328,65 @@ def segment_calls(torch, ops, table, nbrs, mask, op, schedule, data,
     if zero_blocks:
         rows = rows.clone()
         rows[:, 64:192] = 0.0
+    return rows.contiguous()
+
+
+def _call_weights(torch, op, weights, E, device):
+    """Unit weights for add, or (``weights="int"``) integers in [-3, 3]
+    made from a seed; None for max and min."""
+    import numpy as np
+
+    if op != "add":
+        return None
+    if weights == "unit":
+        return torch.ones(E, device=device)
+    return torch.from_numpy(np.random.default_rng(2).integers(
+        -3, 4, E).astype(np.float32)).to(device)
+
+
+def segment_calls(torch, ops, table, nbrs, mask, op, schedule, data,
+                  zero_blocks, weights="unit"):
+    """The kernel call the main path makes for one fan-out segment: the
+    (R, K) ids gathered from the table, seed destinations
+    ``repeat(arange(R), K)``, unit weights for add (``_call_values`` and
+    ``_call_weights`` say what ``data``, ``zero_blocks`` and ``weights``
+    change)."""
+    R, K = nbrs.shape
+    own = mask & (nbrs >= 0) & (nbrs < table.shape[0])
+    rows = table[nbrs.clamp(0, table.shape[0] - 1).reshape(-1).long()]
     seed = torch.arange(R, dtype=torch.int32,
                         device=table.device).repeat_interleave(K)
     sched = (ops.schedule_edges(seed, own.reshape(-1), R, assume_sorted=True)
              if schedule else None)
-    w = None
-    if op == "add":
-        w = (torch.ones(R * K, device=table.device) if weights == "unit"
-             else torch.from_numpy(np.random.default_rng(2).integers(
-                 -3, 4, R * K).astype(np.float32)).to(table.device))
-    return ops.fused_call(seed, rows.contiguous(), w, own.reshape(-1), R,
-                          op=op, schedule=sched)
+    return ops.fused_call(seed, _call_values(torch, rows, data, zero_blocks),
+                          _call_weights(torch, op, weights, R * K,
+                                        table.device),
+                          own.reshape(-1), R, op=op, schedule=sched)
+
+
+# the dense grid's second phase-2 shape: many row blocks and edge tiles
+MULTI_ROWS, MULTI_TILES = 1024, 520
+
+
+def multiblock_call(torch, ops, table, op, data, zero_blocks, weights,
+                    order):
+    """An unscheduled call over MULTI_ROWS rows (8 row blocks) and
+    MULTI_TILES edge tiles, table rows at ids from a seed, 90 % of the
+    edges live; dst ``sorted`` (each row block occupies ~1/8 of the tiles)
+    or ``shuffled`` (each occupies every tile)."""
+    import numpy as np
+
+    rng = np.random.default_rng(3)
+    E = MULTI_TILES * 128
+    dst = rng.integers(0, MULTI_ROWS, E).astype(np.int32)
+    if order == "sorted":
+        dst = np.sort(dst)
+    ids = torch.from_numpy(rng.integers(0, table.shape[0], E)).to(table.device)
+    live = torch.from_numpy(rng.random(E) < 0.9).to(table.device)
+    rows = _call_values(torch, table[ids], data, zero_blocks)
+    return ops.fused_call(torch.from_numpy(dst).to(table.device), rows,
+                          _call_weights(torch, op, weights, E, table.device),
+                          live, MULTI_ROWS, op=op)
 
 
 # (op, data, feature skip, weights) of every phase-2 comparison
@@ -309,10 +399,63 @@ CASES = ([("add", data, zb, "unit") for data in ("int", "normal")
 
 
 KERNEL_SYMBOL = {"gas_scatter_banded": "banded_cluster_kernel",
-                 "gas_scatter_dense": "dense_kernel"}
+                 "gas_scatter_dense": "dense_cluster_kernel"}
 
 
-def phase_kernels(torch, ops, K, table, shapes):
+def plain_in_order(torch, call):
+    """The plain version with PyTorch's deterministic algorithms on: its
+    ``index_add_`` then sums each row in index order, not in the order in
+    which atomics land, so the comparison with the (deterministic) kernel
+    comes out the same in every run."""
+    was = (torch.are_deterministic_algorithms_enabled(),
+           torch.is_deterministic_algorithms_warn_only_enabled())
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        return call.run_plain()
+    finally:
+        torch.use_deterministic_algorithms(was[0], warn_only=was[1])
+
+
+def check_call(torch, call, label, data):
+    """Hold one kernel call against its plain version (``plain_in_order``):
+    a second launch bit-identical, identity rows and NaN cells in place,
+    integer data bit-exact, normal data within rtol = atol = 1e-5. Returns
+    the max abs error on the finite cells."""
+    got = call.run()
+    again = call.run()
+    want = plain_in_order(torch, call)
+    torch.cuda.synchronize()
+    check(torch.equal(got.view(torch.int32), again.view(torch.int32)),
+          f"{label}: two launches on the same inputs differ")
+    check(torch.equal(torch.isinf(got), torch.isinf(want)),
+          f"{label}: identity rows differ")
+    check(torch.equal(torch.isnan(got), torch.isnan(want)),
+          f"{label}: NaN cells differ")
+    check(data != "nan" or bool(torch.isnan(want).any()),
+          f"{label}: no NaN reached the output")
+    fin = torch.isfinite(want)
+    err = float((got[fin] - want[fin]).abs().max()) if fin.any() else 0.0
+    if data in ("int", "nan"):
+        num = ~torch.isnan(want)
+        check(torch.equal(got[num], want[num]),
+              f"{label}: not bit-exact (err {err})")
+    else:
+        check(torch.allclose(got[fin], want[fin], rtol=1e-5, atol=1e-5),
+              f"{label}: err {err}")
+    log(f"  {label}: max_abs_err={err:.3g}, repeat launch bit-identical ok")
+    return err
+
+
+def log_plan(name, plan, call, what):
+    ctas = plan.grid[0] * plan.grid[1]
+    log(f"  {name} launch at values {tuple(call.args[2 if name == 'gas_scatter_banded' else 1].shape)}"
+        f" rows {call.args[3]} {what}: grid {plan.grid}, cluster "
+        f"({plan.cluster}, 1, 1), {ctas} CTAs of {plan.threads} threads, "
+        f"{plan.smem_bytes} B shared")
+    return ctas
+
+
+def phase_kernels(torch, ops, K, table, shapes, smi):
     """shapes: {kernel: (nbrs, mask)} from the main path. Returns the JSON
     entries' measured fields per kernel."""
     out = {}
@@ -323,42 +466,41 @@ def phase_kernels(torch, ops, K, table, shapes):
             call = segment_calls(torch, ops, table, nbrs, mask, op,
                                  scheduled, data, zero_blocks, weights)
             check(call.kernel == name, f"{call.kernel} != {name}")
-            got = call.run()
-            again = call.run()
-            want = call.run_plain()
-            torch.cuda.synchronize()
-            label = (f"{name} op={op} data={data} feature_skip={zero_blocks}"
-                     f" weights={weights}")
-            check(torch.equal(got.view(torch.int32), again.view(torch.int32)),
-                  f"{label}: two launches on the same inputs differ")
-            check(torch.equal(torch.isinf(got), torch.isinf(want)),
-                  f"{label}: identity rows differ")
-            check(torch.equal(torch.isnan(got), torch.isnan(want)),
-                  f"{label}: NaN cells differ")
-            check(data != "nan" or bool(torch.isnan(want).any()),
-                  f"{label}: no NaN reached the output")
-            fin = torch.isfinite(want)
-            err = float((got[fin] - want[fin]).abs().max()) \
-                if fin.any() else 0.0
-            if data in ("int", "nan"):
-                num = ~torch.isnan(want)
-                check(torch.equal(got[num], want[num]),
-                      f"{label}: not bit-exact (err {err})")
-            else:
-                check(torch.allclose(got[fin], want[fin], rtol=1e-5,
-                                     atol=1e-5), f"{label}: err {err}")
+            err = check_call(torch, call, f"{name} op={op} data={data} "
+                             f"feature_skip={zero_blocks} weights={weights}",
+                             data)
+            if data == "normal":
                 max_err = max(max_err, err)
-            log(f"  {label}: max_abs_err={err:.3g}, repeat launch "
-                f"bit-identical ok")
         if scheduled:
             work, _, vals, R = call.args
             plan = K.banded_plan(work.shape[0], R, vals.shape[1])
-            ctas = plan.grid[0] * plan.grid[1]
-            log(f"  {name} launch at values {tuple(vals.shape)} rows {R} "
-                f"work {tuple(work.shape)}: grid {plan.grid}, cluster "
-                f"({plan.cluster}, 1, 1), {ctas} CTAs of {plan.threads} "
-                f"threads, {plan.smem_bytes} B shared")
+            ctas = log_plan(name, plan, call, f"work {tuple(work.shape)}")
             check(ctas >= 132, f"{name}: only {ctas} CTAs on one chunk")
+        else:
+            dst, vals, occ, R = call.args
+            plan = K.dense_plan(occ.shape[1], R, vals.shape[1])
+            ctas = log_plan(name, plan, call, f"occupancy {tuple(occ.shape)}")
+            check(ctas >= 132, f"{name}: only {ctas} CTAs on one segment")
+            # the second shape: many row blocks and edge tiles
+            for order in ("sorted", "shuffled"):
+                for op, data, zero_blocks, weights in CASES:
+                    c = multiblock_call(torch, ops, table, op, data,
+                                        zero_blocks, weights, order)
+                    check(c.kernel == name, f"{c.kernel} != {name}")
+                    err = check_call(
+                        torch, c, f"{name} rows {MULTI_ROWS} tiles "
+                        f"{MULTI_TILES} dst {order} op={op} data={data} "
+                        f"feature_skip={zero_blocks} weights={weights}", data)
+                    if data == "normal":
+                        max_err = max(max_err, err)
+                plan = K.dense_plan(MULTI_TILES, MULTI_ROWS, c.args[1].shape[1])
+                log_plan(name, plan, c, f"dst {order}")
+                t = {"ms": event_ms(torch, c.run, 50),
+                     "device_ms": device_ms(torch, c.run, KERNEL_SYMBOL[name],
+                                            20)}
+                t["bound_ms"], t["bound_by"] = bound(c)
+                log(f"  {name} rows {MULTI_ROWS} tiles {MULTI_TILES} dst "
+                    f"{order} op={c.kwargs['op']}: {json.dumps(t)}")
         # timings per op, unit weights and normal data, as the main path
         symbol = KERNEL_SYMBOL[name]
         per_op = {}
@@ -366,6 +508,7 @@ def phase_kernels(torch, ops, K, table, shapes):
             c = segment_calls(torch, ops, table, nbrs, mask, op, scheduled,
                               "normal", False)
             t = {"ms": event_ms(torch, c.run, 200),
+                 "host_us": wrapper_host_us(torch, K, c),
                  "device_ms": device_ms(torch, c.run, symbol),
                  "plain_ms": event_ms(torch, c.run_plain, 10),
                  "library_ms": event_ms(torch, library_fn(torch, c), 200)}
@@ -373,7 +516,10 @@ def phase_kernels(torch, ops, K, table, shapes):
             if op == "add":
                 call = c
             per_op[op] = t
-            log(f"  {name} op={op}: {json.dumps(t)}")
+            log(f"  {name} op={op} [{smi}]: host {t['host_us']['call']:.2f} "
+                f"µs per call, {t['ms']:.4f} ms per call, device "
+                f"{t['device_ms']} ms, library {t['library_ms']:.4f} ms, "
+                f"bound {t['bound_ms']:.5f} ms; {json.dumps(t)}")
         entry = {"max_abs_err": max_err, **per_op["add"], "ops": per_op}
         work_shape = tuple(call.args[0].shape) if scheduled else None
         log(f"  {name} add+w at values {tuple(call.args[2 if scheduled else 1].shape)}"
@@ -731,7 +877,7 @@ def phase_lm(torch, FK, smi):
     return launches, routes
 
 
-def graph_phases(torch, phases, dev, measured, launches):
+def graph_phases(torch, phases, dev, measured, launches, smi):
     """Phases 2-4: the FAST-GAS kernels, graph serving and inference."""
     import numpy as np
 
@@ -774,7 +920,8 @@ def graph_phases(torch, phases, dev, measured, launches):
             "gas_scatter_dense": (torch.from_numpy(s_nbrs).to(dev),
                                   torch.from_numpy(s_mask).to(dev)),
         }
-        measured.update(phase_kernels(torch, ops, K, table, shapes))
+        measured.update(phase_kernels(torch, ops, K, table, shapes,
+                                        smi))
         del table
         torch.cuda.empty_cache()
 
@@ -858,6 +1005,8 @@ def main(argv=None) -> int:
 
     smi = smi_line()
     log(smi)
+    log(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
+        f"CUDA {torch.version.cuda}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
@@ -877,7 +1026,7 @@ def main(argv=None) -> int:
 
     measured, launches = {}, {name: 0 for name in REPLACES}
     if phases & set("234"):
-        graph_phases(torch, phases, dev, measured, launches)
+        graph_phases(torch, phases, dev, measured, launches, smi)
     if "5" in phases:
         log("phase 5: flash attention against its plain version")
         measured.update(phase_flash(torch, FK, smi))

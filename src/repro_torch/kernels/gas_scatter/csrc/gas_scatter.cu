@@ -5,8 +5,8 @@
 //     _sched_addw_kernel, _sched_cmp_kernel, _sched_live, _add_round,
 //     _cmp_round) -> banded_cluster_kernel below, the scheduled walk;
 //   * gas_scatter_pallas  (kernel.py:266; bodies _gas_add_kernel,
-//     _gas_addw_kernel, _gas_cmp_kernel) -> dense_kernel below, the dense grid
-//     gated by the occupancy bitmap.
+//     _gas_addw_kernel, _gas_cmp_kernel) -> dense_cluster_kernel below, the
+//     dense grid gated by the occupancy bitmap.
 //
 // Both compute out[r, f] = reduce_{e : dst[e] == r} w[e] * values[e, f] for
 // op = add (w = 1 without weights), or the max / min of values[e, f] over the
@@ -27,22 +27,21 @@
 // match here is a plain compare, not a one-hot product: no tensor cores and
 // no TF32, so integer-valued data stays exact.
 //
-// banded_cluster_kernel. The work list (W, 4 [+ F/32]) int32 holds rows
-// [row_block, tile, live, init, feature-block live...] ordered by row
-// block; each row block's rows form one contiguous run, found by binary
-// search on column 0. A thread-block cluster of C CTAs (C <= 8, the
-// portable limit, chosen by the wrapper from W and n_rows) owns one
+// Both kernels share one walk. A thread-block cluster of C CTAs (C <= 8,
+// the portable limit, chosen by the wrapper from shapes alone) owns one
 // (128-row block x 32-feature block) output tile, so one 128-row block
 // spreads over C x F/32 CTAs instead of F/32. CTA rank r takes the r-th of
-// C contiguous shares of the run and reduces it into its own partial tile
-// in shared memory, starting from the identity:
-//   * each window of up to 256 work rows is compacted, in order, into the
-//     list of its live rounds (live, and for add with liveness columns, a
-//     live feature block: zero is add's identity, so the skip is exact)
-//     with one __ballot_sync per warp and a prefix over 8 warp counts;
-//   * a live round's 128 ids, weights and (128 x 32) value block arrive by
-//     cp.async into one of two buffers while the previous round is applied,
-//     with one block-wide barrier per round;
+// C contiguous shares of its row block's rounds, in stream order, and
+// reduces them into its own partial tile in shared memory, starting from
+// the identity:
+//   * the rounds are compacted on the device, a window of 256 candidates at
+//     a time, into a list of edge tiles (for the dense grid with their
+//     first and end 32-edge chunk) with one __ballot_sync per warp and a
+//     prefix over the 8 warp counts; the host reads nothing and the launch
+//     depends on shapes alone;
+//   * a round's ids, weights and value rows (its 32-edge chunks of one
+//     128-edge tile, 32 features wide) arrive by cp.async into one of two
+//     buffers while the previous round is applied, one barrier per round;
 //   * warp k owns the rows r with r % 8 == k, its 32 lanes spanning the
 //     feature block, so every (row, feature) cell has one writer and no
 //     atomics. It finds its own edges of each 32-edge chunk with one ballot
@@ -56,12 +55,21 @@
 // launches on the same inputs give the same bits, and integer-valued data
 // is exact whatever the grouping.
 //
-// dense_kernel: one CTA per (128-row block x 32-feature block) output tile,
-// accumulator in shared memory, looping over every edge tile whose
-// occupancy bit is set. Per tile it stages the relative dst ids and weights
-// in shared memory, then the (128 x 32) value block of the matching edges
-// with every load of a warp in flight before any is stored; warp k of 8
-// then applies the edges whose row r has r % 8 == k, scanning all 128 ids.
+// Only the source of the rounds differs:
+//   * banded_cluster_kernel: the work list (W, 4 [+ F/32]) int32 holds rows
+//     [row_block, tile, live, init, feature-block live...] ordered by row
+//     block; each row block's rows form one contiguous run, found by
+//     counting probes of column 0. Rank r takes the r-th share of the run's
+//     rows, and a live row (for add with liveness columns, in a live
+//     feature block: zero is add's identity, so the skip is exact) is one
+//     round of all four chunks of its tile.
+//   * dense_cluster_kernel: the row block's row of the (R/128, T) occupancy
+//     map. Its occupied tiles hold 4 * n 32-edge chunks in stream order;
+//     rank r takes the r-th share of those chunks, so a row block with two
+//     occupied tiles (one 3-seed serving segment) still spreads over 8 CTAs.
+//     A sampled segment's live edges all land on its first few rows, so a
+//     split by rows would leave all but one CTA idle; a split by chunks
+//     does not.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -77,93 +85,18 @@ namespace {
 constexpr int kRowBlock = 128;
 constexpr int kEdgeTile = 128;
 constexpr int kFeatBlock = 32;
+constexpr int kChunk = 32;                      // edges per owner-warp ballot
+constexpr int kChunks = kEdgeTile / kChunk;     // chunks per edge tile
 constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
+constexpr int kWindow = kThreads;  // round candidates compacted per pass
+constexpr int kMaxCluster = 8;
+constexpr int kTileBits = 24;      // a round packs its tile below bit 24
 
 enum Op { kAdd = 0, kMax = 1, kMin = 2 };
 
 __device__ __forceinline__ float identity(int op) {
   return op == kAdd ? 0.0f : (op == kMax ? -CUDART_INF_F : CUDART_INF_F);
-}
-
-struct Tile {
-  float acc[kRowBlock * kFeatBlock];  // [row][feature] of the output tile
-  float val[kEdgeTile * kFeatBlock];  // [edge][feature] of the value block
-  int rel[kEdgeTile];                 // the edge tile's dst - row0
-  float w[kEdgeTile];                 // its edge weights (1 without weights)
-};
-
-__device__ __forceinline__ void fill_identity(float* acc, int op) {
-  const float v = identity(op);
-  for (int i = threadIdx.x; i < kRowBlock * kFeatBlock; i += kThreads) acc[i] = v;
-}
-
-// One (row block x edge tile) round; f0 is the CTA's first feature.
-__device__ __forceinline__ void tile_round(Tile& s, int op, const int* dst,
-                                           const float* weights,
-                                           const float* values, long long F,
-                                           int f0, long long tile, int row0) {
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  __syncthreads();  // the previous round has finished with s.rel / s.val
-  if (threadIdx.x < kEdgeTile) {
-    const long long e = tile * kEdgeTile + threadIdx.x;
-    s.rel[threadIdx.x] = dst[e] - row0;
-    s.w[threadIdx.x] = weights ? weights[e] : 1.0f;
-  }
-  __syncthreads();
-  // all of this warp's loads in flight before the first is stored
-  const float* vt = values + tile * kEdgeTile * F + f0 + lane;
-  float v[kEdgeTile / kWarps];
-#pragma unroll
-  for (int i = 0; i < kEdgeTile / kWarps; ++i) {
-    const int j = warp + i * kWarps;
-    const int r = s.rel[j];
-    v[i] = (r >= 0 && r < kRowBlock) ? vt[j * F] : 0.0f;
-  }
-#pragma unroll
-  for (int i = 0; i < kEdgeTile / kWarps; ++i) {
-    s.val[(warp + i * kWarps) * kFeatBlock + lane] = v[i];
-  }
-  __syncthreads();
-  for (int j = 0; j < kEdgeTile; ++j) {
-    const int r = s.rel[j];                      // the same for the whole warp
-    if (r < 0 || r >= kRowBlock || (r % kWarps) != warp) continue;
-    const float v = s.val[j * kFeatBlock + lane];
-    float& a = s.acc[r * kFeatBlock + lane];
-    if (op == kAdd) {
-      a = fmaf(s.w[j], v, a);
-    } else if (op == kMax) {
-      a = (v > a || v != v) ? v : a;  // a NaN value wins, as in jnp.maximum
-    } else {
-      a = (v < a || v != v) ? v : a;
-    }
-  }
-}
-
-__device__ __forceinline__ void store_tile(const Tile& s, float* out,
-                                           long long F, int f0, int row0) {
-  __syncthreads();
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  for (int r = warp; r < kRowBlock; r += kWarps) {
-    out[(long long)(row0 + r) * F + f0 + lane] = s.acc[r * kFeatBlock + lane];
-  }
-}
-
-// First work row in [a, b) whose row block is >= rb (column 0 ascends); b if
-// there is none.
-__device__ __forceinline__ int lower_bound_rows(const int* work, int a, int b,
-                                                int ncols, int rb) {
-  while (a < b) {
-    const int mid = (a + b) / 2;
-    if (work[(long long)mid * ncols] < rb) {
-      a = mid + 1;
-    } else {
-      b = mid;
-    }
-  }
-  return a;
 }
 
 __device__ __forceinline__ float combine(int op, float a, float v) {
@@ -190,18 +123,182 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
-constexpr int kWindow = kThreads;  // work rows compacted per pass
-constexpr int kMaxCluster = 8;
+// A dense round: edge tile `tile`, chunks [lo, hi) of it. A banded round is
+// its tile alone (kWhole below).
+__device__ __forceinline__ int pack_round(int tile, int lo, int hi) {
+  return tile | (lo << kTileBits) | (hi << (kTileBits + 3));
+}
+__device__ __forceinline__ int round_tile(int r) { return r & ((1 << kTileBits) - 1); }
+__device__ __forceinline__ int round_lo(int r) { return (r >> kTileBits) & 7; }
+__device__ __forceinline__ int round_hi(int r) { return (r >> (kTileBits + 3)) & 7; }
 
-struct Banded {
+// One CTA's shared memory (dynamic, above the 48 KB static limit).
+struct Walk {
   float acc[kRowBlock * kFeatBlock];     // this CTA's partial [row][feature]
-  float val[2][kEdgeTile * kFeatBlock];  // value blocks, double-buffered
-  int ids[2][kEdgeTile];                 // their tiles' dst
+  float val[2][kEdgeTile * kFeatBlock];  // value rows, double-buffered
+  int ids[2][kEdgeTile];                 // their dst
   float w[2][kEdgeTile];                 // and weights
-  int tiles[kWindow];                    // live rounds of the current window
-  int count[kWarps];                     // per-warp counts: rows, then rounds
+  int rounds[kWindow];                   // the current window's rounds
+  int count[kWarps];                     // per-warp counts
   int count_hi[kWarps];
 };
+
+// What every round of one launch reads.
+struct Stream {
+  const int* dst;
+  const float* weights;  // null: unit weights
+  const float* values;
+  long long F;
+  int f0;    // the CTA's first feature
+  int row0;  // its row block's first row
+  int op;
+};
+
+__device__ __forceinline__ void fill_identity(float* acc, int op) {
+  const float v = identity(op);
+  for (int i = threadIdx.x; i < kRowBlock * kFeatBlock; i += kThreads) acc[i] = v;
+}
+
+// Exclusive prefix of `flag` over the block's threads in thread order, and
+// the block's total. One barrier; s.count must be free on entry.
+__device__ __forceinline__ int block_prefix(Walk& s, bool flag, int& total) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const unsigned m = __ballot_sync(0xffffffffu, flag);
+  if (lane == 0) s.count[warp] = __popc(m);
+  __syncthreads();
+  int off = 0;
+  total = 0;
+  for (int k = 0; k < kWarps; ++k) {
+    off += k < warp ? s.count[k] : 0;
+    total += s.count[k];
+  }
+  return off + __popc(m & ((1u << lane) - 1u));
+}
+
+// A round's first and end edge; kWhole: every round is a whole tile, and
+// the bounds are constants.
+template <bool kWhole>
+__device__ __forceinline__ int round_first(int round) {
+  return kWhole ? 0 : round_lo(round) * kChunk;
+}
+template <bool kWhole>
+__device__ __forceinline__ int round_end(int round) {
+  return kWhole ? kEdgeTile : round_hi(round) * kChunk;
+}
+
+// cp.async one round's ids, weights and value rows into buffer buf.
+template <bool kWhole>
+__device__ __forceinline__ void stage(Walk& s, const Stream& in, int round, int buf) {
+  const int tid = threadIdx.x;
+  const int lo = round_first<kWhole>(round), hi = round_end<kWhole>(round);
+  const long long e0 = static_cast<long long>(round_tile(round)) * kEdgeTile;
+  if (tid < kEdgeTile) {
+    if (tid >= lo && tid < hi) cp_async4(&s.ids[buf][tid], in.dst + e0 + tid);
+  } else if (in.weights) {
+    const int e = tid - kEdgeTile;
+    if (e >= lo && e < hi) cp_async4(&s.w[buf][e], in.weights + e0 + e);
+  }
+  const float* src = in.values + e0 * in.F + in.f0;
+  constexpr int kParts = kFeatBlock / 4;  // 16-byte pieces per value row
+  for (int q = lo * kParts + tid; q < hi * kParts; q += kThreads) {
+    const int e = q / kParts, part = (q % kParts) * 4;
+    cp_async16(&s.val[buf][e * kFeatBlock + part], src + e * in.F + part);
+  }
+  cp_async_commit();
+}
+
+// Warp `warp` applies its own edges of the round in buffer buf, four at a
+// time: the four edges' loads are in flight before the first is used.
+template <bool kWhole>
+__device__ __forceinline__ void apply(Walk& s, const Stream& in, int round, int buf) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int* ids = s.ids[buf];
+  const float* wt = s.w[buf];
+  const float* val = s.val[buf];
+  int cur = -1;
+  float reg = 0.0f;
+  for (int c = round_first<kWhole>(round); c < round_end<kWhole>(round); c += kChunk) {
+    const int r = ids[c + lane] - in.row0;
+    unsigned mine = __ballot_sync(0xffffffffu,
+                                  r >= 0 && r < kRowBlock && (r % kWarps) == warp);
+    while (mine) {
+      int e[4], re[4];
+      float v[4], w[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        e[j] = mine ? c + __ffs(mine) - 1 : -1;
+        mine &= mine - 1;
+        if (e[j] >= 0) {
+          re[j] = ids[e[j]] - in.row0;
+          v[j] = val[e[j] * kFeatBlock + lane];
+          w[j] = in.weights ? wt[e[j]] : 1.0f;
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        if (e[j] < 0) break;
+        if (re[j] != cur) {
+          if (cur >= 0) s.acc[cur * kFeatBlock + lane] = reg;
+          cur = re[j];
+          reg = s.acc[cur * kFeatBlock + lane];
+        }
+        reg = in.op == kAdd ? fmaf(w[j], v[j], reg) : combine(in.op, reg, v[j]);
+      }
+    }
+  }
+  if (cur >= 0) s.acc[cur * kFeatBlock + lane] = reg;
+}
+
+// Apply the window's `total` rounds of s.rounds in order, the next one
+// loading while this one is applied. The caller's barrier after the
+// compaction makes s.rounds visible and the previous window's buffers free.
+template <bool kWhole>
+__device__ __forceinline__ void walk(Walk& s, const Stream& in, int total) {
+  if (total > 0) stage<kWhole>(s, in, s.rounds[0], 0);
+  for (int t = 0; t < total; ++t) {
+    cp_async_wait_all();
+    __syncthreads();  // round t has landed; round t - 1's buffer is free
+    if (t + 1 < total) stage<kWhole>(s, in, s.rounds[t + 1], (t + 1) & 1);
+    apply<kWhole>(s, in, s.rounds[t], t & 1);
+  }
+}
+
+// Combine the cluster's C partials in rank order and write the tile.
+__device__ __forceinline__ void combine_store(cg::cluster_group& cluster, Walk& s,
+                                              const Stream& in, float* out, int C) {
+  const int rank = static_cast<int>(cluster.block_rank());
+  cluster.sync();  // every partial of the cluster is complete
+  const int r_lo = kRowBlock * rank / C, r_hi = kRowBlock * (rank + 1) / C;
+  for (int i = r_lo * kFeatBlock + threadIdx.x; i < r_hi * kFeatBlock; i += kThreads) {
+    float v[kMaxCluster];  // every remote read in flight before the first use
+#pragma unroll
+    for (int k = 0; k < kMaxCluster; ++k) {
+      if (k < C) v[k] = cluster.map_shared_rank(&s.acc[0], k)[i];
+    }
+    float a = v[0];
+#pragma unroll
+    for (int k = 1; k < kMaxCluster; ++k) {
+      if (k < C) a = combine(in.op, a, v[k]);
+    }
+    out[static_cast<long long>(in.row0 + i / kFeatBlock) * in.F + in.f0 + i % kFeatBlock] = a;
+  }
+  cluster.sync();  // no CTA leaves while another still reads its partial
+}
+
+// First work row in [a, b) whose row block is >= rb (column 0 ascends); b if
+// there is none.
+__device__ __forceinline__ int lower_bound_rows(const int* work, int a, int b,
+                                                int ncols, int rb) {
+  while (a < b) {
+    const int mid = (a + b) / 2;
+    if (work[(long long)mid * ncols] < rb) {
+      a = mid + 1;
+    } else {
+      b = mid;
+    }
+  }
+  return a;
+}
 
 // Row q of the kThreads probes of column 0 that find a run.
 __device__ __forceinline__ int probe_row(int q, int W) {
@@ -214,13 +311,12 @@ banded_cluster_kernel(const int* __restrict__ work, int W, int ncols,
                       const float* __restrict__ values, float* __restrict__ out,
                       long long F, int op, int C) {
   extern __shared__ float4 dyn[];
-  Banded& s = *reinterpret_cast<Banded*>(dyn);
+  Walk& s = *reinterpret_cast<Walk*>(dyn);
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = static_cast<int>(cluster.block_rank());
   const int rb = blockIdx.x / C;
   const int fb = blockIdx.y;
-  const int f0 = fb * kFeatBlock;
-  const int row0 = rb * kRowBlock;
+  const Stream in{dst, weights, values, F, fb * kFeatBlock, rb * kRowBlock, op};
   const bool feat_skip = ncols > 4;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
 
@@ -267,65 +363,8 @@ banded_cluster_kernel(const int* __restrict__ work, int W, int ncols,
   const int s0 = lo + static_cast<int>(n * rank / C);
   const int s1 = lo + static_cast<int>(n * (rank + 1) / C);
 
-  // cp.async one round's ids, weights and value block into buffer buf
-  auto stage = [&](int round_tile, int buf) {
-    const long long e0 = static_cast<long long>(round_tile) * kEdgeTile;
-    if (tid < kEdgeTile) {
-      cp_async4(&s.ids[buf][tid], dst + e0 + tid);
-    } else if (weights) {
-      cp_async4(&s.w[buf][tid - kEdgeTile], weights + e0 + tid - kEdgeTile);
-    }
-    const float* src = values + e0 * F + f0;
-    constexpr int kParts = kFeatBlock / 4;  // 16-byte pieces per value row
-    for (int q = tid; q < kEdgeTile * kParts; q += kThreads) {
-      const int e = q / kParts, part = (q % kParts) * 4;
-      cp_async16(&s.val[buf][e * kFeatBlock + part], src + e * F + part);
-    }
-    cp_async_commit();
-  };
-
-  // warp `warp` applies its own edges of the round in buffer buf, four at
-  // a time: the four edges' loads are in flight before the first is used
-  auto apply = [&](int buf) {
-    const int* ids = s.ids[buf];
-    const float* wt = s.w[buf];
-    const float* val = s.val[buf];
-    int cur = -1;
-    float reg = 0.0f;
-    for (int c = 0; c < kEdgeTile; c += 32) {
-      const int r = ids[c + lane] - row0;
-      unsigned mine = __ballot_sync(0xffffffffu,
-                                    r >= 0 && r < kRowBlock && (r % kWarps) == warp);
-      while (mine) {
-        int e[4], re[4];
-        float v[4], w[4];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          e[j] = mine ? c + __ffs(mine) - 1 : -1;
-          mine &= mine - 1;
-          if (e[j] >= 0) {
-            re[j] = ids[e[j]] - row0;
-            v[j] = val[e[j] * kFeatBlock + lane];
-            w[j] = weights ? wt[e[j]] : 1.0f;
-          }
-        }
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          if (e[j] < 0) break;
-          if (re[j] != cur) {
-            if (cur >= 0) s.acc[cur * kFeatBlock + lane] = reg;
-            cur = re[j];
-            reg = s.acc[cur * kFeatBlock + lane];
-          }
-          reg = op == kAdd ? fmaf(w[j], v[j], reg) : combine(op, reg, v[j]);
-        }
-      }
-    }
-    if (cur >= 0) s.acc[cur * kFeatBlock + lane] = reg;
-  };
-
   // each window of kWindow work rows: compact its live rounds in order,
-  // then walk them, the next round loading while this one is applied
+  // then walk them
   const int windows = small ? 1 : (s1 - s0 + kWindow - 1) / kWindow;
   for (int wi = 0; wi < windows; ++wi) {
     const int i = (small ? 0 : s0 + wi * kWindow) + tid;
@@ -339,81 +378,93 @@ banded_cluster_kernel(const int* __restrict__ work, int W, int ncols,
       }
     }
     const bool live = row_live && i >= s0 && i < s1;
-    __syncthreads();  // s.count and s.tiles are read; the last window is applied
-    const unsigned m = __ballot_sync(0xffffffffu, live);
-    if (lane == 0) s.count[warp] = __popc(m);
+    __syncthreads();  // s.count and s.rounds are read; the last window is applied
+    int total;
+    const int pos = block_prefix(s, live, total);
+    if (live) s.rounds[pos] = tile;  // a whole tile: no chunk bounds
     __syncthreads();
-    int off = 0, total = 0;
-    for (int k = 0; k < kWarps; ++k) {
-      off += k < warp ? s.count[k] : 0;
-      total += s.count[k];
-    }
-    if (live) s.tiles[off + __popc(m & ((1u << lane) - 1u))] = tile;
-    __syncthreads();
-    if (total > 0) stage(s.tiles[0], 0);
-    for (int t = 0; t < total; ++t) {
-      cp_async_wait_all();
-      __syncthreads();  // round t has landed; round t - 1's buffer is free
-      if (t + 1 < total) stage(s.tiles[t + 1], (t + 1) & 1);
-      apply(t & 1);
-    }
+    walk<true>(s, in, total);
   }
-
-  cluster.sync();  // every partial of the cluster is complete
-  const int r_lo = kRowBlock * rank / C, r_hi = kRowBlock * (rank + 1) / C;
-  for (int i = r_lo * kFeatBlock + tid; i < r_hi * kFeatBlock; i += kThreads) {
-    float v[kMaxCluster];  // every remote read in flight before the first use
-#pragma unroll
-    for (int k = 0; k < kMaxCluster; ++k) {
-      if (k < C) v[k] = cluster.map_shared_rank(&s.acc[0], k)[i];
-    }
-    float a = v[0];
-#pragma unroll
-    for (int k = 1; k < kMaxCluster; ++k) {
-      if (k < C) a = combine(op, a, v[k]);
-    }
-    out[static_cast<long long>(row0 + i / kFeatBlock) * F + f0 + i % kFeatBlock] = a;
-  }
-  cluster.sync();  // no CTA leaves while another still reads its partial
+  combine_store(cluster, s, in, out, C);
 }
 
 __global__ void __launch_bounds__(kThreads)
-dense_kernel(const int* __restrict__ occ, int T, const int* __restrict__ dst,
-             const float* __restrict__ weights,
-             const float* __restrict__ values, float* __restrict__ out,
-             long long F, int op) {
-  __shared__ Tile s;
-  const int rb = blockIdx.x;
-  const int f0 = blockIdx.y * kFeatBlock;
-  const int row0 = rb * kRowBlock;
+dense_cluster_kernel(const int* __restrict__ occ, int T,
+                     const int* __restrict__ dst, const float* __restrict__ weights,
+                     const float* __restrict__ values, float* __restrict__ out,
+                     long long F, int op, int C) {
+  extern __shared__ float4 dyn[];
+  Walk& s = *reinterpret_cast<Walk*>(dyn);
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int rb = blockIdx.x / C;
+  const Stream in{dst, weights, values, F, static_cast<int>(blockIdx.y) * kFeatBlock,
+                  rb * kRowBlock, op};
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int* row = occ + static_cast<long long>(rb) * T;
+
+  // Count the row block's occupied tiles. Every thread reads its tile of
+  // each window at once (all of them in one memory latency when T <= 256)
+  // and keeps the first window's bit for the compaction.
+  const bool first = tid < T && row[tid] > 0;
+  int mine = first;
+  for (int t = tid + kWindow; t < T; t += kWindow) mine += row[t] > 0;
+  mine = __reduce_add_sync(0xffffffffu, mine);
+  if (lane == 0) s.count[warp] = mine;
   fill_identity(s.acc, op);
-  for (int t = 0; t < T; ++t) {
-    if (occ[(long long)rb * T + t] > 0) {
-      tile_round(s, op, dst, weights, values, F, f0, t, row0);
+  __syncthreads();
+  int n_occ = 0;
+  for (int k = 0; k < kWarps; ++k) n_occ += s.count[k];
+
+  // this rank's chunks [c0, c1) of the 4 * n_occ in stream order: the
+  // occupied tiles [k0, k1), the first and last perhaps in part
+  const long long n = static_cast<long long>(kChunks) * n_occ;
+  const long long c0 = n * rank / C, c1 = n * (rank + 1) / C;
+  const int k0 = static_cast<int>(c0 / kChunks);
+  const int k1 = c1 > c0 ? static_cast<int>((c1 + kChunks - 1) / kChunks) : k0;
+
+  // each window of kWindow tiles: compact its occupied tiles of the share
+  // in order, then walk them; base counts the occupied tiles before it
+  int base = 0;
+  for (int t0 = 0; t0 < T && base < k1; t0 += kWindow) {
+    const int t = t0 + tid;
+    const bool o = t0 == 0 ? first : (t < T && row[t] > 0);
+    __syncthreads();  // s.count and s.rounds are read; the last window is applied
+    int cnt;
+    const int k = base + block_prefix(s, o, cnt);
+    if (o && k >= k0 && k < k1) {
+      const long long c = static_cast<long long>(kChunks) * k;
+      const int lo = static_cast<int>(c0 > c ? c0 - c : 0);
+      const int hi = static_cast<int>(c1 < c + kChunks ? c1 - c : kChunks);
+      s.rounds[k - max(k0, base)] = pack_round(t, lo, hi);
     }
+    const int total = min(base + cnt, k1) - max(base, k0);
+    base += cnt;
+    __syncthreads();
+    walk<false>(s, in, max(total, 0));
   }
-  store_tile(s, out, F, f0, row0);
+  combine_store(cluster, s, in, out, C);
 }
 
-}  // namespace
+// dense_plan's cluster size (kernel.py): the chunks of a row block's mean
+// share of the tiles, between 1 and kMaxCluster.
+int dense_cluster(int T, int n_blocks) {
+  if (n_blocks <= 0) return 1;
+  const long long chunks = static_cast<long long>(kChunks) * ((T + n_blocks - 1) / n_blocks);
+  return static_cast<int>(chunks < 1 ? 1 : (chunks > kMaxCluster ? kMaxCluster : chunks));
+}
 
-// Plain C entry points, loaded with ctypes. Shapes: dst (E,), weights (E,)
-// or null, values (E, F) 16-byte aligned, out (n_rows, F); E % 128 == 0,
-// F % 32 == 0, n_rows % 128 == 0. The banded entry takes the wrapper's
-// cluster size and shared-memory bytes and refuses a plan it does not
-// build. Each returns the launch's cudaError_t.
-extern "C" int gas_scatter_banded_f32(const int* work, int W, int ncols,
-                                      const int* dst, const float* weights,
-                                      const float* values, float* out,
-                                      int n_rows, int F, int op, int cluster,
-                                      int smem, void* stream) {
-  if (cluster < 1 || cluster > kMaxCluster || smem != static_cast<int>(sizeof(Banded))) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      banded_cluster_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(sizeof(Banded)));
-  if (attr != cudaSuccess) return static_cast<int>(attr);
+// Opt in to sizeof(Walk) bytes of dynamic shared memory, once per kernel.
+template <typename Kernel>
+cudaError_t allow_walk_smem(Kernel kernel) {
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(sizeof(Walk)));
+}
+
+// Launch one cluster of `cluster` CTAs per (row block x feature block).
+template <typename Kernel, typename... Args>
+int launch_cluster(Kernel kernel, int cluster, int n_rows, int F, void* stream,
+                   Args... args) {
   cudaLaunchAttribute attrs[1];
   attrs[0].id = cudaLaunchAttributeClusterDimension;
   attrs[0].val.clusterDim.x = cluster;
@@ -422,23 +473,54 @@ extern "C" int gas_scatter_banded_f32(const int* work, int W, int ncols,
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(n_rows / kRowBlock * cluster, F / kFeatBlock, 1);
   cfg.blockDim = dim3(kThreads, 1, 1);
-  cfg.dynamicSmemBytes = sizeof(Banded);
+  cfg.dynamicSmemBytes = sizeof(Walk);
   cfg.stream = static_cast<cudaStream_t>(stream);
   cfg.attrs = attrs;
   cfg.numAttrs = 1;
-  const cudaError_t err = cudaLaunchKernelEx(&cfg, banded_cluster_kernel, work, W, ncols, dst,
-                                             weights, values, out,
-                                             static_cast<long long>(F), op, cluster);
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, args...);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int gas_scatter_dense_f32(const int* occ, int T, const int* dst,
-                                     const float* weights, const float* values,
-                                     float* out, int n_rows, int F, int op,
+}  // namespace
+
+// The launch descriptor the wrappers build once per call signature (shapes,
+// dtypes, op) and pass by address: n_meta is W for the banded walk and T
+// for the dense grid; ncols is the work list's column count (banded only).
+struct GasLaunch {
+  int n_meta, ncols, n_rows, F, op, cluster, smem;
+};
+
+// Plain C entry points, loaded with ctypes. Shapes: meta is the work list
+// (W, ncols) or the occupancy map (n_rows / 128, T); dst (E,), weights (E,)
+// or null, values (E, F) 16-byte aligned, out (n_rows, F); E % 128 == 0,
+// F % 32 == 0, n_rows % 128 == 0, E < 2^31. Each refuses a plan it does
+// not build (cluster size, shared bytes) and returns the launch's
+// cudaError_t.
+extern "C" int gas_scatter_banded_f32(const GasLaunch* p, const int* work, const int* dst,
+                                      const float* weights, const float* values, float* out,
+                                      void* stream) {
+  if (p->cluster < 1 || p->cluster > kMaxCluster || p->smem != static_cast<int>(sizeof(Walk))) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  static const cudaError_t attr = allow_walk_smem(banded_cluster_kernel);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  return launch_cluster(banded_cluster_kernel, p->cluster, p->n_rows, p->F, stream, work,
+                        p->n_meta, p->ncols, dst, weights, values, out,
+                        static_cast<long long>(p->F), p->op, p->cluster);
+}
+
+extern "C" int gas_scatter_dense_f32(const GasLaunch* p, const int* occ, const int* dst,
+                                     const float* weights, const float* values, float* out,
                                      void* stream) {
-  const dim3 grid(n_rows / kRowBlock, F / kFeatBlock);
-  dense_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      occ, T, dst, weights, values, out, F, op);
-  return static_cast<int>(cudaGetLastError());
+  if (p->n_meta >= (1 << kTileBits) ||
+      p->cluster != dense_cluster(p->n_meta, p->n_rows / kRowBlock) ||
+      p->smem != static_cast<int>(sizeof(Walk))) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  static const cudaError_t attr = allow_walk_smem(dense_cluster_kernel);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  return launch_cluster(dense_cluster_kernel, p->cluster, p->n_rows, p->F, stream, occ,
+                        p->n_meta, dst, weights, values, out, static_cast<long long>(p->F),
+                        p->op, p->cluster);
 }

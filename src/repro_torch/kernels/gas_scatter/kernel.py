@@ -20,10 +20,19 @@ Tile constants: 128 output rows and 128 edges per round, as on the TPU;
 the feature block is 32 (one warp's width) where the TPU used 128 lanes, so
 feature-block liveness columns of a work list are per 32 features.
 
-The banded kernel runs one thread-block cluster per (row block × feature
-block); ``banded_plan`` picks its size from the shapes alone (no read of
-the work list, so no device-to-host sync) and ``cluster_share`` is the
-split of a row block's run over the cluster's CTAs that the kernel makes.
+Both kernels run one thread-block cluster per (row block × feature
+block); ``banded_plan`` and ``dense_plan`` pick its size from the shapes
+alone (no read of the work list or the occupancy map, so no device-to-host
+sync), and ``cluster_share`` is the split of a row block's rounds over the
+cluster's CTAs that the kernels make: work rows for the banded walk,
+32-edge chunks of the occupied tiles for the dense grid.
+
+The binding is lean, so that a call costs little next to the kernel: the
+shape, dtype and op checks and the launch plan are cached per call
+signature (shapes, dtypes, op), the ctypes functions are resolved once,
+the stream comes from PyTorch's raw query, and the C entries take the cached
+plan by address. What a signature cannot show (device, contiguity,
+alignment) is checked on every call.
 """
 
 from __future__ import annotations
@@ -43,20 +52,32 @@ FEAT_BLOCK = 32
 
 OPS = {"add": 0, "max": 1, "min": 2}
 
+CHUNK = 32                    # edges per owner-warp ballot
 CLUSTER_MAX = 8               # CTAs per cluster, the portable limit
 BANDED_THREADS = 256
-BANDED_WINDOW = BANDED_THREADS  # work rows compacted per pass
-# the banded CTA's shared memory: its partial tile, two value blocks, two
-# id and weight stages, the window's live-round list and two sets of 8
-# warp counts
+BANDED_WINDOW = BANDED_THREADS  # round candidates compacted per pass
+# one CTA's shared memory, the same layout in both kernels: its partial
+# tile, two value blocks, two id and weight stages, the window's round list
+# and two sets of 8 warp counts
 BANDED_SMEM = 4 * (ROW_BLOCK * FEAT_BLOCK + 2 * EDGE_TILE * FEAT_BLOCK
                    + 2 * 2 * EDGE_TILE + BANDED_WINDOW
                    + 2 * (BANDED_THREADS // 32))
+MAX_EDGES = 1 << 31           # the kernels index edges with 32-bit ints
 
 _SOURCE = Path(__file__).resolve().parent / "csrc" / "gas_scatter.cu"
 
 _lib: Optional[ctypes.CDLL] = None
 _lib_lock = threading.Lock()
+# (banded entry, dense entry, stream query), resolved at the first launch
+_entries: Optional[tuple] = None
+
+
+class _Launch(ctypes.Structure):
+    """The C entries' launch descriptor (``GasLaunch`` in the source),
+    built once per call signature: ``n_meta`` is W (banded) or T (dense),
+    ``ncols`` the work list's columns."""
+    _fields_ = [(name, ctypes.c_int) for name in
+                ("n_meta", "ncols", "n_rows", "F", "op", "cluster", "smem")]
 
 
 def build() -> Path:
@@ -65,20 +86,22 @@ def build() -> Path:
     return _build.build(_SOURCE)
 
 
-def _load() -> ctypes.CDLL:
-    global _lib
+def _load() -> tuple:
+    """(banded entry, dense entry, stream query), built and bound at first
+    use."""
+    global _lib, _entries
     with _lib_lock:
-        if _lib is None:
+        if _entries is None:
             lib = ctypes.CDLL(str(build()))
-            p, i = ctypes.c_void_p, ctypes.c_int
-            lib.gas_scatter_banded_f32.argtypes = [p, i, i, p, p, p, p, i, i,
-                                                   i, i, i, p]
-            lib.gas_scatter_banded_f32.restype = i
-            lib.gas_scatter_dense_f32.argtypes = [p, i, p, p, p, p, i, i, i,
-                                                  p]
-            lib.gas_scatter_dense_f32.restype = i
-            _lib = lib
-    return _lib
+            fns = (lib.gas_scatter_banded_f32, lib.gas_scatter_dense_f32)
+            for fn in fns:
+                fn.argtypes = [ctypes.c_void_p] * 7
+                fn.restype = ctypes.c_int
+            # the raw handle of PyTorch's current stream on a device index,
+            # far cheaper than torch.cuda.current_stream() (chip_smoke.py
+            # phase 2 times both)
+            _lib, _entries = lib, (*fns, torch._C._cuda_getCurrentRawStream)
+    return _entries
 
 
 # ---------------------------------------------------------------------------
@@ -97,6 +120,8 @@ def _check_common(dst, values, n_rows: int, op: str, weights):
         raise ValueError(
             f"shapes must be tile multiples: E={E} % {EDGE_TILE}, "
             f"F={F} % {FEAT_BLOCK}, n_rows={n_rows} % {ROW_BLOCK}")
+    if E >= MAX_EDGES:
+        raise ValueError(f"E={E} edges: the kernels take fewer than 2^31")
     if values.dtype != torch.float32:
         raise TypeError(f"values must be float32, got {values.dtype}")
     if dst.dtype != torch.int32 or tuple(dst.shape) != (E,):
@@ -108,20 +133,71 @@ def _check_common(dst, values, n_rows: int, op: str, weights):
     return E, F
 
 
-def _check_cuda(*tensors):
-    dev = tensors[0].device
-    for t in tensors:
-        if t is None:
-            continue
-        if t.device != dev:
-            raise ValueError(f"tensors on different devices: {t.device} "
-                             f"and {dev}")
-        if not t.is_contiguous():
-            raise ValueError("kernel inputs must be contiguous")
+# Checked call signatures: (kernel, shapes, dtypes, n_rows, op) -> what the
+# launch needs. Everything a signature fixes is checked once, when it is
+# first seen; what it cannot show (device, contiguity, alignment) on every
+# call. Cleared when full, so a server that meets ever new shapes does not
+# grow it without end.
+_SIGNATURES: dict = {}
+_SIGNATURES_MAX = 1024
 
 
-def _ptr(t) -> Optional[int]:
-    return None if t is None else t.data_ptr()
+class _Checked(NamedTuple):
+    plan: "ClusterPlan"
+    launch: _Launch     # kept alive for its address
+    address: int        # of ``launch``, what the C entry reads
+    out_shape: tuple
+    empty: bool         # no row or no feature: nothing to launch
+
+
+def _signature(kernel, meta, dst, values, n_rows, op, weights):
+    return (kernel, meta.shape, dst.shape, values.shape, meta.dtype,
+            dst.dtype, values.dtype,
+            None if weights is None else (weights.shape, weights.dtype),
+            n_rows, op)
+
+
+def _remember(key, plan: "ClusterPlan", n_meta: int, ncols: int,
+              n_rows: int, F: int, op: str) -> _Checked:
+    launch = _Launch(n_meta, ncols, n_rows, F, OPS[op], plan.cluster,
+                     plan.smem_bytes)
+    checked = _Checked(plan, launch, ctypes.addressof(launch), (n_rows, F),
+                       n_rows == 0 or F == 0)
+    if len(_SIGNATURES) >= _SIGNATURES_MAX:
+        _SIGNATURES.clear()
+    _SIGNATURES[key] = checked
+    return checked
+
+
+def _launch(which: int, name: str, checked: _Checked, meta, dst, values,
+            weights):
+    """Launch entry ``which`` (0 banded, 1 dense) after the per-call checks:
+    every tensor on ``values``' CUDA device and contiguous, ``values``
+    16-byte aligned. Returns the output; a refused launch raises."""
+    index = values.get_device()
+    if meta.get_device() != index or dst.get_device() != index or (
+            weights is not None and weights.get_device() != index):
+        raise ValueError(f"tensors on different devices: {meta.device}, "
+                         f"{dst.device}, {values.device}, "
+                         f"{None if weights is None else weights.device}")
+    if not (meta.is_contiguous() and dst.is_contiguous()
+            and values.is_contiguous()
+            and (weights is None or weights.is_contiguous())):
+        raise ValueError("kernel inputs must be contiguous")
+    vp = values.data_ptr()
+    if vp % 16:
+        raise ValueError("values must be 16-byte aligned")
+    out = values.new_empty(checked.out_shape)
+    if checked.empty:
+        return out
+    entries = _entries or _load()
+    rc = entries[which](checked.address, meta.data_ptr(), dst.data_ptr(),
+                        None if weights is None else weights.data_ptr(), vp,
+                        out.data_ptr(), entries[2](index))
+    if rc != 0:
+        raise RuntimeError(f"{name} launch failed ({checked.plan}): CUDA "
+                           f"error {rc}")
+    return out
 
 
 def _identity(op: str) -> float:
@@ -182,16 +258,16 @@ def gas_scatter_banded_plain(work, dst, values, n_rows: int, *,
     return out
 
 
-class BandedPlan(NamedTuple):
-    """The banded kernel's launch: CTAs per cluster, the grid (row blocks ×
-    cluster, feature blocks), threads per CTA and dynamic shared bytes."""
+class ClusterPlan(NamedTuple):
+    """A kernel's launch: CTAs per cluster, the grid (row blocks × cluster,
+    feature blocks), threads per CTA and dynamic shared bytes."""
     cluster: int
     grid: tuple
     threads: int
     smem_bytes: int
 
 
-def banded_plan(W: int, n_rows: int, F: int) -> BandedPlan:
+def banded_plan(W: int, n_rows: int, F: int) -> ClusterPlan:
     """One cluster per (row block × feature block), as many CTAs as the
     mean run of the work list has rows (``ceil(W / row_blocks)``), between
     1 and ``CLUSTER_MAX``. One inference chunk (W = 9, one row block,
@@ -199,18 +275,31 @@ def banded_plan(W: int, n_rows: int, F: int) -> BandedPlan:
     n_blocks = n_rows // ROW_BLOCK
     per_block = -(-W // n_blocks) if n_blocks else 0
     cluster = max(1, min(CLUSTER_MAX, per_block))
-    return BandedPlan(cluster, (n_blocks * cluster, F // FEAT_BLOCK),
-                      BANDED_THREADS, BANDED_SMEM)
+    return ClusterPlan(cluster, (n_blocks * cluster, F // FEAT_BLOCK),
+                       BANDED_THREADS, BANDED_SMEM)
 
 
 def cluster_share(lo: int, hi: int, rank: int, cluster: int):
-    """Work rows [start, end) that CTA ``rank`` of a cluster applies from
-    its row block's run [lo, hi): the rank-th of ``cluster`` contiguous
-    shares, as the kernel splits it (empty when the run is shorter than
-    the cluster). The partials combine in rank order, which is stream
-    order."""
+    """Rounds [start, end) that CTA ``rank`` of a cluster applies from its
+    row block's rounds [lo, hi): the rank-th of ``cluster`` contiguous
+    shares, as the kernels split them (empty when there are fewer rounds
+    than CTAs). The banded walk splits work rows; the dense grid splits the
+    32-edge chunks of the occupied tiles. The partials combine in rank
+    order, which is stream order."""
     n = hi - lo
     return lo + n * rank // cluster, lo + n * (rank + 1) // cluster
+
+
+def _banded_checked(key, work, dst, values, n_rows, op, weights) -> _Checked:
+    E, F = _check_common(dst, values, n_rows, op, weights)
+    if work.dtype != torch.int32 or work.dim() != 2 or \
+            work.shape[1] not in (4, 4 + F // FEAT_BLOCK):
+        raise ValueError(f"work must be int32 (W, 4) or (W, {4 + F // FEAT_BLOCK}),"
+                         f" got {work.dtype} {tuple(work.shape)}")
+    if work.shape[1] > 4 and op != "add":
+        raise ValueError("feature-block liveness gates add rounds only")
+    W, ncols = work.shape
+    return _remember(key, banded_plan(W, n_rows, F), W, ncols, n_rows, F, op)
 
 
 def gas_scatter_banded(work, dst, values, n_rows: int, *, op: str = "add",
@@ -221,35 +310,19 @@ def gas_scatter_banded(work, dst, values, n_rows: int, *, op: str = "add",
     block; dst (E,) int32 with dead edges at ``n_rows``; values (E, F)
     float32; weights (E,) float32 or None (add only). Returns (n_rows, F).
     """
-    E, F = _check_common(dst, values, n_rows, op, weights)
-    if work.dtype != torch.int32 or work.dim() != 2 or \
-            work.shape[1] not in (4, 4 + F // FEAT_BLOCK):
-        raise ValueError(f"work must be int32 (W, 4) or (W, {4 + F // FEAT_BLOCK}),"
-                         f" got {work.dtype} {tuple(work.shape)}")
-    if work.shape[1] > 4 and op != "add":
-        raise ValueError("feature-block liveness gates add rounds only")
+    key = _signature("banded", work, dst, values, n_rows, op, weights)
+    checked = _SIGNATURES.get(key) or _banded_checked(
+        key, work, dst, values, n_rows, op, weights)
+    if values.is_cuda:
+        out = _launch(0, "gas_scatter_banded", checked, work, dst, values,
+                      weights)
+        if not checked.empty:
+            gas_scatter_banded.launches += 1
+        return out
     if values.device.type == "cpu":
         return gas_scatter_banded_plain(work, dst, values, n_rows, op=op,
                                         weights=weights)
-    if values.device.type != "cuda":
-        raise ValueError(f"no kernel for device {values.device}")
-    _check_cuda(values, work, dst, weights)
-    if values.data_ptr() % 16:
-        raise ValueError("values must be 16-byte aligned")
-    out = torch.empty((n_rows, F), dtype=values.dtype, device=values.device)
-    if n_rows == 0 or F == 0:
-        return out
-    plan = banded_plan(work.shape[0], n_rows, F)
-    stream = torch.cuda.current_stream(values.device).cuda_stream
-    rc = _load().gas_scatter_banded_f32(
-        _ptr(work), work.shape[0], work.shape[1], _ptr(dst), _ptr(weights),
-        _ptr(values), _ptr(out), n_rows, F, OPS[op], plan.cluster,
-        plan.smem_bytes, stream)
-    if rc != 0:
-        raise RuntimeError(f"gas_scatter_banded launch failed ({plan}): "
-                           f"CUDA error {rc}")
-    gas_scatter_banded.launches += 1
-    return out
+    raise ValueError(f"no kernel for device {values.device}")
 
 
 gas_scatter_banded.launches = 0
@@ -273,12 +346,23 @@ def gas_scatter_dense_plain(dst, values, occupancy, n_rows: int, *,
     return out
 
 
-def gas_scatter_dense(dst, values, occupancy, n_rows: int, *,
-                      op: str = "add", weights=None):
-    """Unscheduled FAST-GAS scatter-reduce over the (n_rows/128, F/32) grid;
-    each CTA walks every edge tile and skips those whose occupancy bit
-    ``occupancy[row_block, tile]`` is 0 (``ops.occupancy_map``). Arguments
-    as in ``gas_scatter_banded``."""
+def dense_plan(T: int, n_rows: int, F: int) -> ClusterPlan:
+    """One cluster per (row block × feature block), one CTA per 32-edge
+    chunk of a row block's mean share of the ``T`` edge tiles
+    (``4 · ceil(T / row_blocks)``), between 1 and ``CLUSTER_MAX``. The
+    occupancy map is never read on the host: a row block that occupies fewer
+    tiles leaves some CTAs of its cluster without a chunk. One 3-seed
+    serving segment (T = 2, one row block, F = 608) gets 8 × 19 = 152 CTAs.
+    The C entry builds this plan only."""
+    n_blocks = n_rows // ROW_BLOCK
+    chunks = EDGE_TILE // CHUNK * -(-T // n_blocks) if n_blocks else 0
+    cluster = max(1, min(CLUSTER_MAX, chunks))
+    return ClusterPlan(cluster, (n_blocks * cluster, F // FEAT_BLOCK),
+                       BANDED_THREADS, BANDED_SMEM)
+
+
+def _dense_checked(key, dst, values, occupancy, n_rows, op,
+                   weights) -> _Checked:
     E, F = _check_common(dst, values, n_rows, op, weights)
     T = E // EDGE_TILE
     if occupancy.dtype != torch.int32 or \
@@ -286,23 +370,29 @@ def gas_scatter_dense(dst, values, occupancy, n_rows: int, *,
         raise ValueError(f"occupancy must be int32 ({n_rows // ROW_BLOCK}, "
                          f"{T}), got {occupancy.dtype} "
                          f"{tuple(occupancy.shape)}")
+    return _remember(key, dense_plan(T, n_rows, F), T, 0, n_rows, F, op)
+
+
+def gas_scatter_dense(dst, values, occupancy, n_rows: int, *,
+                      op: str = "add", weights=None):
+    """Unscheduled FAST-GAS scatter-reduce over the (n_rows/128, F/32) grid
+    of output tiles: each cluster walks the edge tiles whose occupancy bit
+    ``occupancy[row_block, tile]`` is set (``ops.occupancy_map``), its CTAs
+    on contiguous shares of their 32-edge chunks. Arguments as in
+    ``gas_scatter_banded``."""
+    key = _signature("dense", occupancy, dst, values, n_rows, op, weights)
+    checked = _SIGNATURES.get(key) or _dense_checked(
+        key, dst, values, occupancy, n_rows, op, weights)
+    if values.is_cuda:
+        out = _launch(1, "gas_scatter_dense", checked, occupancy, dst, values,
+                      weights)
+        if not checked.empty:
+            gas_scatter_dense.launches += 1
+        return out
     if values.device.type == "cpu":
         return gas_scatter_dense_plain(dst, values, occupancy, n_rows, op=op,
                                        weights=weights)
-    if values.device.type != "cuda":
-        raise ValueError(f"no kernel for device {values.device}")
-    _check_cuda(values, occupancy, dst, weights)
-    out = torch.empty((n_rows, F), dtype=values.dtype, device=values.device)
-    if n_rows == 0 or F == 0:
-        return out
-    stream = torch.cuda.current_stream(values.device).cuda_stream
-    rc = _load().gas_scatter_dense_f32(
-        _ptr(occupancy), T, _ptr(dst), _ptr(weights), _ptr(values), _ptr(out),
-        n_rows, F, OPS[op], stream)
-    if rc != 0:
-        raise RuntimeError(f"gas_scatter_dense launch failed: CUDA error {rc}")
-    gas_scatter_dense.launches += 1
-    return out
+    raise ValueError(f"no kernel for device {values.device}")
 
 
 gas_scatter_dense.launches = 0

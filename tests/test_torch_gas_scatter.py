@@ -300,3 +300,55 @@ def test_wrappers_check_their_arguments(kernel_name):
         call(v=vals.to("meta"))                     # no kernel, no fallback
     assert K.launch_counts() == {"gas_scatter_banded": 0,
                                  "gas_scatter_dense": 0}
+
+
+@pytest.mark.parametrize("kernel_name", ["gas_scatter_banded",
+                                         "gas_scatter_dense"])
+def test_wrappers_check_their_arguments_after_a_warm_call(kernel_name):
+    """The wrappers cache their shape, dtype and op checks per call
+    signature: a valid call first, then every bad argument is still
+    refused, and the valid call still runs."""
+    banded = kernel_name == "gas_scatter_banded"
+    dst = torch.zeros(256, dtype=torch.int32)
+    vals = torch.zeros(256, 64)
+    meta = (torch.zeros((4, 4), dtype=torch.int32) if banded
+            else torch.ones((1, 2), dtype=torch.int32))
+
+    def call(d=dst, v=vals, m=meta, n=128, **kw):
+        a = (m, d, v, n) if banded else (d, v, m, n)
+        return _launch(kernel_name, *a, **kw)
+
+    for op in ("add", "max"):
+        assert call(op=op).shape == (128, 64)          # warms the cache
+    with pytest.raises(ValueError):
+        call(op="mean")                                 # unknown op
+    with pytest.raises(ValueError):
+        call(op="max", weights=torch.ones(256))         # cmp ops take no weights
+    with pytest.raises(TypeError):
+        call(weights=torch.ones(256, dtype=torch.float64))
+    with pytest.raises(TypeError):
+        call(weights=torch.ones(128))                   # weights of another E
+    with pytest.raises(TypeError):
+        call(d=dst.long())                              # dst dtype
+    with pytest.raises(TypeError):
+        call(d=dst[:128])                               # dst shape
+    with pytest.raises(TypeError):
+        call(v=vals.double())                           # values dtype
+    with pytest.raises(ValueError):
+        call(v=torch.zeros(256, 48))                    # F not a 32-multiple
+    with pytest.raises(ValueError):
+        call(v=torch.zeros(256, 2, 32))                 # values not (E, F)
+    with pytest.raises(ValueError):
+        call(n=100)                                     # rows not a 128-multiple
+    with pytest.raises(ValueError):
+        call(m=meta.long())                             # work / occupancy dtype
+    with pytest.raises(ValueError):                     # work / occupancy shape
+        call(m=torch.zeros((4, 5) if banded else (1, 3), dtype=torch.int32))
+    if banded:
+        with pytest.raises(ValueError):                 # liveness gates add only
+            call(m=torch.zeros((4, 6), dtype=torch.int32), op="max")
+    with pytest.raises(ValueError):
+        call(v=vals.to("meta"))                         # no kernel, no fallback
+    assert call(op="add").shape == (128, 64)
+    assert K.launch_counts() == {"gas_scatter_banded": 0,
+                                 "gas_scatter_dense": 0}
