@@ -38,12 +38,15 @@ Phases, each failing hard (exit status 1, no result line):
    bfloat16 on the tensor-core route (atol = 2e-2, rtol = 1e-2: p is
    rounded to bf16 before PV in both), each launch on the route its dtype
    names; whisper-base's encoder shape (B·H = 32, S = T = 1536, hd 64,
-   kv_len 1500, non-causal, bf16) and a gemma2-2b local-layer shape (H 8 /
-   Hkv 4, hd 256, window 4096, softcap 50, S = T = 4096, causal, bf16);
-   count the tensor-core instructions (HMMA / HGMMA) in each flash
-   kernel's SASS (``cuobjdump -sass``; the bf16 kernel must have some);
-   time the kernel, the plain version, ``scaled_dot_product_attention``
-   (the library yardstick, never used by the port) and the bounds;
+   kv_len 1500, non-causal) and a gemma2-2b local-layer shape (H 8 / Hkv
+   4, hd 256, window 4096, softcap 50, S = T = 4096, causal), each in
+   bf16 and in f32; count the tensor-core (HMMA / HGMMA), FFMA and LDS
+   instructions in each flash kernel's SASS (``cuobjdump -sass``; the bf16
+   kernel must have tensor-core instructions, the f32 kernel none and at
+   least 8 FFMA per LDS); time each route's kernel (per call, on the
+   device, and the wrapper's host µs per call), the plain version,
+   ``scaled_dot_product_attention`` (the library yardstick, never used by
+   the port) and the bounds;
 6. LM serving: whisper-base at full width (d_model 512, 8 heads, 6 + 6
    layers, vocab 51865, enc_seq 1500, bf16 compute) through
    ``launch.serve``'s LM path: 4 requests of 48 prompt tokens, 24
@@ -69,6 +72,7 @@ import argparse
 import dataclasses
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -631,9 +635,12 @@ def flash_bound(S, T, H, Hkv, B, hd, kw, itemsize):
             ops / F32_OPS_PER_S * 1e3)
 
 
-def sass_tensor_ops(lib):
-    """{kernel function: number of HMMA / HGMMA instructions} in a built
-    library's SASS, from ``cuobjdump -sass``."""
+SASS_OP = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_.]*)")
+
+
+def sass_counts(lib):
+    """{kernel function: {"tensor": HMMA / HGMMA, "ffma": FFMA, "lds": LDS
+    instructions}} in a built library's SASS, from ``cuobjdump -sass``."""
     from repro_torch.kernels import _build
 
     tool = os.path.join(os.path.dirname(_build.nvcc()), "cuobjdump")
@@ -641,12 +648,17 @@ def sass_tensor_ops(lib):
                          text=True, timeout=300)
     check(res.returncode == 0, f"cuobjdump failed: {res.stderr[-2000:]}")
     counts, fn = {}, None
+    kinds = {"HMMA": "tensor", "HGMMA": "tensor", "FFMA": "ffma", "LDS": "lds"}
     for line in res.stdout.splitlines():
         if "Function :" in line:
             fn = line.split("Function :", 1)[1].strip()
-            counts[fn] = 0
-        elif fn is not None and ("HMMA" in line or "HGMMA" in line):
-            counts[fn] += 1
+            counts[fn] = {"tensor": 0, "ffma": 0, "lds": 0}
+            continue
+        op = SASS_OP.search(line)
+        if fn is not None and op:
+            kind = kinds.get(op.group(1).split(".")[0])
+            if kind:
+                counts[fn][kind] += 1
     return counts
 
 
@@ -654,14 +666,24 @@ def phase_flash(torch, FK, smi):
     """Returns the JSON fields measured at whisper-base's encoder shape."""
     import torch.nn.functional as Fn
 
-    tensor_ops = sass_tensor_ops(FK.build())
-    for fn, n in tensor_ops.items():
-        log(f"  SASS {fn}: {n} HMMA/HGMMA")
+    sass = sass_counts(FK.build())
+    for fn, n in sass.items():
+        log(f"  SASS {fn}: {n['tensor']} HMMA/HGMMA, {n['ffma']} FFMA, "
+            f"{n['lds']} LDS")
     for route, symbol in FLASH_SYMBOL.items():
-        n = sum(v for k, v in tensor_ops.items() if symbol in k)
-        log(f"  route {route} ({symbol}): {n} tensor-core instructions")
-        check(route != "mma_bf16" or n > 0,
+        n = {kind: sum(c[kind] for f, c in sass.items() if symbol in f)
+             for kind in ("tensor", "ffma", "lds")}
+        ratio = n["ffma"] / max(n["lds"], 1)
+        log(f"  route {route} ({symbol}): {n['tensor']} tensor-core "
+            f"instructions, {n['ffma']} FFMA / {n['lds']} LDS = {ratio:.2f}")
+        check(route != "mma_bf16" or n["tensor"] > 0,
               f"{symbol} has no tensor-core instruction in its SASS")
+        if route == "fma_f32":
+            # each shared load feeds at least 8 FFMA (the design's floor)
+            check(n["tensor"] == 0 and ratio >= 8,
+                  f"{symbol}: {n['tensor']} tensor-core instructions, "
+                  f"FFMA/LDS {ratio:.2f} < 8")
+            f32_sass = dict(n, ffma_per_lds=ratio)
 
     def compare(label, args, kw, dtype, n_rows):
         FK.reset_launch_counts()
@@ -698,7 +720,7 @@ def phase_flash(torch, FK, smi):
         "gemma2-2b local": (1, 4096, 4096, 8, 4, 256,
                             dict(causal=True, window=4096, softcap=50.0)),
     }
-    out = {}
+    out, entries = {}, {}
     for name, (B, S, T, H, Hkv, hd, masks) in shapes.items():
         args = flash_inputs(torch, FK, B, S, T, H, Hkv, hd, torch.bfloat16,
                             seed=7)
@@ -725,28 +747,40 @@ def phase_flash(torch, FK, smi):
             5 if slow else 20)
         bound_ms, bound_by, f32_ms = flash_bound(S, T, H, Hkv, B, hd, masks, 2)
         entry = {"max_abs_err": err, "ms": ms, "device_ms": dev_ms,
+                 "host_us": host_us(torch, run, 50 if slow else 200),
                  "plain_ms": plain_ms, "library_ms": lib_ms,
                  "bound_ms": bound_ms, "bound_by": bound_by,
                  "bound_f32_cuda_core_ms": f32_ms,
                  "tflops": f32_ms * F32_OPS_PER_S / ms / 1e12}
-        if name == "whisper-base encoder":
-            # the float32 route (the CUDA-core kernel) on the same values
-            a32 = tuple(t.float() for t in args)
-            run32 = lambda: FK.flash_attention_fwd(*a32, **kw)
-            l32 = tuple(t.float() for t in (lq, lk, lv))
-            entry["f32_route_ms"] = event_ms(torch, run32, 20)
-            entry["f32_route_device_ms"] = device_ms(
-                torch, run32, FLASH_SYMBOL["fma_f32"], 20)
-            entry["f32_route_plain_ms"] = event_ms(
-                torch, lambda: FK.flash_attention_plain(*a32, **kw), 2,
-                warm=1)
-            entry["f32_route_library_ms"] = event_ms(
-                torch, lambda: Fn.scaled_dot_product_attention(
-                    *l32, is_causal=masks["causal"], scale=1.0), 20)
-            entry["f32_route_bound_ms"] = f32_ms
+        # the float32 route (the CUDA-core kernel) on the same values, held
+        # against its plain version; SDPA f32 beside it (at gemma2's shape
+        # without the softcap, so a nearby function)
+        a32 = tuple(t.float() for t in args)
+        run32 = lambda: FK.flash_attention_fwd(*a32, **kw)
+        l32 = tuple(t.float() for t in (lq, lk, lv))
+        entry["f32_route_max_abs_err"] = compare(
+            f"{name} B·H={B * H} S=T={args[0].shape[1]} hd={hd} kv_len={T} "
+            f"{masks} float32", a32, kw, "float32", S)
+        entry["f32_route_ms"] = event_ms(torch, run32, 5 if slow else 20)
+        entry["f32_route_device_ms"] = device_ms(
+            torch, run32, FLASH_SYMBOL["fma_f32"], 5 if slow else 20)
+        entry["f32_route_host_us"] = host_us(torch, run32,
+                                             50 if slow else 200)
+        entry["f32_route_plain_ms"] = event_ms(
+            torch, lambda: FK.flash_attention_plain(*a32, **kw), 2, warm=1)
+        entry["f32_route_library_ms"] = event_ms(
+            torch, lambda: Fn.scaled_dot_product_attention(
+                *l32, is_causal=masks["causal"], scale=1.0),
+            5 if slow else 20)
+        entry["f32_route_bound_ms"] = f32_ms
+        d32 = entry["f32_route_device_ms"]
+        entry["f32_route_bound_share"] = f32_ms / d32 if d32 else None
         log(f"  {name} [{smi}]: {json.dumps(entry)}")
-        out.setdefault("flash_attention", entry)
+        entries[name] = entry
         FK.reset_launch_counts()
+    out["flash_attention"] = dict(entries["whisper-base encoder"],
+                                  f32_route_sass=f32_sass,
+                                  gemma2_local=entries["gemma2-2b local"])
     return out
 
 
@@ -860,10 +894,14 @@ def phase_lm(torch, FK, smi):
     from repro_torch.train import make_prefill_step
     pre = make_prefill_step(cfg, cache_len=LM_PROMPT + LM_GEN,
                             use_flash=True)
+    pre32 = make_prefill_step(c32, cache_len=LM_PROMPT + LM_GEN,
+                              use_flash=True)
     tb = {k: torch.from_numpy(v).cuda() for k, v in batch.items()}
     profile_call(torch, lambda: pre(params, tb))  # the profiler's own set-up
+    pre32(params, tb)
     for label, fn in (
             ("one warm bf16 kernel prefill", lambda: pre(params, tb)),
+            ("one warm f32 kernel prefill", lambda: pre32(params, tb)),
             (f"one warm bf16 kernel request (prefill + {steps} steps)",
              lambda: serve.generate(params, batch, cfg, gen=LM_GEN,
                                     use_flash=True))):

@@ -42,10 +42,9 @@
 //   window edge; softcap (tanhf) runs before them. exp is ex2.approx of
 //   (s - m) * log2(e): the difference comes first, so NEG_INF - NEG_INF is 0
 //   and a masked key's 2^(-huge) is 0.
-// * float32 -> flash_fwd_kernel, the first kernel: f32 FMAs on the CUDA
-//   cores out of shared memory, which keeps the 1e-5 agreement with the
-//   plain version that full f32 products give (tensor cores would round the
-//   inputs).
+// * float32 -> flash_fwd_kernel, FFMA on the CUDA cores: full f32 products
+//   keep the 1e-5 agreement with the plain version (tensor cores would
+//   round the inputs to TF32). Laid out below, before the kernel.
 //
 // Both routes: blocks on Hopper run in no order, so where the TPU kernel
 // walks a sequential (bh, q block, kv block) grid with m, l and acc in
@@ -53,16 +52,6 @@
 // outside the causal or window band, or past kv_len, is not visited: every
 // block the TPU skips is skipped here, and the extra skips drop only keys
 // that would be masked, which changes nothing for a row that sees any key.
-//
-// flash_fwd_kernel's layout: the query tile and each 64-key sub-tile of k
-// sit transposed in shared memory ([d][row], float32) so that a thread reads
-// 4 query rows and 4 keys as two float4 loads per d; v sits row-major. 256
-// threads: thread (ty, tx) = (tid / 16, tid % 16) owns query rows
-// 4ty..4ty+3, the score columns 4tx..4tx+3 of each sub-tile and the output
-// columns tx + 16j. A row's max and sum reduce over the 16 lanes of its
-// half-warp with shuffles. Sub-tiles are 64 x 64 where the TPU used
-// 128 x 128 (at hd = 256 the float32 tiles then take 217 KB of shared
-// memory). expf and tanhf, no fast math.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -72,19 +61,6 @@
 namespace {
 
 constexpr float kNegInf = -2.3819763e38f;
-constexpr int kBQ = 64;        // query rows per CTA
-constexpr int kBK = 64;        // keys per shared-memory sub-tile
-constexpr int kThreads = 256;
-constexpr int kLd = kBQ + 4;   // row stride of the transposed tiles (kBK == kBQ)
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
 
 struct Args {
   const void* q;
@@ -94,143 +70,6 @@ struct Args {
   int S, T, hd, H, Hkv, causal, window, kv_len;
   float softcap;
 };
-
-size_t smem_bytes(int hd, int hdp) {
-  return sizeof(float) * (2 * static_cast<size_t>(hd) * kLd + kBK * hdp + kBK * kLd);
-}
-
-template <typename T, int HDP>
-__global__ void __launch_bounds__(kThreads) flash_fwd_kernel(Args a) {
-  extern __shared__ float4 smem4[];
-  float* qt = reinterpret_cast<float*>(smem4);  // [hd][kLd]  query tile, transposed
-  float* kt = qt + a.hd * kLd;                  // [hd][kLd]  key sub-tile, transposed
-  float* vs = kt + a.hd * kLd;                  // [kBK][HDP] value sub-tile
-  float* pt = vs + kBK * HDP;                   // [kBK][kLd] probabilities, transposed
-  constexpr int kCols = HDP / 16;
-
-  const int hd = a.hd;
-  const int bh = blockIdx.y;
-  const int q0 = blockIdx.x * kBQ;
-  const int h = bh % a.H;
-  const int kvh = (bh / a.H) * a.Hkv + h / (a.H / a.Hkv);
-  const T* q = static_cast<const T*>(a.q) + (static_cast<long long>(bh) * a.S + q0) * hd;
-  const T* k = static_cast<const T*>(a.k) + static_cast<long long>(kvh) * a.T * hd;
-  const T* v = static_cast<const T*>(a.v) + static_cast<long long>(kvh) * a.T * hd;
-
-  const int tid = threadIdx.x;
-  const int ty = tid / 16, tx = tid % 16;
-
-  for (int i = tid; i < kBQ * hd; i += kThreads) qt[(i % hd) * kLd + i / hd] = to_f32(q[i]);
-  for (int i = tid; i < kBK * HDP; i += kThreads) vs[i] = 0.0f;  // columns >= hd stay 0
-
-  float acc[4][kCols];
-  float m[4], l[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = kNegInf;
-    l[i] = 0.0f;
-#pragma unroll
-    for (int j = 0; j < kCols; ++j) acc[i][j] = 0.0f;
-  }
-
-  const int n_kv = (a.kv_len + kBK - 1) / kBK;
-  for (int kb = 0; kb < n_kv; ++kb) {
-    const int k0 = kb * kBK;
-    if (a.causal && k0 > q0 + kBQ - 1) break;             // right of the band
-    if (a.window && k0 + kBK - 1 <= q0 - a.window) continue;  // left of the band
-    __syncthreads();  // the previous sub-tile's readers are done
-    const T* kk = k + static_cast<long long>(k0) * hd;
-    const T* vv = v + static_cast<long long>(k0) * hd;
-    for (int i = tid; i < kBK * hd; i += kThreads) {
-      const int c = i / hd, d = i % hd;
-      kt[d * kLd + c] = to_f32(kk[i]);
-      vs[c * HDP + d] = to_f32(vv[i]);
-    }
-    __syncthreads();
-
-    float s[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.0f;
-    for (int d = 0; d < hd; ++d) {
-      const float4 qa = *reinterpret_cast<const float4*>(qt + d * kLd + ty * 4);
-      const float4 ka = *reinterpret_cast<const float4*>(kt + d * kLd + tx * 4);
-      const float qv[4] = {qa.x, qa.y, qa.z, qa.w};
-      const float kv[4] = {ka.x, ka.y, ka.z, ka.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
-    }
-
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qpos = q0 + ty * 4 + i;
-      float mt = kNegInf;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int kpos = k0 + tx * 4 + j;
-        float x = s[i][j];
-        if (a.softcap != 0.0f) x = a.softcap * tanhf(x / a.softcap);
-        bool ok = kpos < a.kv_len;
-        if (a.causal) ok = ok && qpos >= kpos;
-        if (a.window) ok = ok && qpos - kpos < a.window;
-        s[i][j] = ok ? x : kNegInf;
-        mt = fmaxf(mt, s[i][j]);
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1) mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, off));
-      const float m_new = fmaxf(m[i], mt);
-      const float alpha = expf(m[i] - m_new);
-      float rs = 0.0f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        s[i][j] = expf(s[i][j] - m_new);
-        rs += s[i][j];
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1) rs += __shfl_xor_sync(0xffffffffu, rs, off);
-      l[i] = l[i] * alpha + rs;
-      m[i] = m_new;
-#pragma unroll
-      for (int j = 0; j < kCols; ++j) acc[i][j] *= alpha;
-    }
-    // p, rounded to v's dtype, into pt[key][row]: one float4 of 4 rows per key
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      float4 pr;
-      pr.x = to_f32(from_f32<T>(s[0][j]));
-      pr.y = to_f32(from_f32<T>(s[1][j]));
-      pr.z = to_f32(from_f32<T>(s[2][j]));
-      pr.w = to_f32(from_f32<T>(s[3][j]));
-      *reinterpret_cast<float4*>(pt + (tx * 4 + j) * kLd + ty * 4) = pr;
-    }
-    __syncthreads();
-
-    for (int c = 0; c < kBK; ++c) {
-      const float4 pa = *reinterpret_cast<const float4*>(pt + c * kLd + ty * 4);
-      const float pr[4] = {pa.x, pa.y, pa.z, pa.w};
-#pragma unroll
-      for (int j = 0; j < kCols; ++j) {
-        const float x = vs[c * HDP + tx + 16 * j];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) acc[i][j] = fmaf(pr[i], x, acc[i][j]);
-      }
-    }
-  }
-
-  T* o = static_cast<T*>(a.o) + (static_cast<long long>(bh) * a.S + q0) * hd;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float li = fmaxf(l[i], 1e-30f);
-#pragma unroll
-    for (int j = 0; j < kCols; ++j) {
-      const int col = tx + 16 * j;
-      if (col < hd) o[(ty * 4 + i) * hd + col] = from_f32<T>(acc[i][j] / li);
-    }
-  }
-}
 
 // ---------------------------------------------------------------------------
 // bfloat16 route: mma.sync on the tensor cores
@@ -520,10 +359,11 @@ int launch(const Args& a, int BH, int bk, int smem, cudaStream_t stream) {
   if (bk != BK || static_cast<size_t>(smem) != bytes) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  cudaError_t err = cudaFuncSetAttribute(flash_mma_kernel<HDP, BK>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(bytes));
-  if (err != cudaSuccess) return static_cast<int>(err);
+  // the opt-in above 48 KB, once per template instance
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      flash_mma_kernel<HDP, BK>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(bytes));
+  if (attr != cudaSuccess) return static_cast<int>(attr);
   const dim3 grid(a.S / kBQ, BH);
   flash_mma_kernel<HDP, BK><<<grid, kThreads, bytes, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
@@ -532,23 +372,349 @@ int launch(const Args& a, int BH, int bk, int smem, cudaStream_t stream) {
 }  // namespace mma
 
 // ---------------------------------------------------------------------------
-// float32 route: flash_fwd_kernel
+// float32 route: flash_fwd_kernel, FFMA on the CUDA cores
 // ---------------------------------------------------------------------------
+//
+// What bounds it: 2 * hd FFMA per visible (query, key) pair on the CUDA
+// cores (67 TFLOP/s of f32 on an H100 SXM), so the kernel is built to keep
+// the FMA pipes fed: every other instruction (shared loads, softmax,
+// barriers) takes an issue slot from them, and every dependent chain that
+// no other warp covers idles them.
+//
+// Layout. One CTA of kWarps warps owns a (bh, 64-row query tile); a warp owns
+// R of its rows end to end (R = 16, 8 at head pad 256), in registers: its S
+// tile, its rows' m and l, and its rows' output accumulator. The query tile
+// and a two-stage cp.async ring of K and V sub-tiles (BK keys) sit row-major
+// in shared memory, each row padded by 4 floats: a row stride of HDP + 4
+// floats is an odd number of 16-byte groups, so the 8 rows that one phase of
+// an LDS.128 reads lie in 8 distinct groups of 4 banks. One block barrier
+// per sub-tile; the next sub-tile loads while this one is multiplied. Up to
+// head pad 64 two CTAs (8 warps) share an SM; the query tiles run last
+// first, so that under a causal mask the heaviest start first.
+//
+// Lanes split an 8-row group's work two ways. With RG = R / 8 row groups,
+// a lane's rows are rg + RG * i (i < 8), interleaved so that the row groups'
+// q loads fall in different banks.
+// * S = Q K^T: lane (rg, ds, kg) holds an 8-row x 4-key micro-tile, keys
+//   kg + KG * j. Each 16-byte step along hd is 8 q and 4 k LDS.128 for 128
+//   FFMA. Where a warp has fewer key groups than lanes (BK = 32, or R = 8),
+//   DS lanes share a micro-tile, each summing every DS-th 4-wide chunk of
+//   hd, and add their partial sums with shuffles.
+// * O += P V: lane (rg, ks, cg) holds an 8-row x 8-column accumulator
+//   (NC = 2 float4 columns, cg*4 and cg*4 + 4*CG), over the keys ks + KS * t.
+//   Per key: 2 LDS.128 of p and 2 of v for 64 FFMA. Where a warp has fewer
+//   column groups than lanes (head pad 16, 32 and 64), KS lanes split the
+//   keys and add their accumulators once, at the end: the rescaling by
+//   alpha is per row, so it commutes with that sum.
+// P passes between the two layouts through the warp's own slice of shared
+// memory, [key][row] with a row stride of R + 4 floats, after __syncwarp():
+// no block barrier. A row's max reduces over its key-group lanes with
+// shuffles; its sum stays a per-lane partial until the end.
+//
+// Softmax. Masks run only on sub-tiles that straddle kv_len, the diagonal
+// or the window edge; softcap (c * tanhf(s / c), the division as a product
+// with 1 / c) runs before them. Each step of the softmax runs over all 8
+// rows before the next, with no branch inside, so the rows' shuffle and
+// exp chains overlap: a branch inside a loop over rows splits it into
+// basic blocks and exposes one row's chain of dependent shuffles at a time. exp
+// is ex2.approx of (s - m) * log2(e), as on the bf16 route: the difference
+// comes first, so NEG_INF - NEG_INF is 0 and a masked key's 2^(-huge) is 0;
+// its relative error (about 2^-22) stays far inside the route's 1e-5.
+
+namespace f32 {
+
+constexpr int kBQ = 64;      // query rows per CTA
+constexpr int kStages = 2;   // cp.async ring depth of the K / V sub-tiles
+constexpr int kPad = 4;      // floats of padding per shared row
+
+// The launch shape of one head pad: rows per warp, warps, keys per sub-tile
+// and the two lane layouts derived from them (see above).
+template <int HDP> struct Cfg {
+  static constexpr int R = HDP >= 256 ? 8 : 16;
+  static constexpr int kWarps = kBQ / R;
+  static constexpr int kThreads = 32 * kWarps;
+  static constexpr int BK = HDP >= 128 ? 32 : 64;
+  static constexpr int RG = R / 8;
+  static constexpr int KG = BK / 4;
+  static constexpr int DS = 32 / (RG * KG);
+  static constexpr int NC = 2;
+  static constexpr int CG = HDP / (4 * NC);
+  static constexpr int KS = 32 / (RG * CG);
+  static constexpr int LD = HDP + kPad;  // q, k, v row stride in floats
+  static constexpr int PLD = R + kPad;   // p row (one key) stride in floats
+  static constexpr size_t smem = sizeof(float) * (static_cast<size_t>(kBQ + 2 * kStages * BK) * LD +
+                                                  static_cast<size_t>(kWarps) * BK * PLD);
+  static_assert(RG * KG * DS == 32 && RG * CG * KS == 32 && CG * 4 * NC == HDP, "lane layout");
+  static_assert(4 % DS == 0 && (HDP / 4) % DS == 0 && BK % KS == 0, "lane splits");
+};
 
 template <int HDP>
-int launch_f32(const Args& a, int BH, int bk, int smem, cudaStream_t stream) {
-  const size_t bytes = smem_bytes(a.hd, HDP);
-  if (bk != kBK || static_cast<size_t>(smem) != bytes) {
+__global__ void __launch_bounds__(Cfg<HDP>::kThreads, HDP <= 64 ? 2 : 1)
+    flash_fwd_kernel(Args a) {
+  using C = Cfg<HDP>;
+  constexpr int R = C::R, BK = C::BK, RG = C::RG, KG = C::KG, DS = C::DS;
+  constexpr int NC = C::NC, CG = C::CG, KS = C::KS, LD = C::LD, PLD = C::PLD;
+  extern __shared__ float4 smem_f4[];
+  float* qs = reinterpret_cast<float*>(smem_f4);  // [kBQ][LD]
+  float* ks = qs + kBQ * LD;                      // [kStages][BK][LD]
+  float* vs = ks + kStages * BK * LD;             // [kStages][BK][LD]
+  float* ps = vs + kStages * BK * LD;             // [kWarps][BK][PLD]
+
+  const int hd = a.hd;
+  const int bh = blockIdx.y;
+  // the last query tiles first: under a causal mask they see the most keys
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kBQ;
+  const int h = bh % a.H;
+  const int kvh = (bh / a.H) * a.Hkv + h / (a.H / a.Hkv);
+  const float* q = static_cast<const float*>(a.q) + (static_cast<long long>(bh) * a.S + q0) * hd;
+  const float* k = static_cast<const float*>(a.k) + static_cast<long long>(kvh) * a.T * hd;
+  const float* v = static_cast<const float*>(a.v) + static_cast<long long>(kvh) * a.T * hd;
+
+  const int tid = threadIdx.x;
+  const int warp = tid / 32, lane = tid % 32;
+  const int rg = lane / (32 / RG);
+  const int ds = (lane / KG) % DS, kg = lane % KG;  // S = Q K^T
+  const int kq = (lane / CG) % KS, cg = lane % CG;  // O += P V
+
+  // zero the head-dim padding [hd, HDP) of every q, k and v row once:
+  // cp.async writes only [0, hd), so it stays zero and adds nothing
+  if (hd < HDP) {
+    const int pc = (HDP - hd) / 4;
+    for (int i = tid; i < (kBQ + 2 * kStages * BK) * pc; i += C::kThreads) {
+      *reinterpret_cast<float4*>(qs + (i / pc) * LD + hd + (i % pc) * 4) =
+          make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    }
+  }
+
+  // the band: key sub-tiles [kb_lo, kb_hi)
+  int kb_hi = (a.kv_len + BK - 1) / BK;
+  if (a.causal) kb_hi = min(kb_hi, (q0 + kBQ - 1) / BK + 1);
+  int kb_lo = 0;
+  if (a.window) {
+    const int x = q0 - a.window - BK + 1;  // sub-tiles with kb * BK <= x are left of it
+    if (x >= 0) kb_lo = x / BK + 1;
+  }
+
+  // 16-byte chunks in steps of the CTA: the chunk count per row is the
+  // compile-time HDP / 4, so a thread's column is fixed and its row steps
+  // by a constant; columns at hd and past it are padding and are skipped
+  constexpr int kChunks = HDP / 4;
+  constexpr int kRowStep = C::kThreads / kChunks;
+  static_assert(C::kThreads % kChunks == 0 && BK % kRowStep == 0, "copy layout");
+  const int c_col = (tid % kChunks) * 4, c_row = tid / kChunks;
+  const bool c_live = c_col < hd;
+  auto load_kv = [&](int kb, int stage) {
+    if (!c_live) return;
+    const float* ksrc = k + (static_cast<long long>(kb) * BK + c_row) * hd + c_col;
+    const float* vsrc = v + (static_cast<long long>(kb) * BK + c_row) * hd + c_col;
+    float* kd = ks + stage * BK * LD + c_row * LD + c_col;
+    float* vd = vs + stage * BK * LD + c_row * LD + c_col;
+#pragma unroll
+    for (int r = 0; r < BK; r += kRowStep) {
+      mma::cp_async16(kd + r * LD, ksrc + static_cast<long long>(r) * hd);
+      mma::cp_async16(vd + r * LD, vsrc + static_cast<long long>(r) * hd);
+    }
+  };
+
+  if (c_live) {
+#pragma unroll
+    for (int r = 0; r < kBQ; r += kRowStep) {
+      mma::cp_async16(qs + (c_row + r) * LD + c_col, q + static_cast<long long>(c_row + r) * hd + c_col);
+    }
+  }
+  mma::cp_async_commit();
+  if (kb_lo < kb_hi) load_kv(kb_lo, 0);
+  mma::cp_async_commit();
+
+  const int row0 = warp * R + rg;                  // the lane's row i is row0 + RG * i
+  const float* qa = qs + row0 * LD + ds * 4;       // S layout: its q rows and d chunks
+  float* pw = ps + warp * BK * PLD;                // the warp's p slice, [key][slot]
+  const float* pr_base = pw + rg * 8;              // P V layout: its 8 rows' p
+  float acc[8][NC][4];
+  float m[8], l[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    m[i] = kNegInf;
+    l[i] = 0.0f;  // this lane's share of the row's sum
+#pragma unroll
+    for (int n = 0; n < NC; ++n) acc[i][n][0] = acc[i][n][1] = acc[i][n][2] = acc[i][n][3] = 0.0f;
+  }
+
+  for (int kb = kb_lo, it = 0; kb < kb_hi; ++kb, ++it) {
+    mma::cp_async_wait<0>();
+    __syncthreads();  // sub-tile kb (and the q tile) landed; every warp is done with kb - 1
+    if (kb + 1 < kb_hi) load_kv(kb + 1, (it + 1) & 1);
+    mma::cp_async_commit();
+    const float* kt = ks + (it & 1) * BK * LD;
+    const float* vt = vs + (it & 1) * BK * LD;
+    const int k0 = kb * BK;
+
+    // S = Q K^T: 8 rows x 4 keys, every DS-th 16-byte chunk of hd
+    float s[8][4];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) s[i][0] = s[i][1] = s[i][2] = s[i][3] = 0.0f;
+    const float* kr = kt + kg * LD + ds * 4;
+#pragma unroll
+    for (int u = 0; u < HDP / 4 / DS; ++u) {
+      const int d = u * DS * 4;
+      float4 kv[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) kv[j] = *reinterpret_cast<const float4*>(kr + j * KG * LD + d);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const float4 qv = *reinterpret_cast<const float4*>(qa + i * RG * LD + d);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          s[i][j] = fmaf(qv.x, kv[j].x, s[i][j]);
+          s[i][j] = fmaf(qv.y, kv[j].y, s[i][j]);
+          s[i][j] = fmaf(qv.z, kv[j].z, s[i][j]);
+          s[i][j] = fmaf(qv.w, kv[j].w, s[i][j]);
+        }
+      }
+    }
+    if constexpr (DS > 1) {
+#pragma unroll
+      for (int off = KG; off < KG * DS; off <<= 1)
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) s[i][j] += __shfl_xor_sync(0xffffffffu, s[i][j], off);
+    }
+
+    // softcap, the masks where the sub-tile straddles an edge, online
+    // softmax. Each step runs over all 8 rows before the next, with no
+    // branch inside, so the rows' shuffle and exp chains overlap.
+    if (a.softcap != 0.0f) {
+      const float inv = 1.0f / a.softcap;
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) s[i][j] = a.softcap * tanhf(s[i][j] * inv);
+    }
+    if (k0 + BK > a.kv_len || (a.causal && k0 + BK - 1 > q0) ||
+        (a.window && q0 + kBQ - 1 - k0 >= a.window)) {
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const int qpos = q0 + row0 + RG * i;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int kpos = k0 + kg + KG * j;
+          bool ok = kpos < a.kv_len;
+          if (a.causal) ok = ok && qpos >= kpos;
+          if (a.window) ok = ok && qpos - kpos < a.window;
+          s[i][j] = ok ? s[i][j] : kNegInf;
+        }
+      }
+    }
+    float mx[8], alpha[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) mx[i] = fmaxf(fmaxf(s[i][0], s[i][1]), fmaxf(s[i][2], s[i][3]));
+#pragma unroll
+    for (int off = 1; off < KG; off <<= 1)
+#pragma unroll
+      for (int i = 0; i < 8; ++i) mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], off));
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const float mn = fmaxf(m[i], mx[i]);
+      alpha[i] = mma::ex2((m[i] - mn) * mma::kLog2e);
+      m[i] = mn;
+      float rs = 0.0f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        s[i][j] = mma::ex2((s[i][j] - mn) * mma::kLog2e);
+        rs += s[i][j];
+      }
+      l[i] = l[i] * alpha[i] + rs;
+    }
+
+    // p into the warp's slice: key kg + KG * j, slots rg * 8 .. rg * 8 + 7;
+    // the DS lanes of a micro-tile hold the same p and store a key each
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      if (j % DS != ds) continue;
+      float* dst = pw + (kg + KG * j) * PLD + rg * 8;
+      *reinterpret_cast<float4*>(dst) = make_float4(s[0][j], s[1][j], s[2][j], s[3][j]);
+      *reinterpret_cast<float4*>(dst + 4) = make_float4(s[4][j], s[5][j], s[6][j], s[7][j]);
+    }
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int n = 0; n < NC; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[i][n][e] *= alpha[i];
+    __syncwarp();
+
+    // O += P V: 8 rows x 4 * NC columns over the keys kq + KS * t
+    const float* vc = vt + cg * 4;
+#pragma unroll
+    for (int t = 0; t < BK / KS; ++t) {
+      const int c = t * KS + kq;
+      const float4 p0 = *reinterpret_cast<const float4*>(pr_base + c * PLD);
+      const float4 p1 = *reinterpret_cast<const float4*>(pr_base + c * PLD + 4);
+      const float p[8] = {p0.x, p0.y, p0.z, p0.w, p1.x, p1.y, p1.z, p1.w};
+#pragma unroll
+      for (int n = 0; n < NC; ++n) {
+        const float4 x = *reinterpret_cast<const float4*>(vc + c * LD + n * 4 * CG);
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          acc[i][n][0] = fmaf(p[i], x.x, acc[i][n][0]);
+          acc[i][n][1] = fmaf(p[i], x.y, acc[i][n][1]);
+          acc[i][n][2] = fmaf(p[i], x.z, acc[i][n][2]);
+          acc[i][n][3] = fmaf(p[i], x.w, acc[i][n][3]);
+        }
+      }
+    }
+  }
+  mma::cp_async_wait<0>();
+
+  // the row sums over the key-group lanes, the accumulators over the key splits
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int off = 1; off < KG; off <<= 1) l[i] += __shfl_xor_sync(0xffffffffu, l[i], off);
+  if constexpr (KS > 1) {
+#pragma unroll
+    for (int off = CG; off < CG * KS; off <<= 1)
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int n = 0; n < NC; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[i][n][e] += __shfl_xor_sync(0xffffffffu, acc[i][n][e], off);
+  }
+
+  float* out = static_cast<float*>(a.o) + (static_cast<long long>(bh) * a.S + q0 + row0) * hd;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    if (i % KS != kq) continue;  // the KS lanes that share a row write a share each
+    const float li = fmaxf(l[i], 1e-30f);
+#pragma unroll
+    for (int n = 0; n < NC; ++n) {
+      const int col = cg * 4 + n * 4 * CG;
+      if (col < hd) {  // hd is a multiple of 8, so the 4 columns are all < hd
+        *reinterpret_cast<float4*>(out + RG * i * hd + col) =
+            make_float4(acc[i][n][0] / li, acc[i][n][1] / li, acc[i][n][2] / li, acc[i][n][3] / li);
+      }
+    }
+  }
+}
+
+template <int HDP>
+int launch(const Args& a, int BH, int bk, int smem, cudaStream_t stream) {
+  using C = Cfg<HDP>;
+  if (bk != C::BK || static_cast<size_t>(smem) != C::smem) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel<float, HDP>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(bytes));
-  if (err != cudaSuccess) return static_cast<int>(err);
+  // the opt-in above 48 KB, once per template instance
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      flash_fwd_kernel<HDP>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(C::smem));
+  if (attr != cudaSuccess) return static_cast<int>(attr);
   const dim3 grid(a.S / kBQ, BH);
-  flash_fwd_kernel<float, HDP><<<grid, kThreads, bytes, stream>>>(a);
+  flash_fwd_kernel<HDP><<<grid, C::kThreads, C::smem, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
+
+}  // namespace f32
 
 }  // namespace
 
@@ -575,11 +741,11 @@ extern "C" int flash_attention_fwd(int dtype, const void* q, const void* k, cons
     }
   } else if (dtype == 0) {
     switch (hdp) {
-      case 16: return launch_f32<16>(a, BH, block_k, smem, st);
-      case 32: return launch_f32<32>(a, BH, block_k, smem, st);
-      case 64: return launch_f32<64>(a, BH, block_k, smem, st);
-      case 128: return launch_f32<128>(a, BH, block_k, smem, st);
-      case 256: return launch_f32<256>(a, BH, block_k, smem, st);
+      case 16: return f32::launch<16>(a, BH, block_k, smem, st);
+      case 32: return f32::launch<32>(a, BH, block_k, smem, st);
+      case 64: return f32::launch<64>(a, BH, block_k, smem, st);
+      case 128: return f32::launch<128>(a, BH, block_k, smem, st);
+      case 256: return f32::launch<256>(a, BH, block_k, smem, st);
     }
   }
   return static_cast<int>(cudaErrorInvalidValue);

@@ -15,7 +15,9 @@ replaces and dispatches on where its tensors lie:
   launch raises. The route follows the dtype (``flash_plan``): bfloat16
   runs ``flash_mma_kernel`` on the tensor cores, float32 runs
   ``flash_fwd_kernel`` on the CUDA cores, whose full f32 products keep the
-  1e-5 agreement with the plain version;
+  1e-5 agreement with the plain version. The binding is lean: the plan is
+  cached per (dtype, head dim), the C entry is resolved once and the
+  stream comes from PyTorch's raw query;
 * CPU tensors run ``flash_attention_plain``, the same blocked walk in
   PyTorch;
 * anything else raises. There is no fallback from the kernel to the plain
@@ -44,6 +46,9 @@ _SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
 
 _lib: Optional[ctypes.CDLL] = None
 _lib_lock = threading.Lock()
+# (C entry, stream query), resolved at the first launch
+_entries: Optional[tuple] = None
+_PLANS: dict = {}
 
 
 def build() -> Path:
@@ -52,18 +57,21 @@ def build() -> Path:
     return _build.build(_SOURCE)
 
 
-def _load() -> ctypes.CDLL:
-    global _lib
+def _load() -> tuple:
+    """(C entry, stream query), built and bound at first use."""
+    global _lib, _entries
     with _lib_lock:
-        if _lib is None:
+        if _entries is None:
             lib = ctypes.CDLL(str(build()))
             p, i = ctypes.c_void_p, ctypes.c_int
-            lib.flash_attention_fwd.argtypes = [i, p, p, p, p, i, i, i, i, i,
-                                                i, i, i, ctypes.c_float, i, i,
-                                                i, i, p]
-            lib.flash_attention_fwd.restype = i
-            _lib = lib
-    return _lib
+            fn = lib.flash_attention_fwd
+            fn.argtypes = [i, p, p, p, p, i, i, i, i, i, i, i, i,
+                           ctypes.c_float, i, i, i, i, p]
+            fn.restype = i
+            # the raw handle of PyTorch's current stream on a device index,
+            # far cheaper than torch.cuda.current_stream()
+            _lib, _entries = lib, (fn, torch._C._cuda_getCurrentRawStream)
+    return _entries
 
 
 class FlashPlan(NamedTuple):
@@ -84,9 +92,21 @@ def flash_plan(dtype: torch.dtype, hd: int) -> FlashPlan:
 
     ``mma_bf16``: 4 warps × 16 query rows; bf16 q tile plus a two-stage
     ring of k and v sub-tiles (64 keys, 32 at head pad 256), each shared
-    row padded by 8 elements. ``fma_f32``: 256 threads; f32 q and k
-    tiles transposed (row stride 68), a 64-key v sub-tile and the p tile.
+    row padded by 8 elements. ``fma_f32``: a 64-row query tile, each warp
+    owning 16 of its rows (4 warps; 8 rows and 8 warps at head pad 256);
+    the f32 q tile plus a two-stage ring of k and v sub-tiles (64 keys, 32
+    at head pad 128 and 256), rows padded by 4 floats, and each warp's own
+    p slice (one row of ``rows + 4`` floats per key). Shared bytes depend
+    on the head pad alone. Plans are cached per (dtype, hd).
     """
+    key = (dtype, hd)
+    plan = _PLANS.get(key)
+    if plan is None:
+        plan = _PLANS[key] = _make_plan(dtype, hd)
+    return plan
+
+
+def _make_plan(dtype: torch.dtype, hd: int) -> FlashPlan:
     if dtype not in ROUTES:
         raise TypeError(f"no flash route for {dtype}")
     if hd % 8 or not 0 < hd <= 256:
@@ -96,9 +116,11 @@ def flash_plan(dtype: torch.dtype, hd: int) -> FlashPlan:
         bq, bk, stages = 64, (32 if pad == 256 else 64), 2
         smem = 2 * (bq + 2 * stages * bk) * (pad + 8)
         return FlashPlan("mma_bf16", pad, bq, bk, 128, smem)
-    bq = bk = 64
-    smem = 4 * (2 * hd * (bq + 4) + bk * pad + bk * (bq + 4))
-    return FlashPlan("fma_f32", pad, bq, bk, 256, smem)
+    rows = 8 if pad == 256 else 16            # query rows per warp
+    bq, bk, stages = 64, (32 if pad >= 128 else 64), 2
+    warps = bq // rows
+    smem = 4 * ((bq + 2 * stages * bk) * (pad + 4) + warps * bk * (rows + 4))
+    return FlashPlan("fma_f32", pad, bq, bk, 32 * warps, smem)
 
 
 def _check(q, k, v, kv_len: int, n_kv_heads: int):
@@ -194,32 +216,31 @@ def flash_attention_fwd(q, k, v, *, causal: bool, window: int,
     of 128; keys at ``kv_len`` and past it are padding. float32 or bfloat16
     in, float32 statistics and accumulator, out in q's dtype."""
     H, _ = _check(q, k, v, kv_len, n_kv_heads)
-    kw = dict(causal=causal, window=window, softcap=softcap, kv_len=kv_len,
-              n_kv_heads=n_kv_heads)
-    if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, **kw)
-    if q.device.type != "cuda":
-        raise ValueError(f"no kernel for device {q.device}")
-    for t in (k, v):
-        if t.device != q.device:
-            raise ValueError(f"tensors on different devices: {t.device} and "
-                             f"{q.device}")
+    if not q.is_cuda:
+        if q.device.type != "cpu":
+            raise ValueError(f"no kernel for device {q.device}")
+        return flash_attention_plain(q, k, v, causal=causal, window=window,
+                                     softcap=softcap, kv_len=kv_len,
+                                     n_kv_heads=n_kv_heads)
+    index = q.get_device()
+    if k.get_device() != index or v.get_device() != index:
+        raise ValueError(f"tensors on different devices: {q.device}, "
+                         f"{k.device}, {v.device}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("kernel inputs must be contiguous")
-    for t in (q, k, v):
-        if t.data_ptr() % 16:
-            raise ValueError("kernel inputs must be 16-byte aligned")
+    qp, kp, vp = q.data_ptr(), k.data_ptr(), v.data_ptr()
+    if (qp | kp | vp) % 16:
+        raise ValueError("kernel inputs must be 16-byte aligned")
     BH, S, hd = q.shape
     plan = flash_plan(q.dtype, hd)
-    out = torch.empty_like(q)
+    out = q.new_empty(q.shape)
     if BH == 0:
         return out
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    rc = _load().flash_attention_fwd(
-        _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        out.data_ptr(), BH, S, k.shape[1], hd, H, n_kv_heads, int(causal),
-        int(window), float(softcap), kv_len, plan.head_pad, plan.block_k,
-        plan.smem_bytes, stream)
+    entry, stream = _entries or _load()
+    rc = entry(_DTYPES[q.dtype], qp, kp, vp, out.data_ptr(), BH, S,
+               k.shape[1], hd, H, n_kv_heads, int(causal), int(window),
+               float(softcap), kv_len, plan.head_pad, plan.block_k,
+               plan.smem_bytes, stream(index))
     if rc != 0:
         raise RuntimeError(f"flash_attention_fwd launch failed ({plan}): "
                            f"CUDA error {rc}")

@@ -17,6 +17,11 @@ from repro.core import cgtrans as jcg
 from repro.core import gas as jgas
 from repro_torch.core import cgtrans, gas
 
+# One intra-op thread: the tier-1 run puts several pytest workers on one
+# host, and torch's default thread pool in each of them oversubscribes
+# its cores.
+torch.set_num_threads(1)
+
 V, F = 200, 10
 JIMPL = {"kernel": "pallas", "ref": "xla"}
 

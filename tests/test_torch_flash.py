@@ -25,6 +25,11 @@ from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_attention_ref)
 from repro_torch.kernels.flash_attention import kernel as FK
 
+# One intra-op thread: the tier-1 run puts several pytest workers on one
+# host, and torch's default thread pool in each of them oversubscribes
+# its cores.
+torch.set_num_threads(1)
+
 TOL = {"float32": dict(atol=3e-5, rtol=1e-4),
        "bfloat16": dict(atol=2e-2, rtol=1e-2)}
 

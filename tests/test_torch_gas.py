@@ -16,6 +16,11 @@ import jax.numpy as jnp
 from repro.core import gas as jgas
 from repro_torch.core import gas
 
+# One intra-op thread: the tier-1 run puts several pytest workers on one
+# host, and torch's default thread pool in each of them oversubscribes
+# its cores.
+torch.set_num_threads(1)
+
 
 def _t(x):
     return torch.from_numpy(np.asarray(x))

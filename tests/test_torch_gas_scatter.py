@@ -18,6 +18,11 @@ from repro.kernels.gas_scatter import ops as jops
 from repro_torch.kernels.gas_scatter import kernel as K
 from repro_torch.kernels.gas_scatter import ops, ref
 
+# One intra-op thread: the tier-1 run puts several pytest workers on one
+# host, and torch's default thread pool in each of them oversubscribes
+# its cores.
+torch.set_num_threads(1)
+
 TOL = dict(rtol=1e-5, atol=1e-5)
 
 

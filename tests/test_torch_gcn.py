@@ -25,6 +25,11 @@ from repro_torch.common.schema import init_params
 from repro_torch.configs.graphic_gcn import CONFIG, PALLAS_CONFIG
 from repro_torch.core import gas, gcn
 
+# One intra-op thread: the tier-1 run puts several pytest workers on one
+# host, and torch's default thread pool in each of them oversubscribes
+# its cores.
+torch.set_num_threads(1)
+
 TOL = dict(rtol=1e-5, atol=1e-5)
 V, Fdim, H, C, K1, K2, B = 64, 24, 16, 5, 3, 4, 4
 

@@ -6,6 +6,7 @@ same arrays, element for element.
 
 import numpy as np
 import pytest
+import torch
 
 from repro.data.pipeline import GraphBatchStream as JGraphBatchStream
 from repro.data.pipeline import synthetic_node_labels as j_labels
@@ -15,6 +16,11 @@ from repro.graph.structure import COOGraph as JCOOGraph
 from repro_torch.data import GraphBatchStream, synthetic_node_labels
 from repro_torch.graph import (COOGraph, clustered_graph, host_sample_csr,
                                rmat, uniform_graph)
+
+# One intra-op thread: the tier-1 run puts several pytest workers on one
+# host, and torch's default thread pool in each of them oversubscribes
+# its cores.
+torch.set_num_threads(1)
 
 
 def _same_graph(a, b):

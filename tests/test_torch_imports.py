@@ -10,6 +10,12 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+import torch
+
+# One intra-op thread: the tier-1 run puts several pytest workers on one
+# host, and torch's default thread pool in each of them oversubscribes
+# its cores.
+torch.set_num_threads(1)
 
 REPO = Path(__file__).resolve().parents[1]
 PORT = REPO / "src" / "repro_torch"

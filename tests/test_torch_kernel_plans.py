@@ -29,7 +29,13 @@ from repro_torch.kernels.flash_attention import kernel as FK
 from repro_torch.kernels.gas_scatter import kernel as K
 from repro_torch.kernels.gas_scatter import ops
 
+# One intra-op thread: the tier-1 run puts several pytest workers on one
+# host, and torch's default thread pool in each of them oversubscribes
+# its cores.
+torch.set_num_threads(1)
+
 SMEM_LIMIT = 232_448
+NEG = FK.NEG_INF
 
 
 # ---------------------------------------------------------------------------
@@ -53,9 +59,9 @@ def test_flash_route_follows_dtype(dtype, route):
     (torch.bfloat16, 8, ("mma_bf16", 16, 64, 64, 128, 15_360)),
     (torch.bfloat16, 64, ("mma_bf16", 64, 64, 64, 128, 46_080)),
     (torch.bfloat16, 256, ("mma_bf16", 256, 64, 32, 128, 101_376)),
-    (torch.float32, 8, ("fma_f32", 16, 64, 64, 256, 25_856)),
-    (torch.float32, 64, ("fma_f32", 64, 64, 64, 256, 68_608)),
-    (torch.float32, 256, ("fma_f32", 256, 64, 64, 256, 222_208)),
+    (torch.float32, 8, ("fma_f32", 16, 64, 64, 128, 46_080)),
+    (torch.float32, 64, ("fma_f32", 64, 64, 64, 128, 107_520)),
+    (torch.float32, 256, ("fma_f32", 256, 64, 32, 256, 211_968)),
 ])
 def test_flash_plan_shared_memory_fits(dtype, hd, want):
     plan = FK.flash_plan(dtype, hd)
@@ -69,6 +75,42 @@ def test_flash_plan_shared_memory_fits(dtype, hd, want):
         # 8 distinct 16-byte bank groups
         stride = 2 * (plan.head_pad + 8)
         assert len({(r * stride // 16) % 8 for r in range(8)}) == 8
+    else:
+        assert plan.smem_bytes == _f32_smem(plan)
+
+
+# the shared memory of one SM (228 KB), and what each resident CTA reserves
+SM_SMEM, CTA_RESERVED = 233_472, 1024
+
+
+def _f32_smem(plan):
+    """The f32 plan's shared bytes: the q tile and two stages of k and v
+    (rows of head pad + 4 floats), then each warp's p slice (a row of
+    rows-per-warp + 4 floats per key)."""
+    warps = plan.threads // 32
+    rows = plan.block_q // warps
+    return 4 * ((plan.block_q + 2 * 2 * plan.block_k) * (plan.head_pad + 4)
+                + warps * plan.block_k * (rows + 4))
+
+
+@pytest.mark.parametrize("hd", range(8, 257, 8))
+def test_flash_f32_plan_fits_and_is_conflict_free(hd):
+    plan = FK.flash_plan(torch.float32, hd)
+    assert plan.route == "fma_f32" and plan.block_q == 64
+    assert plan.smem_bytes == _f32_smem(plan) <= SMEM_LIMIT
+    # 16 extra bytes a q / k / v row: the 8 rows of one LDS.128 phase start
+    # on 8 distinct 16-byte bank groups
+    stride = 4 * (plan.head_pad + 4)
+    assert len({(r * stride // 16) % 8 for r in range(8)}) == 8
+    # and the 8 consecutive keys of a p store phase, likewise
+    rows = plan.block_q // (plan.threads // 32)
+    pstride = 4 * (rows + 4)
+    assert len({(r * pstride // 16) % 8 for r in range(8)}) == 8
+    if hd <= 64:
+        # two CTAs (eight warps) fit on one SM
+        assert 2 * (plan.smem_bytes + CTA_RESERVED) <= SM_SMEM
+        assert 2 * plan.threads >= 256
+    assert FK.flash_plan(torch.float32, hd) is plan   # cached
 
 
 @pytest.mark.parametrize("hd", [0, 12, 264])
@@ -89,6 +131,143 @@ def test_flash_cpu_call_launches_no_route(dtype):
     assert FK.flash_attention_plain.calls == 1
     FK.reset_launch_counts()
     assert FK.flash_attention_plain.calls == 0
+
+
+def _f32_kernel_model(q, k, v, *, causal, window, softcap, kv_len,
+                      n_kv_heads):
+    """A PyTorch model of ``flash_fwd_kernel``'s index logic, lane by lane:
+    the plan's CTA tile, each warp's rows, the S layout (lane (rg, ds, kg):
+    8 interleaved rows x 4 keys over every DS-th 16-byte chunk of the
+    padded head dim, partial sums added over the ds lanes), the band and
+    straddle masks, the warp's p slice (NaN where no lane stored), the P V
+    layout (lane (rg, ks, cg): 8 rows x 4·NC columns over every KS-th key,
+    accumulators added over the ks lanes at the end) and the lane that
+    writes each output row (NaN where none did)."""
+    BH, S, hd = q.shape
+    T = k.shape[1]
+    plan = FK.flash_plan(torch.float32, hd)
+    HDP, BQ, BK = plan.head_pad, plan.block_q, plan.block_k
+    warps = plan.threads // 32
+    R = BQ // warps
+    RG, KG = R // 8, BK // 4
+    DS = 32 // (RG * KG)
+    NC = 2                                  # 8 output columns a lane
+    CG = HDP // (4 * NC)
+    KS = 32 // (RG * CG)
+    batch = k.shape[0] // n_kv_heads
+    H = BH // batch
+    lane = torch.arange(32)
+    rg = lane // (32 // RG)
+    ds, kg = (lane // KG) % DS, lane % KG
+    kq, cg = (lane // CG) % KS, lane % CG
+    i8, j4 = torch.arange(8), torch.arange(4)
+    pad = lambda x: torch.nn.functional.pad(x, (0, HDP - hd))
+    qp, kp, vp = pad(q), pad(k), pad(v)
+    # the columns of each lane's S chunks and of its P V columns
+    s_cols = (4 * (ds[:, None] + DS * torch.arange(HDP // 4 // DS))[:, :, None]
+              + j4).reshape(32, -1)
+    o_cols = (cg[:, None, None] * 4 + 4 * CG * torch.arange(NC)[:, None]
+              + j4)                                          # (32, NC, 4)
+    out = torch.full((BH, S, hd), float("nan"))
+    for bh in range(BH):
+        kvh = (bh // H) * n_kv_heads + (bh % H) // (H // n_kv_heads)
+        for q0 in range(0, S, BQ):
+            kb_hi = -(-kv_len // BK)
+            if causal:
+                kb_hi = min(kb_hi, (q0 + BQ - 1) // BK + 1)
+            kb_lo = 0
+            if window and q0 - window - BK + 1 >= 0:
+                kb_lo = (q0 - window - BK + 1) // BK + 1
+            for w in range(warps):
+                rows = w * R + rg[:, None] + RG * i8                 # (32, 8)
+                m = torch.full((32, 8), NEG)
+                l = torch.zeros((32, 8))
+                acc = torch.zeros((32, 8, NC, 4))
+                for kb in range(kb_lo, kb_hi):
+                    k0 = kb * BK
+                    keys = kg[:, None] + KG * j4                     # (32, 4)
+                    qa = torch.gather(qp[bh, q0 + rows], 2,
+                                      s_cols[:, None].expand(32, 8, -1))
+                    ka = torch.gather(kp[kvh, k0 + keys], 2,
+                                      s_cols[:, None].expand(32, 4, -1))
+                    s = torch.einsum("lid,ljd->lij", qa, ka)
+                    # add the ds lanes' partial sums (lane = rg, ds, kg)
+                    s = s.reshape(RG, DS, KG, 8, 4).sum(1, keepdim=True)
+                    s = s.expand(RG, DS, KG, 8, 4).reshape(32, 8, 4)
+                    if softcap:
+                        s = softcap * torch.tanh(s / softcap)
+                    edge = (k0 + BK > kv_len or (causal and k0 + BK - 1 > q0)
+                            or (window and q0 + BQ - 1 - k0 >= window))
+                    if edge:
+                        qpos = (q0 + rows)[:, :, None]
+                        kpos = (k0 + keys)[:, None, :]
+                        ok = (kpos < kv_len).expand(32, 8, 4)
+                        if causal:
+                            ok = ok & (qpos >= kpos)
+                        if window:
+                            ok = ok & (qpos - kpos < window)
+                        s = torch.where(ok, s, torch.tensor(NEG))
+                    mx = s.amax(-1).reshape(RG, DS, KG, 8).amax(2, keepdim=True)
+                    mx = mx.expand(RG, DS, KG, 8).reshape(32, 8)
+                    mn = torch.maximum(m, mx)
+                    alpha = torch.exp(m - mn)
+                    m = mn
+                    p = torch.exp(s - mn[:, :, None])
+                    l = l * alpha + p.sum(-1)
+                    slice_ = torch.full((BK, R), float("nan"))      # [key][slot]
+                    for ln in range(32):
+                        for j in range(4):
+                            if j % DS == ds[ln]:
+                                slice_[kg[ln] + KG * j,
+                                       rg[ln] * 8:rg[ln] * 8 + 8] = p[ln, :, j]
+                    acc = acc * alpha[:, :, None, None]
+                    ckeys = torch.arange(BK // KS) * KS + kq[:, None]   # (32, t)
+                    pr = slice_[ckeys[:, :, None], (rg * 8)[:, None, None] + i8]
+                    vv = vp[kvh, k0 + ckeys][:, :, o_cols.reshape(32, -1)]
+                    vv = torch.stack([vv[ln, :, ln] for ln in range(32)])
+                    acc = acc + torch.einsum("lti,ltc->lic", pr, vv).reshape(
+                        32, 8, NC, 4)
+                l = l.reshape(RG, DS, KG, 8)[:, :1].sum(2, keepdim=True)
+                l = l.expand(RG, DS, KG, 8).reshape(32, 8)
+                acc = acc.reshape(RG, KS, CG, 8, NC, 4).sum(1, keepdim=True)
+                acc = acc.expand(RG, KS, CG, 8, NC, 4).reshape(32, 8, NC, 4)
+                for ln in range(32):
+                    for i in range(8):
+                        if i % KS != kq[ln]:
+                            continue
+                        cols = o_cols[ln].reshape(-1)
+                        keep = cols < hd
+                        out[bh, q0 + rows[ln, i], cols[keep]] = (
+                            acc[ln, i].reshape(-1)[keep]
+                            / torch.clamp(l[ln, i], min=1e-30))
+    return out
+
+
+@pytest.mark.parametrize("B,S,T,H,Hkv,hd,masks", [
+    # the shapes of chip_smoke.py's FLASH_CASES, cut to one batch row
+    (1, 256, 256, 2, 1, 32, dict(causal=True)),
+    (1, 128, 128, 2, 1, 64, dict(causal=True, window=64)),
+    (1, 200, 200, 2, 2, 16, dict(causal=True, softcap=50.0)),
+    (1, 128, 384, 2, 2, 32, dict(causal=False)),
+    (1, 130, 130, 1, 1, 8, dict(causal=True)),
+    (1, 256, 256, 4, 2, 16, dict(causal=True, window=100, softcap=30.0)),
+    (1, 200, 320, 2, 1, 128, dict(causal=False)),
+    (1, 256, 256, 2, 1, 256, dict(causal=True, window=200, softcap=50.0)),
+])
+def test_flash_f32_lane_layout_equals_the_plain_version(B, S, T, H, Hkv, hd,
+                                                        masks):
+    rng = np.random.default_rng(hd + S)
+    pad = lambda n: -n % FK.BLOCK_Q
+    draw = lambda L, heads, scale=1.0: torch.nn.functional.pad(
+        torch.from_numpy((rng.standard_normal((B * heads, L, hd)) * scale)
+                         .astype(np.float32)), (0, 0, 0, pad(L)))
+    q, k, v = draw(S, H, hd ** -0.5), draw(T, Hkv), draw(T, Hkv)
+    kw = dict(causal=masks["causal"], window=masks.get("window", 0),
+              softcap=masks.get("softcap", 0.0), kv_len=T, n_kv_heads=Hkv)
+    got = _f32_kernel_model(q, k, v, **kw)
+    want = FK.flash_attention_plain(q, k, v, **kw)
+    assert not torch.isnan(got).any()          # every output written
+    torch.testing.assert_close(got[:, :S], want[:, :S], rtol=1e-5, atol=1e-5)
 
 
 # ---------------------------------------------------------------------------

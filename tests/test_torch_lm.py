@@ -43,6 +43,11 @@ from repro_torch.models import layers as TL
 from repro_torch.models import transformer as TT
 from repro_torch.train import make_decode_step, make_prefill_step
 
+# One intra-op thread: the tier-1 run puts several pytest workers on one
+# host, and torch's default thread pool in each of them oversubscribes
+# its cores.
+torch.set_num_threads(1)
+
 ARCHS = ["whisper-base", "qwen1.5-0.5b", "gemma2-2b"]
 LAYER_TOL = dict(rtol=1e-6, atol=1e-6)
 B, P, STEPS = 2, 8, 4

@@ -15,6 +15,11 @@ from repro.serving import ServingEngine as JServingEngine
 from repro_torch.launch.serve import replay_traffic
 from repro_torch.serving import ServingEngine
 
+# One intra-op thread: the tier-1 run puts several pytest workers on one
+# host, and torch's default thread pool in each of them oversubscribes
+# its cores.
+torch.set_num_threads(1)
+
 V, F = 96, 12
 
 
