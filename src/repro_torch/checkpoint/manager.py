@@ -1,0 +1,140 @@
+"""Checkpointing: atomic, async, and on the JAX package's on-disk layout.
+
+Layout: ``<dir>/step_<N>/arrays.npz`` (one array per leaf, keyed by its
+``/``-joined dict path, e.g. ``opt/m/w0``) + ``manifest.json`` (step, and
+each leaf's key, shape and dtype). Commit protocol: write into
+``.tmp_step_<N>``, fsync the manifest, ``os.replace`` into place — a crash
+mid-save never corrupts the latest checkpoint. Retention keeps the newest
+K. The layout and the keys are ``repro.checkpoint.manager``'s, so a
+training state saved by either package restores in the other.
+
+Async: ``save_async`` copies the state to host memory synchronously and
+writes in a daemon thread; ``wait()`` joins before the next save or exit.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import shutil
+import threading
+from typing import List, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.common.tree import leaves_with_paths, unflatten
+from repro_torch.device import DeviceLike, resolve_device
+
+_SEP = "/"
+
+
+def _key(path) -> str:
+    return _SEP.join(str(p) for p in path)
+
+
+def _to_host(leaf) -> np.ndarray:
+    if torch.is_tensor(leaf):
+        return leaf.detach().cpu().numpy().copy()
+    return np.array(leaf)
+
+
+class CheckpointManager:
+    def __init__(self, directory: str, *, keep: int = 3):
+        self.dir = directory
+        self.keep = keep
+        os.makedirs(directory, exist_ok=True)
+        self._thread: Optional[threading.Thread] = None
+
+    # --- write ---------------------------------------------------------
+
+    def save(self, state, step: int) -> str:
+        return self._write(self._snapshot(state), step)
+
+    def save_async(self, state, step: int) -> None:
+        self.wait()
+        self._thread = threading.Thread(
+            target=self._write, args=(self._snapshot(state), step),
+            daemon=True)
+        self._thread.start()
+
+    def wait(self) -> None:
+        if self._thread is not None:
+            self._thread.join()
+            self._thread = None
+
+    @staticmethod
+    def _snapshot(state):
+        return [(_key(p), _to_host(leaf))
+                for p, leaf in leaves_with_paths(state)]
+
+    def _write(self, leaves, step: int) -> str:
+        tmp = os.path.join(self.dir, f".tmp_step_{step}")
+        final = os.path.join(self.dir, f"step_{step}")
+        if os.path.exists(tmp):
+            shutil.rmtree(tmp)
+        os.makedirs(tmp)
+        np.savez(os.path.join(tmp, "arrays.npz"), **dict(leaves))
+        manifest = {
+            "step": step,
+            "leaves": [{"key": k, "shape": list(v.shape),
+                        "dtype": str(v.dtype)} for k, v in leaves],
+        }
+        with open(os.path.join(tmp, "manifest.json"), "w") as f:
+            json.dump(manifest, f)
+            f.flush()
+            os.fsync(f.fileno())
+        if os.path.exists(final):
+            shutil.rmtree(final)
+        os.replace(tmp, final)
+        self._retain()
+        return final
+
+    def _retain(self) -> None:
+        for s in self.steps()[: -self.keep]:
+            shutil.rmtree(os.path.join(self.dir, f"step_{s}"),
+                          ignore_errors=True)
+
+    # --- read ----------------------------------------------------------
+
+    def steps(self) -> List[int]:
+        out = []
+        for name in os.listdir(self.dir):
+            path = os.path.join(self.dir, name)
+            if (name.startswith("step_") and os.path.isdir(path)
+                    and os.path.exists(os.path.join(path, "manifest.json"))):
+                out.append(int(name.split("_")[1]))
+        return sorted(out)
+
+    def latest_step(self) -> Optional[int]:
+        steps = self.steps()
+        return steps[-1] if steps else None
+
+    def restore(self, template, step: Optional[int] = None, *,
+                device: Optional[DeviceLike] = None, mesh=None,
+                spec_tree=None):
+        """Restore into the structure of ``template`` (a tree of tensors or
+        arrays). Returns (state, step). Each leaf lands on ``device``, or,
+        with ``device=None``, on its template tensor's device; the stored
+        dtype is kept."""
+        if mesh is not None or spec_tree is not None:
+            raise NotImplementedError(
+                "restore(mesh=, spec_tree=): sharded placement comes with "
+                "the sharded dataflows (ROADMAP Queue 1 row 2)")
+        step = step if step is not None else self.latest_step()
+        if step is None:
+            raise FileNotFoundError(f"no checkpoints in {self.dir}")
+        dev = None if device is None else resolve_device(device)
+        with np.load(os.path.join(self.dir, f"step_{step}",
+                                  "arrays.npz")) as arrays:
+            placed = []
+            for path, like in leaves_with_paths(template):
+                where = dev
+                if where is None:
+                    if not torch.is_tensor(like):
+                        raise ValueError(
+                            f"template leaf {_key(path)} is not a tensor; "
+                            f"pass device= to place it")
+                    where = like.device
+                placed.append(torch.from_numpy(arrays[_key(path)]).to(where))
+        return unflatten(template, placed), step

@@ -1,9 +1,10 @@
 """Model configuration dataclass, a copy of the JAX package's.
 
 One ``ModelConfig`` covers every architecture family; per-arch files in
-``repro_torch.configs`` instantiate it with the published numbers. The
-shape and training configurations of the JAX module come with the training
-port (ROADMAP Queue 1 row 10).
+``repro_torch.configs`` instantiate it with the published numbers.
+``TrainConfig`` is the optimiser's, field for field. The shape
+configurations of the JAX module come with the LM training port (ROADMAP
+Queue 1 row 10).
 """
 
 from __future__ import annotations
@@ -119,6 +120,22 @@ class ModelConfig:
             assert self.window > 0
         if self.is_encoder_decoder:
             assert self.n_enc_layers > 0
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    learning_rate: float = 3e-4
+    min_lr_ratio: float = 0.1
+    warmup_steps: int = 100
+    total_steps: int = 1000
+    weight_decay: float = 0.1
+    beta1: float = 0.9
+    beta2: float = 0.95
+    eps: float = 1e-8
+    grad_clip: float = 1.0
+    microbatches: int = 1            # grad-accum microbatches per step
+    grad_compression: str = "none"   # none | int8_ef (error-feedback int8)
+    seed: int = 0
 
 
 def reduced(cfg: ModelConfig, **overrides) -> ModelConfig:

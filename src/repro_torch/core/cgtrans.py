@@ -68,7 +68,7 @@ def _check_mesh(mesh) -> None:
     if mesh is not None:
         raise NotImplementedError(
             "mesh=: the sharded dataflows are not ported yet (ROADMAP "
-            "Queue 1, torch.distributed dataflows)")
+            "Queue 1 row 2, torch.distributed dataflows)")
 
 
 def _resolve_scheduled(scheduled: Optional[bool], impl: str) -> bool:

@@ -1,4 +1,4 @@
-"""The gather-and-scatter (GAS) engine, forward only.
+"""The gather-and-scatter (GAS) engine, forward and backward.
 
 The paper's engine couples a CAM (parallel *match* of edge endpoints) with
 a FAST SRAM (*row-parallel in-place update* of matched rows). Public
@@ -11,13 +11,30 @@ primitives:
 ``impl`` selects the backend: ``"ref"`` (``index_add_`` /
 ``scatter_reduce``, the oracle) or ``"kernel"`` (the FAST-GAS kernels in
 ``repro_torch.kernels.gas_scatter``, fused: mask and weights enter the
-kernel). Serving runs under ``torch.no_grad()``; the backward rules of the
-JAX package's custom VJPs are not ported yet.
+kernel).
+
+**Differentiation.** ``impl="ref"`` differentiates through native
+autograd (``scatter_reduce`` splits a max/min gradient evenly among ties,
+as ``jax.ops.segment_max`` does). The kernel wrappers are forward-only, so
+``impl="kernel"`` carries the JAX package's custom-VJP rules as
+``torch.autograd.Function``s whose backward is itself GAS work:
+
+* the backward of ``gas_gather`` is a kernel scatter-add of the cotangent
+  (the dense grid, no schedule);
+* the backward of ``gas_scatter_weighted(op="add")`` is a masked weighted
+  gather plus a per-edge row-dot for the weights, with no kernel;
+* for ``op="max"/"min"`` the cotangent routes through the equality mask
+  against the saved output, split evenly among ties whose count comes from
+  one kernel scatter under the forward's mask and schedule;
+* ``op="or"`` is flat, so its gradients are stopped.
+
+The forward runs under no-grad inside each ``Function``, so on the CPU the
+kernels' plain versions are never differentiated in their place.
 """
 
 from __future__ import annotations
 
-from typing import Literal
+from typing import Literal, Optional
 
 import torch
 
@@ -72,14 +89,42 @@ def gas_scatter(dst: torch.Tensor, values: torch.Tensor, n_rows: int, *,
     return _segment_reduce_ref(dst, values, n_rows, op)
 
 
+class _GatherKernel(torch.autograd.Function):
+    """Row gather whose backward scatter-adds the cotangent through the
+    FAST-GAS kernel (JAX ``gas.py`` ``_gather_pallas``)."""
+
+    @staticmethod
+    def forward(ctx, table, ids):
+        ctx.save_for_backward(ids)
+        ctx.n_rows, ctx.dtype = table.shape[0], table.dtype
+        ctx.suspended = gas_ops.counting_suspended()
+        return table[ids.long()]
+
+    @staticmethod
+    def backward(ctx, g):
+        ids, = ctx.saved_tensors
+        with gas_ops.suspend_counting(ctx.suspended):
+            gf = g.reshape(-1, g.shape[-1]).to(torch.float32)
+            # fused dispatch without mask or weights: out-of-range ids ride
+            # the dead-row convention inside the kernel wrapper
+            dtab = _scatter_weighted_impl(ids.reshape(-1), gf, None, None,
+                                          ctx.n_rows, "add", "kernel")
+        return dtab.to(ctx.dtype), None
+
+
 def gas_gather(table: torch.Tensor, ids: torch.Tensor, *,
                impl: str = "ref") -> torch.Tensor:
-    """Row gather — local by construction under the src-owner partition."""
+    """Row gather — local by construction under the src-owner partition.
+    ``impl="kernel"`` keeps the forward a plain index and routes the
+    backward's scatter-add through the FAST-GAS kernel."""
     _tick("find")
-    if check_impl(impl) == "kernel" and table.dim() != 2:
-        raise NotImplementedError(
-            f"gas_gather(impl='kernel') requires a 2-D (rows, F) table; got "
-            f"ndim={table.dim()}. Use impl='ref' for other ranks.")
+    if check_impl(impl) == "kernel":
+        if table.dim() != 2:
+            raise NotImplementedError(
+                f"gas_gather(impl='kernel') routes its backward through the "
+                f"FAST-GAS kernel and requires a 2-D (rows, F) table; got "
+                f"ndim={table.dim()}. Use impl='ref' for other ranks.")
+        return _GatherKernel.apply(table, ids)
     return table[ids.long()]
 
 
@@ -119,17 +164,83 @@ def _scatter_weighted_impl(dst, src_vals, weights, mask, n_rows: int, op: Op,
     return out[:n_rows]
 
 
+class _ScatterWeightedKernel(torch.autograd.Function):
+    """``gas_scatter_weighted`` on the kernel backend with the JAX
+    package's backward rules (``gas.py`` ``_scatter_weighted_pallas``):
+
+      add      d_vals[e]   = live[e] · w[e] · g[dst[e]]
+               d_w[e]      = live[e] · ⟨src_vals[e], g[dst[e]]⟩
+      max/min  d_vals[e,f] = eq[e,f] · g[dst[e],f] / ties[dst[e],f]
+               eq = live ∧ (src_vals == out[dst]), ties counted by one
+               kernel scatter under the forward's mask and schedule;
+               d_w = 0
+
+    with live = mask ∧ 0 ≤ dst < n_rows (the fused kernel drops masked and
+    out-of-range edges alike)."""
+
+    @staticmethod
+    def forward(ctx, dst, src_vals, weights, mask, n_rows, op, schedule):
+        out = _scatter_weighted_impl(dst, src_vals, weights, mask, n_rows,
+                                     op, "kernel", schedule)
+        ctx.save_for_backward(dst, src_vals, weights, mask,
+                              out if op in ("max", "min") else None)
+        ctx.n_rows, ctx.op, ctx.schedule = n_rows, op, schedule
+        ctx.suspended = gas_ops.counting_suspended()
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        dst, src_vals, weights, mask, out = ctx.saved_tensors
+        n_rows = ctx.n_rows
+        live = mask & (dst >= 0) & (dst < n_rows)
+        safe = torch.clamp(dst, 0, n_rows - 1).long()
+        g_rows = g[safe]                  # dead edges read junk rows …
+        zero = torch.zeros((), dtype=g.dtype, device=g.device)
+        if ctx.op == "add":               # … zeroed by `live` here
+            d_vals = torch.where(live[:, None],
+                                 g_rows * weights[:, None].to(g.dtype),
+                                 zero).to(src_vals.dtype)
+            d_w = torch.where(
+                live, (src_vals.to(torch.float32)
+                       * g_rows.to(torch.float32)).sum(-1),
+                torch.zeros((), dtype=torch.float32, device=g.device)
+            ).to(weights.dtype)
+            return None, d_vals, d_w, None, None, None, None
+        # the CAM match lines as the grad router: an edge takes part in the
+        # row's extremum iff it equals the saved output there (and is live)
+        eq = live[:, None] & (src_vals == out[safe])
+        with gas_ops.suspend_counting(ctx.suspended):
+            ties = _scatter_weighted_impl(dst, eq.to(torch.float32), None,
+                                          mask, n_rows, "add", "kernel",
+                                          ctx.schedule)
+        share = g_rows / torch.clamp(ties[safe], min=1.0)
+        d_vals = torch.where(eq, share, zero).to(src_vals.dtype)
+        return (None, d_vals, torch.zeros_like(weights), None, None, None,
+                None)
+
+
 def gas_scatter_weighted(dst: torch.Tensor, src_vals: torch.Tensor,
                          weights: torch.Tensor, mask: torch.Tensor,
                          n_rows: int, *, op: Op = "add", impl: str = "ref",
-                         schedule=None) -> torch.Tensor:
+                         schedule: Optional[gas_ops.EdgeSchedule] = None
+                         ) -> torch.Tensor:
     """Masked, edge-weighted scatter — the paper's aggregation atom.
 
     src_vals: (E, F); weights/mask: (E,). Invalid edges are routed to a
     dead row and sliced off. On the kernel backend the dispatch is fused:
     mask and weights enter the kernel, no E×F staging. ``schedule`` (an
     ``EdgeSchedule`` whose ``perm`` order the inputs are already in) swaps
-    the dense grid for the banded walk.
+    the dense grid for the banded walk, in the forward and in the max/min
+    tie count of the backward. Differentiable in ``src_vals`` and
+    ``weights`` on both backends; ``op="or"`` is flat and its gradients
+    are stopped.
     """
+    if check_impl(impl) == "kernel":
+        if op == "or":
+            return _scatter_weighted_impl(dst, src_vals.detach(),
+                                          weights.detach(), mask, n_rows, op,
+                                          impl, schedule)
+        return _ScatterWeightedKernel.apply(dst, src_vals, weights, mask,
+                                            n_rows, op, schedule)
     return _scatter_weighted_impl(dst, src_vals, weights, mask, n_rows, op,
                                   impl, schedule)

@@ -1,11 +1,14 @@
-"""Minibatch GraphSAGE on the CGTrans substrate (the paper's workload), forward.
+"""Minibatch GraphSAGE on the CGTrans substrate (the paper's workload).
 
 Vertex features live owner-sharded on the storage tier, ``(P, part, F)``;
 a batch carries only ids. Layer 1's remote feature aggregation is the
 CGTrans step (``cgtrans.aggregate_multi``); layer 2 aggregates the locally
 materialised subgraph. Parameters are a flat dict of tensors named as in
 the JAX package (``w0``, ``b0``, ``w1``, ``b1``, ``w_out``, ``b_out``), so
-``params_from_jax`` carries them across unchanged.
+``params_from_jax`` carries them across unchanged. ``sage_forward`` and
+``sage_loss`` are differentiable in the parameters and in the feature
+table on both GAS backends; inference callers wrap them in
+``torch.no_grad()``.
 """
 
 from __future__ import annotations
@@ -75,7 +78,7 @@ def _check_partition_knob(cfg: GCNConfig, relabel) -> None:
                          "(expected 'interval' or 'island')")
     if cfg.partition == "island" or relabel is not None:
         raise NotImplementedError(
-            "partition='island' is not ported yet (ROADMAP Queue 1, "
+            "partition='island' is not ported yet (ROADMAP Queue 1 row 6, "
             "graph/partition.py islandize)")
 
 
@@ -99,7 +102,6 @@ def lookup_rows(feats, ids, *, mesh=None, dataflow="cgtrans", impl="ref",
                                      sparse_capacity=sparse_capacity)
 
 
-@torch.no_grad()
 def sage_forward(params: Mapping[str, torch.Tensor], feats: torch.Tensor,
                  batch: Mapping, cfg: GCNConfig, *, mesh=None, relabel=None
                  ) -> torch.Tensor:
@@ -149,11 +151,10 @@ def sage_forward(params: Mapping[str, torch.Tensor], feats: torch.Tensor,
     return torch.einsum("pbh,hc->pbc", h2, params["w_out"]) + params["b_out"]
 
 
-@torch.no_grad()
 def sage_loss(params, feats, batch, cfg: GCNConfig, *, mesh=None,
               relabel=None):
-    """(mean NLL, {"loss", "acc"}) of ``sage_forward``'s logits — the value
-    only; training comes with the backward kernels."""
+    """(mean NLL, {"loss", "acc"}) of ``sage_forward``'s logits; the mean
+    NLL is differentiable, the metrics are detached."""
     logits = sage_forward(params, feats, batch, cfg, mesh=mesh,
                           relabel=relabel)
     labels = _batch_tensors({"labels": batch["labels"]},
@@ -161,7 +162,8 @@ def sage_loss(params, feats, batch, cfg: GCNConfig, *, mesh=None,
     logp = torch.log_softmax(logits.float(), dim=-1)
     nll = -torch.gather(logp, -1, labels[..., None])[..., 0]
     acc = (logits.argmax(-1) == labels).float()
-    return nll.mean(), {"loss": nll.mean(), "acc": acc.mean()}
+    loss = nll.mean()
+    return loss, {"loss": loss.detach(), "acc": acc.mean()}
 
 
 def feature_table(feats: np.ndarray, n_parts: int = 1, *,

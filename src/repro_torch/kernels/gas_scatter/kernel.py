@@ -320,8 +320,9 @@ def gas_scatter_banded(work, dst, values, n_rows: int, *, op: str = "add",
             gas_scatter_banded.launches += 1
         return out
     if values.device.type == "cpu":
-        return gas_scatter_banded_plain(work, dst, values, n_rows, op=op,
-                                        weights=weights)
+        with torch.no_grad():     # forward-only, as the kernel is
+            return gas_scatter_banded_plain(work, dst, values, n_rows, op=op,
+                                            weights=weights)
     raise ValueError(f"no kernel for device {values.device}")
 
 
@@ -390,8 +391,9 @@ def gas_scatter_dense(dst, values, occupancy, n_rows: int, *,
             gas_scatter_dense.launches += 1
         return out
     if values.device.type == "cpu":
-        return gas_scatter_dense_plain(dst, values, occupancy, n_rows, op=op,
-                                       weights=weights)
+        with torch.no_grad():     # forward-only, as the kernel is
+            return gas_scatter_dense_plain(dst, values, occupancy, n_rows,
+                                           op=op, weights=weights)
     raise ValueError(f"no kernel for device {values.device}")
 
 

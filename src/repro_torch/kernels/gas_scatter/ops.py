@@ -37,6 +37,7 @@ FEAT_BLOCK = K.FEAT_BLOCK
 # ---------------------------------------------------------------------------
 
 _DISPATCH_COUNTS: Optional[Counter] = None
+_SUSPENDED = False
 
 
 @contextlib.contextmanager
@@ -45,35 +46,44 @@ def count_dispatches():
 
     Keys: ``kernel_scatter`` (one per public kernel-scatter call, ticked
     here), ``find`` and ``reduce`` (ticked by ``repro_torch.core.gas``). The
-    counts mirror the JAX package's trace-time counter: a call site counts
-    once per program, and a chunk loop counts its body once, as a scan body
-    counts once in the reference (``suspend_counting``). Contexts nest: the
+    counts mirror the call sites of the JAX package's traced program: a
+    call site counts once per program, and a chunk loop counts its body
+    once, as a scan body appears once in the reference
+    (``suspend_counting``). A backward rule ticks where its forward did
+    and stays silent where its forward was suspended. Contexts nest: the
     innermost counter receives the ticks.
     """
-    global _DISPATCH_COUNTS
-    prev = _DISPATCH_COUNTS
-    _DISPATCH_COUNTS = Counter()
+    global _DISPATCH_COUNTS, _SUSPENDED
+    prev = _DISPATCH_COUNTS, _SUSPENDED
+    _DISPATCH_COUNTS, _SUSPENDED = Counter(), False
     try:
         yield _DISPATCH_COUNTS
     finally:
-        _DISPATCH_COUNTS = prev
+        _DISPATCH_COUNTS, _SUSPENDED = prev
 
 
 @contextlib.contextmanager
-def suspend_counting():
+def suspend_counting(suspend: bool = True):
     """Run a block without ticking — for the second and later passes of a
-    loop body whose dispatch sites were already counted once."""
-    global _DISPATCH_COUNTS
-    prev = _DISPATCH_COUNTS
-    _DISPATCH_COUNTS = None
+    loop body whose dispatch sites were already counted once, and for the
+    backward of such a pass. ``suspend=False`` leaves counting as it is."""
+    global _SUSPENDED
+    prev = _SUSPENDED
+    _SUSPENDED = prev or suspend
     try:
         yield
     finally:
-        _DISPATCH_COUNTS = prev
+        _SUSPENDED = prev
+
+
+def counting_suspended() -> bool:
+    """Whether ticks are dropped here (inside ``suspend_counting``); a
+    backward rule records it at forward time."""
+    return _SUSPENDED
 
 
 def _tick(kind: str) -> None:
-    if _DISPATCH_COUNTS is not None:
+    if _DISPATCH_COUNTS is not None and not _SUSPENDED:
         _DISPATCH_COUNTS[kind] += 1
 
 
@@ -353,6 +363,7 @@ def gas_scatter_fused(dst: torch.Tensor, values: torch.Tensor,
 
 
 __all__ = ["EdgeSchedule", "KernelCall", "count_dispatches",
-           "dense_skip_stats", "fused_call", "gas_scatter",
-           "gas_scatter_fused", "gas_scatter_ref", "occupancy_map",
-           "schedule_edges", "schedule_skip_stats", "suspend_counting"]
+           "counting_suspended", "dense_skip_stats", "fused_call",
+           "gas_scatter", "gas_scatter_fused", "gas_scatter_ref",
+           "occupancy_map", "schedule_edges", "schedule_skip_stats",
+           "suspend_counting"]

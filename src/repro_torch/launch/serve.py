@@ -83,6 +83,7 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+@torch.no_grad()
 def generate(params, batch: Dict[str, Any], cfg, *, gen: int,
              use_flash: bool, forced: Optional[torch.Tensor] = None
              ) -> Dict[str, Any]:
@@ -90,7 +91,8 @@ def generate(params, batch: Dict[str, Any], cfg, *, gen: int,
     teacher-forces the decode inputs (step i reads ``forced[:, i]``)
     instead of the greedy tokens. Returns the prefill and per-step logits,
     the greedy tokens (B, gen), and the host-clock seconds of the prefill
-    and of the decode loop, each ending in a device synchronise."""
+    and of the decode loop, each ending in a device synchronise. Runs
+    without autograd: no output requires grad, even where params do."""
     from repro_torch.train import make_decode_step, make_prefill_step
 
     dev = params["embed"]["table"].device

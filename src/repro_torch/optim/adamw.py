@@ -1,0 +1,121 @@
+"""AdamW + cosine schedule + global-norm clipping + int8 error-feedback
+gradient compression, on trees (nested dicts) of tensors.
+
+The arithmetic is the JAX package's (``repro.optim.adamw``), not
+``torch.optim.AdamW``'s: the bias-corrected step is
+``(m / bc1) / (sqrt(v / bc2) + eps)``, weight decay enters as
+``p − lr·(step + wd·p)``, the step count is an int32 tensor, and norms sum
+the leaves in sorted-key order. Compression (``int8_ef``): each leaf is
+scale-quantized to int8 and the quantization residual is carried in the
+optimiser state and re-added next step (error feedback).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Any, Dict, Tuple
+
+import torch
+
+from repro_torch.common.config import TrainConfig
+from repro_torch.common.tree import leaves, tree_map
+
+
+def cosine_lr(step: torch.Tensor, tc: TrainConfig) -> torch.Tensor:
+    """Linear warmup to ``learning_rate``, then a cosine decay to
+    ``min_lr_ratio`` of it at ``total_steps``; float32 like ``step / n``."""
+    warm = torch.clamp(step / max(tc.warmup_steps, 1), max=1.0)
+    prog = torch.clamp((step - tc.warmup_steps)
+                       / max(tc.total_steps - tc.warmup_steps, 1), 0.0, 1.0)
+    cos = 0.5 * (1 + torch.cos(math.pi * prog))
+    scale = tc.min_lr_ratio + (1 - tc.min_lr_ratio) * cos
+    return tc.learning_rate * warm * scale
+
+
+def global_norm(tree) -> torch.Tensor:
+    total = sum(torch.sum(torch.square(x.to(torch.float32)))
+                for x in leaves(tree))
+    return torch.sqrt(torch.as_tensor(total, dtype=torch.float32))
+
+
+def clip_by_global_norm(tree, max_norm: float):
+    norm = global_norm(tree)
+    scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
+    return tree_map(lambda x: (x * scale).to(x.dtype), tree), norm
+
+
+# --- int8 error-feedback compression ---------------------------------------
+
+def quantize_int8(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    scale = torch.clamp(torch.max(torch.abs(x)), min=1e-12) / 127.0
+    q = torch.clamp(torch.round(x / scale), -127, 127).to(torch.int8)
+    return q, scale
+
+
+def compress_grads(grads, residual):
+    """Returns (dequantized grads as transmitted, new residual)."""
+    def one(g, r):
+        g32 = g.to(torch.float32) + r
+        q, s = quantize_int8(g32)
+        deq = q.to(torch.float32) * s
+        return deq.to(g.dtype), (g32 - deq).to(torch.float32)
+
+    pairs = tree_map(one, grads, residual)
+    return _pick(pairs, 0), _pick(pairs, 1)
+
+
+def _pick(tree_of_tuples, i: int):
+    """Component ``i`` of every tuple leaf of a ``tree_map`` result."""
+    if isinstance(tree_of_tuples, dict):
+        return {k: _pick(v, i) for k, v in tree_of_tuples.items()}
+    if isinstance(tree_of_tuples, list):
+        return [_pick(v, i) for v in tree_of_tuples]
+    return tree_of_tuples[i]
+
+
+# --- AdamW ------------------------------------------------------------------
+
+def adamw_init(params, tc: TrainConfig) -> Dict[str, Any]:
+    zeros = lambda p: tree_map(
+        lambda x: torch.zeros(x.shape, dtype=torch.float32, device=x.device),
+        p)
+    device = leaves(params)[0].device
+    state = {"m": zeros(params), "v": zeros(params),
+             "count": torch.zeros((), dtype=torch.int32, device=device)}
+    if tc.grad_compression == "int8_ef":
+        state["ef_residual"] = zeros(params)
+    return state
+
+
+@torch.no_grad()
+def adamw_update(params, grads, opt_state, tc: TrainConfig):
+    """Returns (new_params, new_opt_state, metrics)."""
+    metrics = {}
+    if tc.grad_compression == "int8_ef":
+        grads, new_res = compress_grads(grads, opt_state["ef_residual"])
+        metrics["ef_residual_norm"] = global_norm(new_res)
+
+    grads, gnorm = clip_by_global_norm(grads, tc.grad_clip)
+    metrics["grad_norm"] = gnorm
+
+    count = opt_state["count"] + 1
+    lr = cosine_lr(count, tc)
+    metrics["lr"] = lr
+    b1, b2 = tc.beta1, tc.beta2
+    bc1 = 1 - b1 ** count.to(torch.float32)
+    bc2 = 1 - b2 ** count.to(torch.float32)
+
+    def upd(p, g, m, v):
+        g32 = g.to(torch.float32)
+        m_ = b1 * m + (1 - b1) * g32
+        v_ = b2 * v + (1 - b2) * torch.square(g32)
+        step = (m_ / bc1) / (torch.sqrt(v_ / bc2) + tc.eps)
+        p32 = p.to(torch.float32)
+        p_ = p32 - lr * (step + tc.weight_decay * p32)
+        return p_.to(p.dtype), m_, v_
+
+    out = tree_map(upd, params, grads, opt_state["m"], opt_state["v"])
+    new_state = {"m": _pick(out, 1), "v": _pick(out, 2), "count": count}
+    if tc.grad_compression == "int8_ef":
+        new_state["ef_residual"] = new_res
+    return _pick(out, 0), new_state, metrics

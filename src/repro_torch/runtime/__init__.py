@@ -1,3 +1,3 @@
-from repro_torch.runtime.health import Heartbeat, StepMonitor
+from repro_torch.runtime.health import Heartbeat, PreemptionGuard, StepMonitor
 
-__all__ = ["Heartbeat", "StepMonitor"]
+__all__ = ["Heartbeat", "PreemptionGuard", "StepMonitor"]

@@ -1,4 +1,4 @@
-"""Fleet-runtime health machinery: stragglers and heartbeats.
+"""Fleet-runtime health machinery: stragglers, heartbeats, preemption.
 
 * ``StepMonitor`` — EWMA step-time tracker; flags straggler steps (z-score
   over a robust MAD estimate). In a multi-host deployment each host runs one
@@ -6,12 +6,15 @@
   is ``on_straggler``).
 * ``Heartbeat``   — liveness file for an external supervisor (touch every K
   seconds; supervisor restarts the job if stale).
+* ``PreemptionGuard`` — converts SIGTERM into a cooperative "checkpoint and
+  exit" flag the training loop polls.
 """
 
 from __future__ import annotations
 
 import collections
 import os
+import signal
 import threading
 import time
 from typing import Callable, Deque, Dict, Optional
@@ -92,3 +95,25 @@ class Heartbeat:
                 return time.time() - float(f.read()) < stale_after_s
         except (OSError, ValueError):
             return False
+
+
+class PreemptionGuard:
+    """SIGTERM → cooperative shutdown flag (poll ``should_exit``)."""
+
+    def __init__(self, install: bool = True):
+        self._flag = threading.Event()
+        if install:
+            try:
+                signal.signal(signal.SIGTERM, self._handler)
+            except ValueError:
+                pass  # not on the main thread (tests)
+
+    def _handler(self, signum, frame):
+        self._flag.set()
+
+    def trigger(self) -> None:  # tests / manual drain
+        self._flag.set()
+
+    @property
+    def should_exit(self) -> bool:
+        return self._flag.is_set()

@@ -1,7 +1,8 @@
 """Prefill and decode step builders.
 
-The training step of the JAX module comes with the training port (ROADMAP
-Queue 1 row 10); these two serve the LM path.
+The JAX module's LM training step comes with the LM training port
+(ROADMAP Queue 1 row 10); these two serve the LM path. The graph
+workload's training step is ``train.pipeline.make_sage_train_step``.
 """
 
 from __future__ import annotations
