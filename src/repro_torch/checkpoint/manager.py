@@ -10,6 +10,10 @@ training state saved by either package restores in the other.
 
 Async: ``save_async`` copies the state to host memory synchronously and
 writes in a daemon thread; ``wait()`` joins before the next save or exit.
+
+On a sharded ``mesh`` the training state is replicated: rank 0 writes it,
+every rank restores it, and a barrier sits around both, so no rank reads a
+step another is still writing.
 """
 
 from __future__ import annotations
@@ -24,6 +28,7 @@ import numpy as np
 import torch
 
 from repro_torch.common.tree import leaves_with_paths, unflatten
+from repro_torch.core.cgtrans import is_sharded
 from repro_torch.device import DeviceLike, resolve_device
 
 _SEP = "/"
@@ -40,28 +45,44 @@ def _to_host(leaf) -> np.ndarray:
 
 
 class CheckpointManager:
-    def __init__(self, directory: str, *, keep: int = 3):
+    def __init__(self, directory: str, *, keep: int = 3, mesh=None):
         self.dir = directory
         self.keep = keep
+        self.mesh = mesh if is_sharded(mesh) else None
         os.makedirs(directory, exist_ok=True)
         self._thread: Optional[threading.Thread] = None
+
+    def _barrier(self) -> None:
+        if self.mesh is not None:
+            self.mesh.barrier()
+
+    @property
+    def _writes(self) -> bool:
+        return self.mesh is None or self.mesh.rank == 0
 
     # --- write ---------------------------------------------------------
 
     def save(self, state, step: int) -> str:
-        return self._write(self._snapshot(state), step)
+        self._barrier()
+        path = os.path.join(self.dir, f"step_{step}")
+        if self._writes:
+            path = self._write(self._snapshot(state), step)
+        self._barrier()
+        return path
 
     def save_async(self, state, step: int) -> None:
         self.wait()
-        self._thread = threading.Thread(
-            target=self._write, args=(self._snapshot(state), step),
-            daemon=True)
-        self._thread.start()
+        if self._writes:
+            self._thread = threading.Thread(
+                target=self._write, args=(self._snapshot(state), step),
+                daemon=True)
+            self._thread.start()
 
     def wait(self) -> None:
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        self._barrier()
 
     @staticmethod
     def _snapshot(state):
@@ -137,4 +158,5 @@ class CheckpointManager:
                             f"pass device= to place it")
                     where = like.device
                 placed.append(torch.from_numpy(arrays[_key(path)]).to(where))
+        self._barrier()
         return unflatten(template, placed), step

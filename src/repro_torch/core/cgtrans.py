@@ -1,8 +1,8 @@
-"""CGTrans sampled aggregation — the unsharded path (paper §3.2).
+"""CGTrans sampled aggregation — unsharded and over a ``data`` mesh
+(paper §3.2).
 
 Vertex features live owner-sharded on the storage tier, laid out as
-``(P, part, F)``; requests carry ids only. This module ports the JAX
-package's sampled path for one device: ``aggregate_multi`` fuses several
+``(P, part, F)``; requests carry ids only. ``aggregate_multi`` fuses several
 request segments of different fan-out (e.g. ``sage_forward``'s K=1
 self-row lookup and its 2-hop block) into ONE command block — one combined
 gather (``_multi_find``), then a per-segment seed reduction: a K=1 segment
@@ -10,14 +10,27 @@ is a pure find with no kernel, a K>1 segment is one FAST-GAS scatter, on
 the banded walk when ``scheduled`` (the seed stream ``repeat(arange(R), K)``
 is destination-binned by construction, so its schedule needs no sort).
 
+On a ``repro_torch.launch.mesh.DataMesh`` of P > 1 ranks each rank runs the
+JAX package's ``shard_map`` body on its own slice — ``feats`` is the rank's
+``(1, part, F)`` rows, each block the rank's ``(1, R_i, K_i)`` requests,
+the result the rank's ``(1, R_i, F)`` — through the collectives of
+``repro_torch.core.collectives``, in the reference's shape:
+
+* ``cgtrans``: ONE ``all_gather`` of the concatenated ``-1``-encoded id
+  stream, ONE ``_multi_find`` against the local rows (ids outside
+  ``[0, part)`` are dead), ONE ``all_to_all`` of the (n, R_tot, F) partials
+  with the add counts as one extra column, combined per seed on arrival;
+* ``baseline``: the same broadcast, then the raw gathered rows'
+  ``all_to_all`` plus the ownership bits' ``all_to_all``, reduced at the
+  seed's owner.
+
 ``request_chunk`` streams each segment through the command block that many
 rows at a time; chunking partitions rows, never a row's K entries, so the
 result is bit-exact with the unchunked block.
 
 Not in this module yet (each raises ``NotImplementedError`` naming its
-ROADMAP row): the sharded dataflows (``mesh=``), compressed wires
-(``wire`` other than ``"f32"``) and compressed-sparse features
-(``features="sparse"``).
+ROADMAP row): compressed wires (``wire`` other than ``"f32"``) and
+compressed-sparse features (``features="sparse"``).
 """
 
 from __future__ import annotations
@@ -26,9 +39,10 @@ from typing import Callable, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
-from repro_torch.core import gas
+from repro_torch.core import collectives, gas
 from repro_torch.device import check_impl
 from repro_torch.kernels.gas_scatter import ops as gas_ops
+from repro_torch.launch.mesh import DataMesh
 
 WIRE_FORMATS = ("f32", "bf16", "int8")
 
@@ -64,11 +78,19 @@ def _check_features(features: str, sparse_capacity: Optional[int]) -> None:
                          "features='sparse'")
 
 
-def _check_mesh(mesh) -> None:
-    if mesh is not None:
+def is_sharded(mesh) -> bool:
+    """Whether ``mesh`` splits the work: a ``DataMesh`` of more than one
+    rank (a 1-rank mesh takes the reference path, as in JAX). Any other
+    kind of mesh raises: the port shards over the 1-D ``data`` axis only."""
+    if mesh is None:
+        return False
+    if not isinstance(mesh, DataMesh):
         raise NotImplementedError(
-            "mesh=: the sharded dataflows are not ported yet (ROADMAP "
-            "Queue 1 row 2, torch.distributed dataflows)")
+            f"mesh={type(mesh).__name__}: the port shards over a "
+            f"repro_torch.launch.mesh.DataMesh, the 1-D 'data' axis of "
+            f"ROADMAP Queue 1 row 2; other meshes (a JAX Mesh, a 2-D data "
+            f"x model mesh) are not ported")
+    return mesh.shape["data"] > 1
 
 
 def _resolve_scheduled(scheduled: Optional[bool], impl: str) -> bool:
@@ -143,6 +165,17 @@ def _finalize(red: torch.Tensor, cnt: torch.Tensor, op: gas.Op):
     return _mask_identity_rows(red, op)
 
 
+def _combine_shards(parts: torch.Tensor, cnts: Optional[torch.Tensor],
+                    op: gas.Op) -> torch.Tensor:
+    """(n, B, F) per-source-shard partials (+ (n, B) counts) → (B, F)."""
+    if op == "add":
+        return parts.sum(0) / torch.clamp(cnts.sum(0), min=1).to(
+            parts.dtype)[..., None]
+    if op in ("max", "or"):
+        return _mask_identity_rows(torch.amax(parts, 0), op)
+    return _mask_identity_rows(torch.amin(parts, 0), op)
+
+
 def _pad_rows(x: torch.Tensor, mult: int, fill) -> torch.Tensor:
     pad = (-x.shape[0]) % mult
     if pad == 0:
@@ -159,8 +192,9 @@ def scan_request_chunks(body: Callable, nbrs2d: torch.Tensor,
     time; padded rows are all-masked, reduce to the op identity and are
     sliced off. Bit-exact with one full-block ``body`` call. A Python loop
     in place of the reference's ``lax.scan``: as a scan body is traced
-    once, the loop body's dispatch sites tick ``count_dispatches`` on the
-    first chunk only (every chunk still launches its kernels).
+    once, the loop body's dispatch and collective sites tick
+    ``count_dispatches`` and ``count_collectives`` on the first chunk only
+    (every chunk still launches its kernels and issues its collectives).
     """
     R = nbrs2d.shape[0]
     chunk = max(1, min(chunk, R))
@@ -257,6 +291,67 @@ def _multi_find(table: torch.Tensor, seg_ids: List[torch.Tensor], op: gas.Op,
     return outs
 
 
+def _sharded_fetch(f: torch.Tensor, seg_enc: List[torch.Tensor], mesh,
+                   dataflow: str, op: gas.Op, impl: str, use_sched: bool):
+    """ONE command block over this rank's segments [(r_i, k_i) encoded
+    ids] against its (part, F) rows → list of (r_i, F) aggregated rows
+    for its own seeds (the JAX ``shard_map`` body's ``fetch``)."""
+    n, part, F = mesh.size, f.shape[0], f.shape[1]
+    shapes = [tuple(s.shape) for s in seg_enc]
+    flat = (seg_enc[0].reshape(-1) if len(seg_enc) == 1 else
+            torch.cat([s.reshape(-1) for s in seg_enc]))
+    # the request broadcast: ONE all_gather of the concatenated id stream
+    # (masks ride the -1 encoding)
+    ids = collectives.all_gather(flat, mesh)              # (n, N)
+    rel = ids - mesh.rank * part                          # dead ids stay < 0
+
+    if dataflow == "cgtrans":
+        offs = segment_descriptor(shapes).id_offsets
+        seg_rel = [rel[:, offs[i]:offs[i + 1]].reshape(n * r, k)
+                   for i, (r, k) in enumerate(shapes)]
+        # in-SSD aggregation: ONE gather, per-segment reductions
+        found = _multi_find(f, seg_rel, op, impl, use_sched)
+        reds = [red.reshape(n, r, F) for (red, _), (r, k) in zip(found, shapes)]
+        payload = reds[0] if len(reds) == 1 else torch.cat(reds, dim=1)
+        if op == "add":
+            cnts = [cnt.reshape(n, r).to(f.dtype)
+                    for (_, cnt), (r, k) in zip(found, shapes)]
+            cnt = cnts[0] if len(cnts) == 1 else torch.cat(cnts, dim=1)
+            # the counts ride the payload as one extra feature column
+            payload = torch.cat([payload, cnt[..., None]], dim=-1)
+        parts = collectives.all_to_all(payload, mesh)     # (n, R_tot, F(+1))
+        outs, roff = [], 0
+        for r, k in shapes:
+            seg = parts[:, roff:roff + r]
+            roff += r
+            outs.append(_combine_shards(seg[..., :F], seg[..., F], op)
+                        if op == "add" else _combine_shards(seg, None, op))
+        return outs
+
+    # baseline: gather once, ship the raw (n, N, F) rows plus the ownership
+    # bits (as bytes: NCCL has no bool) to the seed owners, reduce there
+    own = (rel >= 0) & (rel < part)
+    rows = gas.gas_gather(f, torch.clamp(rel, 0, part - 1).reshape(-1),
+                          impl=impl).reshape(n, -1, F)
+    rows = torch.where(own[..., None], rows,
+                       torch.zeros((), dtype=rows.dtype, device=rows.device))
+    raw = collectives.all_to_all(rows, mesh)              # (n, N, F)
+    okk = collectives.all_to_all(own.to(torch.uint8)[..., None],
+                                 mesh)[..., 0].bool()
+    outs, off = [], 0
+    for r, k in shapes:
+        sl = slice(off, off + r * k)
+        off += r * k
+        # every source shard's k candidates line up per seed row: (r, n·k)
+        seg_rows = raw[:, sl].reshape(n, r, k, F).permute(1, 0, 2, 3).reshape(
+            r, n * k, F)
+        seg_ok = okk[:, sl].reshape(n, r, k).permute(1, 0, 2).reshape(
+            r, n * k)
+        red, cnt = _seed_reduce_rows(seg_rows, seg_ok, op, impl, use_sched)
+        outs.append(_finalize(red, cnt, op))
+    return outs
+
+
 def aggregate_multi(
     feats: torch.Tensor,  # (P, part, F) owner-sharded features
     blocks,               # sequence of (nbrs (P, R_i, K_i), mask) segments
@@ -277,32 +372,47 @@ def aggregate_multi(
 
     ``op="add"`` is the masked mean; max/min/or reduce elementwise over the
     valid samples; seeds with no valid sample read 0 on every op. The
-    tensors' device is where the work runs.
+    tensors' device is where the work runs. On a sharded ``mesh`` the
+    arguments and the result are this rank's slices (P = 1 locally: its
+    ``(1, part, F)`` rows, its ``(1, R_i, K_i)`` requests); the two
+    dataflows differ only there.
     """
     if dataflow not in ("cgtrans", "baseline"):
         raise ValueError(dataflow)
     check_impl(impl)
     _check_wire(wire, dataflow, features)
     _check_features(features, sparse_capacity)
-    _check_mesh(mesh)
+    sharded = is_sharded(mesh)
     blocks = tuple(blocks)
     Pn, part, F = feats.shape
+    if sharded and Pn != 1:
+        raise ValueError(f"on a mesh feats is this rank's (1, part, F) "
+                         f"slice, got {tuple(feats.shape)}")
     desc = segment_descriptor([tuple(nb.shape[-2:]) for nb, _ in blocks])
     use_sched = _resolve_scheduled(scheduled, impl)
     enc = _encode_requests(blocks)                       # (P, N_tot)
-    table = feats.reshape(Pn * part, F)
     seg_enc = [enc[:, desc.id_offsets[i]:desc.id_offsets[i + 1]].reshape(-1, k)
                for i, (r, k) in enumerate(desc.shapes)]  # (Pn·R_i, K_i)
-    if request_chunk is None:
-        outs = [_finalize(red, cnt, op)
-                for red, cnt in _multi_find(table, seg_enc, op, impl,
-                                            use_sched)]
+    table = feats.reshape(Pn * part, F)
+
+    if sharded:
+        def fetch(segs):
+            return _sharded_fetch(table, segs, mesh, dataflow, op, impl,
+                                  use_sched)
     else:
+        def fetch(segs):
+            return [_finalize(red, cnt, op)
+                    for red, cnt in _multi_find(table, segs, op, impl,
+                                                use_sched)]
+
+    if request_chunk is None:
+        outs = fetch(seg_enc)
+    else:
+        # the chunked command queue respects segment boundaries: each
+        # segment streams separately (their K differ)
         def one(nb_c, m_c):
-            red, cnt = _multi_find(
-                table, [torch.where(m_c, nb_c, torch.full_like(nb_c, -1))],
-                op, impl, use_sched)[0]
-            return _finalize(red, cnt, op)
+            return fetch([torch.where(m_c, nb_c, torch.full_like(nb_c, -1))
+                          ])[0]
 
         outs = [scan_request_chunks(one, e, e >= 0, request_chunk)
                 for e in seg_enc]

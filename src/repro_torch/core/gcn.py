@@ -9,6 +9,12 @@ the JAX package (``w0``, ``b0``, ``w1``, ``b1``, ``w_out``, ``b_out``), so
 ``sage_loss`` are differentiable in the parameters and in the feature
 table on both GAS backends; inference callers wrap them in
 ``torch.no_grad()``.
+
+On a sharded ``mesh`` (``repro_torch.launch.mesh.DataMesh``) every rank
+passes its own slices: ``feature_table(..., mesh=mesh)``'s ``(1, part, F)``
+rows and ``mesh.shard(batch)``'s ``(1, B, …)`` seeds, and gets its own
+``(1, B, C)`` logits; ``sage_loss`` reports the global mean over all P·B
+seeds, as the JAX package's loss over the seed-sharded batch does.
 """
 
 from __future__ import annotations
@@ -20,8 +26,9 @@ import numpy as np
 import torch
 
 from repro_torch.common.schema import ParamDef
-from repro_torch.core import cgtrans
+from repro_torch.core import cgtrans, collectives
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.graph.partition import interval_size
 
 
 @dataclasses.dataclass(frozen=True)
@@ -110,7 +117,8 @@ def sage_forward(params: Mapping[str, torch.Tensor], feats: torch.Tensor,
     ``feats``: (P, part, F) float32 on the device the work runs on.
     ``batch`` (numpy arrays or tensors, leading dim P):
       seeds (P, B), nbrs1/mask1 (P, B, K1), nbrs2/mask2 (P, B·(1+K1), K2).
-    Returns (P, B, C) logits.
+    Returns (P, B, C) logits. On a sharded ``mesh`` P is 1: this rank's
+    slices in, this rank's logits out.
     """
     _check_partition_knob(cfg, relabel)
     b = _batch_tensors(batch, feats.device)
@@ -153,25 +161,51 @@ def sage_forward(params: Mapping[str, torch.Tensor], feats: torch.Tensor,
 
 def sage_loss(params, feats, batch, cfg: GCNConfig, *, mesh=None,
               relabel=None):
-    """(mean NLL, {"loss", "acc"}) of ``sage_forward``'s logits; the mean
-    NLL is differentiable, the metrics are detached."""
+    """(loss, {"loss", "acc"}) of ``sage_forward``'s logits: the mean NLL
+    over every seed of the batch, differentiable, and its detached metrics.
+
+    On a sharded ``mesh`` the returned loss is this rank's NLL sum over the
+    static global seed count P·B, so the ranks' gradients sum (one
+    all-reduce, the train step's) to the gradient of the global mean; the
+    metrics are global, from one ``all_reduce`` of (NLL sum, correct
+    count), counted as ``metric_all_reduce``."""
     logits = sage_forward(params, feats, batch, cfg, mesh=mesh,
                           relabel=relabel)
     labels = _batch_tensors({"labels": batch["labels"]},
                             logits.device)["labels"].long()
     logp = torch.log_softmax(logits.float(), dim=-1)
     nll = -torch.gather(logp, -1, labels[..., None])[..., 0]
-    acc = (logits.argmax(-1) == labels).float()
-    loss = nll.mean()
-    return loss, {"loss": loss.detach(), "acc": acc.mean()}
+    correct = (logits.argmax(-1) == labels).float()
+    if not cgtrans.is_sharded(mesh):
+        loss = nll.mean()
+        return loss, {"loss": loss.detach(), "acc": correct.mean()}
+    n_seeds = nll.numel() * mesh.size
+    loss = nll.sum() / n_seeds
+    sums = collectives.all_reduce(torch.stack([nll.sum(), correct.sum()]),
+                                  mesh, name="metric_all_reduce")
+    return loss, {"loss": sums[0] / n_seeds, "acc": sums[1] / n_seeds}
 
 
-def feature_table(feats: np.ndarray, n_parts: int = 1, *,
+def feature_table(feats: np.ndarray, n_parts: int = 1, *, mesh=None,
                   device: DeviceLike = "cuda") -> torch.Tensor:
     """(V, F) host features → the (P, V/P, F) float32 owner-sharded layout
-    ``sage_forward`` reads, on ``device``."""
+    ``sage_forward`` reads, on ``device``.
+
+    On a sharded ``mesh`` (``n_parts`` = its size) the table is cut at
+    ``interval_size`` boundaries, as ``partition_by_src`` cuts it, and only
+    this rank's ``(1, part, F)`` interval is copied to the device (zero
+    rows pad the last interval)."""
     dev = resolve_device(device)
     V, F = feats.shape
+    if cgtrans.is_sharded(mesh):
+        if n_parts != mesh.size:
+            raise ValueError(f"n_parts={n_parts} on a {mesh.size}-rank mesh")
+        part = interval_size(V, n_parts)
+        lo = mesh.rank * part
+        rows = np.zeros((part, F), np.float32)
+        mine = feats[lo:min(lo + part, V)]
+        rows[:mine.shape[0]] = mine
+        return torch.from_numpy(rows).to(dev).reshape(1, part, F)
     if V % n_parts:
         raise ValueError(f"V={V} must divide into {n_parts} parts")
     return torch.from_numpy(np.ascontiguousarray(feats, np.float32)).to(

@@ -11,6 +11,11 @@
       PYTHONPATH=src python -m repro_torch.launch.serve \\
           --requests 48 --tenants 4 --cache 32 --batch 8
 
+  ``--shards N --backend {nccl,gloo}`` serves from N ranks of a ``data``
+  mesh, each holding its interval of the table; every rank replays the
+  same traffic and rank 0 prints (``launch.train`` says which backend
+  runs where).
+
 * ``--workload lm``: batched prefill + greedy decode of an LM
   (``--arch``), with tokens and, for an encoder-decoder, frames drawn from
   ``--seed``. ``--impl kernel`` runs the encoder's self-attention through
@@ -33,6 +38,9 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+
+# the deadline of a sharded graph run, and of each collective in it
+SHARDED_RUN_TIMEOUT_S = 3600.0
 
 
 def zipf_popularity(n_vertices: int, rng: np.random.Generator) -> np.ndarray:
@@ -150,10 +158,13 @@ def _main_lm(args) -> int:
     return 0
 
 
-def _main_graph(args) -> int:
+def _serve_graph(mesh, args) -> int:
+    """The run on one rank (``mesh`` a ``DataMesh``) or unsharded
+    (``mesh=None``)."""
     from repro_torch.graph import uniform_graph
     from repro_torch.serving import ServingEngine
 
+    print_ = print if mesh is None or mesh.rank == 0 else (lambda *a: None)
     V = args.vertices
     g = uniform_graph(V, args.degree * V, seed=args.seed,
                       n_features=args.features)
@@ -163,11 +174,12 @@ def _main_graph(args) -> int:
                         max_batch=args.batch,
                         max_delay_s=args.max_delay_ms / 1e3,
                         cache_capacity=args.cache, sample_seed=args.seed,
-                        impl=args.impl, device=args.device)
-    print(f"graph serving on {eng.device}: V={V} E={args.degree * V} "
-          f"F={args.features} fanout={args.fanout} impl={args.impl} | "
-          f"batch={args.batch} deadline={args.max_delay_ms}ms "
-          f"cache={args.cache} tenants={args.tenants}")
+                        impl=args.impl, mesh=mesh, device=args.device)
+    print_(f"graph serving on {eng.device} x {eng.n_shards} shard(s): "
+           f"V={V} E={args.degree * V} F={args.features} "
+           f"fanout={args.fanout} impl={args.impl} | "
+           f"batch={args.batch} deadline={args.max_delay_ms}ms "
+           f"cache={args.cache} tenants={args.tenants}")
 
     t0 = time.perf_counter()
     rids, per_tenant = replay_traffic(eng, requests=args.requests,
@@ -177,25 +189,39 @@ def _main_graph(args) -> int:
 
     snap = eng.health_snapshot()
     stats = snap["stats"]
-    print(f"served {served}/{args.requests} requests "
-          f"({', '.join(f't{t}:{n}' for t, n in enumerate(per_tenant))}) "
-          f"in {dt * 1e3:.1f} ms")
-    print(f"command blocks: {stats['command_blocks']} "
-          f"({stats['queries'] / max(stats['command_blocks'], 1):.1f} "
-          f"queries/block) | finds: {stats['find']} "
-          f"({snap['finds_per_query']:.3f}/query vs 1.000 naive) | "
-          f"kernel scatters: {stats['kernel_scatter']}")
+    print_(f"served {served}/{args.requests} requests "
+           f"({', '.join(f't{t}:{n}' for t, n in enumerate(per_tenant))}) "
+           f"in {dt * 1e3:.1f} ms")
+    print_(f"command blocks: {stats['command_blocks']} "
+           f"({stats['queries'] / max(stats['command_blocks'], 1):.1f} "
+           f"queries/block) | finds: {stats['find']} "
+           f"({snap['finds_per_query']:.3f}/query vs 1.000 naive) | "
+           f"kernel scatters: {stats['kernel_scatter']}")
     if "cache" in snap:
         c = snap["cache"]
-        print(f"hot cache: {c['hits']}/{c['hits'] + c['misses']} lookups hit "
+        print_(f"hot cache: {c['hits']}/{c['hits'] + c['misses']} lookups hit "
               f"(rate {c['hit_rate']:.2f}), {c['resident']}/{c['capacity']} "
               f"rows resident, {c['evictions']} evictions")
     mon = snap["monitor"]
-    print(f"health: {mon['steps']} dispatches recorded "
-          f"({mon['flagged']} flagged), ewma "
-          f"{mon['ewma_s'] * 1e3:.1f} ms/dispatch, "
-          f"queue depth {snap['queue_depth']}")
+    print_(f"health: {mon['steps']} dispatches recorded "
+           f"({mon['flagged']} flagged), ewma "
+           f"{mon['ewma_s'] * 1e3:.1f} ms/dispatch, "
+           f"queue depth {snap['queue_depth']}")
     return 0 if served == args.requests else 1
+
+
+def _main_graph(args) -> int:
+    if args.shards == 1:
+        return _serve_graph(None, args)
+    from repro_torch.launch.mesh import spawn
+    if args.backend == "nccl" and torch.cuda.device_count() < args.shards:
+        raise RuntimeError(
+            f"--backend nccl needs one card per shard ({args.shards} "
+            f"shards, {torch.cuda.device_count()} card(s)); pass --backend "
+            f"gloo to run the shards on a shared card or on the CPU")
+    return max(spawn(_serve_graph, args.shards, backend=args.backend,
+                     device=args.device, timeout_s=SHARDED_RUN_TIMEOUT_S,
+                     args=(args,)))
 
 
 def main(argv=None) -> int:
@@ -219,6 +245,12 @@ def main(argv=None) -> int:
                     help="hot-vertex cache capacity (0 disables)")
     ap.add_argument("--max-delay-ms", type=float, default=5.0)
     ap.add_argument("--impl", choices=("kernel", "ref"), default="kernel")
+    ap.add_argument("--shards", type=int, default=1,
+                    help="graph: data-axis ranks, each owning an interval "
+                         "of the table")
+    ap.add_argument("--backend", choices=("nccl", "gloo"), default="nccl",
+                    help="graph, sharded: nccl needs one card per shard; "
+                         "gloo runs CPU ranks or ranks sharing one card")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)

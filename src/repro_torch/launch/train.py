@@ -1,13 +1,23 @@
-"""Training launcher: GraphSAGE with the CGTrans dataflow on one card.
+"""Training launcher: GraphSAGE with the CGTrans dataflow.
 
-``--workload graph`` (the default) is the one-card form of
-``examples/train_graphsage.py``: an R-MAT graph with random features and
-learnable synthetic labels, one partition holding the whole feature table,
-batches carrying ids only, AdamW with warmup and cosine decay, and the
-fault-tolerant loop (checkpoint + resume, straggler monitor, preemption
-guard). It closes with the loss and accuracy on a fresh batch::
+``--workload graph`` (the default) is ``examples/train_graphsage.py``: an
+R-MAT graph with random features and learnable synthetic labels, the
+feature table owner-sharded over ``--shards`` partitions, batches carrying
+ids only, AdamW with warmup and cosine decay, and the fault-tolerant loop
+(checkpoint + resume, straggler monitor, preemption guard). It closes with
+the loss and accuracy on a fresh batch::
 
     PYTHONPATH=src python -m repro_torch.launch.train --steps 300
+
+``--shards N`` (N > 1) runs N ranks on a ``data`` mesh
+(``repro_torch.launch.mesh``), each holding its interval of the table and
+its slice of every batch; rank 0 prints. ``--backend nccl`` (the default)
+needs one card per rank; ``--backend gloo`` runs CPU ranks, or ranks that
+share one card with every collective staged through host memory — the
+8-way form of the example on the CPU is::
+
+    PYTHONPATH=src python -m repro_torch.launch.train --shards 8 \
+        --backend gloo --device cpu --steps 20 --scale 10
 
 Runs on the card by default; ``--device cpu`` runs the same path on the
 CPU (the kernels' plain versions). ``--workload lm`` (the JAX launcher's
@@ -24,8 +34,13 @@ import tempfile
 import numpy as np
 import torch
 
+# the deadline of a sharded run, and of each collective in it
+SHARDED_RUN_TIMEOUT_S = 3600.0
 
-def _main_graph(args) -> int:
+
+def _train_graph(mesh, args) -> int:
+    """The run on one rank (``mesh`` a ``DataMesh``) or unsharded
+    (``mesh=None``)."""
     from repro_torch.checkpoint import CheckpointManager
     from repro_torch.common.config import TrainConfig
     from repro_torch.common.schema import count_params, init_params
@@ -38,15 +53,20 @@ def _main_graph(args) -> int:
     from repro_torch.runtime import PreemptionGuard, StepMonitor
     from repro_torch.train import make_sage_train_step, train_loop
 
-    dev = resolve_device(args.device)
+    n = mesh.size if mesh is not None else 1
+    dev = mesh.device if mesh is not None else resolve_device(args.device)
+    say = print if mesh is None or mesh.rank == 0 else (lambda *a: None)
+    local = mesh.shard if mesh is not None else (lambda b: b)
     g = rmat(args.scale, 16, seed=0)
     rng = np.random.default_rng(1)
     g.features = rng.standard_normal(
         (g.n_vertices, args.features)).astype(np.float32)
     labels = synthetic_node_labels(g.features, 16)
-    feats = feature_table(g.features, 1, device=dev)
-    print(f"graph: {g.n_vertices} vertices, {g.n_edges} edges; features "
-          f"{tuple(feats.shape)} on {dev} (one partition)")
+    feats = feature_table(g.features, n, mesh=mesh, device=dev)
+    say(f"graph: {g.n_vertices} vertices, {g.n_edges} edges; features "
+        f"owner-sharded over {n} partition(s), {tuple(feats.shape)} per "
+        f"rank on {dev}"
+        + (f" ({mesh.backend})" if mesh is not None else ""))
 
     cfg = GCNConfig(n_features=args.features, hidden=args.hidden,
                     n_classes=16, fanout=args.fanout, dataflow=args.dataflow,
@@ -55,36 +75,53 @@ def _main_graph(args) -> int:
     tc = TrainConfig(learning_rate=3e-3, warmup_steps=20,
                      total_steps=args.steps, weight_decay=0.01)
     params = init_params(gcn_schema(cfg), 0, device=dev)
-    print(f"model: {count_params(gcn_schema(cfg)) / 1e6:.2f}M params "
-          f"(+{feats.numel() / 1e6:.1f}M feature table), "
-          f"dataflow={args.dataflow} impl={args.impl}")
+    say(f"model: {count_params(gcn_schema(cfg)) / 1e6:.2f}M params "
+        f"(+{feats.numel() * n / 1e6:.1f}M feature table), "
+        f"dataflow={args.dataflow} impl={args.impl}")
 
-    stream = GraphBatchStream(g, labels, n_parts=1,
+    stream = GraphBatchStream(g, labels, n_parts=n,
                               batch_per_part=args.batch_per_part,
                               k1=args.fanout, k2=args.fanout)
-    step = make_sage_train_step(cfg, tc, feats=feats)
+    step = make_sage_train_step(cfg, tc, feats=feats, mesh=mesh)
     state = {"params": params, "opt": adamw_init(params, tc),
              "step": torch.zeros((), dtype=torch.int32, device=dev)}
 
     def batches():
         for b in stream:
             yield {k: torch.from_numpy(np.array(v)).to(dev)
-                   for k, v in b.items()}
+                   for k, v in local(b).items()}
 
     ckpt_dir = args.ckpt_dir or os.path.join(tempfile.gettempdir(),
                                              "graphsage_ckpt")
-    state, n = train_loop(
+    state, done = train_loop(
         step_fn=step, state=state, batches=batches(),
         total_steps=args.steps,
-        ckpt=CheckpointManager(ckpt_dir, keep=2), ckpt_every=100,
-        monitor=StepMonitor(), guard=PreemptionGuard(), log_every=20)
+        ckpt=CheckpointManager(ckpt_dir, keep=2, mesh=mesh), ckpt_every=100,
+        monitor=StepMonitor(), guard=PreemptionGuard(), log_every=20,
+        log_fn=say)
 
     # final eval on a fresh batch
     with torch.no_grad():
-        _, m = sage_loss(state["params"], feats, stream.batch_at(10_000), cfg)
-    print(f"done at step {n}: eval loss {float(m['loss']):.4f} "
-          f"acc {float(m['acc']):.3f}")
+        _, m = sage_loss(state["params"], feats,
+                         local(stream.batch_at(10_000)), cfg, mesh=mesh)
+    say(f"done at step {done}: eval loss {float(m['loss']):.4f} "
+        f"acc {float(m['acc']):.3f}")
     return 0
+
+
+def _main_graph(args) -> int:
+    if args.shards == 1:
+        return _train_graph(None, args)
+    from repro_torch.launch.mesh import spawn
+    if args.backend == "nccl" and torch.cuda.device_count() < args.shards:
+        raise RuntimeError(
+            f"--backend nccl needs one card per shard ({args.shards} "
+            f"shards, {torch.cuda.device_count()} card(s)); pass --backend "
+            f"gloo to run the shards on a shared card or on the CPU")
+    codes = spawn(_train_graph, args.shards, backend=args.backend,
+                  device=args.device, timeout_s=SHARDED_RUN_TIMEOUT_S,
+                  args=(args,))
+    return max(codes)
 
 
 def main(argv=None) -> int:
@@ -114,6 +151,13 @@ def main(argv=None) -> int:
     ap.add_argument("--ckpt-dir", default="",
                     help="checkpoint directory (default: graphsage_ckpt "
                          "under the temporary directory)")
+    ap.add_argument("--shards", type=int, default=1,
+                    help="data-axis ranks, each owning an interval of the "
+                         "feature table")
+    ap.add_argument("--backend", choices=("nccl", "gloo"), default="nccl",
+                    help="collectives of a sharded run: nccl needs one card "
+                         "per shard; gloo runs CPU ranks or ranks sharing "
+                         "one card, staging through host memory")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
     if args.workload == "lm":

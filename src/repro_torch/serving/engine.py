@@ -19,6 +19,17 @@ come from the cache, bit copies of a previous find. A ``StepMonitor``
 records every dispatch and an optional ``Heartbeat`` beats once per
 dispatch.
 
+On a sharded ``mesh`` every rank runs the same queue, sampler and hot
+cache from the same seed (replicated host state, SPMD) and holds its own
+``(1, V/P, F)`` table shard. Each segment pads to ``P·r`` rows, as the
+JAX engine pads it, and each rank issues its ``r`` rows; the drain is one
+sharded ``aggregate_multi`` (one ``all_gather`` + one ``all_to_all``,
+whatever the number of requests), and one ``all_gather`` of the finished
+rows (``result_gather``) brings every rank the whole response for
+scatter-back, where the JAX host reads the seed-sharded result. The queue's
+trigger is rank 0's, broadcast once per ``poll`` (``trigger_broadcast``),
+so a clock read differently on two ranks cannot split their drains.
+
 The default backend is the kernel (``impl="kernel"``), the deployment; the
 JAX engine defaults to its oracle (``impl="xla"``).
 """
@@ -32,7 +43,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from repro_torch.core import cgtrans, gas
+from repro_torch.core import cgtrans, collectives, gas
 from repro_torch.device import DeviceLike, check_impl, resolve_device
 from repro_torch.graph.sampling import host_sample_csr
 from repro_torch.runtime.health import Heartbeat, StepMonitor
@@ -57,10 +68,12 @@ class ServingEngine:
     ``indices`` its CSR adjacency; the table is held as float32 on
     ``device`` (ints and float64 convert once). ``fuse=False`` degrades to
     the one-query-one-dispatch baseline — same results, N× the finds.
+    ``mesh`` shards the table along the ``data`` axis (``V`` must divide
+    by its size; ``device`` is then the mesh's).
 
-    Not ported yet, each raising ``NotImplementedError``: ``mesh`` (sharded
-    tables), ``partition="island"``, ``features="sparse"``, a compressed
-    ``wire`` and sub-float32 (bf16 / f16) tables.
+    Not ported yet, each raising ``NotImplementedError``:
+    ``partition="island"``, ``features="sparse"``, a compressed ``wire``
+    and sub-float32 (bf16 / f16) tables.
     """
 
     def __init__(
@@ -88,8 +101,8 @@ class ServingEngine:
         partition: str = "interval",
         device: DeviceLike = "cuda",
     ):
-        self.device = resolve_device(device)
-        cgtrans._check_mesh(mesh)
+        sharded = cgtrans.is_sharded(mesh)
+        self.device = mesh.device if sharded else resolve_device(device)
         if partition not in ("interval", "island"):
             raise ValueError(f"unknown partition {partition!r} "
                              "(expected 'interval' or 'island')")
@@ -104,16 +117,24 @@ class ServingEngine:
             raise NotImplementedError(
                 f"{feats.dtype} tables are not ported yet (ROADMAP Queue 1, "
                 f"bf16 serving); pass float32")
-        feats = np.ascontiguousarray(feats, np.float32)
         self.n_vertices, self.n_features = feats.shape
-        self.feat_dtype = feats.dtype
-        self.mesh = mesh
-        self.n_shards = 1
+        self.feat_dtype = np.dtype(np.float32)
+        self.mesh = mesh if sharded else None
+        self.n_shards = mesh.size if sharded else 1
+        if self.n_vertices % self.n_shards:
+            raise ValueError(
+                f"V={self.n_vertices} must divide the data axis "
+                f"({self.n_shards}-way) — pad the table at load time")
         self.indptr = np.asarray(indptr, np.int64)
         self.indices = np.asarray(indices, np.int64)
         self.partition = partition
-        self.feats = torch.from_numpy(feats).to(self.device).reshape(
-            1, self.n_vertices, self.n_features)
+        part = self.n_vertices // self.n_shards
+        lo = mesh.rank * part if sharded else 0
+        # a copy of this rank's rows only (of a memory-mapped table, the
+        # rest is never read), converted once
+        self.feats = torch.from_numpy(np.array(
+            feats[lo:lo + part], np.float32)).to(self.device).reshape(
+                1, part, self.n_features)
         self.fanout = int(fanout)
         self.op = op
         self.dataflow = dataflow
@@ -164,8 +185,9 @@ class ServingEngine:
 
     def poll(self) -> int:
         """Dispatch one batch if the queue's trigger fired; returns the
-        number of requests served (0 = trigger not armed)."""
-        if not self.queue.ready():
+        number of requests served (0 = trigger not armed). On a mesh every
+        rank calls it and rank 0's trigger decides."""
+        if not self._agree(self.queue.ready()):
             return 0
         reqs = self.queue.drain()
         self._dispatch(reqs)
@@ -184,16 +206,37 @@ class ServingEngine:
         """Pop a completed request's result (KeyError if not served yet)."""
         return self._results.pop(rid)
 
+    def _agree(self, ready: bool) -> bool:
+        """Rank 0's trigger decision, on every rank of a mesh."""
+        if self.mesh is None:
+            return ready
+        flag = torch.tensor([int(ready) if self.mesh.rank == 0 else 0],
+                            dtype=torch.int32, device=self.device)
+        return bool(collectives.all_reduce(
+            flag, self.mesh, name="trigger_broadcast").item())
+
     # -- the fused command block -------------------------------------------
 
     def _shape_block(self, ids: np.ndarray, mask: np.ndarray
                      ) -> Tuple[torch.Tensor, torch.Tensor, int]:
-        """(R, K) host block → ((1, R, K) device pair, R)."""
+        """(R, K) host block → (this rank's (1, r, K) device pair, R).
+        Rows pad to a multiple of the shard count with all-masked rows —
+        they ride the ``-1`` dead-id encoding, reduce to the op identity
+        and are sliced off on return."""
         R, K = ids.shape
-        return (torch.from_numpy(np.ascontiguousarray(ids, np.int32)).to(
-                    self.device).reshape(1, R, K),
-                torch.from_numpy(np.ascontiguousarray(mask, bool)).to(
-                    self.device).reshape(1, R, K), R)
+        P = self.n_shards
+        r = -(-R // P)
+        pad = P * r - R
+        if pad:
+            ids = np.concatenate([ids, np.zeros((pad, K), ids.dtype)])
+            mask = np.concatenate([mask, np.zeros((pad, K), bool)])
+        lo = (self.mesh.rank if self.mesh is not None else 0) * r
+        return (torch.from_numpy(np.ascontiguousarray(
+                    ids[lo:lo + r], np.int32)).to(self.device).reshape(
+                        1, r, K),
+                torch.from_numpy(np.ascontiguousarray(
+                    mask[lo:lo + r], bool)).to(self.device).reshape(1, r, K),
+                R)
 
     def _request_segments(self, req: ServeRequest):
         """One request → its two command-block segments: the K=1 self-row
@@ -254,10 +297,7 @@ class ServingEngine:
         self.stats["dispatches"] += 1
         self.stats["queries"] += len(reqs)
 
-        # one device → host copy for the whole response block
-        host = torch.cat([o.reshape(-1, self.n_features) for o in outs]
-                         ).cpu().numpy()
-        offs = np.concatenate([[0], np.cumsum(row_counts)])
+        segs = self._segment_rows(outs, row_counts)
         for j, req in enumerate(reqs):
             si_look, si_fan = 2 * j, 2 * j + 1
             if desc.tenants[si_look] != req.tenant:
@@ -265,8 +305,7 @@ class ServingEngine:
                     f"tenant scatter-back mismatch: segment {si_look} is "
                     f"tagged {desc.tenants[si_look]}, request {req.rid} "
                     f"belongs to {req.tenant}")
-            self_rows = host[offs[si_look]:offs[si_look + 1]].copy()
-            agg_rows = host[offs[si_fan]:offs[si_fan + 1]].copy()
+            self_rows, agg_rows = segs[si_look], segs[si_fan]
             cached_rows, hit = cache_ctx[j]
             if self.cache is not None:
                 if hit.any():
@@ -280,6 +319,24 @@ class ServingEngine:
         self.monitor.record(self.stats["dispatches"], self.clock() - t0)
         if self.heartbeat is not None:
             self.heartbeat.touch()
+
+    def _segment_rows(self, outs, row_counts) -> List[np.ndarray]:
+        """Each segment's (R_i, F) rows on the host, padding dropped, as
+        writable arrays: one device → host copy of the whole response
+        block, after one ``result_gather`` on a mesh."""
+        rows = torch.cat([o.reshape(-1, self.n_features) for o in outs])
+        if self.mesh is None:
+            every = rows.cpu().numpy()[None]
+        else:
+            every = collectives.all_gather(rows, self.mesh,
+                                           name="result_gather").cpu().numpy()
+        segs, off = [], 0
+        for o, R in zip(outs, row_counts):   # rank-major → segment rows
+            r = o.shape[1]
+            segs.append(every[:, off:off + r].reshape(-1, self.n_features)
+                        [:R].copy())
+            off += r
+        return segs
 
     # -- observability ------------------------------------------------------
 
