@@ -98,8 +98,30 @@ Phases, each failing hard (exit status 1, no result line):
    forward and step times and the staged collectives' share are printed,
    not gated.
 
+9. full-graph GCN: ``gcn_forward_full`` at ``PALLAS_CONFIG`` (F 602, H
+   256, C 41, 2 layers, scheduled) over ``uniform_graph(V=2^18, E=2^22,
+   weights=True)``, aggregate add and max: 2 banded launches per forward,
+   2 banded + 1 dense per forward + backward (max: + 1 banded tie count);
+   logits within rtol = atol = 1e-4 of ``impl="ref"``, the gradient of
+   sum(logits · cot) in every parameter within 1e-4 of max|g| per leaf
+   outside ReLU-flipped columns (the phase 7 rule, at the ReLU inputs of
+   each gradient's own forward) and on every column at the kernel run's
+   ReLU decisions. ``aggregate_edges`` on integer data (E·F > 2^31) for
+   add, max, min and or, kernel bit for bit with ref; the bf16 and int8
+   wires bit-exact no-ops unsharded and ``features="sparse"`` (capacity
+   asserted to fit) bit for bit dense on 2^20 of the edges. Then 4 gloo
+   ranks share the card at V = 2^14, E = 2^18, F = 602: both dataflows ×
+   add and max, cgtrans on the bf16 and int8 wires, baseline on sparse
+   features, one ``aggregate_multi`` fetch on the bf16 wire — bit for bit
+   with the unsharded port (int8 within 2 % of the span), counts equal to
+   ``analysis/budgets.py`` and bytes to ``budgets.edges_bytes``. Times:
+   warm forwards (kernel and ref), one profiled forward, and the layer-0
+   banded launch and the layer-1 gather-backward dense launch (events,
+   device, bound, ``torch.sparse.mm``; the banded one's pad copy and
+   feature-liveness pass).
+
 Each kernel's launch count is set to 0 just before each path of phases 3,
-4, 6, 7 and 8 (in each rank) and read just after; a kernel that a path
+4, 6, 7, 8 (in each rank) and 9 and read just after; a kernel that a path
 should launch and did not fails the run. The last lines are the kernels' JSON, the card's name
 and power limit, and ``{"ok": true, "device": {...}}``.
 ``--phases`` runs a subset (for example ``--phases 15``); the default runs
@@ -1325,7 +1347,9 @@ def phase_train(torch, K, g, stream, dev, launches, smi):
          "occupied": int(occ.sum()), "ms": event_ms(torch, call.run, 5),
          "device_ms": device_ms(torch, call.run,
                                 KERNEL_SYMBOL["gas_scatter_dense"], 5),
-         "library_ms": event_ms(torch, library_fn(torch, call), 5)}
+         "library_ms": event_ms(torch, library_fn(torch, call), 5),
+         # one plain walk: a Python loop over the occupied pairs
+         "plain_ms": event_ms(torch, call.run_plain, 1, warm=0)}
     t["bound_ms"], t["bound_by"] = bound(call)
     log(f"  gas_scatter_dense at the gather backward [{smi}]: "
         f"{json.dumps(t)}")
@@ -1776,9 +1800,458 @@ def phase_sharded(torch, K, g, indptr, indices, dev, launches, smi):
     log(f"  phase 8 took {time.perf_counter() - t_phase:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# phase 9: full-graph GCN on one card, and over the mesh
+# ---------------------------------------------------------------------------
+
+GCN_V = 1 << 18                      # 2^18 vertices, 16 in-edges each
+GCN_SHARD_V, GCN_SHARD_E = 1 << 14, 1 << 18
+GCN_SPARSE_E = 1 << 20               # edges of the unsharded sparse check
+GCN_OPS = ("add", "max")
+
+
+def gcn_grads(torch, forward, params, cot, masks=None):
+    """(gradients of sum(logits · cot) in every parameter, the inputs of
+    every ``torch.relu`` of this same forward). With ``masks`` (one per
+    ReLU call) each ReLU applies that decision in place of its own, so
+    two backends can be differentiated at the same decisions."""
+    live = {k: v.detach().requires_grad_(True) for k, v in params.items()}
+    pre, real, calls = [], torch.relu, iter(masks or ())
+
+    def recording(x):
+        pre.append(x.detach())
+        if masks is None:
+            return real(x)
+        return x * next(calls).to(x.dtype)
+    torch.relu = recording
+    try:
+        loss = (forward(live) * cot).sum()
+    finally:
+        torch.relu = real
+    keys = sorted(live)
+    grads = torch.autograd.grad(loss, [live[k] for k in keys])
+    return dict(zip(keys, grads)), pre
+
+
+def hold_grads(torch, gk, gr, moved, label, dev):
+    """Each leaf within rtol = atol = 1e-4 of max|g| outside ``moved``
+    columns; returns the worst error over max|g|."""
+    worst = 0.0
+    for k in gr:
+        scale = float(gr[k].abs().max())
+        check(bool(torch.isfinite(gk[k]).all()), f"{label}: non-finite {k}")
+        keep = ~moved.get(k, torch.zeros(gr[k].shape[-1], dtype=torch.bool,
+                                         device=dev))
+        a, w = gk[k][..., keep], gr[k][..., keep]
+        err = float((a - w).abs().max()) if a.numel() else 0.0
+        check(torch.allclose(a, w, rtol=1e-4, atol=1e-4 * scale),
+              f"{label}: gradient {k} off by {err} (max |g| {scale})")
+        worst = max(worst, err / max(scale, 1e-30))
+    return worst
+
+
+def captured_calls(ops, fn, scheduled):
+    """Run ``fn`` and return the (args, kwargs) of every
+    ``ops.gas_scatter_fused`` call it made with (``scheduled``) or without
+    a schedule."""
+    seen, real = [], ops.gas_scatter_fused
+
+    def recording(*args, **kwargs):
+        if (kwargs.get("schedule") is not None) == scheduled:
+            seen.append((args, kwargs))
+        return real(*args, **kwargs)
+    ops.gas_scatter_fused = recording
+    try:
+        fn()
+    finally:
+        ops.gas_scatter_fused = real
+    return seen
+
+
+def time_call(torch, ops, K, args, kwargs, label, smi, iters):
+    """Time one captured kernel call: CUDA events, the profiler's device
+    ms, the bound, ``torch.sparse.mm`` on the same function, and, for the
+    banded walk, the wrapper's pad copy and feature-liveness pass."""
+    values = args[1]
+    call = ops.fused_call(*args, **kwargs)
+    name = call.kernel
+    vals = call.args[2 if name == "gas_scatter_banded" else 1]
+    t = {"values": list(vals.shape), "rows": call.args[3],
+         "ms": event_ms(torch, call.run, iters, warm=1),
+         "device_ms": device_ms(torch, call.run, KERNEL_SYMBOL[name], iters)}
+    t["bound_ms"], t["bound_by"] = bound(call)
+    lib = library_fn(torch, call)
+    t["library_ms"] = event_ms(torch, lib, iters, warm=1)
+    del lib
+    if name == "gas_scatter_banded":
+        # one plain walk: a Python loop over the work list's rows
+        t["plain_ms"] = event_ms(torch, call.run_plain, 1, warm=0)
+        work = call.args[0]
+        t["pad_ms"] = event_ms(torch, lambda: ops._pad_to(ops._pad_to(
+            values, ops.EDGE_TILE, 0, 0.0), ops.FEAT_BLOCK, 1, 0.0), iters,
+            warm=1)
+        t["liveness_ms"] = event_ms(torch, lambda: ops._feat_liveness(
+            vals, work[:, 1], ops.EDGE_TILE), iters, warm=1)
+        t["work"] = list(work.shape)
+    else:
+        t["occupied"] = int((call.args[2] > 0).sum())
+    log(f"  {name} at {label} [{smi}]: {json.dumps(t)}")
+    del call, vals
+    torch.cuda.empty_cache()
+    return t
+
+
+def gcn_rank(mesh, spec):
+    """One rank of phase 9's sharded part: its interval of the integer
+    table and its slice of the edges; each run with the collective and
+    dispatch counts set to 0 just before it and read just after."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import cgtrans, collectives, gas
+    from repro_torch.kernels.gas_scatter import kernel as K
+    from repro_torch.launch.mesh import host
+
+    dev, r = mesh.device, mesh.rank
+    load = lambda name: torch.from_numpy(np.array(  # noqa
+        np.load(os.path.join(spec["dir"], name + ".npy"),
+                mmap_mode="r")[r:r + 1])).to(dev)
+    ints, relu = load("ints"), load("relu")
+    src, dst, w, mask = (load(k) for k in ("src", "dst", "w", "mask"))
+    out = {"launches": {}, "counts": {}, "bytes": {}, "rows": {}}
+
+    def run(name, fn):
+        torch.cuda.synchronize()
+        K.reset_launch_counts()
+        with collectives.count_collectives() as c, \
+                gas.count_dispatches() as d:
+            res = fn()
+        torch.cuda.synchronize()
+        out["launches"][name] = K.launch_counts()
+        out["counts"][name] = {**c.as_dict(),
+                               **{k: v for k, v in d.items() if v}}
+        out["bytes"][name] = dict(c.bytes)
+        out["rows"][name] = [host(x) for x in res] if isinstance(
+            res, tuple) else host(res)
+
+    with torch.no_grad():
+        for flow in ("cgtrans", "baseline"):
+            for op in GCN_OPS:
+                run(f"{flow}/{op}/f32", lambda: cgtrans.aggregate_edges(
+                    ints, src, dst, w, mask, mesh=mesh, dataflow=flow, op=op,
+                    impl="kernel"))
+        for wire in ("bf16", "int8"):
+            table = ints if wire == "bf16" else spec["floats"][r:r + 1]
+            table = torch.as_tensor(table, device=dev)
+            run(f"cgtrans/add/{wire}", lambda: cgtrans.aggregate_edges(
+                table, src, dst, w, mask, mesh=mesh, op="add",
+                impl="kernel", wire=wire))
+        run("baseline/add/sparse", lambda: cgtrans.aggregate_edges(
+            relu, src, dst, w, mask, mesh=mesh, dataflow="baseline",
+            impl="kernel", features="sparse", sparse_capacity=spec["cap"]))
+        nb = torch.from_numpy(spec["nbrs"][r:r + 1]).to(dev)
+        mk = torch.ones(nb.shape, dtype=torch.bool, device=dev)
+        run("fetch/add/bf16", lambda: cgtrans.aggregate_multi(
+            ints, ((nb, mk),), mesh=mesh, impl="kernel", wire="bf16"))
+    out["staged"] = dataclasses.asdict(mesh.staged)
+    out["modules"] = _foreign_modules()
+    return out
+
+
+def gcn_sharded(torch, dev, launches, smi):
+    """Phase 9 (d): SHARDS gloo ranks on the card, at V = 2^14 and
+    E = 2^18 with F = 602, against the unsharded port on the same inputs."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch.analysis import budgets
+    from repro_torch.core import cgtrans
+    from repro_torch.core.sparse import sparse_fits, table_capacity
+    from repro_torch.graph import partition_by_src, uniform_graph
+    from repro_torch.launch.mesh import spawn
+
+    g = uniform_graph(GCN_SHARD_V, GCN_SHARD_E, seed=1, n_features=F,
+                      weights=True)
+    pg = partition_by_src(g, SHARDS)
+    rng = np.random.default_rng(9)
+    ints = rng.integers(-8, 9, pg.features.shape).astype(np.float32)
+    relu = np.maximum(ints, 0)
+    cap = table_capacity(relu)
+    check(sparse_fits(cap, F), f"sparse capacity {cap} does not fit F={F}")
+    w = np.ones_like(pg.weights)            # unit weights: exact sums
+    nbrs = rng.integers(0, GCN_SHARD_V, (SHARDS, 64, 16)).astype(np.int32)
+    arrays = {"ints": ints, "relu": relu, "src": pg.src, "dst": pg.dst,
+              "w": w, "mask": pg.mask}
+    work = tempfile.mkdtemp(prefix="chip_smoke_gcn_")
+    try:
+        for name, arr in arrays.items():
+            np.save(os.path.join(work, name + ".npy"), arr)
+        spec = {"dir": work, "cap": cap, "nbrs": nbrs,
+                "floats": pg.features}
+        t0 = time.perf_counter()
+        ranks = spawn(gcn_rank, SHARDS, backend="gloo", device="cuda",
+                      timeout_s=SHARD_TIMEOUT_S, args=(spec,))
+        t_ranks = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    log(f"  {SHARDS} gloo ranks on one card at V={GCN_SHARD_V}, "
+        f"E={GCN_SHARD_E}, F={F} (part {pg.part_size}, {pg.e_max} edge "
+        f"slots per rank) ran in {t_ranks:.1f} s")
+    for r, res in enumerate(ranks):
+        check(res["modules"] == [], f"rank {r} imported {res['modules']}")
+        for name, counts in res["launches"].items():
+            check(counts["gas_scatter_banded"] > 0,
+                  f"rank {r} {name} never launched gas_scatter_banded")
+            for k in counts:
+                launches[k] += counts[k]
+
+    # the unsharded port on the same inputs
+    T = lambda x: torch.from_numpy(x).to(dev)  # noqa
+    src, dst, wt, mask = T(pg.src), T(pg.dst), T(w), T(pg.mask)
+    want = {}
+    with torch.no_grad():
+        for op in GCN_OPS:
+            want[op] = cgtrans.aggregate_edges(T(ints), src, dst, wt, mask,
+                                               op=op, impl="kernel").cpu()
+        want["float"] = cgtrans.aggregate_edges(T(pg.features), src, dst, wt,
+                                                mask, impl="kernel").cpu()
+        want["relu"] = cgtrans.aggregate_edges(T(relu), src, dst, wt, mask,
+                                               impl="kernel").cpu()
+        flat = T(ints).reshape(1, -1, F)
+        fetch = cgtrans.aggregate_multi(flat, ((T(nbrs).reshape(1, -1, 16),
+                                                torch.ones((1, SHARDS * 64,
+                                                            16), dtype=torch
+                                                           .bool,
+                                                           device=dev)),),
+                                        impl="kernel")[0].cpu().reshape(
+                                            SHARDS, 64, F)
+    part, e_loc = pg.part_size, pg.e_max
+    lines = []
+    for r, res in enumerate(ranks):
+        for name, rows in res["rows"].items():
+            flow, op, wire = name.split("/")
+            counts, nbytes = res["counts"][name], res["bytes"][name]
+            if flow == "fetch":
+                got = torch.from_numpy(rows[0])
+                check(torch.equal(got[0], fetch[r]),
+                      f"rank {r} bf16 fetch differs from the unsharded fetch")
+                check(counts == {**budgets.held(budgets.MULTI_FWD["cgtrans"]),
+                                 "kernel_scatter": 1},
+                      f"rank {r} {name} counted {counts}")
+                # the int16 delta ids: 2 bytes per id from each rank
+                check(nbytes["all_gather"] == SHARDS * 64 * 16 * 2,
+                      f"rank {r} {name} id bytes {nbytes}")
+                continue
+            got = torch.from_numpy(rows)[0]
+            ref = want["float" if wire == "int8" else
+                       "relu" if wire == "sparse" else op][r]
+            if wire == "int8":
+                fin = torch.isfinite(ref)
+                span = float(ref[fin].abs().max())
+                err = float((got[fin] - ref[fin]).abs().max())
+                check(torch.equal(torch.isfinite(got), fin)
+                      and err <= 0.02 * span + 1e-6,
+                      f"rank {r} {name}: err {err} over span {span}")
+            else:
+                check(torch.equal(got, ref),
+                      f"rank {r} {name} differs from the unsharded port")
+            budget = budgets.edges_forward(
+                flow, op, "kernel", "f32" if wire == "sparse" else wire)
+            check(counts == budget, f"rank {r} {name} counted {counts}, "
+                  f"budget {budget}")
+            nb = budgets.edges_bytes(flow, "f32" if wire == "sparse"
+                                     else wire, SHARDS, part, F, e_loc)
+            check(sum(nbytes.values()) == nb,
+                  f"rank {r} {name} moved {nbytes}, formula {nb}")
+            if r == 0:
+                lines.append(f"{name} {sum(nbytes.values())} B {counts}")
+    log("  sharded, every rank bit for bit with the unsharded port (int8 "
+        "within 2% of the span), counts equal the budgets, bytes equal "
+        "budgets.edges_bytes; rank 0: " + "; ".join(lines))
+    log(f"  staged collectives of rank 0 [{smi}; gloo through host memory, "
+        f"not an interconnect]: {json.dumps(ranks[0]['staged'])}")
+
+
+def phase_gcn(torch, K, dev, launches, smi):
+    """Phase 9: (a) ``gcn_forward_full`` at Reddit width, kernel against
+    ref, forward and parameter gradients, add and max; (b)
+    ``aggregate_edges`` on integer data, every op, bit for bit; (c) the
+    wire and sparse knobs as no-ops; (d) sharded; (e) times. Returns the
+    timed kernel calls per kernel."""
+    import numpy as np
+
+    from repro_torch.common.schema import init_params
+    from repro_torch.configs.graphic_gcn import PALLAS_CONFIG
+    from repro_torch.core import cgtrans
+    from repro_torch.core.gcn import gcn_forward_full, gcn_schema
+    from repro_torch.core.sparse import sparse_fits, table_capacity
+    from repro_torch.graph import partition_by_src, uniform_graph
+    from repro_torch.kernels.gas_scatter import ops
+
+    t_phase = time.perf_counter()
+    g = uniform_graph(GCN_V, DEGREE * GCN_V, seed=0, n_features=F,
+                      weights=True)
+    pg = partition_by_src(g, 1)
+    T = lambda x: torch.from_numpy(x).to(dev)  # noqa
+    feats = T(pg.features)
+    edges = tuple(T(x) for x in (pg.src, pg.dst, pg.weights, pg.mask))
+    del g
+    E = edges[0].shape[1]
+    log(f"  graph V={GCN_V} E={E} F={F} (E·F = {E * F:,} values, "
+        f"{E * F * 4 / 1e9:.2f} GB gathered per layer-0 aggregation) made "
+        f"in {time.perf_counter() - t_phase:.1f} s")
+    params = init_params(gcn_schema(PALLAS_CONFIG), 0, device=dev)
+    C = PALLAS_CONFIG.n_classes
+    gen = torch.Generator(device=dev).manual_seed(9)
+    cot = torch.randn((1, GCN_V, C), generator=gen, device=dev)
+    out = {}
+
+    # (a) the forward and the parameters' gradients, kernel against ref
+    for op in GCN_OPS:
+        cfg = dataclasses.replace(PALLAS_CONFIG, aggregate=op)
+        ref_cfg = dataclasses.replace(cfg, impl="ref", scheduled=None)
+        fwd = lambda p, c: gcn_forward_full(p, feats, *edges, c)  # noqa
+        with torch.no_grad():
+            logits, counts = counted(torch, K, launches,
+                                     lambda: fwd(params, cfg))
+            check(counts == {"gas_scatter_banded": 2,
+                             "gas_scatter_dense": 0},
+                  f"{op}: the forward launched {counts}")
+            want = fwd(params, ref_cfg)
+        check(tuple(logits.shape) == (1, GCN_V, C),
+              f"logits shape {tuple(logits.shape)}")
+        check(bool(torch.isfinite(logits).all()), f"{op}: non-finite logits")
+        err = float((logits - want).abs().max())
+        check(torch.allclose(logits, want, rtol=1e-4, atol=1e-4),
+              f"{op}: logits off the ref by {err}")
+        del logits, want
+        (gk, pk), gcounts = counted(torch, K, launches, lambda: gcn_grads(
+            torch, lambda p: fwd(p, cfg), params, cot))
+        want_b = {"gas_scatter_banded": 2 + (op != "add"),
+                  "gas_scatter_dense": 1}
+        check(gcounts == want_b, f"{op}: fwd+bwd launched {gcounts}")
+        gr, pr = gcn_grads(torch, lambda p: fwd(p, ref_cfg), params, cot)
+        flip1, flip2 = flipped_units(pk, pr)
+        n_flip = (int(flip1.sum()), int(flip2.sum()))
+        if bool(flip2.any()):
+            flip1 = torch.ones_like(flip1)
+        moved = {"w0": flip1, "b0": flip1, "w1": flip2, "b1": flip2}
+        worst = hold_grads(torch, gk, gr, moved, f"{op} (phase 7 rule)", dev)
+        # and at the kernel run's ReLU decisions, every column
+        gs, _ = gcn_grads(torch, lambda p: fwd(p, ref_cfg), params, cot,
+                          masks=[x > 0 for x in pk])
+        worst_all = hold_grads(torch, gk, gs, {}, f"{op} (same decisions)",
+                               dev)
+        log(f"  gcn_forward_full op={op}: logits {(1, GCN_V, C)} finite, max "
+            f"|kernel - ref| {err:.3g}; launches forward {counts}, forward + "
+            f"backward {gcounts}; gradients within {worst:.3g} of max|g| "
+            f"per leaf outside ReLU-flipped columns (flips on {n_flip} "
+            f"units), within {worst_all:.3g} on every column at equal ReLU "
+            f"decisions")
+        del gk, gr, gs, pk, pr
+        torch.cuda.empty_cache()
+
+    # (b) aggregate_edges on integer data, E·F over 2^31, bit for bit
+    ints = torch.randint(-8, 9, feats.shape, generator=gen, device=dev).to(
+        torch.float32)
+    unit = torch.ones_like(edges[2])
+    src, dst, _, mask = edges
+    for op in ("add", "max", "min", "or"):
+        got, c = counted(torch, K, launches, lambda: cgtrans.aggregate_edges(
+            ints, src, dst, unit, mask, op=op, impl="kernel"))
+        check(c["gas_scatter_banded"] == 1, f"{op}: launched {c}")
+        want = cgtrans.aggregate_edges(ints, src, dst, unit, mask, op=op,
+                                       impl="ref")
+        check(torch.equal(got, want), f"aggregate_edges op={op}: kernel and "
+              f"ref differ by {float((got - want).abs().max())}")
+        del got, want
+        torch.cuda.empty_cache()
+    log(f"  aggregate_edges on integer data (E·F = {E * F:,} > 2^31): add, "
+        "max, min, or kernel bit for bit with impl=ref")
+
+    # (c) the knobs unsharded: the wire a no-op, sparse bit for bit dense
+    with torch.no_grad():
+        base = cgtrans.aggregate_edges(ints, *edges, impl="kernel")
+        for wire in ("bf16", "int8"):
+            check(torch.equal(cgtrans.aggregate_edges(
+                ints, *edges, impl="kernel", wire=wire), base),
+                f"wire={wire} is not a no-op unsharded")
+        del base
+        relu = torch.clamp(ints, min=0)
+        cap = table_capacity(relu)
+        check(sparse_fits(cap, F), f"capacity {cap} does not fit F={F}")
+        sub = tuple(x[:, :GCN_SPARSE_E] for x in edges)
+        got = cgtrans.aggregate_edges(relu, *sub, impl="kernel",
+                                      features="sparse", sparse_capacity=cap)
+        check(torch.equal(got, cgtrans.aggregate_edges(relu, *sub,
+                                                       impl="kernel")),
+              "features='sparse' differs from dense")
+        del got, relu, ints
+        torch.cuda.empty_cache()
+    log(f"  wire bf16 / int8 no-ops unsharded; features='sparse' (capacity "
+        f"{cap} of {F}, {GCN_SPARSE_E} edges) bit for bit dense")
+
+    # (d) sharded
+    gcn_sharded(torch, dev, launches, smi)
+
+    # (e) times
+    cfg, ref_cfg = PALLAS_CONFIG, dataclasses.replace(
+        PALLAS_CONFIG, impl="ref", scheduled=None)
+    timed = {}
+    with torch.no_grad():
+        for label in ("kernel", "ref", "ref", "kernel"):
+            c = cfg if label == "kernel" else ref_cfg
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            gcn_forward_full(params, feats, *edges, c)
+            torch.cuda.synchronize()
+            timed.setdefault(label, []).append(
+                (time.perf_counter() - t0) * 1e3)
+        profile_call(torch, lambda: torch.ones(1, device=dev) + 1)  # set-up
+        wall, device, hosts, kernels = profile_call(
+            torch, lambda: gcn_forward_full(params, feats, *edges, cfg))
+        _, launched = counted(torch, K, {k: 0 for k in launches},
+                              lambda: gcn_forward_full(params, feats, *edges,
+                                                       cfg))
+    log(f"  warm gcn_forward_full (add) [{smi}]: kernel "
+        + ", ".join(f"{t:.1f}" for t in timed["kernel"]) + " ms, ref "
+        + ", ".join(f"{t:.1f}" for t in timed["ref"]) + " ms")
+    log(f"  profile of one warm kernel gcn_forward_full (profiler on): wall "
+        f"{wall:.1f} ms, device time {device:.2f} ms "
+        f"({100 * device / wall:.1f}% busy), GAS launches {launched}; top "
+        "host ops (self CPU ms): " + "; ".join(
+            f"{k} x{n} {ms:.1f}" for k, n, ms in hosts)
+        + "; top device kernels (ms): " + "; ".join(
+            f"{k} x{n} {ms:.2f}" for k, n, ms in kernels))
+    with torch.no_grad():
+        seen = captured_calls(ops, lambda: gcn_forward_full(
+            params, feats, *edges, cfg), scheduled=True)
+    check(len(seen) == 2, f"{len(seen)} scheduled scatters per forward")
+    args, kwargs = seen[0]
+    del seen
+    out["gas_scatter_banded"] = time_call(
+        torch, ops, K, args, kwargs, "layer 0 of gcn_forward_full", smi, 3)
+    del args, kwargs
+    torch.cuda.empty_cache()
+    seen = captured_calls(ops, lambda: gcn_grads(
+        torch, lambda p: gcn_forward_full(p, feats, *edges, cfg), params,
+        cot), scheduled=False)
+    check(len(seen) == 1, f"{len(seen)} unscheduled scatters in fwd+bwd")
+    args, kwargs = seen[0]
+    del seen
+    out["gas_scatter_dense"] = time_call(
+        torch, ops, K, args, kwargs, "layer 1's gather backward", smi, 2)
+    del args, kwargs, feats, edges
+    torch.cuda.empty_cache()
+    log(f"  phase 9 took {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phases", default="12345678",
+    ap.add_argument("--phases", default="123456789",
                     help="the phases to run, as digits (default: all)")
     phases = set(ap.parse_args(argv).phases)
     import torch
@@ -1823,6 +2296,11 @@ def main(argv=None) -> int:
         launches["flash_attention"], routes = phase_lm(torch, FK, smi)
         measured.setdefault("flash_attention", {})[
             "launches_by_route"] = routes
+    if "9" in phases:
+        log("phase 9: full-graph GCN at Reddit width, unsharded and over "
+            f"{SHARDS} ranks")
+        for name, t in phase_gcn(torch, K, dev, launches, smi).items():
+            measured.setdefault(name, {})["gcn_full_graph"] = t
 
     kernels = []
     for name, entry in measured.items():

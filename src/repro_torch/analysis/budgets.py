@@ -113,6 +113,66 @@ TRAIN = {
     (False, "pallas"): merge(SAGE_FWD[False], {"kernel_scatter": 1}),
 }
 
+# -- aggregate_edges: the full-graph COO dataflow ----------------------------
+# cgtrans add rides the reduce-scatter; compare ops ship per-destination
+# partials over all_to_all; baseline all-gathers the raw payload, its dst
+# and its mask (3 all_gathers). The pallas rows add one kernel_scatter.
+EDGES_FWD = {
+    ("cgtrans", "add"): {"psum_scatter": 1, "find": 1, "reduce": 1},
+    ("cgtrans", "max"): {"all_to_all": 1, "find": 1, "reduce": 1},
+    ("baseline", "add"): {"all_gather": 3, "find": 1, "reduce": 1},
+    ("baseline", "max"): {"all_gather": 3, "find": 1, "reduce": 1},
+}
+#: the one budget a narrow wire changes (``aggregate_edges/cgtrans/add/
+#: xla/{bf16,int8}``): quantized partials cannot sum on the wire, so
+#: psum_scatter 1→0 and all_to_all 0→1, with f32 accumulation on arrival
+EDGES_FWD_NARROW_ADD = {"all_to_all": 1, "find": 1, "reduce": 1}
+#: ``aggregate_edges/cgtrans/add/xla/sparse``: the packed gather is the same
+#: one find, and partials (union support) ship dense, so add keeps its
+#: dense twin's budget
+EDGES_FWD_SPARSE_ADD = EDGES_FWD[("cgtrans", "add")]
+
+#: forward + backward (gradient in the table and the edge weights), which
+#: the JAX package budgets nowhere: each collective that carries a
+#: cotangent adds its transpose — psum_scatter's is an all_gather,
+#: all_to_all's an all_to_all, the raw payload's all_gather a psum_scatter
+#: (the integer dst and mask streams carry none). Held against the JAX
+#: package's own grad program (``tests/test_torch_dist_edges.py``).
+EDGES_BWD = {
+    ("cgtrans", "add"): {"psum_scatter": 1, "all_gather": 1},
+    ("cgtrans", "max"): {"all_to_all": 2},
+    ("baseline", "add"): {"all_gather": 3, "psum_scatter": 1},
+    ("baseline", "max"): {"all_gather": 3, "psum_scatter": 1},
+}
+EDGES_BWD_NARROW_ADD = {"all_to_all": 2}
+
+
+def edges_forward(dataflow: str, op: str, impl: str, wire: str = "f32"
+                  ) -> Dict[str, int]:
+    """The forward budget of ``aggregate_edges`` on a mesh: the reference
+    row of (dataflow, op) (min and or share max's), the narrow-wire row
+    for cgtrans add, and one kernel scatter on the kernel route."""
+    key = (dataflow, "add" if op == "add" else "max")
+    row = (EDGES_FWD_NARROW_ADD if key == ("cgtrans", "add")
+           and wire != "f32" else EDGES_FWD[key])
+    return merge(row, {"kernel_scatter": 1} if impl == "kernel" else {})
+
+
+def edges_bytes(dataflow: str, wire: str, n: int, part: int, F: int,
+                e_local: int) -> int:
+    """Collective bytes per rank of one ``aggregate_edges`` forward on an
+    n-rank mesh (``max(input, output)`` per collective, as the JAX
+    package's HLO count takes them): cgtrans ships the (n, part, F)
+    partial block — 4, 2 or F + 4 bytes per row and feature column on the
+    f32, bf16 and int8 wires (any op); baseline all-gathers n × e_local
+    edges of F f32 values, an int32 dst and a one-byte mask. Sparse
+    features change the gather, not these bytes."""
+    if dataflow == "baseline":
+        return n * e_local * (4 * F + 4 + 1)
+    per_row = {"f32": 4 * F, "bf16": 2 * F, "int8": F + 4}[wire]
+    return n * part * per_row
+
+
 #: collectives the JAX package issues outside its traced program, per
 #: train step and per serving drain (keys of their own in the port)
 GRAD_ALL_REDUCE_PER_STEP = 1

@@ -1,36 +1,56 @@
-"""CGTrans sampled aggregation — unsharded and over a ``data`` mesh
-(paper §3.2).
+"""CGTrans — Compressive Graph Transmission (paper §3.2), unsharded and
+over a ``data`` mesh.
 
 Vertex features live owner-sharded on the storage tier, laid out as
-``(P, part, F)``; requests carry ids only. ``aggregate_multi`` fuses several
-request segments of different fan-out (e.g. ``sage_forward``'s K=1
-self-row lookup and its 2-hop block) into ONE command block — one combined
-gather (``_multi_find``), then a per-segment seed reduction: a K=1 segment
-is a pure find with no kernel, a K>1 segment is one FAST-GAS scatter, on
-the banded walk when ``scheduled`` (the seed stream ``repeat(arange(R), K)``
-is destination-binned by construction, so its schedule needs no sort).
+``(P, part, F)``; each shard owns an interval of vertices and every edge
+whose source lies in it, so gathers are local. Two dataflows over the same
+math:
+
+* ``baseline`` (GCNAX) ships the raw gathered rows to the destination's
+  owner and aggregates there: bytes ∝ E·F (or B·K·F sampled);
+* ``cgtrans`` aggregates at the owner into per-destination partials and
+  ships only those: bytes ∝ V·F (or B·F).
+
+**Full-graph (GCN).** ``aggregate_edges`` reduces the edge COO stream
+``out[v] = ⊕_{(u,v,w)} w · feats[u]``. On a mesh the cgtrans combine is a
+``reduce_scatter`` of the (V, F) partials for add on the f32 wire, an
+``all_to_all`` plus a local sum on a narrow wire, and an ``all_to_all``
+plus a local extremum for max / min / or; the baseline all-gathers the raw
+weighted and masked payload, its destinations and its mask, and scatters
+the owned interval on the destination side. ``build_edge_schedule`` bins
+the edge stream by destination row block once per (partition, batch) for
+every layer and the backward; ``apply_edge_schedule`` pays the permutation
+once on a mesh.
+
+**Sampled (GraphSAGE).** ``aggregate_multi`` fuses several request segments
+of different fan-out (e.g. ``sage_forward``'s K=1 self-row lookup and its
+2-hop block) into ONE command block — one combined gather
+(``_multi_find``), then a per-segment seed reduction: a K=1 segment is a
+pure find with no kernel, a K>1 segment is one FAST-GAS scatter, on the
+banded walk when ``scheduled`` (the seed stream ``repeat(arange(R), K)``
+is destination-binned by construction, so its schedule needs no sort). On
+a mesh: ONE ``all_gather`` of the concatenated ``-1``-encoded id stream,
+ONE ``_multi_find`` against the local rows, ONE ``all_to_all`` of the
+(n, R_tot, F) partials with the add counts as one extra column
+(``cgtrans``); or the raw rows' and the ownership bits' ``all_to_all``,
+reduced at the seed's owner (``baseline``). ``request_chunk`` streams each
+segment through the command block that many rows at a time, bit for bit
+with the unchunked block.
 
 On a ``repro_torch.launch.mesh.DataMesh`` of P > 1 ranks each rank runs the
-JAX package's ``shard_map`` body on its own slice — ``feats`` is the rank's
-``(1, part, F)`` rows, each block the rank's ``(1, R_i, K_i)`` requests,
-the result the rank's ``(1, R_i, F)`` — through the collectives of
-``repro_torch.core.collectives``, in the reference's shape:
+JAX package's ``shard_map`` body on its own slice: ``feats`` is the rank's
+``(1, part, F)`` rows, every per-shard array the rank's ``[rank:rank + 1]``
+slice, and the result the rank's slice; the collectives are those of
+``repro_torch.core.collectives``.
 
-* ``cgtrans``: ONE ``all_gather`` of the concatenated ``-1``-encoded id
-  stream, ONE ``_multi_find`` against the local rows (ids outside
-  ``[0, part)`` are dead), ONE ``all_to_all`` of the (n, R_tot, F) partials
-  with the add counts as one extra column, combined per seed on arrival;
-* ``baseline``: the same broadcast, then the raw gathered rows'
-  ``all_to_all`` plus the ownership bits' ``all_to_all``, reduced at the
-  seed's owner.
-
-``request_chunk`` streams each segment through the command block that many
-rows at a time; chunking partitions rows, never a row's K entries, so the
-result is bit-exact with the unchunked block.
-
-Not in this module yet (each raises ``NotImplementedError`` naming its
-ROADMAP row): compressed wires (``wire`` other than ``"f32"``) and
-compressed-sparse features (``features="sparse"``).
+**The compressed wire and compressed-sparse features.** ``wire="bf16"`` or
+``"int8"`` (``core/wire.py``) ships the cgtrans partials encoded through
+``_wire_all_to_all`` (its backward ships the cotangent through the same
+wire) and the request ids as int16 deltas where the vertex range allows;
+``features="sparse"`` (``core/sparse.py``) reads the table through the
+packed layout (``_find``) and, on the sampled baseline, ships the raw rows
+packed (``_sparse_all_to_all``). Without a mesh both knobs are validated
+no-ops, bit for bit.
 """
 
 from __future__ import annotations
@@ -40,42 +60,180 @@ from typing import Callable, List, NamedTuple, Optional, Sequence, Tuple
 import torch
 
 from repro_torch.core import collectives, gas
+from repro_torch.core import sparse as sparsefmt
+from repro_torch.core import wire as wirefmt
 from repro_torch.device import check_impl
 from repro_torch.kernels.gas_scatter import ops as gas_ops
 from repro_torch.launch.mesh import DataMesh
 
-WIRE_FORMATS = ("f32", "bf16", "int8")
+
+# ---------------------------------------------------------------------------
+# the compressed wire: the codecs are core/wire.py's; the one collective
+# they wrap is here
+# ---------------------------------------------------------------------------
+
+def _wire_identity(op: gas.Op) -> float:
+    """The op identity non-finite int8 codes decode back to (±inf for the
+    max/min identity rows; add/or partials are finite)."""
+    return float(gas._INIT[op]) if op in ("max", "min") else 0.0
+
+
+def _wired_a2a(x: torch.Tensor, mesh, wire: str, identity: float,
+               n_exact: int) -> torch.Tensor:
+    enc = wirefmt.encode_payload(x, wire, identity=identity, n_exact=n_exact)
+    parts = collectives.all_to_all(enc, mesh)
+    return wirefmt.decode_payload(parts, wire, identity=identity,
+                                  n_exact=n_exact, out_dtype=x.dtype)
+
+
+class _WireAllToAll(torch.autograd.Function):
+    """``all_to_all`` with the payload encoded for transport and decoded
+    (f32 math) on arrival; the backward ships the cotangent through the
+    same wire with identity 0 (JAX ``_wire_all_to_all``'s custom VJP), so
+    the codec's round / where never meet autograd."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, wire, identity, n_exact):
+        ctx.mesh, ctx.wire, ctx.n_exact = mesh, wire, n_exact
+        ctx.suspended = gas_ops.counting_suspended()
+        return _wired_a2a(x, mesh, wire, identity, n_exact)
+
+    @staticmethod
+    def backward(ctx, g):
+        with gas_ops.suspend_counting(ctx.suspended):
+            return (_wired_a2a(g, ctx.mesh, ctx.wire, 0.0, ctx.n_exact),
+                    None, None, None, None)
+
+
+def _wire_all_to_all(x: torch.Tensor, mesh, wire: str,
+                     identity: float = 0.0, n_exact: int = 0):
+    return _WireAllToAll.apply(x, mesh, wire, identity, n_exact)
 
 
 def _check_wire(wire: str, dataflow: str, features: str = "dense") -> str:
-    """Validate a ``wire=`` knob as the JAX package does. Without a mesh the
-    wire carries nothing, so only ``"f32"`` runs; the compressed codecs
-    raise until they are ported."""
-    if wire not in WIRE_FORMATS:
-        raise ValueError(f"unknown wire format {wire!r}; expected one of "
-                         f"{WIRE_FORMATS}")
+    """Validate a ``wire=`` knob. The baseline dataflow ships raw f32 by
+    definition; with ``features="sparse"`` its shipment is the packed row
+    block, which quantizes like a partial block, so a narrow wire is legal
+    there too."""
+    wirefmt.validate(wire)
     if wire != "f32" and dataflow == "baseline" and features != "sparse":
         raise ValueError(
             "wire compression is a cgtrans-dataflow mechanism; the baseline "
             "strawman ships raw f32 by definition (features='sparse' is the "
             "exception: packed nonzeros quantize like partials)")
-    if wire != "f32":
-        raise NotImplementedError(
-            f"wire={wire!r}: the compressed wire formats are not ported yet "
-            f"(ROADMAP Queue 1, core/wire.py)")
     return wire
 
 
-def _check_features(features: str, sparse_capacity: Optional[int]) -> None:
-    if features not in ("dense", "sparse"):
-        raise ValueError(f"unknown features {features!r}")
-    if features == "sparse":
-        raise NotImplementedError(
-            "features='sparse' is not ported yet (ROADMAP Queue 1, "
-            "core/sparse.py)")
-    if sparse_capacity is not None:
-        raise ValueError("sparse_capacity= only applies with "
-                         "features='sparse'")
+# ---------------------------------------------------------------------------
+# compressed-sparse features: the codec is core/sparse.py's; the find that
+# reads a packed table and the all_to_all that ships a packed block are here
+# ---------------------------------------------------------------------------
+
+def _resolve_sparse(features: str, sparse_capacity: Optional[int],
+                    n_features: int) -> Optional[int]:
+    """``features=`` → the packed capacity to run with, or None for the
+    dense path. ``"sparse"`` needs ``sparse_capacity`` (from
+    ``sparse.table_capacity``); a capacity that fails ``sparse_fits``
+    falls back to the dense path unchanged."""
+    if sparsefmt.validate_features(features) == "dense":
+        if sparse_capacity is not None:
+            raise ValueError(
+                "sparse_capacity= only applies with features='sparse'")
+        return None
+    if sparse_capacity is None:
+        raise ValueError(
+            "features='sparse' needs sparse_capacity= — measure it once "
+            "with sparse.table_capacity(feats) (a static host-side int)")
+    cap = int(sparse_capacity)
+    if cap < 1:
+        raise ValueError(f"sparse_capacity must be ≥ 1, got {cap}")
+    return cap if sparsefmt.sparse_fits(cap, n_features) else None
+
+
+class _SparseGather(torch.autograd.Function):
+    """Row gather from the packed table: packed nonzeros and the bitmap,
+    ``capacity + ceil(F/32)`` lanes per row where the dense find reads F,
+    decoded bit for bit. The backward is the dense gather's scatter-add of
+    the cotangent: one kernel scatter on the kernel route, ``index_add_``
+    on ``ref``."""
+
+    @staticmethod
+    def forward(ctx, table, ids, capacity, impl):
+        ctx.save_for_backward(ids)
+        ctx.n_rows, ctx.dtype, ctx.impl = table.shape[0], table.dtype, impl
+        ctx.suspended = gas_ops.counting_suspended()
+        packed, bitmap = sparsefmt.encode_rows(table, capacity)
+        i = ids.long()
+        return sparsefmt.decode_rows(packed[i], bitmap[i],
+                                     table.shape[-1]).to(table.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        ids, = ctx.saved_tensors
+        gf = g.reshape(-1, g.shape[-1]).to(torch.float32)
+        flat = ids.reshape(-1)
+        with gas_ops.suspend_counting(ctx.suspended):
+            if ctx.impl == "kernel":
+                dtab = gas._scatter_weighted_impl(flat, gf, None, None,
+                                                  ctx.n_rows, "add", "kernel")
+            else:
+                dtab = torch.zeros((ctx.n_rows, gf.shape[-1]),
+                                   dtype=torch.float32, device=gf.device
+                                   ).index_add_(0, flat.long(), gf)
+        return dtab.to(ctx.dtype), None, None, None
+
+
+def _find(table: torch.Tensor, ids: torch.Tensor, *, impl: str,
+          sparse_cap: Optional[int] = None) -> torch.Tensor:
+    """The find of find-and-compute: dense tables through
+    ``gas.gas_gather``; a packed capacity swaps in the compressed-table
+    gather. Ticks ``find`` once either way."""
+    if sparse_cap is None:
+        return gas.gas_gather(table, ids, impl=impl)
+    gas._tick("find")
+    return _SparseGather.apply(table, ids, sparse_cap, check_impl(impl))
+
+
+def _sparse_ship(x: torch.Tensor, mesh, wire: str, capacity: int):
+    """Pack a raw (n, N, F) row block, ship (packed ‖ bitmap) through ONE
+    ``all_to_all`` and decode on arrival (f32 math on a narrow wire). The
+    bitmap travels as exact bitcast lanes, so only nonzero values quantize.
+    """
+    F = x.shape[-1]
+    packed, bitmap = sparsefmt.encode_rows(x, capacity)
+    if wire == "f32":
+        payload = torch.cat([packed, bitmap.view(x.dtype)], dim=-1)
+        parts = collectives.all_to_all(payload, mesh)
+        bm = parts[..., capacity:].contiguous().view(torch.int32)
+        return sparsefmt.decode_rows(parts[..., :capacity], bm, F)
+    enc = wirefmt.encode_payload(packed.to(torch.float32), wire)
+    bits = bitmap.contiguous().view(enc.dtype)            # (…, W·4/size)
+    nb = bits.shape[-1]
+    parts = collectives.all_to_all(torch.cat([enc, bits], dim=-1), mesh)
+    pk = wirefmt.decode_payload(parts[..., :parts.shape[-1] - nb], wire)
+    bm = parts[..., parts.shape[-1] - nb:].contiguous().view(torch.int32)
+    return sparsefmt.decode_rows(pk, bm, F).to(x.dtype)
+
+
+class _SparseAllToAll(torch.autograd.Function):
+    """The baseline's raw-row shipment on sparse features; the backward
+    ships the dense cotangent through the plain wired collective (rows that
+    were zero forward can carry nonzero cotangents)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, wire, capacity):
+        ctx.mesh, ctx.wire = mesh, wire
+        ctx.suspended = gas_ops.counting_suspended()
+        return _sparse_ship(x, mesh, wire, capacity)
+
+    @staticmethod
+    def backward(ctx, g):
+        with gas_ops.suspend_counting(ctx.suspended):
+            return _wired_a2a(g, ctx.mesh, ctx.wire, 0.0, 0), None, None, None
+
+
+def _sparse_all_to_all(x: torch.Tensor, mesh, wire: str, capacity: int):
+    return _SparseAllToAll.apply(x, mesh, wire, capacity)
 
 
 def is_sharded(mesh) -> bool:
@@ -96,6 +254,187 @@ def is_sharded(mesh) -> bool:
 def _resolve_scheduled(scheduled: Optional[bool], impl: str) -> bool:
     """The locality pass defaults on exactly where it pays: the kernel."""
     return (impl == "kernel") if scheduled is None else bool(scheduled)
+
+
+def _permuted(sched: gas_ops.EdgeSchedule, *arrays: torch.Tensor):
+    """Apply an edge schedule's permutation to per-edge arrays. Autograd
+    transposes the index into the un-permuting scatter, so cotangents to
+    weights (and values) return in the original edge order."""
+    perm = sched.perm.long()
+    return tuple(a[perm] for a in arrays)
+
+
+def build_edge_schedule(dst_global: torch.Tensor, mask: torch.Tensor,
+                        n_vertices: int, *, mesh=None) -> gas_ops.EdgeSchedule:
+    """Destination-binned edge schedule for (P, E) edge arrays, computed
+    once per (partition, batch) and reused across layers and the backward
+    (``aggregate_edges(schedule=...)``). Unsharded it is one schedule over
+    the flattened edge list; on a sharded mesh each rank builds its own
+    shard's schedule from its ``(1, E)`` slice."""
+    if not is_sharded(mesh):
+        return gas.schedule_edges(dst_global.reshape(-1), mask.reshape(-1),
+                                  n_vertices)
+    return gas.schedule_edges(dst_global[0], mask[0], n_vertices)
+
+
+def apply_edge_schedule(schedule: gas_ops.EdgeSchedule,
+                        *edge_arrays: torch.Tensor):
+    """Reorder this rank's ``(1, E)`` edge arrays into schedule order, once
+    (then pass ``schedule_applied=True``); a sharded-mesh layout."""
+    return tuple(a[:, schedule.perm.long()] for a in edge_arrays)
+
+
+# ---------------------------------------------------------------------------
+# full-graph edge aggregation (GCN):  out[v] = ⊕_{(u,v,w)∈E} w · feats[u]
+# ---------------------------------------------------------------------------
+
+def _agg_local(feats, src_local, dst_global, w, mask, n_vertices: int,
+               op: gas.Op, impl: str, schedule=None,
+               sparse_cap: Optional[int] = None) -> torch.Tensor:
+    """In-SSD step: local gather + segment-reduce into global dst bins.
+    ``schedule`` is the banded walk for edge arrays already in its order;
+    ``sparse_cap`` reads the table packed."""
+    gathered = _find(feats, src_local, impl=impl, sparse_cap=sparse_cap)
+    return gas.gas_scatter_weighted(dst_global, gathered, w, mask,
+                                    n_vertices, op=op, impl=impl,
+                                    schedule=schedule)
+
+
+def _edges_cgtrans(f, s, d, w, m, mesh, op, impl, use_sched, schedule,
+                   schedule_applied, wire, sparse_cap):
+    """One rank's cgtrans body: aggregate at the owner, then ship each
+    owner its interval's partials."""
+    n, part, F = mesh.size, f.shape[0], f.shape[1]
+    V = n * part
+    sched = None
+    if use_sched:
+        sched = schedule if schedule is not None else \
+            gas.schedule_edges(d, m, V)
+        if not schedule_applied:
+            s, d, w, m = _permuted(sched, s, d, w, m)
+    partial = _agg_local(f, s, d, w, m, V, op, impl, schedule=sched,
+                         sparse_cap=sparse_cap)
+    block = partial.reshape(n, part, F)
+    if op == "add" and wire == "f32":
+        return collectives.reduce_scatter(block, mesh)
+    if op == "add":
+        # quantized codes do not sum on the wire: ship each owner its
+        # interval's encoded partials and accumulate in f32 here
+        return _wire_all_to_all(block, mesh, wire).sum(0)
+    # max / min / or: all_to_all + a local extremum (torch.amax / amin
+    # split a cotangent evenly among ties, as JAX's max / min do); or-
+    # partials are ≥ 0, so max realises the boolean or
+    parts = (collectives.all_to_all(block, mesh) if wire == "f32" else
+             _wire_all_to_all(block, mesh, wire, _wire_identity(op)))
+    return torch.amin(parts, 0) if op == "min" else torch.amax(parts, 0)
+
+
+def _edges_baseline(f, s, d, w, m, mesh, op, impl, use_sched, sparse_cap):
+    """One rank's baseline body: gather locally, all-gather the raw edge
+    payload, its destinations and its mask, scatter the owned interval."""
+    part, F = f.shape
+    raw = _find(f, s, impl=impl, sparse_cap=sparse_cap)
+    # weights scale contributions under add only; max / min take the raw
+    # feature and or ignores weights, as gas_scatter_weighted does
+    if op == "add":
+        raw = raw * w[:, None].to(raw.dtype)
+    raw = torch.where(m[:, None], raw, torch.zeros((), dtype=raw.dtype,
+                                                   device=raw.device))
+    all_raw = collectives.all_gather(raw, mesh)            # (n, E, F)
+    all_dst = collectives.all_gather(d, mesh)
+    all_m = collectives.all_gather(m, mesh)
+    # the destination side keeps its owned interval; the clip and the mask
+    # come before the schedule, as in the reference
+    rel = all_dst.reshape(-1) - mesh.rank * part
+    ok = all_m.reshape(-1) & (rel >= 0) & (rel < part)
+    vals = all_raw.reshape(-1, F)
+    sched = None
+    if use_sched:
+        # binned after assembly: the scatter's row space is this owner's
+        # interval, which exists only after the all_gather
+        sched = gas.schedule_edges(rel, ok, part)
+        rel, ok, vals = _permuted(sched, rel, ok, vals)
+    return gas.gas_scatter_weighted(
+        torch.clamp(rel, 0, part - 1).to(torch.int32), vals,
+        torch.ones(rel.shape, dtype=torch.float32, device=rel.device), ok,
+        part, op=op, impl=impl, schedule=sched)
+
+
+def aggregate_edges(
+    feats: torch.Tensor,       # (P, part, F) owner-sharded vertex features
+    src_local: torch.Tensor,   # (P, E) local src ids
+    dst_global: torch.Tensor,  # (P, E) global dst ids
+    weights: torch.Tensor,     # (P, E)
+    mask: torch.Tensor,        # (P, E)
+    *,
+    mesh=None,
+    dataflow: str = "cgtrans",
+    op: gas.Op = "add",
+    impl: str = "ref",
+    scheduled: Optional[bool] = None,   # None → on for impl="kernel"
+    schedule: Optional[gas_ops.EdgeSchedule] = None,
+    schedule_applied: bool = False,     # edge arrays already in perm order
+    wire: str = "f32",
+    features: str = "dense",
+    sparse_capacity: Optional[int] = None,
+) -> torch.Tensor:
+    """Returns (P, part, F) aggregated destination features, owner-sharded;
+    rows that no edge reaches hold the op identity (±inf for max / min).
+
+    ``scheduled`` bins the edge stream by destination row block before the
+    reduction; ``schedule`` supplies a precomputed ``build_edge_schedule``
+    result, and ``schedule_applied=True`` declares the edge arrays already
+    in its order (``apply_edge_schedule``; sharded cgtrans only). The
+    baseline bins its destination-side reduction after assembly and
+    ignores ``schedule``. Unsharded, the reference flattens the partitions
+    and permutes itself, and ``wire`` is validated and otherwise a no-op.
+    On a sharded ``mesh`` every argument and the result are this rank's
+    ``[rank:rank + 1]`` slices, and ``schedule`` this rank's.
+    ``features="sparse"`` (with ``sparse_capacity``) reads the table
+    packed; every result is bit for bit the dense path's.
+    """
+    if dataflow not in ("cgtrans", "baseline"):
+        raise ValueError(dataflow)
+    check_impl(impl)
+    _check_wire(wire, dataflow, features)
+    Pn, part, F = feats.shape
+    sparse_cap = _resolve_sparse(features, sparse_capacity, F)
+    use_sched = _resolve_scheduled(scheduled, impl) or schedule is not None
+    if schedule_applied and schedule is None:
+        raise ValueError("schedule_applied requires schedule=")
+
+    if not is_sharded(mesh):
+        if schedule_applied:
+            raise ValueError(
+                "schedule_applied is a sharded-mesh layout (per-rank perms); "
+                "the single-shard path flattens partitions and permutes "
+                "itself")
+        V = Pn * part
+        off = torch.arange(Pn, dtype=src_local.dtype,
+                           device=src_local.device)[:, None] * part
+        s = (src_local + off).reshape(-1)
+        d, w, m = (dst_global.reshape(-1), weights.reshape(-1),
+                   mask.reshape(-1))
+        sched = None
+        if use_sched:
+            sched = schedule if schedule is not None else \
+                gas.schedule_edges(d, m, V)
+            s, d, w, m = _permuted(sched, s, d, w, m)
+        out = _agg_local(feats.reshape(V, F), s, d, w, m, V, op, impl,
+                         schedule=sched, sparse_cap=sparse_cap)
+        return out.reshape(Pn, part, F)
+
+    if Pn != 1:
+        raise ValueError(f"on a mesh feats is this rank's (1, part, F) "
+                         f"slice, got {tuple(feats.shape)}")
+    args = (feats[0], src_local[0], dst_global[0], weights[0], mask[0], mesh,
+            op, impl, use_sched)
+    if dataflow == "cgtrans":
+        out = _edges_cgtrans(*args, schedule, schedule_applied, wire,
+                             sparse_cap)
+    else:
+        out = _edges_baseline(*args, sparse_cap)
+    return out[None]
 
 
 # ---------------------------------------------------------------------------
@@ -272,15 +611,16 @@ def _encode_requests(blocks) -> torch.Tensor:
 
 
 def _multi_find(table: torch.Tensor, seg_ids: List[torch.Tensor], op: gas.Op,
-                impl: str, use_sched: bool):
+                impl: str, use_sched: bool, sparse_cap: Optional[int] = None):
     """ONE combined gather over every segment's encoded ids (-1 or out of
-    range = dead), then the per-segment seed reductions. Returns a list of
-    (red_i (R_i, F), cnt_i (R_i,))."""
+    range = dead; packed when ``sparse_cap`` is set), then the per-segment
+    seed reductions. Returns a list of (red_i (R_i, F), cnt_i (R_i,))."""
     V, F = table.shape
     flat = (seg_ids[0].reshape(-1) if len(seg_ids) == 1 else
             torch.cat([s.reshape(-1) for s in seg_ids]))
     own = (flat >= 0) & (flat < V)
-    rows = gas.gas_gather(table, torch.clamp(flat, 0, V - 1), impl=impl)
+    rows = _find(table, torch.clamp(flat, 0, V - 1), impl=impl,
+                 sparse_cap=sparse_cap)
     outs, off = [], 0
     for s in seg_ids:
         R, K = s.shape
@@ -292,7 +632,8 @@ def _multi_find(table: torch.Tensor, seg_ids: List[torch.Tensor], op: gas.Op,
 
 
 def _sharded_fetch(f: torch.Tensor, seg_enc: List[torch.Tensor], mesh,
-                   dataflow: str, op: gas.Op, impl: str, use_sched: bool):
+                   dataflow: str, op: gas.Op, impl: str, use_sched: bool,
+                   wire: str = "f32", sparse_cap: Optional[int] = None):
     """ONE command block over this rank's segments [(r_i, k_i) encoded
     ids] against its (part, F) rows → list of (r_i, F) aggregated rows
     for its own seeds (the JAX ``shard_map`` body's ``fetch``)."""
@@ -301,8 +642,13 @@ def _sharded_fetch(f: torch.Tensor, seg_enc: List[torch.Tensor], mesh,
     flat = (seg_enc[0].reshape(-1) if len(seg_enc) == 1 else
             torch.cat([s.reshape(-1) for s in seg_enc]))
     # the request broadcast: ONE all_gather of the concatenated id stream
-    # (masks ride the -1 encoding)
-    ids = collectives.all_gather(flat, mesh)              # (n, N)
+    # (masks ride the -1 encoding); on a narrow wire as int16 deltas when
+    # the vertex range fits
+    if wire != "f32" and wirefmt.delta_ids_fit(n * part):
+        ids = wirefmt.delta_decode_ids(collectives.all_gather(
+            wirefmt.delta_encode_ids(flat), mesh))
+    else:
+        ids = collectives.all_gather(flat, mesh)          # (n, N)
     rel = ids - mesh.rank * part                          # dead ids stay < 0
 
     if dataflow == "cgtrans":
@@ -310,7 +656,7 @@ def _sharded_fetch(f: torch.Tensor, seg_enc: List[torch.Tensor], mesh,
         seg_rel = [rel[:, offs[i]:offs[i + 1]].reshape(n * r, k)
                    for i, (r, k) in enumerate(shapes)]
         # in-SSD aggregation: ONE gather, per-segment reductions
-        found = _multi_find(f, seg_rel, op, impl, use_sched)
+        found = _multi_find(f, seg_rel, op, impl, use_sched, sparse_cap)
         reds = [red.reshape(n, r, F) for (red, _), (r, k) in zip(found, shapes)]
         payload = reds[0] if len(reds) == 1 else torch.cat(reds, dim=1)
         if op == "add":
@@ -319,7 +665,10 @@ def _sharded_fetch(f: torch.Tensor, seg_enc: List[torch.Tensor], mesh,
             cnt = cnts[0] if len(cnts) == 1 else torch.cat(cnts, dim=1)
             # the counts ride the payload as one extra feature column
             payload = torch.cat([payload, cnt[..., None]], dim=-1)
-        parts = collectives.all_to_all(payload, mesh)     # (n, R_tot, F(+1))
+        # on a narrow wire the count column rides exactly
+        parts = (collectives.all_to_all(payload, mesh) if wire == "f32" else
+                 _wire_all_to_all(payload, mesh, wire, _wire_identity(op),
+                                  1 if op == "add" else 0))
         outs, roff = [], 0
         for r, k in shapes:
             seg = parts[:, roff:roff + r]
@@ -331,11 +680,17 @@ def _sharded_fetch(f: torch.Tensor, seg_enc: List[torch.Tensor], mesh,
     # baseline: gather once, ship the raw (n, N, F) rows plus the ownership
     # bits (as bytes: NCCL has no bool) to the seed owners, reduce there
     own = (rel >= 0) & (rel < part)
-    rows = gas.gas_gather(f, torch.clamp(rel, 0, part - 1).reshape(-1),
-                          impl=impl).reshape(n, -1, F)
+    rows = _find(f, torch.clamp(rel, 0, part - 1).reshape(-1), impl=impl,
+                 sparse_cap=sparse_cap).reshape(n, -1, F)
     rows = torch.where(own[..., None], rows,
                        torch.zeros((), dtype=rows.dtype, device=rows.device))
-    raw = collectives.all_to_all(rows, mesh)              # (n, N, F)
+    if sparse_cap is not None and rows.element_size() == 4:
+        # the raw shipment, packed: non-owned rows were just zeroed and
+        # owned rows fit the table's capacity (a sub-32-bit table keeps the
+        # dense ship: its lanes cannot carry an int32 bitmap word)
+        raw = _sparse_all_to_all(rows, mesh, wire, sparse_cap)
+    else:
+        raw = collectives.all_to_all(rows, mesh)          # (n, N, F)
     okk = collectives.all_to_all(own.to(torch.uint8)[..., None],
                                  mesh)[..., 0].bool()
     outs, off = [], 0
@@ -375,16 +730,20 @@ def aggregate_multi(
     tensors' device is where the work runs. On a sharded ``mesh`` the
     arguments and the result are this rank's slices (P = 1 locally: its
     ``(1, part, F)`` rows, its ``(1, R_i, K_i)`` requests); the two
-    dataflows differ only there.
+    dataflows differ only there. ``wire`` compresses both collectives
+    (int16 delta ids when ``delta_ids_fit(V)``, bf16 or int8 partials with
+    the count column exact); ``features="sparse"`` reads the table packed
+    and, on the baseline, ships the raw rows packed. Both are validated
+    no-ops without a mesh, and sparse is bit for bit dense.
     """
     if dataflow not in ("cgtrans", "baseline"):
         raise ValueError(dataflow)
     check_impl(impl)
     _check_wire(wire, dataflow, features)
-    _check_features(features, sparse_capacity)
     sharded = is_sharded(mesh)
     blocks = tuple(blocks)
     Pn, part, F = feats.shape
+    sparse_cap = _resolve_sparse(features, sparse_capacity, F)
     if sharded and Pn != 1:
         raise ValueError(f"on a mesh feats is this rank's (1, part, F) "
                          f"slice, got {tuple(feats.shape)}")
@@ -398,12 +757,12 @@ def aggregate_multi(
     if sharded:
         def fetch(segs):
             return _sharded_fetch(table, segs, mesh, dataflow, op, impl,
-                                  use_sched)
+                                  use_sched, wire, sparse_cap)
     else:
         def fetch(segs):
             return [_finalize(red, cnt, op)
                     for red, cnt in _multi_find(table, segs, op, impl,
-                                                use_sched)]
+                                                use_sched, sparse_cap)]
 
     if request_chunk is None:
         outs = fetch(seg_enc)

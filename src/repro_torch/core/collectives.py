@@ -2,11 +2,17 @@
 
 Every collective of the port goes through this module, over a
 ``repro_torch.launch.mesh.DataMesh``: ``all_gather`` (into a tensor),
-``all_to_all`` (single), ``all_reduce`` and ``reduce_scatter``. The two
+``all_to_all`` (single), ``all_reduce`` and ``reduce_scatter``. The three
 that carry values into the loss are ``torch.autograd.Function``s with the
 transposes JAX gives them: the backward of an ``all_to_all`` is an
-``all_to_all``, the backward of an ``all_gather`` a ``reduce_scatter``. An
-integer stream (the request ids) carries no gradient.
+``all_to_all``, the backward of an ``all_gather`` a ``reduce_scatter``, and
+the backward of a ``reduce_scatter`` (JAX's ``psum_scatter``) an
+``all_gather``. An integer stream (the request ids) carries no gradient.
+
+gloo and NCCL have no int16 (and gloo no bool): a payload of such a dtype
+(the compressed wire's bf16 bits and delta ids) ships as a ``uint8`` view
+of the same bytes, here and nowhere else, and counts its logical bytes, so
+the byte counts equal the JAX package's.
 
 ``count_collectives()`` is the port's counterpart of
 ``repro.launch.jaxpr_stats``'s collective counts: every call ticks the
@@ -78,13 +84,23 @@ def _tick(name: str, nbytes: int) -> None:
         _COUNTERS[-1].bytes[name] += int(nbytes)
 
 
+# dtypes gloo or NCCL refuse, shipped as their bytes
+_BYTE_VIEW = (torch.int16, torch.bool)
+
+
+def _flat_wire(x: torch.Tensor) -> torch.Tensor:
+    """``x`` as a flat buffer of a dtype every backend ships."""
+    flat = x.contiguous().reshape(-1)
+    return flat.view(torch.uint8) if x.dtype in _BYTE_VIEW else flat
+
+
 def _gather(x: torch.Tensor, mesh, name: str) -> torch.Tensor:
     # flat buffers: the tensor forms concatenate along dim 0
-    flat = x.contiguous().reshape(-1)
+    flat = _flat_wire(x)
     out = flat.new_empty(mesh.size * flat.numel())
     mesh.run(lambda o, i: _all_gather(o, i, group=mesh.group), out, flat)
     _tick(name, out.nbytes)
-    return out.reshape((mesh.size,) + tuple(x.shape))
+    return out.view(x.dtype).reshape((mesh.size,) + tuple(x.shape))
 
 
 def _scatter_sum(x: torch.Tensor, mesh) -> torch.Tensor:
@@ -96,12 +112,13 @@ def _scatter_sum(x: torch.Tensor, mesh) -> torch.Tensor:
 
 
 def _exchange(x: torch.Tensor, mesh) -> torch.Tensor:
-    x = x.contiguous()
-    out = torch.empty_like(x)
+    # a flat buffer splits into the same n blocks as dim 0 does
+    flat = _flat_wire(x)
+    out = torch.empty_like(flat)
     mesh.run(lambda o, i: dist.all_to_all_single(o, i, group=mesh.group),
-             out, x)
-    _tick("all_to_all", x.nbytes)
-    return out
+             out, flat)
+    _tick("all_to_all", flat.nbytes)
+    return out.view(x.dtype).reshape(x.shape)
 
 
 class _AllGather(torch.autograd.Function):
@@ -114,6 +131,18 @@ class _AllGather(torch.autograd.Function):
     def backward(ctx, g):
         with gas_ops.suspend_counting(ctx.suspended):
             return _scatter_sum(g, ctx.mesh), None, None
+
+
+class _ReduceScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh, ctx.suspended = mesh, gas_ops.counting_suspended()
+        return _scatter_sum(x, mesh)
+
+    @staticmethod
+    def backward(ctx, g):
+        with gas_ops.suspend_counting(ctx.suspended):
+            return _gather(g, ctx.mesh, "all_gather"), None
 
 
 class _AllToAll(torch.autograd.Function):
@@ -147,8 +176,12 @@ def all_to_all(x: torch.Tensor, mesh) -> torch.Tensor:
 
 def reduce_scatter(x: torch.Tensor, mesh) -> torch.Tensor:
     """(n, …) → (…): the sum over ranks of block [rank] (JAX's
-    ``psum_scatter``)."""
-    return _scatter_sum(x, mesh)
+    ``psum_scatter``). Differentiable (the backward all-gathers the
+    cotangent)."""
+    if x.shape[0] != mesh.size:
+        raise ValueError(f"reduce_scatter splits dim 0 ({x.shape[0]}) over "
+                         f"{mesh.size} ranks")
+    return _ReduceScatter.apply(x, mesh)
 
 
 def all_reduce(x: torch.Tensor, mesh, *, name: str = "psum") -> torch.Tensor:

@@ -1,4 +1,8 @@
-"""Minibatch GraphSAGE on the CGTrans substrate (the paper's workload).
+"""GCN / GraphSAGE on the CGTrans substrate (the paper's workload).
+
+``gcn_forward_full`` runs full-graph GCN layers: each layer's aggregation
+is the CGTrans edge dataflow (``cgtrans.aggregate_edges``), the combine a
+dense product. ``sage_forward`` / ``sage_loss`` run minibatch GraphSAGE.
 
 Vertex features live owner-sharded on the storage tier, ``(P, part, F)``;
 a batch carries only ids. Layer 1's remote feature aggregation is the
@@ -93,6 +97,58 @@ def _batch_tensors(batch: Mapping, device: torch.device):
     return {k: (v if torch.is_tensor(v) else torch.from_numpy(np.array(v))
                 ).to(device)
             for k, v in batch.items()}
+
+
+def gcn_forward_full(params: Mapping[str, torch.Tensor], feats: torch.Tensor,
+                     src_local: torch.Tensor, dst_global: torch.Tensor,
+                     weights: torch.Tensor, mask: torch.Tensor,
+                     cfg: GCNConfig, *, mesh=None, impl: Optional[str] = None,
+                     relabel=None) -> torch.Tensor:
+    """Full-graph GCN: ``feats`` (P, part, F) owner-sharded, the edge COO
+    arrays (P, E) as ``partition_by_src`` lays them out. Returns
+    (P, part, C) logits. On a sharded ``mesh`` every argument and the
+    result are this rank's ``[rank:rank + 1]`` slices.
+
+    ``impl`` overrides ``cfg.impl``. The destination-binned schedule is
+    built once here and reused by every layer's aggregation and by the
+    backward; on a mesh the edge permutation is applied once too (the
+    sharded baseline bins after assembly, in its own row space, and gets
+    none). ``cfg.features="sparse"`` applies to layer 0's gather of the raw
+    table only. After a max / min aggregation the ±inf identity rows of
+    vertices without in-edges read 0.
+    """
+    _check_partition_knob(cfg, relabel)
+    impl_r = impl or cfg.impl
+    use_sched = cgtrans._resolve_scheduled(cfg.scheduled, impl_r)
+    sharded = cgtrans.is_sharded(mesh)
+    sched, applied = None, False
+    if use_sched and (cfg.dataflow == "cgtrans" or not sharded):
+        sched = cgtrans.build_edge_schedule(
+            dst_global, mask, feats.shape[0] * feats.shape[1] *
+            (mesh.size if sharded else 1), mesh=mesh)
+        if sharded:
+            src_local, dst_global, weights, mask = \
+                cgtrans.apply_edge_schedule(sched, src_local, dst_global,
+                                            weights, mask)
+            applied = True
+    h = feats
+    for i in range(cfg.n_layers):
+        agg = cgtrans.aggregate_edges(
+            h, src_local, dst_global, weights, mask, mesh=mesh,
+            dataflow=cfg.dataflow, op=cfg.aggregate, impl=impl_r,
+            scheduled=use_sched, schedule=sched, schedule_applied=applied,
+            wire=cfg.wire,
+            # sparse only where the gather reads the raw table: deeper
+            # layers' activations would measure a capacity of F anyway
+            features=cfg.features if i == 0 else "dense",
+            sparse_capacity=cfg.sparse_capacity if i == 0 else None)
+        if cfg.aggregate in ("max", "min"):
+            agg = torch.where(torch.isfinite(agg), agg, torch.zeros((),
+                              dtype=agg.dtype, device=agg.device))
+        h = torch.cat([h, agg], dim=-1)
+        h = torch.relu(torch.einsum("pvf,fh->pvh", h, params[f"w{i}"])
+                       + params[f"b{i}"])
+    return torch.einsum("pvh,hc->pvc", h, params["w_out"]) + params["b_out"]
 
 
 def lookup_rows(feats, ids, *, mesh=None, dataflow="cgtrans", impl="ref",

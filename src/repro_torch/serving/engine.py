@@ -44,6 +44,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import cgtrans, collectives, gas
+from repro_torch.core import sparse as sparsefmt
 from repro_torch.device import DeviceLike, check_impl, resolve_device
 from repro_torch.graph.sampling import host_sample_csr
 from repro_torch.runtime.health import Heartbeat, StepMonitor
@@ -71,9 +72,13 @@ class ServingEngine:
     ``mesh`` shards the table along the ``data`` axis (``V`` must divide
     by its size; ``device`` is then the mesh's).
 
+    ``wire`` and ``features`` pass to every command block as in the JAX
+    engine; ``features="sparse"`` measures the table's packed capacity once
+    (``sparse.table_capacity`` over the whole float32 table, so every rank
+    of a mesh holds the same). Unsharded both are no-ops, bit for bit.
+
     Not ported yet, each raising ``NotImplementedError``:
-    ``partition="island"``, ``features="sparse"``, a compressed ``wire``
-    and sub-float32 (bf16 / f16) tables.
+    ``partition="island"`` and sub-float32 (bf16 / f16) tables.
     """
 
     def __init__(
@@ -108,15 +113,15 @@ class ServingEngine:
                              "(expected 'interval' or 'island')")
         if partition == "island":
             raise NotImplementedError(
-                "partition='island' is not ported yet (ROADMAP Queue 1, "
+                "partition='island' is not ported yet (ROADMAP Queue 1 row 6, "
                 "graph/partition.py islandize)")
         feats = np.asarray(feats)
         if feats.ndim != 2:
             raise ValueError(f"feats must be (V, F), got {feats.shape}")
         if np.issubdtype(feats.dtype, np.floating) and feats.dtype.itemsize < 4:
             raise NotImplementedError(
-                f"{feats.dtype} tables are not ported yet (ROADMAP Queue 1, "
-                f"bf16 serving); pass float32")
+                f"{feats.dtype} tables are not ported yet (ROADMAP Queue 1 "
+                f"row 7, bf16 serving); pass float32")
         self.n_vertices, self.n_features = feats.shape
         self.feat_dtype = np.dtype(np.float32)
         self.mesh = mesh if sharded else None
@@ -141,8 +146,11 @@ class ServingEngine:
         self.impl = check_impl(impl)
         self.scheduled = scheduled
         self.wire = cgtrans._check_wire(wire, dataflow, features)
-        cgtrans._check_features(features, None)
-        self.features = features
+        self.features = sparsefmt.validate_features(features)
+        self.sparse_capacity = (
+            sparsefmt.table_capacity(feats if feats.dtype == np.float32
+                                     else feats.astype(np.float32))
+            if features == "sparse" else None)
         self.fuse = fuse
         self.sample_seed = int(sample_seed)
         self.clock = clock
@@ -273,7 +281,8 @@ class ServingEngine:
         return cgtrans.aggregate_multi(
             self.feats, blocks, mesh=self.mesh, dataflow=self.dataflow,
             op=self.op, impl=self.impl, scheduled=self.scheduled,
-            wire=self.wire, features=self.features)
+            wire=self.wire, features=self.features,
+            sparse_capacity=self.sparse_capacity)
 
     @torch.no_grad()
     def _dispatch(self, reqs: List[ServeRequest]) -> None:

@@ -16,6 +16,7 @@ import jax.numpy as jnp
 from repro.core import cgtrans as jcg
 from repro.core import gas as jgas
 from repro_torch.core import cgtrans, gas
+from repro_torch.core.sparse import sparse_fits, table_capacity
 
 # One intra-op thread: the tier-1 run puts several pytest workers on one
 # host, and torch's default thread pool in each of them oversubscribes
@@ -126,10 +127,20 @@ def test_knobs_outside_the_slice_raise():
     call = lambda **kw: cgtrans.aggregate_multi(feats, blocks, **kw)  # noqa
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         call(mesh=object())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        call(wire="bf16")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        call(features="sparse", sparse_capacity=4)
+    # without a mesh the wire and sparse features are validated no-ops
+    base = call()
+    for kw in (dict(wire="bf16"), dict(wire="int8")):
+        for x, y in zip(call(**kw), base):
+            assert torch.equal(x, y), kw
+    sp = torch.where(feats > 3, feats, torch.zeros(()))    # ~30 % dense
+    cap = table_capacity(sp)
+    assert sparse_fits(cap, F)
+    base = cgtrans.aggregate_multi(sp, blocks)
+    for kw in (dict(), dict(dataflow="baseline", wire="bf16")):
+        for x, y in zip(cgtrans.aggregate_multi(
+                sp, blocks, features="sparse", sparse_capacity=cap, **kw),
+                base):
+            assert torch.equal(x, y), kw
     with pytest.raises(ValueError):
         call(wire="fp4")
     with pytest.raises(ValueError):

@@ -517,17 +517,38 @@ def test_chunked_budget_is_the_reference_scan(reference_programs, flow):
     assert {k: got[k] for k in want} == want
 
 
+# the full-graph rows the reference registers as contracts, not tables
+_REGISTERED = {
+    "EDGES_FWD_NARROW_ADD": ("aggregate_edges/cgtrans/add/xla/bf16",
+                             "aggregate_edges/cgtrans/add/xla/int8"),
+    "EDGES_FWD_SPARSE_ADD": ("aggregate_edges/cgtrans/add/xla/sparse",),
+}
+
+
 @pytest.mark.parametrize("name", [
     "SAGE_FETCH_COLLECTIVES", "SAGE_FETCH_DISPATCH",
     "SAGE_FETCH_KERNEL_SCATTERS_FWD_BWD", "SERVE_FETCH_COLLECTIVES",
     "SAMPLED_FWD", "SAMPLED_BWD", "SAMPLED_BWD_PALLAS", "MULTI_FWD",
-    "MULTI_BWD", "MULTI_BWD_PALLAS", "SAGE_FWD", "TRAIN"])
+    "MULTI_BWD", "MULTI_BWD_PALLAS", "SAGE_FWD", "TRAIN", "EDGES_FWD",
+    "EDGES_FWD_NARROW_ADD", "EDGES_FWD_SPARSE_ADD"])
 def test_budgets_are_the_reference_tables(name):
     from repro.analysis import contracts
 
+    if name in _REGISTERED:
+        for key in _REGISTERED[name]:
+            assert getattr(budgets, name) == contracts.CONTRACTS[key].forward
+        return
     want = getattr(contracts, name if hasattr(contracts, name)
                    else "_" + name)
     assert getattr(budgets, name) == want
+    if name == "EDGES_FWD":
+        # every registered forward row, kernel scatters included
+        for flow in FLOWS:
+            for op in ("add", "max"):
+                for impl in IMPLS:
+                    key = f"aggregate_edges/{flow}/{op}/{JIMPL[impl]}"
+                    assert budgets.edges_forward(flow, op, impl) == \
+                        contracts.CONTRACTS[key].forward
 
 
 def test_collective_bytes_beat_a_quarter_of_the_fanout():

@@ -12,6 +12,7 @@ import torch
 
 from repro.graph import uniform_graph as j_uniform
 from repro.serving import ServingEngine as JServingEngine
+from repro_torch.core.sparse import sparse_fits
 from repro_torch.launch.serve import replay_traffic
 from repro_torch.serving import ServingEngine
 
@@ -105,10 +106,24 @@ def test_engine_knobs_outside_the_slice_raise():
         ServingEngine(feats, indptr, indices, mesh=object(), **kw)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ServingEngine(feats, indptr, indices, partition="island", **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ServingEngine(feats, indptr, indices, features="sparse", **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ServingEngine(feats, indptr, indices, wire="bf16", **kw)
+    # without a mesh the wire and sparse features are validated no-ops, on
+    # a table sparse enough that the packed path really runs
+    table = np.where(feats > 3, feats, 0).astype(np.float32)
+    served = []
+    for knobs in ({}, dict(wire="bf16"), dict(wire="int8"),
+                  dict(features="sparse")):
+        eng = ServingEngine(table, indptr, indices, **knobs, **kw)
+        rid = eng.submit([1, 2, 3])
+        eng.flush()
+        served.append(eng.result(rid))
+    assert eng.sparse_capacity is not None and \
+        sparse_fits(eng.sparse_capacity, table.shape[1])
+    for res in served[1:]:
+        np.testing.assert_array_equal(res.self_rows, served[0].self_rows)
+        np.testing.assert_array_equal(res.agg_rows, served[0].agg_rows)
+    with pytest.raises(ValueError):
+        ServingEngine(feats, indptr, indices, wire="bf16",
+                      dataflow="baseline", **kw)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ServingEngine(feats.astype(np.float16), indptr, indices, **kw)
     with pytest.raises(ValueError):
