@@ -120,12 +120,38 @@ Phases, each failing hard (exit status 1, no result line):
    device, bound, ``torch.sparse.mm``; the banded one's pad copy and
    feature-liveness pass).
 
+a. islandized partitioning (``partition="island"``), the graph algorithms
+   and the cost model. On a community graph with shuffled ids
+   (``clustered_graph(V=2^18, E=2^22)``, 64 clusters, ``p_intra`` 0.9,
+   F = 602): ``partition_graph(method="island")`` against the interval
+   cut (host seconds, remote destination rows at P = 4, live banded and
+   dense rounds); ``gcn_forward_full`` under ``ISLAND_PALLAS_CONFIG``
+   against ``PALLAS_CONFIG``, add and max — integer data (features and
+   params in {-2..2}, unit weights) bit for bit after the un-permute,
+   normal data within 1e-4, parameter gradients as phase 9 holds them —
+   with the warm forwards and each layout's layer-0 banded launch timed;
+   ``sage_forward`` (B = 64; integer data bit for bit, normal within
+   1e-5), one ``make_sage_train_step(relabel=)`` step (params within
+   1e-5) and ``ServingEngine(partition="island")`` with the hot cache on,
+   banded and dense, bit for bit with the interval engine. Then 4 gloo
+   ranks at V = 2^14, E = 2^18: ``aggregate_edges`` island ≡ interval bit
+   for bit (both dataflows, add / max / min), the island ``sage_forward``
+   within 1e-4 of the unsharded port, remote rows and bytes per rank
+   printed. Then ``bfs``, ``sssp`` and ``connected_components`` on
+   ``rmat(18, 16)`` with ``impl="kernel"`` (one dense launch per round)
+   bit for bit with ``impl="ref"``, ``gas_sort`` of 8192 draws exact,
+   ``feature_embedding`` at ``rmat(16, 16)``, F = 602, bit for bit on
+   integer data; one round's min scatter and the embedding's add timed
+   beside the function's byte bound and the library call
+   (``scatter_reduce_`` amin, ``torch.sparse.mm``). Last, the cost
+   model's Fig 15 headline.
+
 Each kernel's launch count is set to 0 just before each path of phases 3,
-4, 6, 7, 8 (in each rank) and 9 and read just after; a kernel that a path
-should launch and did not fails the run. The last lines are the kernels' JSON, the card's name
+4, 6, 7, 8 (in each rank), 9 and a and read just after; a kernel that a
+path should launch and did not fails the run. The last lines are the kernels' JSON, the card's name
 and power limit, and ``{"ok": true, "device": {...}}``.
-``--phases`` runs a subset (for example ``--phases 15``); the default runs
-every phase.
+``--phases`` runs a subset (for example ``--phases 15`` or
+``--phases 1a``); the default runs every phase.
 """
 
 from __future__ import annotations
@@ -1868,10 +1894,11 @@ def captured_calls(ops, fn, scheduled):
     return seen
 
 
-def time_call(torch, ops, K, args, kwargs, label, smi, iters):
+def time_call(torch, ops, K, args, kwargs, label, smi, iters, plain=True):
     """Time one captured kernel call: CUDA events, the profiler's device
     ms, the bound, ``torch.sparse.mm`` on the same function, and, for the
-    banded walk, the wrapper's pad copy and feature-liveness pass."""
+    banded walk, the wrapper's pad copy and feature-liveness pass and
+    (with ``plain``) one walk of the plain version."""
     values = args[1]
     call = ops.fused_call(*args, **kwargs)
     name = call.kernel
@@ -1884,8 +1911,9 @@ def time_call(torch, ops, K, args, kwargs, label, smi, iters):
     t["library_ms"] = event_ms(torch, lib, iters, warm=1)
     del lib
     if name == "gas_scatter_banded":
-        # one plain walk: a Python loop over the work list's rows
-        t["plain_ms"] = event_ms(torch, call.run_plain, 1, warm=0)
+        if plain:
+            # one plain walk: a Python loop over the work list's rows
+            t["plain_ms"] = event_ms(torch, call.run_plain, 1, warm=0)
         work = call.args[0]
         t["pad_ms"] = event_ms(torch, lambda: ops._pad_to(ops._pad_to(
             values, ops.EDGE_TILE, 0, 0.0), ops.FEAT_BLOCK, 1, 0.0), iters,
@@ -2249,10 +2277,560 @@ def phase_gcn(torch, K, dev, launches, smi):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase a: islandized partitioning, the graph algorithms, the cost model
+# ---------------------------------------------------------------------------
+
+ISL_V, ISL_E = 1 << 18, 1 << 22      # the community graph, shuffled ids
+ISL_CLUSTERS, ISL_P_INTRA = 64, 0.9
+ISL_SHARD_V, ISL_SHARD_E = 1 << 14, 1 << 18
+ALG_SCALE, EMB_SCALE, SORT_N = 18, 16, 8192
+
+
+def shuffled_community_graph(V_, E_, seed=0, n_features=F):
+    """``clustered_graph`` with its ids permuted by a seeded permutation
+    (``tests/test_partition.py``'s adversary of the interval cut)."""
+    import numpy as np
+
+    from repro_torch.graph import COOGraph, clustered_graph
+
+    g = clustered_graph(V_, E_, n_clusters=ISL_CLUSTERS, p_intra=ISL_P_INTRA,
+                        seed=seed, n_features=n_features)
+    perm = np.random.default_rng(seed + 1000).permutation(V_).astype(
+        np.int32)
+    return COOGraph(V_, perm[g.src], perm[g.dst], None,
+                    g.features[np.argsort(perm)])
+
+
+def island_rank(mesh, spec):
+    """One rank of phase a's sharded part: ``aggregate_edges`` on both
+    layouts (integer table, unit weights), and ``sage_forward`` on the
+    island layout; each run with the counts set to 0 just before it."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.graphic_gcn import ISLAND_PALLAS_CONFIG
+    from repro_torch.core import cgtrans, collectives, gas
+    from repro_torch.core.gcn import sage_forward
+    from repro_torch.kernels.gas_scatter import kernel as K
+    from repro_torch.launch.mesh import host
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev, r = mesh.device, mesh.rank
+    load = lambda name: torch.from_numpy(np.array(  # noqa
+        np.load(os.path.join(spec["dir"], name + ".npy"),
+                mmap_mode="r")[r:r + 1])).to(dev)
+    out = {"launches": {}, "bytes": {}, "counts": {}, "rows": {}}
+
+    def run(name, fn):
+        torch.cuda.synchronize()
+        K.reset_launch_counts()
+        with collectives.count_collectives() as c, \
+                gas.count_dispatches() as d:
+            res = fn()
+        torch.cuda.synchronize()
+        out["launches"][name] = K.launch_counts()
+        out["counts"][name] = {**c.as_dict(),
+                               **{k: v for k, v in d.items() if v}}
+        out["bytes"][name] = dict(c.bytes)
+        out["rows"][name] = host(res)
+
+    with torch.no_grad():
+        for layout in ("interval", "island"):
+            ints = load(f"{layout}_ints")
+            edges = tuple(load(f"{layout}_{k}")
+                          for k in ("src", "dst", "w", "mask"))
+            for flow in ("cgtrans", "baseline"):
+                for op in ("add", "max", "min"):
+                    run(f"{layout}/{flow}/{op}",
+                        lambda: cgtrans.aggregate_edges(
+                            ints, *edges, mesh=mesh, dataflow=flow, op=op,
+                            impl="kernel"))
+        params = {k: torch.from_numpy(v).to(dev)
+                  for k, v in spec["params"].items()}
+        batch = {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
+                 for k, v in mesh.shard(spec["batch"]).items()}
+        run("sage/island", lambda: sage_forward(
+            params, load("island_feats"), batch, ISLAND_PALLAS_CONFIG,
+            mesh=mesh, relabel=spec["relabel"]))
+    out["modules"] = _foreign_modules()
+    return out
+
+
+def island_sharded(torch, dev, launches, smi):
+    """Phase a (3): SHARDS gloo ranks on the card at V = 2^14, E = 2^18,
+    F = 602: island ≡ interval for both dataflows, the sampled path on
+    the island layout against the unsharded port, and the counted
+    locality (remote destination rows, bytes per rank)."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch.common.schema import init_params
+    from repro_torch.configs.graphic_gcn import PALLAS_CONFIG
+    from repro_torch.core.gcn import feature_table, gcn_schema, sage_forward
+    from repro_torch.data import GraphBatchStream, synthetic_node_labels
+    from repro_torch.graph import partition_graph, remote_destination_rows
+    from repro_torch.launch.mesh import spawn
+
+    g = shuffled_community_graph(ISL_SHARD_V, ISL_SHARD_E, seed=1)
+    pg_i, _ = partition_graph(g, SHARDS, method="interval")
+    t0 = time.perf_counter()
+    pg_s, isl = partition_graph(g, SHARDS, method="island")
+    t_isl = time.perf_counter() - t0
+    rng = np.random.default_rng(11)
+    ints = rng.integers(-8, 9, (ISL_SHARD_V, F)).astype(np.float32)
+    part = pg_i.part_size
+    arrays = {}
+    for layout, pg, order in (("interval", pg_i, None),
+                              ("island", pg_s, isl.inverse)):
+        rows = ints if order is None else ints[order]
+        arrays[f"{layout}_ints"] = rows.reshape(SHARDS, part, F)
+        arrays[f"{layout}_feats"] = pg.features
+        for k, v in (("src", pg.src), ("dst", pg.dst), ("mask", pg.mask),
+                     ("w", np.ones_like(pg.weights))):
+            arrays[f"{layout}_{k}"] = v
+    labels = synthetic_node_labels(g.features, PALLAS_CONFIG.n_classes,
+                                   seed=0)
+    batch = GraphBatchStream(g, labels, SHARDS, SHARD_BATCH, k1=FANOUT,
+                             k2=FANOUT, seed=0).batch_at(0)
+    params = init_params(gcn_schema(PALLAS_CONFIG), 0, device="cpu")
+    work = tempfile.mkdtemp(prefix="chip_smoke_island_")
+    try:
+        for name, arr in arrays.items():
+            np.save(os.path.join(work, name + ".npy"), arr)
+        spec = {"dir": work, "relabel": isl.relabel, "batch": batch,
+                "params": {k: v.numpy() for k, v in params.items()}}
+        t0 = time.perf_counter()
+        ranks = spawn(island_rank, SHARDS, backend="gloo", device="cuda",
+                      timeout_s=SHARD_TIMEOUT_S, args=(spec,))
+        t_ranks = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    log(f"  {SHARDS} gloo ranks on one card at V={ISL_SHARD_V}, "
+        f"E={ISL_SHARD_E}, F={F} ran in {t_ranks:.1f} s (islandize + "
+        f"partition {t_isl:.2f} s on the host)")
+    for r, res in enumerate(ranks):
+        check(res["modules"] == [], f"rank {r} imported {res['modules']}")
+        for name, counts in res["launches"].items():
+            check(counts["gas_scatter_banded"] > 0,
+                  f"rank {r} {name} never launched gas_scatter_banded")
+            for k in counts:
+                launches[k] += counts[k]
+    relabel = isl.relabel
+    for name in ranks[0]["rows"]:
+        if not name.startswith("island/"):
+            continue
+        _, flow, op = name.split("/")
+        got = np.concatenate([x["rows"][name] for x in ranks]).reshape(
+            SHARDS * part, F)[relabel]
+        want = np.concatenate([x["rows"][f"interval/{flow}/{op}"]
+                               for x in ranks]).reshape(SHARDS * part, F)
+        check(np.array_equal(got, want[:ISL_SHARD_V]),
+              f"sharded island {flow}/{op} differs from interval")
+    # the sampled path on the island ranks against the unsharded port
+    with torch.no_grad():
+        tp = {k: v.to(dev) for k, v in params.items()}
+        want = sage_forward(tp, feature_table(g.features, SHARDS,
+                                              device=dev),
+                            batch, PALLAS_CONFIG).cpu().numpy()
+    got = np.concatenate([x["rows"]["sage/island"] for x in ranks])
+    err = float(np.abs(got - want).max())
+    check(np.allclose(got, want, rtol=1e-4, atol=1e-4),
+          f"sharded island sage_forward off the unsharded port by {err}")
+    rr_i, rr_s = remote_destination_rows(pg_i), remote_destination_rows(pg_s)
+    nbytes = {f"{layout}/{flow}/{op}": [x["bytes"][f"{layout}/{flow}/{op}"]
+                                        for x in ranks]
+              for layout in ("interval", "island")
+              for flow in ("cgtrans", "baseline") for op in ("add", "max")}
+    log(f"  sharded island ≡ interval bit for bit (cgtrans and baseline x "
+        f"add, max, min, un-permuted); island sage_forward within {err:.3g} "
+        f"of the unsharded port; remote destination rows per rank interval "
+        f"{rr_i.tolist()} (sum {int(rr_i.sum())}) -> island "
+        f"{rr_s.tolist()} (sum {int(rr_s.sum())}); e_max interval "
+        f"{pg_i.e_max}, island {pg_s.e_max}; bytes per rank: "
+        + json.dumps(nbytes))
+    return {"remote_rows": {"interval": rr_i.tolist(),
+                            "island": rr_s.tolist()},
+            "bytes_per_rank": nbytes, "islandize_s": t_isl}
+
+
+def island_full_graph(torch, K, dev, launches, smi):
+    """Phase a (1) and (2) on the shuffled community graph at Reddit width:
+    ``gcn_forward_full`` under ``ISLAND_PALLAS_CONFIG`` against
+    ``PALLAS_CONFIG``, then ``sage_forward``, one train step and the
+    serving engine on both layouts."""
+    import numpy as np
+
+    from repro_torch.common.config import TrainConfig
+    from repro_torch.common.schema import init_params
+    from repro_torch.configs.graphic_gcn import (ISLAND_PALLAS_CONFIG,
+                                                 PALLAS_CONFIG)
+    from repro_torch.core import cgtrans
+    from repro_torch.core.gcn import (feature_table, gcn_forward_full,
+                                      gcn_schema, sage_forward)
+    from repro_torch.data import GraphBatchStream, synthetic_node_labels
+    from repro_torch.graph import partition_graph, remote_destination_rows
+    from repro_torch.kernels.gas_scatter import ops
+    from repro_torch.launch.serve import replay_traffic
+    from repro_torch.optim import adamw_init
+    from repro_torch.serving import ServingEngine
+    from repro_torch.train import make_sage_train_step
+
+    out = {}
+    t0 = time.perf_counter()
+    g = shuffled_community_graph(ISL_V, ISL_E, seed=0)
+    log(f"  community graph V={ISL_V} E={ISL_E} F={F}, {ISL_CLUSTERS} "
+        f"clusters, p_intra {ISL_P_INTRA}, ids shuffled: made in "
+        f"{time.perf_counter() - t0:.1f} s")
+    pg_i, _ = partition_graph(g, 1, method="interval")
+    t0 = time.perf_counter()
+    pg_s, isl = partition_graph(g, 1, method="island")
+    t_isl = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    pg4_s, _ = partition_graph(g, SHARDS, method="island")
+    t_isl4 = time.perf_counter() - t0
+    rr_i = remote_destination_rows(partition_graph(g, SHARDS)[0])
+    rr_s = remote_destination_rows(pg4_s)
+    del pg4_s
+    log(f"  partition_graph(method='island') host seconds (islandize "
+        f"dominates): P=1 {t_isl:.2f}, P={SHARDS} {t_isl4:.2f}; "
+        f"{isl.n_islands} islands; remote destination rows at P={SHARDS}: "
+        f"interval {int(rr_i.sum())} -> island {int(rr_s.sum())} "
+        f"(per shard {rr_i.tolist()} -> {rr_s.tolist()})")
+    out.update(islandize_s={"P1": t_isl, f"P{SHARDS}": t_isl4},
+               remote_rows_full={"interval": rr_i.tolist(),
+                                 "island": rr_s.tolist()})
+
+    T = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(dev)  # noqa
+    layouts = {}
+    for name, pg in (("interval", pg_i), ("island", pg_s)):
+        edges = tuple(T(x) for x in (pg.src, pg.dst, pg.weights, pg.mask))
+        sched = cgtrans.build_edge_schedule(edges[1], edges[3], ISL_V)
+        live, total = ops.schedule_skip_stats(sched)
+        dense, _ = ops.dense_skip_stats(edges[1].reshape(-1),
+                                        edges[3].reshape(-1), ISL_V)
+        layouts[name] = (T(pg.features), edges)
+        out.setdefault("work_rows", {})[name] = {
+            "banded_live": live, "grid": total, "dense_live": dense}
+        del sched
+    log(f"  live (row block x edge tile) rounds: {json.dumps(out['work_rows'])}")
+    inv = T(isl.inverse).long()
+    rl = isl.relabel
+    gen = torch.Generator(device=dev).manual_seed(5)
+    C = PALLAS_CONFIG.n_classes
+    cot = torch.randn((1, ISL_V, C), generator=gen, device=dev)
+    schema = gcn_schema(PALLAS_CONFIG)
+    nparams = init_params(schema, 0, device=dev)
+    iparams = {k: torch.randint(-2, 3, tuple(d.shape), generator=gen,
+                                device=dev).to(torch.float32)
+               for k, d in schema.items()}
+    ints = torch.randint(-2, 3, (1, ISL_V, F), generator=gen,
+                         device=dev).to(torch.float32)
+    unit = {name: torch.ones_like(e[2]) for name, (_, e) in layouts.items()}
+
+    def fwd(name, op, params, table):
+        feats, (src, dst, _, mask) = layouts[name]
+        if table is None:
+            table = feats
+        cfg = dataclasses.replace(
+            ISLAND_PALLAS_CONFIG if name == "island" else PALLAS_CONFIG,
+            aggregate=op)
+        return gcn_forward_full(params, table, src, dst, unit[name], mask,
+                                cfg, relabel=rl if name == "island" else None)
+
+    for op in GCN_OPS:
+        with torch.no_grad():
+            a, ca = counted(torch, K, launches,
+                            lambda: fwd("interval", op, iparams, ints))
+            b, cb = counted(torch, K, launches,
+                            lambda: fwd("island", op, iparams, ints[:, inv]))
+            for c in (ca, cb):
+                check(c == {"gas_scatter_banded": 2, "gas_scatter_dense": 0},
+                      f"{op}: a forward launched {c}")
+            check(torch.equal(a, b), f"gcn_forward_full op={op}: island and "
+                  f"interval differ on integer data by "
+                  f"{float((a - b).abs().max())}")
+            mag = float(a.abs().max())
+            a = fwd("interval", op, nparams, None)
+            b = fwd("island", op, nparams, None)
+            err = float((a - b).abs().max())
+            check(torch.allclose(a, b, rtol=1e-4, atol=1e-4),
+                  f"gcn_forward_full op={op}: island off interval by {err}")
+            same = bool(torch.equal(a, b))
+            del a, b
+        (gi, pi), gc_i = counted(torch, K, launches, lambda: gcn_grads(
+            torch, lambda p: fwd("interval", op, p, None), nparams, cot))
+        (gs, ps), gc_s = counted(torch, K, launches, lambda: gcn_grads(
+            torch, lambda p: fwd("island", op, p, None), nparams, cot))
+        want_b = {"gas_scatter_banded": 2 + (op != "add"),
+                  "gas_scatter_dense": 1}
+        check(gc_i == want_b and gc_s == want_b,
+              f"{op}: fwd+bwd launched {gc_i} and {gc_s}")
+        # island pre-activations are in island row order: re-pair them
+        r_t = T(rl).long()
+        flip1, flip2 = flipped_units(pi, [x[:, r_t] for x in ps])
+        n_flip = (int(flip1.sum()), int(flip2.sum()))
+        if bool(flip2.any()):
+            flip1 = torch.ones_like(flip1)
+        moved = {"w0": flip1, "b0": flip1, "w1": flip2, "b1": flip2}
+        worst = hold_grads(torch, gs, gi, moved, f"island {op}", dev)
+        log(f"  gcn_forward_full op={op}: island = interval bit for bit on "
+            f"integer data (max |logit| {mag:.4g} < 2^24), normal data "
+            f"{'bit for bit' if same else f'within {err:.3g}'}; launches "
+            f"forward {cb}, forward + backward {gc_s}; gradients within "
+            f"{worst:.3g} of max|g| per leaf (ReLU flips {n_flip})")
+        del gi, gs, pi, ps
+        torch.cuda.empty_cache()
+
+    # times: warm forwards and the layer-0 banded launch of each layout
+    with torch.no_grad():
+        for name in ("interval", "island", "island", "interval"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fwd(name, "add", nparams, None)
+            torch.cuda.synchronize()
+            out.setdefault("forward_ms", {}).setdefault(name, []).append(
+                (time.perf_counter() - t0) * 1e3)
+    log(f"  warm gcn_forward_full (add) [{smi}]: "
+        + json.dumps(out["forward_ms"]))
+    for name in ("interval", "island"):
+        with torch.no_grad():
+            seen = captured_calls(ops, lambda: fwd(name, "add", nparams,
+                                                   None), scheduled=True)
+        check(len(seen) == 2, f"{len(seen)} scheduled scatters per forward")
+        args, kwargs = seen[0]
+        del seen
+        out.setdefault("layer0", {})[name] = time_call(
+            torch, ops, K, args, kwargs, f"layer 0 of the {name} layout",
+            smi, 3, plain=False)
+        del args, kwargs
+        torch.cuda.empty_cache()
+
+    # (2) the sampled path, the train step and serving on both layouts
+    labels = synthetic_node_labels(g.features, C, seed=0)
+    stream = GraphBatchStream(g, labels, 1, BATCH, k1=FANOUT, k2=FANOUT,
+                              seed=0)
+    batch = stream.batch_at(0)
+    tables = {"interval": feature_table(g.features, device=dev),
+              "island": layouts["island"][0]}
+    cfgs = {"interval": (PALLAS_CONFIG, None),
+            "island": (ISLAND_PALLAS_CONFIG, rl)}
+    for data in ("int", "normal"):
+        res = {}
+        for name in ("interval", "island"):
+            table = tables[name]
+            if data == "int":
+                table = torch.round(table * 4)
+            cfg, relabel = cfgs[name]
+            with torch.no_grad():
+                res[name], c = counted(torch, K, launches, lambda: sage_forward(
+                    nparams, table, batch, cfg, relabel=relabel))
+            check(c["gas_scatter_banded"] > 0, f"sage {name} launched {c}")
+        err = float((res["island"] - res["interval"]).abs().max())
+        if data == "int":
+            check(torch.equal(res["island"], res["interval"]),
+                  f"sage_forward island differs on integer data by {err}")
+        check(torch.allclose(res["island"], res["interval"], rtol=1e-5,
+                             atol=1e-5), f"sage_forward island off by {err}")
+        log(f"  sage_forward B={BATCH} ({data} data): island vs interval "
+            f"max diff {err:.3g}")
+    tc = TrainConfig(learning_rate=3e-3, warmup_steps=0, total_steps=1)
+    after = {}
+    for name in ("interval", "island"):
+        cfg, relabel = cfgs[name]
+        state = {"params": nparams, "opt": adamw_init(nparams, tc),
+                 "step": torch.zeros((), dtype=torch.int32, device=dev)}
+        step = make_sage_train_step(cfg, tc, feats=tables[name],
+                                    relabel=relabel)
+        (state, m), c = counted(torch, K, launches,
+                                lambda: step(state, batch))
+        check(c["gas_scatter_banded"] > 0, f"train {name} launched {c}")
+        after[name] = (state["params"], float(m["total_loss"]))
+    perr = max(float((after["island"][0][k] - after["interval"][0][k])
+                     .abs().max()) for k in nparams)
+    check(perr <= 1e-5, f"train step: island params off interval by {perr}")
+    log(f"  one make_sage_train_step(relabel=) step: loss "
+        f"{after['island'][1]:.6f} (interval {after['interval'][1]:.6f}), "
+        f"params within {perr:.3g}")
+    del tables, layouts, after
+    torch.cuda.empty_cache()
+    indptr, indices, _ = g.to_csr()
+    for scheduled in (True, False):
+        kw = dict(impl="kernel", scheduled=scheduled)
+        ref, c_i = counted(torch, K, launches, lambda: serve(
+            ServingEngine, replay_traffic, g.features, indptr, indices,
+            **kw))
+        got, c_s = counted(torch, K, launches, lambda: serve(
+            ServingEngine, replay_traffic, g.features, indptr, indices,
+            partition="island", **kw))
+        kernel = "gas_scatter_banded" if scheduled else "gas_scatter_dense"
+        check(c_s[kernel] > 0, f"island serving launched {c_s}")
+        compare_serving(ref, got, f"island engine scheduled={scheduled}",
+                        against="the interval engine")
+        check(all(np.array_equal(ref[r].agg_rows, got[r].agg_rows)
+                  for r in ref), f"island serving scheduled={scheduled} "
+              "is not bit for bit the interval engine")
+    log("  island serving (cache on, banded and dense) bit for bit with the "
+        "interval engine")
+    return out
+
+
+def time_round(torch, ops, D, values, V_, op, iters, smi, label):
+    """One algorithm round's scatter on the dense grid: CUDA events, the
+    profiler's device ms, the function's byte bound ((E ids + E values)
+    read, V rows written, 4 bytes each, over HBM) and the library call
+    (``scatter_reduce_`` for min, ``torch.sparse.mm`` for add)."""
+    call = ops.fused_call(D, values if values.dim() == 2 else values[:, None],
+                          None, None, V_, op=op)
+    E_, Fv = values.shape[0], (values.shape[1] if values.dim() == 2 else 1)
+    t = {"values": list(values.shape), "rows": V_, "op": op,
+         "ms": event_ms(torch, call.run, iters, warm=1),
+         "device_ms": device_ms(torch, call.run, "dense_cluster_kernel",
+                                iters),
+         "occupied": int((call.args[2] > 0).sum()),
+         "grid": int(call.args[2].numel())}
+    nbytes = E_ * 4 + E_ * Fv * 4 + V_ * Fv * 4
+    ops_n = E_ * Fv * (2 if op == "add" else 1)
+    t_b, t_o = nbytes / HBM_BYTES_PER_S * 1e3, ops_n / F32_OPS_PER_S * 1e3
+    t["bound_ms"], t["bound_by"] = max(t_b, t_o), (
+        "bytes" if t_b >= t_o else "operations")
+    if op == "min" and values.dim() == 1:
+        out = torch.full((V_,), float("inf"), device=values.device)
+        idx = D.long()
+        t["library_ms"] = event_ms(torch, lambda: out.scatter_reduce_(
+            0, idx, values, "amin", include_self=True), iters, warm=1)
+        t["library"] = "scatter_reduce_ amin"
+    else:
+        t["library_ms"] = event_ms(torch, library_fn(torch, call), iters,
+                                   warm=1)
+        t["library"] = "torch.sparse.mm"
+    log(f"  dense grid at {label} [{smi}]: {json.dumps(t)}")
+    return t
+
+
+def phase_island(torch, K, dev, launches, smi):
+    """Phase a: (1, 2) islandized full-graph GCN, sampled path, training
+    and serving at Reddit width; (3) the same sharded over SHARDS gloo
+    ranks; (4) the graph algorithms on the dense grid; (5) the cost
+    model's headline. Returns the measured fields per kernel."""
+    import numpy as np
+
+    from repro_torch.core import algorithms as alg
+    from repro_torch.core import cost_model, gas
+    from repro_torch.graph import rmat
+    from repro_torch.kernels.gas_scatter import ops
+
+    t_phase = time.perf_counter()
+    full = island_full_graph(torch, K, dev, launches, smi)
+    torch.cuda.empty_cache()
+    sharded = island_sharded(torch, dev, launches, smi)
+
+    # (4) the algorithms, kernel against ref, bit for bit
+    t_alg = time.perf_counter()
+    ga = rmat(ALG_SCALE, 16, seed=0, weights=True)
+    Va = ga.n_vertices
+    S, D, W = (torch.from_numpy(x).to(dev) for x in (ga.src, ga.dst,
+                                                     ga.weights))
+    runs = {"bfs": lambda impl: alg.bfs(S, D, Va, 0, impl=impl),
+            "sssp": lambda impl: alg.sssp(S, D, W, Va, 0, impl=impl),
+            "cc": lambda impl: alg.connected_components(S, D, Va, impl=impl)}
+    rounds, results = {}, {}
+    for name, fn in runs.items():
+        timed = {}
+        for impl in ("kernel", "ref"):
+            with gas.count_dispatches() as c:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                got, lc = counted(torch, K, launches if impl == "kernel"
+                                  else {k: 0 for k in launches},
+                                  lambda: fn(impl))
+                timed[impl] = (time.perf_counter() - t0) * 1e3
+            results[impl] = got
+            if impl == "kernel":
+                rounds[name] = c["find"]
+                check(lc["gas_scatter_dense"] == c["find"] > 0,
+                      f"{name}: {c['find']} rounds, launches {lc}")
+            else:
+                check(lc == {"gas_scatter_banded": 0,
+                             "gas_scatter_dense": 0}, f"{name} ref {lc}")
+        check(torch.equal(results["kernel"], results["ref"]),
+              f"{name}: impl=kernel differs from impl=ref")
+        reached = int(torch.isfinite(results["kernel"].float()).sum()) \
+            if name != "cc" else int(torch.unique(results["kernel"]).numel())
+        log(f"  {name} on rmat({ALG_SCALE}, 16): {rounds[name]} rounds, "
+            f"kernel {timed['kernel']:.1f} ms ({timed['kernel'] / rounds[name]:.2f}"
+            f" ms per round), ref {timed['ref']:.1f} ms; bit for bit; "
+            + ("components" if name == "cc" else "reached") + f" {reached}")
+        full.setdefault("algorithms", {})[name] = {
+            "rounds": rounds[name], "kernel_ms": timed["kernel"],
+            "ref_ms": timed["ref"]}
+    # one round's min scatter, timed alone (sssp's relaxation values)
+    dist = alg.sssp(S, D, W, Va, 0, impl="ref")
+    relax = (dist[S.long()] + W).contiguous()
+    round_t = time_round(torch, ops, D, relax, Va, "min", 5, smi,
+                         f"an sssp round (rmat({ALG_SCALE}, 16))")
+    t_alg = time.perf_counter() - t_alg
+    log(f"  bfs + sssp + cc (kernel and ref) took {t_alg:.1f} s")
+    del S, D, W, dist, relax
+
+    # gas_sort and feature_embedding
+    x = torch.from_numpy(np.random.default_rng(4).standard_normal(
+        SORT_N).astype(np.float32)).to(dev)
+    got, c = counted(torch, K, launches, lambda: alg.gas_sort(x,
+                                                              impl="kernel"))
+    check(c["gas_scatter_dense"] == 1, f"gas_sort launched {c}")
+    check(torch.equal(got, alg.gas_sort(x, impl="ref"))
+          and torch.equal(got, torch.sort(x).values), "gas_sort not exact")
+    ge = rmat(EMB_SCALE, 16, seed=2)
+    rng = np.random.default_rng(6)
+    Se, De = (torch.from_numpy(v).to(dev) for v in (ge.src, ge.dst))
+    We = torch.from_numpy(rng.integers(-2, 3, ge.n_edges).astype(
+        np.float32)).to(dev)
+    Fe = torch.from_numpy(rng.integers(-4, 5, (ge.n_vertices, F)).astype(
+        np.float32)).to(dev)
+    got, c = counted(torch, K, launches, lambda: alg.feature_embedding(
+        Se, De, We, Fe, impl="kernel"))
+    check(c["gas_scatter_dense"] == 1, f"feature_embedding launched {c}")
+    want = alg.feature_embedding(Se, De, We, Fe, impl="ref")
+    check(torch.equal(got, want), "feature_embedding: kernel differs from "
+          f"ref by {float((got - want).abs().max())}")
+    del got, want
+    emb_t = time_round(torch, ops, De, (Fe[Se.long()] * We[:, None])
+                       .contiguous(), ge.n_vertices, "add", 3, smi,
+                       f"feature_embedding (rmat({EMB_SCALE}, 16), F={F})")
+    log(f"  gas_sort of {SORT_N} normal draws exact; feature_embedding at "
+        f"rmat({EMB_SCALE}, 16), F={F} bit for bit on integer data")
+    del Se, De, We, Fe
+    torch.cuda.empty_cache()
+
+    # (5) the cost model's headline, as examples/quickstart.py prints it
+    rows = cost_model.fig15_table()
+    log("  CGTrans vs GCNAX (cost model, Table II datasets):")
+    for r in rows:
+        log(f"    {r['dataset']:10s} SSD-loading cut "
+            f"{r['load_reduction']:.0f}x, speedup vs GCNAX "
+            f"{r['speedup_vs_gcnax']:.2f}x, vs Insider "
+            f"{r['speedup_vs_insider']:.2f}x")
+    log(f"  averages: loading cut "
+        f"{np.mean([r['load_reduction'] for r in rows]):.1f}x, vs GCNAX "
+        f"{np.mean([r['speedup_vs_gcnax'] for r in rows]):.2f}x, vs Insider "
+        f"{np.mean([r['speedup_vs_insider'] for r in rows]):.2f}x")
+    log(f"  phase a took {time.perf_counter() - t_phase:.1f} s")
+    layer0 = full.pop("layer0")
+    return {"gas_scatter_banded": {"island_layer0": layer0,
+                                   "island_full_graph": full,
+                                   "island_sharded": sharded},
+            "gas_scatter_dense": {"algorithm_round_min": round_t,
+                                  "feature_embedding_add": emb_t}}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phases", default="123456789",
-                    help="the phases to run, as digits (default: all)")
+    ap.add_argument("--phases", default="123456789a",
+                    help="the phases to run, as characters 1-9 and a "
+                    "(default: all)")
     phases = set(ap.parse_args(argv).phases)
     import torch
 
@@ -2301,6 +2879,11 @@ def main(argv=None) -> int:
             f"{SHARDS} ranks")
         for name, t in phase_gcn(torch, K, dev, launches, smi).items():
             measured.setdefault(name, {})["gcn_full_graph"] = t
+    if "a" in phases:
+        log("phase a: islandized partitioning at Reddit width, unsharded and "
+            f"over {SHARDS} ranks; the graph algorithms; the cost model")
+        for name, t in phase_island(torch, K, dev, launches, smi).items():
+            measured.setdefault(name, {}).update(t)
 
     kernels = []
     for name, entry in measured.items():

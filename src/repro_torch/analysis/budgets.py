@@ -173,6 +173,33 @@ def edges_bytes(dataflow: str, wire: str, n: int, part: int, F: int,
     return n * part * per_row
 
 
+#: ``gcn_forward_full(relabel=)`` on a mesh: the un-permute reads rows every
+#: rank owns. The JAX program holds one all-reduce of the (P·part, C)
+#: logits there (its compiled HLO on the reference's 8-device mesh); the
+#: port all-gathers the same rows once per forward, counted as
+#: ``relabel_gather``, with the same bytes (``relabel_gather_bytes``); its
+#: backward is one ``psum_scatter``.
+RELABEL_GATHER_PER_FORWARD = 1
+
+
+def relabel_gather_bytes(n: int, part: int, C: int) -> int:
+    """Bytes per rank of the un-permute's collective: the (n·part, C)
+    float32 logits, as the reference's all-reduce moves them."""
+    return n * part * C * 4
+
+
+def gcn_full_forward(dataflow: str, op: str, impl: str, n_layers: int, *,
+                     wire: str = "f32", relabel: bool = False
+                     ) -> Dict[str, int]:
+    """The forward budget of ``gcn_forward_full`` on a mesh: each layer's
+    ``aggregate_edges`` (``edges_forward``), and with ``relabel=`` one
+    ``relabel_gather``."""
+    out = merge(*[edges_forward(dataflow, op, impl, wire)] * n_layers)
+    if relabel:
+        out = merge(out, {"relabel_gather": RELABEL_GATHER_PER_FORWARD})
+    return out
+
+
 #: collectives the JAX package issues outside its traced program, per
 #: train step and per serving drain (keys of their own in the port)
 GRAD_ALL_REDUCE_PER_STEP = 1

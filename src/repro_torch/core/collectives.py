@@ -23,7 +23,10 @@ Collectives that JAX issues outside the traced program have keys of their
 own: ``grad_all_reduce`` (GSPMD's gradient reduction of a data-parallel
 step), ``metric_all_reduce`` (the global loss and accuracy),
 ``result_gather`` (the host reading a seed-sharded result) and
-``trigger_broadcast`` (the serving queue's drain decision). Counting
+``trigger_broadcast`` (the serving queue's drain decision); so does
+``relabel_gather``, the un-permute of islandized full-graph logits, an
+all_gather where the JAX program holds an all-reduce of the same rows
+(``analysis/budgets.py``). Counting
 follows the GAS dispatch counter: a call site counts once per program, so
 a chunk loop (``cgtrans.scan_request_chunks``) counts its body once, as a
 ``lax.scan`` body is traced once; every chunk still issues its

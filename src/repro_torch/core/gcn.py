@@ -84,13 +84,43 @@ def params_from_jax(params: Mapping[str, np.ndarray],
 
 
 def _check_partition_knob(cfg: GCNConfig, relabel) -> None:
+    """``cfg.partition`` and the relabel map travel together or not at all:
+    an islandized table without the map (or the map without one) would
+    aggregate the wrong rows, so a mismatch raises."""
     if cfg.partition not in ("interval", "island"):
         raise ValueError(f"unknown cfg.partition {cfg.partition!r} "
                          "(expected 'interval' or 'island')")
-    if cfg.partition == "island" or relabel is not None:
-        raise NotImplementedError(
-            "partition='island' is not ported yet (ROADMAP Queue 1 row 6, "
-            "graph/partition.py islandize)")
+    if (cfg.partition == "island") != (relabel is not None):
+        raise ValueError(
+            "cfg.partition='island' requires the IslandPartition relabel map "
+            "(relabel=isl.relabel), and relabel= requires partition='island' "
+            f"— got partition={cfg.partition!r}, "
+            f"relabel={'set' if relabel is not None else 'None'}")
+
+
+def _relabel_tensor(relabel, device: torch.device) -> torch.Tensor:
+    """The old → new id map as an int64 tensor on ``device``."""
+    if torch.is_tensor(relabel):
+        return relabel.to(device=device, dtype=torch.int64)
+    return torch.from_numpy(np.asarray(relabel, np.int64)).to(device)
+
+
+def _unpermute(out: torch.Tensor, relabel, mesh) -> torch.Tensor:
+    """Islandized (P, part, C) logits → original vertex order: flat row
+    ``v`` of the result is vertex ``v``'s logits, pad rows zero. On a
+    sharded mesh a rank's rows come from every rank, so the logits meet in
+    one ``all_gather`` (``relabel_gather``; the JAX program holds one
+    all-reduce of the same (P·part, C) rows there) and each rank keeps its
+    own slice of the un-permuted whole."""
+    sharded = cgtrans.is_sharded(mesh)
+    whole = (collectives.all_gather(out[0], mesh, name="relabel_gather")
+             if sharded else out)
+    P_, part, C = whole.shape
+    r = _relabel_tensor(relabel, out.device)
+    orig = whole.reshape(P_ * part, C)[r]
+    flat = torch.cat([orig, orig.new_zeros((P_ * part - r.shape[0], C))])
+    flat = flat.reshape(P_, part, C)
+    return flat[mesh.rank:mesh.rank + 1] if sharded else flat
 
 
 def _batch_tensors(batch: Mapping, device: torch.device):
@@ -116,6 +146,13 @@ def gcn_forward_full(params: Mapping[str, torch.Tensor], feats: torch.Tensor,
     none). ``cfg.features="sparse"`` applies to layer 0's gather of the raw
     table only. After a max / min aggregation the ±inf identity rows of
     vertices without in-edges read 0.
+
+    With ``cfg.partition="island"`` the inputs live in the islandized id
+    space (``partition_graph(..., method="island")``) and ``relabel`` is
+    the old → new map; the output is un-permuted back, so flat row ``v``
+    is original vertex ``v``'s logits (pad rows zero) and islandized ≡
+    interval bit for bit over ``[0, V)``. On a mesh this costs one
+    ``all_gather`` of the logits (``relabel_gather``).
     """
     _check_partition_knob(cfg, relabel)
     impl_r = impl or cfg.impl
@@ -148,7 +185,8 @@ def gcn_forward_full(params: Mapping[str, torch.Tensor], feats: torch.Tensor,
         h = torch.cat([h, agg], dim=-1)
         h = torch.relu(torch.einsum("pvf,fh->pvh", h, params[f"w{i}"])
                        + params[f"b{i}"])
-    return torch.einsum("pvh,hc->pvc", h, params["w_out"]) + params["b_out"]
+    out = torch.einsum("pvh,hc->pvc", h, params["w_out"]) + params["b_out"]
+    return out if relabel is None else _unpermute(out, relabel, mesh)
 
 
 def lookup_rows(feats, ids, *, mesh=None, dataflow="cgtrans", impl="ref",
@@ -175,9 +213,18 @@ def sage_forward(params: Mapping[str, torch.Tensor], feats: torch.Tensor,
       seeds (P, B), nbrs1/mask1 (P, B, K1), nbrs2/mask2 (P, B·(1+K1), K2).
     Returns (P, B, C) logits. On a sharded ``mesh`` P is 1: this rank's
     slices in, this rank's logits out.
+
+    With ``cfg.partition="island"`` the table is islandized
+    (``IslandPartition.relabel_rows`` order) and ``relabel`` translates
+    the batch's vertex ids into that space at entry; the logits are
+    positional per seed, so islandized ≡ interval bit for bit.
     """
     _check_partition_knob(cfg, relabel)
     b = _batch_tensors(batch, feats.device)
+    if relabel is not None:
+        r = _relabel_tensor(relabel, feats.device)
+        for k in ("seeds", "nbrs1", "nbrs2"):
+            b[k] = r[b[k].long()].to(torch.int32)
     Pn, B = b["seeds"].shape
     K1 = b["nbrs1"].shape[-1]
     seeds = b["seeds"].to(torch.int32)

@@ -5,13 +5,27 @@
 * ``clustered_graph`` — community-structured graphs, the favourable case of
   the idle-skip schedule.
 * ``uniform_graph`` — uniform random edges, its adversary.
+* ``table2_like`` — graphs with the vertex/edge/feature ratios of the
+  paper's Table II datasets, scaled down; the full-size ``TABLE_II``
+  parameters feed the analytic cost model (``core/cost_model.py``).
 """
 
 from __future__ import annotations
 
+from typing import Dict
+
 import numpy as np
 
 from repro_torch.graph.structure import COOGraph
+
+# Paper Table II (full-size): name -> (nodes, edges, n_features)
+TABLE_II: Dict[str, tuple] = {
+    "Reddit": (37.3e6, 53.9e9, 602),
+    "Movielens": (22.2e6, 59.2e9, 1000),
+    "Amazon": (265.9e6, 9.5e9, 32),
+    "OGBN-100M": (179.1e6, 5.0e9, 32),
+    "Protein-PI": (9.1e6, 8.8e9, 512),
+}
 
 
 def rmat(scale: int, edge_factor: int = 16, *, a=0.57, b=0.19, c=0.19,
@@ -76,3 +90,17 @@ def uniform_graph(n_vertices: int, n_edges: int, *, seed: int = 0,
     feats = (rng.standard_normal((n_vertices, n_features)).astype(np.float32)
              if n_features else None)
     return COOGraph(n_vertices, src, dst, w, feats)
+
+
+def table2_like(name: str, *, scale_down: float = 1e4, seed: int = 0,
+                max_features: int = 64) -> COOGraph:
+    """A small graph preserving a Table II dataset's shape ratios."""
+    nodes, edges, feats = TABLE_II[name]
+    n = max(int(nodes / scale_down), 64)
+    m = max(int(edges / scale_down), 4 * n)
+    f = min(int(feats), max_features)
+    g = rmat(int(np.ceil(np.log2(n))), max(m // (1 << int(np.ceil(np.log2(n)))), 1),
+             seed=seed)
+    rng = np.random.default_rng(seed + 1)
+    g.features = rng.standard_normal((g.n_vertices, f)).astype(np.float32)
+    return g

@@ -46,7 +46,9 @@ import torch
 from repro_torch.core import cgtrans, collectives, gas
 from repro_torch.core import sparse as sparsefmt
 from repro_torch.device import DeviceLike, check_impl, resolve_device
+from repro_torch.graph.partition import islandize
 from repro_torch.graph.sampling import host_sample_csr
+from repro_torch.graph.structure import COOGraph
 from repro_torch.runtime.health import Heartbeat, StepMonitor
 from repro_torch.serving.cache import HotVertexCache
 from repro_torch.serving.queue import RequestQueue, ServeRequest
@@ -77,8 +79,16 @@ class ServingEngine:
     (``sparse.table_capacity`` over the whole float32 table, so every rank
     of a mesh holds the same). Unsharded both are no-ops, bit for bit.
 
-    Not ported yet, each raising ``NotImplementedError``:
-    ``partition="island"`` and sub-float32 (bf16 / f16) tables.
+    ``partition="island"`` islandizes the table layout once at build
+    (``graph.partition.islandize`` over the CSR, ``n_shards`` parts,
+    ``pad_multiple=1``): each rank then holds a community's rows. The CSR,
+    the sampler, the hot cache and every caller-visible id stay in
+    original ids; ``_request_segments`` translates the ids entering the
+    command block, and rows come back positionally, so results are the
+    interval engine's bit for bit.
+
+    Not ported yet, raising ``NotImplementedError``: sub-float32 (bf16 /
+    f16) tables.
     """
 
     def __init__(
@@ -111,10 +121,6 @@ class ServingEngine:
         if partition not in ("interval", "island"):
             raise ValueError(f"unknown partition {partition!r} "
                              "(expected 'interval' or 'island')")
-        if partition == "island":
-            raise NotImplementedError(
-                "partition='island' is not ported yet (ROADMAP Queue 1 row 6, "
-                "graph/partition.py islandize)")
         feats = np.asarray(feats)
         if feats.ndim != 2:
             raise ValueError(f"feats must be (V, F), got {feats.shape}")
@@ -135,10 +141,23 @@ class ServingEngine:
         self.partition = partition
         part = self.n_vertices // self.n_shards
         lo = mesh.rank * part if sharded else 0
+        self.islands = None
+        self._relabel: Optional[np.ndarray] = None
+        rows = slice(lo, lo + part)
+        if partition == "island":
+            src = np.repeat(np.arange(self.n_vertices, dtype=np.int32),
+                            np.diff(self.indptr))
+            self.islands = islandize(
+                COOGraph(self.n_vertices, src,
+                         self.indices.astype(np.int32)),
+                self.n_shards, pad_multiple=1)
+            self._relabel = self.islands.relabel
+            # this rank's rows of ``relabel_rows(feats)``
+            rows = self.islands.inverse[lo:lo + part]
         # a copy of this rank's rows only (of a memory-mapped table, the
         # rest is never read), converted once
         self.feats = torch.from_numpy(np.array(
-            feats[lo:lo + part], np.float32)).to(self.device).reshape(
+            feats[rows], np.float32)).to(self.device).reshape(
                 1, part, self.n_features)
         self.fanout = int(fanout)
         self.op = op
@@ -255,8 +274,16 @@ class ServingEngine:
         else:
             cached_rows = None
             hit = np.zeros(req.seeds.shape[0], bool)
-        lookup = (req.seeds[:, None].astype(np.int32), ~hit[:, None])
-        fan = (req.nbrs.astype(np.int32), req.mask)
+        lookup_ids = req.seeds[:, None].astype(np.int32)
+        fan_ids = req.nbrs.astype(np.int32)
+        if self._relabel is not None:
+            # into the islandized table's id space at the command-block
+            # door; rows come back positionally, so the cache above stays
+            # keyed on original ids and scatter-back needs no un-relabel
+            lookup_ids = self._relabel[lookup_ids]
+            fan_ids = self._relabel[fan_ids]
+        lookup = (lookup_ids, ~hit[:, None])
+        fan = (fan_ids, req.mask)
         return lookup, fan, cached_rows, hit
 
     def _build_blocks(self, reqs: List[ServeRequest]):

@@ -44,6 +44,11 @@ def make_sage_train_step(cfg: gcn.GCNConfig, tc: TrainConfig, *,
     ``acc``, ``grad_norm``, ``lr``, ``total_loss`` (and
     ``ef_residual_norm`` under ``grad_compression="int8_ef"``), detached
     tensors on the step's device, global over the mesh.
+
+    With ``cfg.partition="island"``, ``feats`` is the islandized table
+    (``IslandPartition.relabel_rows`` order) and ``relabel`` the old → new
+    id map; every batch's ids are translated at the ``sage_loss`` entry,
+    so islandized ≡ interval bit for bit, gradients included.
     """
     sharded = cgtrans.is_sharded(mesh)
     gcn._check_partition_knob(cfg, relabel)
@@ -52,7 +57,8 @@ def make_sage_train_step(cfg: gcn.GCNConfig, tc: TrainConfig, *,
         paths = leaves_with_paths(state["params"])
         live = [p.detach().requires_grad_(True) for _, p in paths]
         params = unflatten(state["params"], live)
-        loss, metrics = gcn.sage_loss(params, feats, batch, cfg, mesh=mesh)
+        loss, metrics = gcn.sage_loss(params, feats, batch, cfg, mesh=mesh,
+                                      relabel=relabel)
         grads = list(torch.autograd.grad(loss, live, materialize_grads=True))
         if sharded:
             grads = _sum_over_ranks(grads, mesh)

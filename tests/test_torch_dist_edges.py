@@ -26,7 +26,19 @@ so each rank's slice must equal the reference's slice:
   F 16) equal to the JAX package's HLO count taken live on 8 fake devices
   (``budgets.edges_bytes`` states the formula);
 * a gradient through ``collectives.reduce_scatter`` equal to the
-  all-gather of the cotangent.
+  all-gather of the cotangent;
+* islandized ≡ interval (``partition="island"``) on a shuffled-id
+  community graph, as ``tests/distributed_cases.py``'s
+  ``case_islandized_parity`` holds it on 8 devices: ``aggregate_edges``
+  on the island layout, un-permuted, bit for bit with the JAX package's
+  unsharded interval result (both dataflows × add / max / min × both
+  routes, and the add / max feature gradients); ``gcn_forward_full
+  (relabel=)`` bit for bit with the unsharded port on integer data, its
+  forward counts equal to ``budgets.gcn_full_forward`` and its
+  ``relabel_gather`` bytes to the reference HLO's all-reduce;
+  ``sage_forward`` and one train step island ≡ interval bit for bit (and
+  within 1e-5 of the JAX step), and the engine with the hot cache on bit
+  for bit with the JAX package's unsharded engine.
 
 The ranks import ``torch`` and ``repro_torch`` only; JAX is imported only
 inside the functions that compute the reference.
@@ -105,6 +117,72 @@ def _world(P):
         "us": [rng.integers(-3, 4, (P, R, F)).astype(np.float32)
                for R, _ in SEGMENTS],
     }
+
+
+ISLAND_OPS = ("add", "max", "min")
+IB, IK = 4, 3                         # sampled path: seeds per rank, fan-out
+
+
+def _island_world(P):
+    """``case_islandized_parity``'s world at V = PART·P: a clustered graph
+    with shuffled ids and deduplicated edges, and per-column injective
+    integer features, so every max / min has one winner and every
+    gradient is an integer; both layouts, the island map, small-integer
+    features and parameters for ``gcn_forward_full``, a sampled batch and
+    an integer serving table."""
+    from repro_torch.core.gcn import GCNConfig, gcn_schema
+    from repro_torch.graph import COOGraph, clustered_graph, partition_graph
+
+    V = PART * P
+    g0 = clustered_graph(V, 8 * V, n_clusters=2 * P, p_intra=0.9,
+                         seed=10 + P)
+    rng = np.random.default_rng(20 + P)
+    perm = rng.permutation(V).astype(np.int32)
+    pairs = np.unique(np.stack([perm[g0.src], perm[g0.dst]], 1), axis=0)
+    feats = ((np.arange(V)[:, None] - V // 2 + np.arange(F)[None, :])
+             * np.where(np.arange(F) % 2 == 0, 1.0, -1.0)).astype(np.float32)
+    g = COOGraph(V, pairs[:, 0].astype(np.int32),
+                 pairs[:, 1].astype(np.int32), None, feats)
+    pg_i, _ = partition_graph(g, P, method="interval")
+    pg_s, isl = partition_graph(g, P, method="island")
+    assert pg_i.part_size == pg_s.part_size == PART
+    u = rng.integers(-3, 4, (V, F)).astype(np.float32)
+    small = rng.integers(-2, 3, (V, F)).astype(np.float32)
+    gcot = rng.integers(-2, 3, (V, CLASSES)).astype(np.float32)
+    schema = gcn_schema(GCNConfig(n_features=F, hidden=HIDDEN,
+                                  n_classes=CLASSES))
+    out = {"relabel": isl.relabel, "inverse": isl.inverse, "V": V,
+           "gparams": {k: rng.integers(-1, 2, d.shape).astype(np.float32)
+                       for k, d in schema.items()},
+           "indptr_indices": g.to_csr()[:2],
+           "serve": rng.integers(-5, 6, (V, F)).astype(np.float32)}
+    for name, pg, order in (("interval", pg_i, None), ("island", pg_s,
+                                                       isl.inverse)):
+        rows = (lambda x: x) if order is None else (lambda x: x[order])
+        pad = lambda x: np.concatenate(  # noqa: E731
+            [rows(x), np.zeros((P * PART - V,) + x.shape[1:], x.dtype)]
+        ).reshape((P, PART) + x.shape[1:])
+        out[name] = {"feats": pg.features, "src": pg.src, "dst": pg.dst,
+                     "w": pg.weights, "mask": pg.mask, "u": pad(u),
+                     "small": pad(small)}
+    # the cotangent of the logits, which come back in original order
+    out["interval"]["gcot"] = np.concatenate(
+        [gcot, np.zeros((P * PART - V, CLASSES), np.float32)]).reshape(
+            P, PART, CLASSES)
+    K = IK
+    out["batch"] = {
+        "seeds": rng.integers(0, V, (P, IB)).astype(np.int32),
+        "nbrs1": rng.integers(0, V, (P, IB, K)).astype(np.int32),
+        "mask1": rng.random((P, IB, K)) < 0.8,
+        "nbrs2": rng.integers(0, V, (P, IB * (1 + K), K)).astype(np.int32),
+        "mask2": rng.random((P, IB * (1 + K), K)) < 0.8,
+        "labels": rng.integers(0, CLASSES, (P, IB)).astype(np.int32)}
+    return out
+
+
+def _island_tc(TrainConfig):
+    return TrainConfig(learning_rate=1e-2, warmup_steps=0, total_steps=1,
+                       weight_decay=0.0)
 
 
 def _gcn_cfg(lib, op, impl, flow="cgtrans"):
@@ -186,7 +264,70 @@ def _reference(P):
         return sum((o * jnp.asarray(u)).sum() for o, u in zip(
             jcg.aggregate_multi(f, blocks), w["us"]))
     out["multi_grad"] = np.asarray(jax.grad(mloss)(J["relu"]))
+    out["island"] = _island_reference(P, out["params"])
     return out
+
+
+def _island_reference(P, params):
+    """The JAX package's unsharded results on the interval layout of
+    ``_island_world(P)``, in original vertex order."""
+    import jax
+    import jax.numpy as jnp
+
+    from repro.common.config import TrainConfig as JTrainConfig
+    from repro.core import cgtrans as jcg
+    from repro.core import gcn as jgcn
+    from repro.optim import adamw_init
+    from repro.serving import ServingEngine as JServingEngine
+    from repro.train import make_sage_train_step
+
+    iw = _island_world(P)
+    V, lay = iw["V"], iw["interval"]
+    J = {k: jnp.asarray(v) for k, v in lay.items()}
+    out = {}
+    flat = lambda x: np.asarray(x).reshape(P * PART, -1)[:V]  # noqa: E731
+    for impl in IMPLS:
+        for op in ISLAND_OPS:
+            out[("edges", op, impl)] = flat(jcg.aggregate_edges(
+                J["feats"], J["src"], J["dst"], J["w"], J["mask"], op=op,
+                impl=JIMPL[impl]))
+        for op in ("add", "max"):
+            def loss(f, op=op, impl=impl):
+                o = jcg.aggregate_edges(f, J["src"], J["dst"], J["w"],
+                                        J["mask"], op=op, impl=JIMPL[impl])
+                return jnp.sum(jnp.where(jnp.isfinite(o), o, 0.0) * J["u"])
+            out[("grad", op, impl)] = flat(jax.grad(loss)(J["feats"]))
+    cfg = jgcn.GCNConfig(n_features=F, hidden=HIDDEN, n_classes=CLASSES,
+                         fanout=IK, impl="pallas")
+    jp = {k: jnp.asarray(v) for k, v in params.items()}
+    batch = {k: jnp.asarray(v) for k, v in iw["batch"].items()}
+    out["sage"] = np.asarray(jgcn.sage_forward(jp, J["small"], batch, cfg))
+    tc = _island_tc(JTrainConfig)
+    state = {"params": jp, "opt": adamw_init(jp, tc),
+             "step": jnp.zeros((), jnp.int32)}
+    state, _ = make_sage_train_step(cfg, tc, feats=J["small"])(state, batch)
+    out["train"] = jax.tree.map(np.asarray, state["params"])
+    eng = JServingEngine(iw["serve"], *iw["indptr_indices"],
+                         **_island_engine_kw())
+    out["engine"] = _island_serve(eng, V)
+    return out
+
+
+def _island_engine_kw():
+    return dict(fanout=4, max_batch=8, max_delay_s=1e9, cache_capacity=32)
+
+
+def _island_serve(eng, V):
+    """Two waves of single-seed requests (the second hits the cache):
+    each request's (self rows, aggregated rows, from_cache)."""
+    seeds = [s % V for s in (3, 9, 3, 17, 40, 9, 77, 130)]
+    res = []
+    for _wave in range(2):
+        rids = [eng.submit([s]) for s in seeds]
+        eng.flush()
+        res += [(x.self_rows, x.agg_rows, x.from_cache)
+                for x in map(eng.result, rids)]
+    return res
 
 
 # ---------------------------------------------------------------------------
@@ -324,7 +465,87 @@ def _rank(mesh, world, params, serving):
             res[wire] = ([(x.self_rows, x.agg_rows)
                           for x in map(eng.result, rids)], c, b)
         out["engine"] = res
+    out["island"] = _island_rank(mesh, world["island"], params)
     out["modules"] = _foreign_modules()
+    return out
+
+
+def _island_rank(mesh, iw, params):
+    """This rank's islandized runs (and the interval twins of the sampled
+    path), with the counts of the un-permuting forward."""
+    from repro_torch.common.config import TrainConfig
+    from repro_torch.core.gcn import GCNConfig, gcn_forward_full, sage_forward
+    from repro_torch.optim import adamw_init
+    from repro_torch.serving import ServingEngine
+    from repro_torch.train import make_sage_train_step
+
+    r = mesh.rank
+    lay = {k: torch.from_numpy(np.ascontiguousarray(v[r:r + 1]))
+           for k, v in iw["island"].items()}
+    edges = (lay["src"], lay["dst"], lay["w"], lay["mask"])
+    cot = torch.from_numpy(np.ascontiguousarray(
+        iw["interval"]["gcot"][r:r + 1]))
+    rl = iw["relabel"]
+    out = {}
+    for flow in FLOWS:
+        for impl in IMPLS:
+            for op in ISLAND_OPS:
+                out[("edges", flow, op, impl)] = cgtrans.aggregate_edges(
+                    lay["feats"], *edges, mesh=mesh, dataflow=flow, op=op,
+                    impl=impl).numpy()
+            for op in ("add", "max"):
+                f = lay["feats"].clone().requires_grad_(True)
+                o = cgtrans.aggregate_edges(f, *edges, mesh=mesh,
+                                            dataflow=flow, op=op, impl=impl)
+                (torch.where(torch.isfinite(o), o, torch.zeros(()))
+                 * lay["u"]).sum().backward()
+                out[("grad", flow, op, impl)] = f.grad.numpy()
+            cfg = GCNConfig(n_features=F, hidden=HIDDEN, n_classes=CLASSES,
+                            impl=impl, dataflow=flow, partition="island")
+            p = {k: torch.from_numpy(v).requires_grad_(True)
+                 for k, v in iw["gparams"].items()}
+            with torch.no_grad():
+                o, c, b = _counted(lambda: gcn_forward_full(
+                    p, lay["small"], *edges, cfg, mesh=mesh, relabel=rl))
+            # the un-permuted logits are in original vertex order, and so
+            # is their cotangent
+            (gcn_forward_full(p, lay["small"], *edges, cfg, mesh=mesh,
+                              relabel=rl) * cot).sum().backward()
+            out[("gcn", flow, impl)] = (o.numpy(), c, b, {
+                k: v.grad.numpy() for k, v in p.items()})
+    # the sampled path: island and interval twins on this rank
+    batch = {k: torch.from_numpy(np.ascontiguousarray(v[r:r + 1]))
+             for k, v in iw["batch"].items()}
+    tables = {"interval": torch.from_numpy(np.ascontiguousarray(
+                  iw["interval"]["small"][r:r + 1])),
+              "island": lay["small"]}
+    tc = _island_tc(TrainConfig)
+    for layout in ("interval", "island"):
+        cfg = GCNConfig(n_features=F, hidden=HIDDEN, n_classes=CLASSES,
+                        fanout=IK, impl="kernel", partition=layout)
+        relabel = rl if layout == "island" else None
+        tp = {k: torch.from_numpy(v) for k, v in params.items()}
+        with torch.no_grad():
+            out[("sage", layout)] = sage_forward(
+                tp, tables[layout], batch, cfg, mesh=mesh,
+                relabel=relabel).numpy()
+        state = {"params": tp, "opt": adamw_init(tp, tc),
+                 "step": torch.zeros((), dtype=torch.int32)}
+        state, _ = make_sage_train_step(cfg, tc, feats=tables[layout],
+                                        mesh=mesh, relabel=relabel)(
+            state, batch)
+        out[("train", layout)] = {k: v.numpy()
+                                  for k, v in state["params"].items()}
+        t = [0.0]
+
+        def clock():
+            t[0] += 0.001
+            return t[0]
+        eng = ServingEngine(iw["serve"], *iw["indptr_indices"], mesh=mesh,
+                            partition=layout, clock=clock, device="cpu",
+                            impl="kernel", **_island_engine_kw())
+        out[("engine", layout)] = (_island_serve(eng, iw["V"]),
+                                   eng.cache.snapshot())
     return out
 
 
@@ -347,7 +568,8 @@ def sharded(reference):
         if P not in cache:
             cache[P] = meshlib.spawn(
                 _rank, P, backend="gloo", device="cpu", timeout_s=TIMEOUT_S,
-                args=(_world(P), reference(P)["params"],
+                args=({**_world(P), "island": _island_world(P)},
+                      reference(P)["params"],
                       _serving_world() if P == 2 else None))
         return cache[P]
     return get
@@ -581,6 +803,112 @@ def test_reduce_scatter_gradient_is_the_all_gather_of_the_cotangent(
         assert c == {"psum_scatter": 1} and cb == {"all_gather": 1}
 
 
+# ---------------------------------------------------------------------------
+# islandized ≡ interval on the ranks
+# ---------------------------------------------------------------------------
+
+def _unpermute(rows, P):
+    """The ranks' islandized (1, part, …) slices → original vertex order."""
+    iw = _island_world(P)
+    flat = np.concatenate(rows).reshape(P * PART, -1)
+    return flat[iw["relabel"]]
+
+
+@pytest.mark.parametrize("P,flow,op,impl", [
+    (P, flow, op, impl) for P in (2, 4) for flow in FLOWS
+    for op in ISLAND_OPS for impl in IMPLS])
+def test_island_aggregate_edges_equals_interval_reference(sharded, reference,
+                                                          P, flow, op, impl):
+    got = _unpermute([res["island"][("edges", flow, op, impl)]
+                      for res in sharded(P)], P)
+    np.testing.assert_array_equal(got, reference(P)["island"][("edges", op,
+                                                                impl)])
+
+
+@pytest.mark.parametrize("P,flow,op,impl", [
+    (P, flow, op, impl) for P in (2, 4) for flow in FLOWS
+    for op in ("add", "max") for impl in IMPLS])
+def test_island_edges_gradient_equals_interval_reference(sharded, reference,
+                                                         P, flow, op, impl):
+    """Every max has one winner (injective columns, no duplicate edge), so
+    the gradient is exact in any order and on any layout."""
+    got = _unpermute([res["island"][("grad", flow, op, impl)]
+                      for res in sharded(P)], P)
+    np.testing.assert_array_equal(got, reference(P)["island"][("grad", op,
+                                                               impl)])
+
+
+@pytest.mark.parametrize("P,flow,impl", [(P, flow, impl) for P in (2, 4)
+                                         for flow in FLOWS for impl in IMPLS])
+def test_island_gcn_forward_full_equals_the_unsharded_port(sharded, P, flow,
+                                                           impl):
+    """``gcn_forward_full(relabel=)`` on the ranks: each rank's slice of the
+    un-permuted logits bit for bit with the unsharded port on the interval
+    layout (integer data), the parameter gradients summed over ranks bit
+    for bit, the forward's counts equal to ``budgets.gcn_full_forward`` and
+    the un-permute's bytes to ``budgets.relabel_gather_bytes``."""
+    from repro_torch.core.gcn import GCNConfig, gcn_forward_full
+
+    iw = _island_world(P)
+    lay = {k: torch.from_numpy(v) for k, v in iw["interval"].items()}
+    cfg = GCNConfig(n_features=F, hidden=HIDDEN, n_classes=CLASSES,
+                    impl=impl, dataflow=flow)
+    p = {k: torch.from_numpy(v).requires_grad_(True)
+         for k, v in iw["gparams"].items()}
+    want = gcn_forward_full(p, lay["small"], lay["src"], lay["dst"],
+                            lay["w"], lay["mask"], cfg)
+    (want * lay["gcot"]).sum().backward()
+    ranks = [res["island"][("gcn", flow, impl)] for res in sharded(P)]
+    budget = budgets.gcn_full_forward(flow, "add", impl, cfg.n_layers,
+                                      relabel=True)
+    for r, (got, counts, nbytes, _) in enumerate(ranks):
+        np.testing.assert_array_equal(got, want.detach().numpy()[r:r + 1])
+        assert counts == budget
+        assert nbytes["relabel_gather"] == budgets.relabel_gather_bytes(
+            P, PART, CLASSES)
+    for k, v in p.items():
+        np.testing.assert_array_equal(sum(x[3][k] for x in ranks),
+                                      v.grad.numpy(), err_msg=k)
+
+
+@pytest.mark.parametrize("P", [2, 4])
+def test_island_sage_forward_and_train_step_equal_interval(sharded,
+                                                           reference, P):
+    """The sampled path on the ranks: island ≡ interval bit for bit (the
+    same rows fetched in the same order), logits and one step's
+    parameters; both within 1e-5 of the JAX package's unsharded step."""
+    want = reference(P)["island"]
+    res = sharded(P)
+    for layout in ("interval", "island"):
+        got = np.concatenate([x["island"][("sage", layout)] for x in res])
+        np.testing.assert_allclose(got, want["sage"], **TOL)
+    for x in res:
+        np.testing.assert_array_equal(x["island"][("sage", "island")],
+                                      x["island"][("sage", "interval")])
+        a, b = x["island"][("train", "island")], x["island"][("train",
+                                                               "interval")]
+        for k in b:
+            np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+            np.testing.assert_allclose(a[k], want["train"][k], **TOL)
+
+
+@pytest.mark.parametrize("P", [2, 4])
+def test_island_engine_equals_the_reference_engine(sharded, reference, P):
+    """``ServingEngine(partition="island")`` on the ranks, hot cache on:
+    every request bit for bit with the interval ranks and with the JAX
+    package's unsharded engine (integer table), the same cache
+    behaviour, hits in the second wave."""
+    want = reference(P)["island"]["engine"]
+    for x in sharded(P):
+        (isl, isl_cache), (itv, itv_cache) = (x["island"][("engine", k)]
+                                              for k in ("island", "interval"))
+        assert isl_cache == itv_cache and isl_cache["hits"] > 0
+        for a, b, c in zip(isl, itv, want):
+            for u, v, w in zip(a, b, c):
+                np.testing.assert_array_equal(u, v)
+                np.testing.assert_array_equal(u, w)
+
+
 @pytest.mark.parametrize("P", [2, 4])
 def test_ranks_import_neither_jax_nor_the_reference(sharded, P):
     for res in sharded(P):
@@ -619,6 +947,24 @@ for flow, op, wire in PROBED:
         return jnp.where(jnp.isfinite(o), o, 0).sum()
     out["grad/" + key] = count(jax.grad(loss, argnums=(0, 1)), args[0],
                                args[3])
+# gcn_forward_full with and without the island un-permute: its collectives
+import dataclasses
+from repro.common.schema import init_params
+from repro.core.gcn import GCNConfig, gcn_forward_full, gcn_schema
+from repro.graph import partition_graph
+pg_s, isl = partition_graph(g, 8, method="island")
+a_s = tuple(jnp.asarray(x) for x in (pg_s.features, pg_s.src, pg_s.dst,
+                                     pg_s.weights, pg_s.mask))
+cfg = GCNConfig(n_features=16, hidden=16, n_classes=4)
+gp = init_params(gcn_schema(cfg), jax.random.PRNGKey(0))
+for name, rl in (("interval", None), ("island", isl.relabel)):
+    c = dataclasses.replace(cfg, partition=name)
+    comp = jax.jit(lambda p, *a, c=c, rl=rl: gcn_forward_full(
+        p, *a, c, mesh=mesh, relabel=rl)).lower(gp, *a_s).compile()
+    out["gcn_full/" + name] = {
+        k: v for k, v in H.analyze(comp.as_text()).collectives.items()
+        if v["count"]}
+out["gcn_full/part"] = int(pg_s.part_size)
 # the cgtrans max gradient on P of the devices: the cross-shard extremum
 # splits a cotangent among tied shards first, then among tied edges
 from jax.sharding import Mesh
@@ -679,6 +1025,25 @@ def test_edges_bwd_budget_is_the_reference_grad_program(reference_programs,
     named = {"psum_scatter" if k == "reduce_scatter" else k: v
              for k, v in got.items() if v}
     assert named == want
+
+
+def test_relabel_gather_is_the_reference_all_reduce(reference_programs):
+    """What the JAX program adds for the un-permute of
+    ``gcn_forward_full(relabel=)`` on its 8-device mesh: one all-reduce of
+    the (8·part, C) logits — the collective the port's ``relabel_gather``
+    stands for, with the bytes ``budgets.relabel_gather_bytes`` gives."""
+    plain = reference_programs["gcn_full/interval"]
+    island = reference_programs["gcn_full/island"]
+    extra = {}
+    for k, v in island.items():
+        base = plain.get(k, {"count": 0.0, "bytes": 0.0})
+        if v["count"] != base["count"]:
+            extra[k] = {"count": v["count"] - base["count"],
+                        "bytes": v["bytes"] - base["bytes"]}
+    part = reference_programs["gcn_full/part"]
+    assert extra == {"all-reduce": {
+        "count": float(budgets.RELABEL_GATHER_PER_FORWARD),
+        "bytes": float(budgets.relabel_gather_bytes(8, part, 4))}}
 
 
 def _bytes_rank(mesh, world):

@@ -241,8 +241,9 @@ def test_gcn_forward_full_dispatch_counts_equal_reference():
 
 def test_gcn_forward_full_knobs():
     """The wire is a no-op without a mesh and sparse layer-0 features are
-    bit for bit dense; ``partition="island"`` and ``relabel=`` raise
-    naming their ROADMAP row; bad knobs raise as in the JAX package."""
+    bit for bit dense; ``partition="island"`` without the relabel map and
+    ``relabel=`` without it raise the JAX package's ``ValueError``; bad
+    knobs raise as in the JAX package."""
     from repro_torch.common.schema import init_params
     from repro_torch.core.gcn import gcn_schema
     from repro_torch.core.sparse import sparse_fits, table_capacity
@@ -261,7 +262,8 @@ def test_gcn_forward_full_knobs():
                                                     "kernel", **kw))
         assert torch.equal(got, base), kw
     for kw, err, match in (
-            (dict(partition="island"), NotImplementedError, "row 6"),
+            (dict(partition="island"), ValueError,
+             "requires the IslandPartition"),
             (dict(wire="fp4"), ValueError, "unknown wire"),
             (dict(features="sparse"), ValueError, "sparse_capacity"),
             (dict(sparse_capacity=8), ValueError, "only applies"),
@@ -269,7 +271,7 @@ def test_gcn_forward_full_knobs():
         with pytest.raises(err, match=match):
             gcn_forward_full(params, *targs,
                              _cfg(GCNConfig, "add", "kernel", **kw))
-    with pytest.raises(NotImplementedError, match="row 6"):
+    with pytest.raises(ValueError, match="requires partition='island'"):
         gcn_forward_full(params, *targs, cfg, relabel=np.arange(V))
     with pytest.raises(ValueError, match="schedule_applied"):
         cgtrans.aggregate_edges(*targs, schedule_applied=True,

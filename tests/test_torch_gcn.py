@@ -117,10 +117,29 @@ def test_configs_mirror_the_reference():
     assert (CONFIG.impl, PALLAS_CONFIG.impl) == ("ref", "kernel")
 
 
+def test_island_and_table2_configs_mirror_the_reference():
+    from repro.configs import graphic_gcn as jcfgs
+    from repro_torch.configs import graphic_gcn as tcfgs
+
+    j, t = jcfgs.ISLAND_PALLAS_CONFIG, tcfgs.ISLAND_PALLAS_CONFIG
+    assert t == dataclasses.replace(PALLAS_CONFIG, partition="island")
+    assert t.partition == j.partition == "island"
+    assert tcfgs.TABLE_II_GCN.keys() == jcfgs.TABLE_II_GCN.keys()
+    for name, jc in jcfgs.TABLE_II_GCN.items():
+        tc = tcfgs.TABLE_II_GCN[name]
+        for f in dataclasses.fields(tc):
+            if f.name != "impl":
+                assert getattr(tc, f.name) == getattr(jc, f.name), (name,
+                                                                    f.name)
+        assert tc.impl == "ref"
+
+
 def test_island_partition_raises():
+    """``partition="island"`` without the relabel map raises the JAX
+    package's ``ValueError`` (the knob and the map travel together)."""
     _, tc = _cfgs()
     feats, batch = _world()
     params = init_params(gcn.gcn_schema(tc), 0, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="requires the IslandPartition"):
         gcn.sage_forward(params, torch.from_numpy(feats), batch,
                          dataclasses.replace(tc, partition="island"))

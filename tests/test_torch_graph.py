@@ -113,3 +113,91 @@ def test_synthetic_node_labels_equal_reference():
         np.float32)
     np.testing.assert_array_equal(j_labels(feats, 7, seed=4),
                                   synthetic_node_labels(feats, 7, seed=4))
+
+
+# ---------------------------------------------------------------------------
+# Table II graphs, host_sample and the device sampler
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("name", ["Reddit", "Movielens", "Amazon",
+                                  "OGBN-100M", "Protein-PI"])
+def test_table2_like_equals_reference(name):
+    from repro.graph import TABLE_II as J_TABLE_II
+    from repro.graph import table2_like as j_table2_like
+    from repro_torch.graph import TABLE_II, table2_like
+
+    assert TABLE_II[name] == J_TABLE_II[name]
+    _same_graph(j_table2_like(name, scale_down=1e6, seed=3),
+                table2_like(name, scale_down=1e6, seed=3))
+
+
+@pytest.mark.parametrize("fanout,seed", [(1, 0), (7, 2)])
+def test_host_sample_equals_reference(fanout, seed):
+    from repro.graph import host_sample as j_host_sample
+    from repro_torch.graph import host_sample
+
+    g, _ = _sparse_graph()
+    seeds = np.random.default_rng(seed).integers(0, g.n_vertices, 30)
+    jg = JCOOGraph(g.n_vertices, g.src, g.dst)
+    for a, b in zip(j_host_sample(jg, seeds, fanout, seed=seed),
+                    host_sample(g, seeds, fanout, seed=seed)):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_fanout_offsets_equal_reference_on_identical_draws():
+    """The same float32 draws give the reference's offsets, including u =
+    1.0 and u just below 1.0, where the unclamped product lands on deg."""
+    import jax.numpy as jnp
+
+    from repro.graph.sampling import _fanout_offsets as j_offsets
+    from repro_torch.graph.sampling import _fanout_offsets
+
+    degs = np.asarray([0, 1, 3, 7, 50, 1 << 20, (1 << 24) + 1], np.int32)
+    rng = np.random.default_rng(0)
+    draws = [rng.random((degs.size, 16)).astype(np.float32)]
+    for u in (1.0, np.nextafter(np.float32(1.0), np.float32(0.0)), 0.0):
+        draws.append(np.full((degs.size, 4), u, np.float32))
+    for u in draws:
+        got = _fanout_offsets(torch.from_numpy(u), torch.from_numpy(degs))
+        want = np.asarray(j_offsets(jnp.asarray(u), jnp.asarray(degs)))
+        assert got.dtype == torch.int32
+        np.testing.assert_array_equal(got.numpy(), want)
+        assert (got.numpy() < np.maximum(degs, 1)[:, None]).all()
+        assert (got.numpy() >= 0).all()
+
+
+def test_device_sampler_semantics():
+    """The reference's contract: every sample valid, an isolated vertex
+    fills its fan-out with itself, samples are real neighbors, the next
+    vertex's slot is never read; the result lives where the tensors do."""
+    from repro_torch.graph import device_sample
+
+    g, (indptr, indices, _) = _sparse_graph()
+    seeds = np.arange(g.n_vertices, dtype=np.int32)
+    gen = torch.Generator().manual_seed(0)
+    nbrs, mask = device_sample(torch.from_numpy(indptr),
+                               torch.from_numpy(indices),
+                               torch.from_numpy(seeds), 9, gen)
+    assert nbrs.dtype == torch.int32 and nbrs.device.type == "cpu"
+    assert mask.all() and nbrs.shape == (g.n_vertices, 9)
+    for s in seeds:
+        real = set(indices[indptr[s]:indptr[s + 1]].tolist())
+        row = set(nbrs[s].tolist())
+        assert row <= real if real else row == {int(s)}
+    # vertex 0's neighbors are all 0; vertex 1's single neighbor is the
+    # sentinel 1, right after 0's range
+    two = COOGraph(2, np.asarray([0] * 37 + [1], np.int32),
+                   np.asarray([0] * 37 + [1], np.int32))
+    ip, ix, _ = two.to_csr()
+    for k in range(4):
+        n, m = device_sample(torch.from_numpy(ip), torch.from_numpy(ix),
+                             torch.zeros(1, dtype=torch.int32), 64,
+                             torch.Generator().manual_seed(k))
+        assert m.all() and (n == 0).all()
+    # and an edgeless graph self-aggregates every seed
+    n, m = device_sample(torch.zeros(4, dtype=torch.int64),
+                         torch.zeros(0, dtype=torch.int32),
+                         torch.arange(3, dtype=torch.int32), 2,
+                         torch.Generator())
+    assert m.all() and torch.equal(n, torch.arange(3, dtype=torch.int32)[
+        :, None].expand(3, 2))

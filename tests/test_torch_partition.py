@@ -3,7 +3,7 @@
 The port's numpy copy must cut every graph where the JAX package cuts it:
 ``interval_size``, ``partition_by_src`` (local src ids, global dst ids,
 weights, padding mask, the owner-sharded feature table),
-``partition_graph(method="interval")`` and ``remote_destination_rows``
+``partition_graph`` (interval and island) and ``remote_destination_rows``
 equal the reference array for array.
 """
 
@@ -70,14 +70,16 @@ def test_partition_by_src_equals_reference(V, E, P, pad, weights,
                                   jpart.remote_destination_rows(want))
 
 
-def test_partition_graph_interval_equals_reference_and_island_raises():
+def test_partition_graph_equals_reference_for_interval_and_island():
     jg, tg = _graphs(120, 900, 5, True, 4)
     want, jisl = jpart.partition_graph(jg, 4)
     got, isl = tgraph.partition_graph(tg, 4)
     assert jisl is None and isl is None
     _same(want, got)
-    with pytest.raises(NotImplementedError, match="row 6"):
-        tgraph.partition_graph(tg, 4, method="island")
+    want, jisl = jpart.partition_graph(jg, 4, method="island")
+    got, isl = tgraph.partition_graph(tg, 4, method="island")
+    _same(want, got)
+    np.testing.assert_array_equal(isl.relabel, jisl.relabel)
     with pytest.raises(ValueError):
         tgraph.partition_graph(tg, 4, method="metis")
 

@@ -104,8 +104,8 @@ def test_engine_knobs_outside_the_slice_raise():
     kw = dict(device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ServingEngine(feats, indptr, indices, mesh=object(), **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ServingEngine(feats, indptr, indices, partition="island", **kw)
+    with pytest.raises(ValueError, match="unknown partition"):
+        ServingEngine(feats, indptr, indices, partition="hash", **kw)
     # without a mesh the wire and sparse features are validated no-ops, on
     # a table sparse enough that the packed path really runs
     table = np.where(feats > 3, feats, 0).astype(np.float32)

@@ -173,7 +173,8 @@ def test_sage_train_step_refuses_unported_knobs():
     feats = torch.zeros(1, 8, 8)
     with pytest.raises(NotImplementedError, match="row 2"):
         make_sage_train_step(tcfg, TrainConfig(), feats=feats, mesh=object())
-    with pytest.raises(NotImplementedError, match="row 6"):
+    # the JAX rule: a relabel map needs partition="island"
+    with pytest.raises(ValueError, match="requires partition='island'"):
         make_sage_train_step(tcfg, TrainConfig(), feats=feats,
                              relabel=np.arange(8))
 
