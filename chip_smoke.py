@@ -20,13 +20,24 @@ Phases, each failing hard (exit status 1, no result line):
    the wrapper's host µs per call by piece), the plain version, one
    library call computing the same function (``torch.sparse.mm`` /
    ``scatter_reduce_``, never used by the port) and the memory-bound
-   floor;
+   floor. Then the bf16 and f16 instantiations of both kernels: every
+   case above on the main path's shapes and four on the dense grid's
+   second shape (integer data in [-1, 1] and max / min exact, a repeat
+   launch bit-identical, add on normal data within the rounding bound
+   2·(γ(3c+2, u) + 2γ(128, 2^-24))·Σ|w·v| per cell that the kernel's
+   cluster split and the plain version's per-tile rounding leave, c the
+   32-edge chunks holding the cell's row), each op timed as above at
+   one inference chunk and at one serving segment;
 3. serving: the GraphSAGE serving engine over a uniform graph of 2^20
    vertices, 16 edges per vertex and Reddit's 602 features, 64 zipf-skewed
    requests of 1–3 seeds from 4 tenants, fan-out 50, ``max_batch=8``, a
    32-row hot cache, once with the banded walk (``scheduled=True``) and once
    on the dense grid (``scheduled=False``); every request is served and
-   matches the ``impl="ref"`` engine;
+   matches the ``impl="ref"`` engine. Then bf16 and f16 tables of the
+   same graph's features rounded to integers in [-2, 2], each on both
+   routes with the cache on: rows in the table's dtype, bit for bit with
+   its ``impl="ref"`` engine, each launch on its own type's kernel, and
+   bf16 cache-on bit for bit with cache-off;
 4. inference: ``sage_forward`` at Reddit width (``PALLAS_CONFIG``: F=602,
    H=256, C=41, K1=K2=50, B=64, 16-row command queue, banded walk) on a
    ``GraphBatchStream`` batch; the logits are finite and match
@@ -83,15 +94,19 @@ Phases, each failing hard (exit status 1, no result line):
    coalesced fetch on integer-valued rows (add and max, cgtrans, and add
    on baseline), ``sage_forward``, three AdamW steps and the 64-request
    serving replay (banded walk, then the dense grid with
-   ``scheduled=False``), and reports its launch, collective, dispatch and
-   byte counts and its results. The fetch is bit for bit the unsharded
+   ``scheduled=False``), the same replay and drains on phase 3's bf16
+   table, and reports its launch, collective, dispatch and byte counts
+   and its results. The fetch is bit for bit the unsharded
    kernel fetch (and baseline bit for bit cgtrans); the logits within
    rtol = atol = 1e-4 of the unsharded kernel logits; each step's loss
    within rtol 1e-4 of the unsharded ``impl="ref"`` step, and at equal
    params the summed gradients held as phase 7 holds them; every serving
-   request as phase 3 holds it against the unsharded kernel engine; the
-   collectives per forward, per step and per drain (N = 1 and N = 8)
-   equal ``repro_torch/analysis/budgets.py``; the baseline / cgtrans
+   request as phase 3 holds it against the unsharded kernel engine, and
+   each bf16 request bit for bit with the unsharded bf16 kernel engine;
+   the collectives per forward, per step and per drain (N = 1 and N = 8)
+   equal ``repro_torch/analysis/budgets.py``, each drain's bytes
+   ``budgets.drain_bytes`` (the bf16 table's partials and answers half
+   the f32 table's); the baseline / cgtrans
    bytes above K/4; every path launches its kernel on every rank. Each
    collective wrapper then runs on a 1-rank NCCL group in this process on
    int32 ids and f32 payloads and returns its input. Warm sharded
@@ -138,7 +153,8 @@ a. islandized partitioning (``partition="island"``), the graph algorithms
    for bit (both dataflows, add / max / min), the island ``sage_forward``
    within 1e-4 of the unsharded port, remote rows and bytes per rank
    printed. Then ``bfs``, ``sssp`` and ``connected_components`` on
-   ``rmat(18, 16)`` with ``impl="kernel"`` (one dense launch per round)
+   ``rmat(18, 16)`` with ``impl="kernel"`` (one dense launch per round,
+   the dispatch counter at JAX's one find and kernel scatter per traversal)
    bit for bit with ``impl="ref"``, ``gas_sort`` of 8192 draws exact,
    ``feature_embedding`` at ``rmat(16, 16)``, F = 602, bit for bit on
    integer data; one round's min scatter and the embedding's add timed
@@ -178,6 +194,12 @@ REPLACES = {
     "gas_scatter_dense": "src/repro/kernels/gas_scatter/kernel.py:266",
     "flash_attention": "src/repro/kernels/flash_attention/kernel.py:84",
 }
+# the GAS kernels' bf16 and f16 instantiations, each an entry of its own
+NARROW = ("bf16", "f16")
+for _base in ("gas_scatter_banded", "gas_scatter_dense"):
+    for _sfx in NARROW:
+        CSRC[f"{_base}_{_sfx}"] = CSRC[_base]
+        REPLACES[f"{_base}_{_sfx}"] = REPLACES[_base]
 # NVIDIA H100 SXM data sheet, at the full 700 W power limit
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
@@ -210,6 +232,14 @@ def smi_line() -> str:
                          text=True, timeout=60)
     check(out.returncode == 0, f"nvidia-smi failed: {out.stderr}")
     return out.stdout.strip().splitlines()[0]
+
+
+def add_dtype_launches(launches, counts):
+    """Add ``K.dtype_launch_counts()`` to the JSON entries' counts: f32
+    under the wrapper's name, a narrow type under ``name_suffix``."""
+    for name, by_dtype in counts.items():
+        for sfx, n in by_dtype.items():
+            launches[name if sfx == "f32" else f"{name}_{sfx}"] += n
 
 
 def fake_clock(step=1e-4):
@@ -268,7 +298,8 @@ def wrapper_host_us(torch, K, call):
         dst, vals, meta, R = call.args
     w = call.kwargs.get("weights")
     shape, dev, index = (R, vals.shape[1]), vals.device, vals.get_device()
-    fn, stream = K._load()[0 if banded else 1], K._load()[2]
+    fn = K._load()[0 if banded else 1][K.VALUE_DTYPES[vals.dtype]]
+    stream = K._load()[2]
     call.run()  # the signature is checked and cached
     checked = K._SIGNATURES[K._signature("banded" if banded else "dense",
                                          meta, dst, vals, R,
@@ -342,8 +373,9 @@ def bound(call):
     """(bound_ms, bound_by) of a kernel call: the bytes this call's data
     needs (ids and weights of every visited tile, the value rows of its
     live edges in its live feature blocks, the work list or occupancy map,
-    the output once) over HBM bandwidth, against its f32 operations over
-    the f32 peak; the larger wins."""
+    the output once; values and output in their own type's bytes) over
+    HBM bandwidth, against its f32 operations over the f32 peak; the
+    larger wins."""
     import torch
 
     if call.kernel == "gas_scatter_banded":
@@ -370,8 +402,9 @@ def bound(call):
     n_tiles = int(tiles.unique().numel())
     id_bytes = n_tiles * 128 * (4 + (4 if call.kwargs.get("weights")
                                      is not None else 0))
-    value_bytes = int((live_edges * feat_live).sum()) * 4
-    out_bytes = R * Fp * 4
+    isz = vals.element_size()
+    value_bytes = int((live_edges * feat_live).sum()) * isz
+    out_bytes = R * Fp * isz
     nbytes = meta + id_bytes + value_bytes + out_bytes
     ops = int((live_edges * feat_live).sum()) * (
         2 if call.kwargs.get("op") == "add" else 1)
@@ -382,13 +415,22 @@ def bound(call):
 
 def library_fn(torch, call):
     """One PyTorch call computing the same function on the same inputs: a
-    sparse (R × E) weight matrix times the values for add, a
-    ``scatter_reduce_`` for max/min. Built once; only the call is timed."""
+    sparse (R × E) weight matrix times the values for an f32 add, an
+    ``index_add_`` in the values' type for a narrow add (the timed calls
+    have unit weights), a ``scatter_reduce_`` for max/min. Built once;
+    only the call is timed."""
     dst, vals = ((call.args[1], call.args[2])
                  if call.kernel == "gas_scatter_banded"
                  else (call.args[0], call.args[1]))
     R = call.args[3]
     op, w = call.kwargs["op"], call.kwargs.get("weights")
+    if op == "add" and vals.dtype != torch.float32:
+        check(w is None or bool((w[dst < R] == 1).all()),
+              "the narrow library add takes unit weights")
+        acc = torch.zeros((R + 1, vals.shape[1]), dtype=vals.dtype,
+                          device=vals.device)
+        ids = dst.long()
+        return lambda: acc.index_add_(0, ids, vals)
     if op == "add":
         ok = dst < R
         e = torch.nonzero(ok)[:, 0]
@@ -400,7 +442,8 @@ def library_fn(torch, call):
         return lambda: torch.sparse.mm(A, vals)
     idx = dst.long()[:, None].expand(-1, vals.shape[1]).contiguous()
     fill = float("-inf") if op == "max" else float("inf")
-    out = torch.full((R + 1, vals.shape[1]), fill, device=vals.device)
+    out = torch.full((R + 1, vals.shape[1]), fill, dtype=vals.dtype,
+                     device=vals.device)
     red = "amax" if op == "max" else "amin"
     return lambda: out.scatter_reduce_(0, idx, vals, red, include_self=True)
 
@@ -409,18 +452,23 @@ def library_fn(torch, call):
 # phase 2: each kernel against its plain version, at the main path's shapes
 # ---------------------------------------------------------------------------
 
-def _call_values(torch, rows, data, zero_blocks):
+def _call_values(torch, rows, data, zero_blocks, dtype=None):
     """``data``: "normal" (the rows as they are), "int" (rounded to
-    integers) or "nan" (integers with a NaN in every 97th edge's every 13th
-    feature); ``zero_blocks`` zeroes features 64-191 (whole 32-blocks)."""
+    integers; in [-1, 1] for a narrow ``dtype``, so that every partial sum
+    stays an integer the type holds) or "nan" (integers with a NaN in every
+    97th edge's every 13th feature); ``zero_blocks`` zeroes features 64-191
+    (whole 32-blocks); ``dtype`` casts the result (default: float32)."""
+    narrow = dtype not in (None, torch.float32)
     if data in ("int", "nan"):
         rows = torch.round(rows * 4)
+        if narrow:
+            rows = torch.clamp(rows, -1, 1)
     if data == "nan":
         rows[::97, ::13] = float("nan")
     if zero_blocks:
         rows = rows.clone()
         rows[:, 64:192] = 0.0
-    return rows.contiguous()
+    return rows.to(dtype or torch.float32).contiguous()
 
 
 def _call_weights(torch, op, weights, E, device):
@@ -437,12 +485,12 @@ def _call_weights(torch, op, weights, E, device):
 
 
 def segment_calls(torch, ops, table, nbrs, mask, op, schedule, data,
-                  zero_blocks, weights="unit"):
+                  zero_blocks, weights="unit", dtype=None):
     """The kernel call the main path makes for one fan-out segment: the
     (R, K) ids gathered from the table, seed destinations
     ``repeat(arange(R), K)``, unit weights for add (``_call_values`` and
     ``_call_weights`` say what ``data``, ``zero_blocks`` and ``weights``
-    change)."""
+    change; ``dtype`` is the values' type)."""
     R, K = nbrs.shape
     own = mask & (nbrs >= 0) & (nbrs < table.shape[0])
     rows = table[nbrs.clamp(0, table.shape[0] - 1).reshape(-1).long()]
@@ -450,7 +498,8 @@ def segment_calls(torch, ops, table, nbrs, mask, op, schedule, data,
                         device=table.device).repeat_interleave(K)
     sched = (ops.schedule_edges(seed, own.reshape(-1), R, assume_sorted=True)
              if schedule else None)
-    return ops.fused_call(seed, _call_values(torch, rows, data, zero_blocks),
+    return ops.fused_call(seed, _call_values(torch, rows, data, zero_blocks,
+                                             dtype),
                           _call_weights(torch, op, weights, R * K,
                                         table.device),
                           own.reshape(-1), R, op=op, schedule=sched)
@@ -461,7 +510,7 @@ MULTI_ROWS, MULTI_TILES = 1024, 520
 
 
 def multiblock_call(torch, ops, table, op, data, zero_blocks, weights,
-                    order):
+                    order, dtype=None):
     """An unscheduled call over MULTI_ROWS rows (8 row blocks) and
     MULTI_TILES edge tiles, table rows at ids from a seed, 90 % of the
     edges live; dst ``sorted`` (each row block occupies ~1/8 of the tiles)
@@ -475,7 +524,7 @@ def multiblock_call(torch, ops, table, op, data, zero_blocks, weights,
         dst = np.sort(dst)
     ids = torch.from_numpy(rng.integers(0, table.shape[0], E)).to(table.device)
     live = torch.from_numpy(rng.random(E) < 0.9).to(table.device)
-    rows = _call_values(torch, table[ids], data, zero_blocks)
+    rows = _call_values(torch, table[ids], data, zero_blocks, dtype)
     return ops.fused_call(torch.from_numpy(dst).to(table.device), rows,
                           _call_weights(torch, op, weights, E, table.device),
                           live, MULTI_ROWS, op=op)
@@ -535,6 +584,116 @@ def check_call(torch, call, label, data):
         check(torch.allclose(got[fin], want[fin], rtol=1e-5, atol=1e-5),
               f"{label}: err {err}")
     log(f"  {label}: max_abs_err={err:.3g}, repeat launch bit-identical ok")
+    return err
+
+
+# the narrow types' phase-2 cases on the dense grid's second shape (every
+# CASES entry runs on the main path's shapes)
+NARROW_MULTI_CASES = [("add", "int", False, "unit"),
+                      ("add", "normal", True, "int"),
+                      ("max", "normal", False, None),
+                      ("min", "nan", False, None)]
+# the largest integer each narrow type holds with all below it, and its
+# unit roundoff
+NARROW_EXACT = {"bf16": 256, "f16": 2048}
+UNIT_ROUNDOFF = {"bf16": 2.0 ** -8, "f16": 2.0 ** -11}
+
+
+def _call_parts(call):
+    """(dst, values, n_rows) of a GAS kernel call."""
+    if call.kernel == "gas_scatter_banded":
+        return call.args[1], call.args[2], call.args[3]
+    return call.args[0], call.args[1], call.args[3]
+
+
+def abs_sums(torch, call):
+    """Σ |w·v| per output cell, in f32, through the plain f32 version (the
+    weights rounded to the values' type first, as the kernel rounds
+    them)."""
+    dst, vals, R = _call_parts(call)
+    args = list(call.args)
+    args[2 if call.kernel == "gas_scatter_banded" else 1] = \
+        vals.float().abs().contiguous()
+    kw = dict(call.kwargs)
+    if kw.get("weights") is not None:
+        kw["weights"] = kw["weights"].to(vals.dtype).float().abs()
+    return call._replace(args=tuple(args), kwargs=kw).run_plain()
+
+
+def narrow_add_tolerance(torch, call, name):
+    """The per-cell bound on |kernel - plain| of a narrow add on any data
+    (the source note of gas_scatter.cu). Both sum the same products, each
+    exact in f32, in f32 within a piece of ≤ 128 edges (≤ γ(128, 2^-24)·S
+    each), and round to the value type at most 3 times per 32-edge chunk
+    holding an edge of the cell's row, plus twice: the plain version twice
+    per tile, the kernel twice per piece of a CTA's share and once per
+    combine of two partials, so ≤ γ(3c + 2, u)·S each, with S = Σ |w·v|,
+    c that chunk count and γ(n, u) = n·u / (1 − n·u). Twice their sum
+    bounds the difference."""
+    dst, vals, R = _call_parts(call)
+    E = dst.numel()
+    live = torch.nonzero(dst < R)[:, 0]
+    n_chunks = E // 32 + 1
+    keys = torch.unique(dst[live].long() * n_chunks + live // 32)
+    c = torch.bincount(keys // n_chunks, minlength=R)[:R].double()
+
+    def gamma(n, u):
+        nu = n * u
+        return torch.where(nu < 1, nu / (1 - nu),
+                           torch.full_like(nu, float("inf")))
+
+    u = UNIT_ROUNDOFF[name]
+    g = gamma(3 * c + 2, u) + 2 * float(
+        gamma(torch.tensor(128.0, dtype=torch.float64), 2.0 ** -24))
+    S = abs_sums(torch, call).double()
+    # a cell with no product must be 0 on both sides (and escapes inf · 0)
+    return torch.where(S > 0, 2 * g[:, None] * S, torch.zeros_like(S))
+
+
+def check_call_narrow(torch, call, label, data, name):
+    """Hold one bf16 / f16 kernel call against its plain version
+    (``plain_in_order``): a second launch bit-identical, identity rows and
+    NaN cells in place, the output in the values' type; integer data (its
+    Σ |w·v| within the type's exact integers) and max / min on any data
+    exact; add on normal data within ``narrow_add_tolerance``.
+    Returns the max abs error on the finite cells."""
+    dtype = _call_parts(call)[1].dtype
+    got = call.run()
+    again = call.run()
+    want = plain_in_order(torch, call)
+    torch.cuda.synchronize()
+    check(got.dtype == want.dtype == dtype, f"{label}: output {got.dtype}")
+    check(torch.equal(got.view(torch.int16), again.view(torch.int16)),
+          f"{label}: two launches on the same inputs differ")
+    check(torch.equal(torch.isinf(got), torch.isinf(want)),
+          f"{label}: identity rows differ")
+    check(torch.equal(torch.isnan(got), torch.isnan(want)),
+          f"{label}: NaN cells differ")
+    check(data != "nan" or bool(torch.isnan(want).any()),
+          f"{label}: no NaN reached the output")
+    fin = torch.isfinite(want)
+    diff = (got.float() - want.float()).abs()
+    err = float(diff[fin].max()) if fin.any() else 0.0
+    op = call.kwargs["op"]
+    if data in ("int", "nan") or op != "add":
+        if op == "add":
+            top = float(abs_sums(torch, call).nan_to_num(0.0).max())
+            check(top <= NARROW_EXACT[name],
+                  f"{label}: partial sums up to {top} leave the exact range")
+        # equal values, as the f32 check holds them: a min or max may
+        # return either zero of a -0 / +0 pair (integer data rounds to -0)
+        num = ~torch.isnan(want)
+        check(torch.equal(got[num], want[num]),
+              f"{label}: not exact (err {err})")
+        log(f"  {label}: exact, repeat launch bit-identical ok")
+    else:
+        tol = narrow_add_tolerance(torch, call, name)
+        check(bool((diff.double() <= tol)[fin].all()),
+              f"{label}: err {err} beyond the rounding bound")
+        ratio = float((diff.double() / tol.clamp(min=1e-30))[fin].max())
+        log(f"  {label}: max_abs_err={err:.3g}, at most {ratio:.3f} of the "
+            f"rounding bound 2·(γ(3c+2, u) + 2γ(128, 2^-24))·Σ|w·v|, "
+            f"repeat launch bit-identical ok")
     return err
 
 
@@ -621,13 +780,85 @@ def phase_kernels(torch, ops, K, table, shapes, smi):
     return out
 
 
+def phase_kernels_narrow(torch, ops, K, table, shapes, smi):
+    """The bf16 and f16 instantiations of both kernels: every CASES entry
+    on the main path's shape of each kernel (``shapes``), NARROW_MULTI_CASES
+    on the dense grid's second shape, and the timings of each op at both
+    main-path shapes (one inference chunk, one serving segment). Returns
+    the JSON entries' measured fields per ``kernel_suffix``."""
+    out = {}
+    both = {"inference_chunk": shapes["gas_scatter_banded"],
+            "serving_segment": shapes["gas_scatter_dense"]}
+    main = {"gas_scatter_banded": "inference_chunk",
+            "gas_scatter_dense": "serving_segment"}
+    for sfx, dtype in (("bf16", torch.bfloat16), ("f16", torch.float16)):
+        for name, (nbrs, mask) in shapes.items():
+            scheduled = name == "gas_scatter_banded"
+            entry_name = f"{name}_{sfx}"
+            max_err = 0.0
+            for op, data, zero_blocks, weights in CASES:
+                call = segment_calls(torch, ops, table, nbrs, mask, op,
+                                     scheduled, data, zero_blocks, weights,
+                                     dtype)
+                check(call.kernel == name, f"{call.kernel} != {name}")
+                err = check_call_narrow(
+                    torch, call, f"{entry_name} op={op} data={data} "
+                    f"feature_skip={zero_blocks} weights={weights}", data,
+                    sfx)
+                if data == "normal":
+                    max_err = max(max_err, err)
+            if not scheduled:
+                for order in ("sorted", "shuffled"):
+                    for op, data, zero_blocks, weights in NARROW_MULTI_CASES:
+                        c = multiblock_call(torch, ops, table, op, data,
+                                            zero_blocks, weights, order,
+                                            dtype)
+                        err = check_call_narrow(
+                            torch, c, f"{entry_name} rows {MULTI_ROWS} tiles "
+                            f"{MULTI_TILES} dst {order} op={op} data={data} "
+                            f"weights={weights}", data, sfx)
+                        if data == "normal":
+                            max_err = max(max_err, err)
+            # timings per op and shape, unit weights and normal data
+            symbol = f"{KERNEL_SYMBOL[name]}<"
+            timed = {}
+            for shape_name, (sn, sm) in both.items():
+                per_op = {}
+                for op in ("add", "max", "min"):
+                    c = segment_calls(torch, ops, table, sn, sm, op,
+                                      scheduled, "normal", False,
+                                      dtype=dtype)
+                    t = {"ms": event_ms(torch, c.run, 200),
+                         "host_us": wrapper_host_us(torch, K, c),
+                         "device_ms": device_ms(torch, c.run, symbol),
+                         "plain_ms": event_ms(torch, c.run_plain, 10),
+                         "library_ms": event_ms(torch, library_fn(torch, c),
+                                                200)}
+                    t["bound_ms"], t["bound_by"] = bound(c)
+                    per_op[op] = t
+                    log(f"  {entry_name} {shape_name} values "
+                        f"{tuple(_call_parts(c)[1].shape)} op={op} [{smi}]: "
+                        f"host {t['host_us']['call']:.2f} µs per call, "
+                        f"{t['ms']:.4f} ms per call, device "
+                        f"{t['device_ms']} ms, library "
+                        f"{t['library_ms']:.4f} ms, bound "
+                        f"{t['bound_ms']:.5f} ms; {json.dumps(t)}")
+                timed[shape_name] = per_op
+            entry = {"max_abs_err": max_err, **timed[main[name]]["add"],
+                     "shapes": timed}
+            K.reset_launch_counts()
+            out[entry_name] = entry
+    return out
+
+
 # ---------------------------------------------------------------------------
 # phases 3 and 4
 # ---------------------------------------------------------------------------
 
-def serve(ServingEngine, replay_traffic, feats, indptr, indices, **kw):
+def serve(ServingEngine, replay_traffic, feats, indptr, indices, cache=CACHE,
+          **kw):
     eng = ServingEngine(feats, indptr, indices, fanout=FANOUT,
-                        max_batch=MAX_BATCH, cache_capacity=CACHE,
+                        max_batch=MAX_BATCH, cache_capacity=cache,
                         clock=fake_clock(), sample_seed=0, device="cuda",
                         **kw)
     import torch
@@ -641,11 +872,12 @@ def serve(ServingEngine, replay_traffic, feats, indptr, indices, **kw):
     check(eng.stats["queries"] == REQUESTS and len(results) == REQUESTS,
           f"served {eng.stats['queries']}/{REQUESTS}")
     snap = eng.health_snapshot()
-    log(f"  impl={eng.impl} scheduled={kw.get('scheduled')}: served "
+    log(f"  impl={eng.impl} scheduled={kw.get('scheduled')} table "
+        f"{eng.feats.dtype}: served "
         f"{eng.stats['queries']}/{REQUESTS} in {dt * 1e3:.1f} ms over "
         f"{eng.stats['command_blocks']} command blocks, tenants {per_tenant},"
         f" stats {eng.stats}, cache hit rate "
-        f"{snap['cache']['hit_rate']:.3f}")
+        f"{snap.get('cache', {}).get('hit_rate', 0.0):.3f}")
     del eng
     torch.cuda.empty_cache()
     return results
@@ -665,6 +897,45 @@ def compare_serving(ref, got, label, against="impl=ref"):
         err = max(err, d)
     log(f"  {label}: all {len(ref)} results match {against} "
         f"(max |agg diff| {err:.3g})")
+
+
+def rows_equal(a, b):
+    """Two result row blocks with the same dtype and bits (numpy arrays,
+    or ``torch.bfloat16`` tensors for a bf16 table)."""
+    import torch
+
+    if torch.is_tensor(a):
+        return (torch.is_tensor(b) and a.dtype == b.dtype
+                and torch.equal(a.view(torch.int16), b.view(torch.int16)))
+    return (not torch.is_tensor(b) and a.dtype == b.dtype
+            and a.tobytes() == b.tobytes())
+
+
+def compare_serving_exact(ref, got, label, dtype, against="impl=ref"):
+    """Every request's rows bit for bit, in the table's dtype."""
+    for rid, a in ref.items():
+        b = got[rid]
+        check(a.tenant == b.tenant, f"{label}: tenant of {rid}")
+        check(b.self_rows.dtype == b.agg_rows.dtype == dtype,
+              f"{label}: rows of {rid} in {b.self_rows.dtype}")
+        check(rows_equal(a.self_rows, b.self_rows),
+              f"{label}: self rows {rid}")
+        check(rows_equal(a.agg_rows, b.agg_rows), f"{label}: agg rows {rid}")
+    log(f"  {label}: all {len(ref)} results bit for bit with {against}, in "
+        f"{dtype}")
+
+
+def narrow_tables(torch, features):
+    """Phase 3's bf16 and f16 tables: the graph's features rounded to
+    integers in [-2, 2] (every fan-out sum an integer within 100, so each
+    type holds it exactly) on the host. Adding 0.0 turns the -0.0 that
+    rounding gives small negatives into 0.0: a sharded fetch sums a row's
+    shard partials, which maps -0.0 to +0.0, so bits would differ where
+    values agree."""
+    import numpy as np
+
+    ints = torch.from_numpy(np.clip(np.round(features * 2), -2, 2) + 0.0)
+    return {"bf16": ints.to(torch.bfloat16), "f16": ints.to(torch.float16)}
 
 
 # ---------------------------------------------------------------------------
@@ -1049,6 +1320,8 @@ def graph_phases(torch, phases, dev, measured, launches, smi):
         }
         measured.update(phase_kernels(torch, ops, K, table, shapes,
                                         smi))
+        measured.update(phase_kernels_narrow(torch, ops, K, table, shapes,
+                                             smi))
         del table
         torch.cuda.empty_cache()
 
@@ -1067,6 +1340,34 @@ def graph_phases(torch, phases, dev, measured, launches, smi):
             for name in counts:
                 launches[name] += counts[name]
             compare_serving(ref, got, f"scheduled={scheduled}")
+        # bf16 and f16 tables of integer features, the hot cache on
+        tables = narrow_tables(torch, g.features)
+        for sfx, table in tables.items():
+            host_dtype = torch.bfloat16 if sfx == "bf16" else np.float16
+            ref = serve(ServingEngine, replay_traffic, table, indptr, indices,
+                        impl="ref")
+            for scheduled, kernel in ((True, "gas_scatter_banded"),
+                                      (False, "gas_scatter_dense")):
+                K.reset_launch_counts()
+                got = serve(ServingEngine, replay_traffic, table, indptr,
+                            indices, impl="kernel", scheduled=scheduled)
+                counts = K.dtype_launch_counts()
+                log(f"  {sfx} launches with scheduled={scheduled}: {counts}")
+                check(counts[kernel][sfx] > 0,
+                      f"{sfx} serving never launched {kernel}_{sfx}")
+                check(all(n == 0 for by in counts.values()
+                          for d, n in by.items() if d != sfx),
+                      f"{sfx} serving launched another type's kernel")
+                add_dtype_launches(launches, counts)
+                compare_serving_exact(ref, got, f"{sfx} scheduled={scheduled}",
+                                      host_dtype)
+                if sfx == "bf16" and scheduled:
+                    off = serve(ServingEngine, replay_traffic, table, indptr,
+                                indices, cache=0, impl="kernel",
+                                scheduled=True)
+                    compare_serving_exact(off, got, "bf16 cache on",
+                                          host_dtype, "the cache off")
+        del tables
 
     if "4" in phases:
         # inference builds no autograd graph
@@ -1429,8 +1730,8 @@ DRAIN_N = (1, 8)
 
 
 def _foreign_modules():
-    return sorted(m for m in sys.modules
-                  if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+    return sorted(m for m in sys.modules if m.split(".")[0] in
+                  ("jax", "jaxlib", "repro", "ml_dtypes"))
 
 
 def shard_rank(mesh, spec):
@@ -1459,7 +1760,8 @@ def shard_rank(mesh, spec):
     feats = feature_table(table, mesh.size, mesh=mesh, device=dev)
     batches = [{k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
                 for k, v in mesh.shard(b).items()} for b in spec["batches"]]
-    out = {"launches": {}, "counts": {}, "bytes": {}, "steps": []}
+    out = {"launches": {}, "dtype_launches": {}, "counts": {}, "bytes": {},
+           "steps": []}
 
     def path(name, fn):
         torch.cuda.synchronize()
@@ -1469,6 +1771,7 @@ def shard_rank(mesh, spec):
             res = fn()
         torch.cuda.synchronize()
         out["launches"][name] = K.launch_counts()
+        out["dtype_launches"][name] = K.dtype_launch_counts()
         out["counts"][name] = {**c.as_dict(),
                                **{k: v for k, v in d.items() if v}}
         out["bytes"][name] = dict(c.bytes)
@@ -1552,6 +1855,25 @@ def shard_rank(mesh, spec):
         for j in range(n):
             eng.submit([j, j + 1], tenant=j)
         path(f"drain_{n}", eng.flush)
+
+    # (e) the same serving on phase 3's bf16 table (integer features),
+    # read through its bits: the replay, banded and dense, and the drains
+    bf16 = torch.from_numpy(load("feats_bf16")).view(torch.bfloat16)
+    for scheduled in (True, False):
+        eng = ServingEngine(bf16, indptr, indices, fanout=FANOUT,
+                            max_batch=MAX_BATCH, cache_capacity=CACHE,
+                            clock=fake_clock(), sample_seed=0, mesh=mesh,
+                            impl="kernel", scheduled=scheduled)
+        rids, _ = path(f"serve_bf16_{scheduled}", lambda: replay_traffic(
+            eng, requests=REQUESTS, tenants=TENANTS, seed=0))
+        out[f"serve_bf16_{scheduled}"] = {r: eng.result(r) for r in rids}
+    for n in DRAIN_N:
+        eng = ServingEngine(bf16, indptr, indices, fanout=FANOUT,
+                            max_batch=MAX_BATCH, clock=fake_clock(),
+                            sample_seed=0, mesh=mesh, impl="kernel")
+        for j in range(n):
+            eng.submit([j, j + 1], tenant=j)
+        path(f"drain_bf16_{n}", eng.flush)
     out["staged"] = dataclasses.asdict(mesh.staged)
     out["modules"] = _foreign_modules()
     return out
@@ -1627,8 +1949,11 @@ def phase_sharded(torch, K, g, indptr, indices, dev, launches, smi):
               weight_decay=0.01)
     work = tempfile.mkdtemp(prefix="chip_smoke_shards_")
     try:
+        # phase 3's bf16 table, saved as its int16 bits
+        bf16 = narrow_tables(torch, g.features)["bf16"]
         for name, arr in (("feats", g.features), ("indptr", indptr),
-                          ("indices", indices)):
+                          ("indices", indices),
+                          ("feats_bf16", bf16.view(torch.int16).numpy())):
             np.save(os.path.join(work, name + ".npy"), arr)
         spec = {"dir": work, "batches": batches, "params": params, "tc": tc}
         t0 = time.perf_counter()
@@ -1649,15 +1974,18 @@ def phase_sharded(torch, K, g, indptr, indices, dev, launches, smi):
               "forward": "gas_scatter_banded",
               "serve_True": "gas_scatter_banded",
               "serve_False": "gas_scatter_dense",
+              "serve_bf16_True": "gas_scatter_banded_bf16",
+              "serve_bf16_False": "gas_scatter_dense_bf16",
               **{f"step{i}": "gas_scatter_banded"
                  for i in range(TRAIN_STEPS)}}
     for r, res in enumerate(ranks):
-        for name, counts in res["launches"].items():
+        for name, counts in res["dtype_launches"].items():
+            flat = {k: 0 for k in launches}
+            add_dtype_launches(flat, counts)
             if name in should:
-                check(counts[should[name]] > 0,
+                check(flat[should[name]] > 0,
                       f"rank {r} path {name} never launched {should[name]}")
-            for k in counts:
-                launches[k] += counts[k]
+            add_dtype_launches(launches, counts)
     check(all(res["launches"][f"step{i}"]["gas_scatter_dense"] == 0
               for res in ranks for i in range(TRAIN_STEPS)),
           "a train step launched the dense grid")
@@ -1681,9 +2009,9 @@ def phase_sharded(torch, K, g, indptr, indices, dev, launches, smi):
                         "metric_all_reduce": 1}
            for i in range(TRAIN_STEPS)},
         # (the engine counts a drain's dispatches in its own stats)
-        **{f"drain_{n}": {**budgets.SERVE_FETCH_COLLECTIVES["fused"],
-                          "result_gather": budgets.RESULT_GATHER_PER_DRAIN}
-           for n in DRAIN_N},
+        **{f"drain{t}_{n}": {**budgets.SERVE_FETCH_COLLECTIVES["fused"],
+                             "result_gather": budgets.RESULT_GATHER_PER_DRAIN}
+           for n in DRAIN_N for t in ("", "_bf16")},
     }
     for r, res in enumerate(ranks):
         for name, budget in want.items():
@@ -1697,6 +2025,24 @@ def phase_sharded(torch, K, g, indptr, indices, dev, launches, smi):
             ranks[0]["counts"]["step0"])) + ", per drain N=1 " + json.dumps(
         coll(ranks[0]["counts"]["drain_1"])) + ", N=8 " + json.dumps(coll(
             ranks[0]["counts"]["drain_8"])) + " (equal to the budgets)")
+    # a drain of n two-seed requests: per rank a (1, 1) lookup and a
+    # (1, FANOUT) fan-out segment each
+    for r, res in enumerate(ranks):
+        for n in DRAIN_N:
+            got = {}
+            for t, size in (("", 4), ("_bf16", 2)):
+                want_b = budgets.drain_bytes(SHARDS, n * (1 + FANOUT), 2 * n,
+                                             F, size, "add")
+                got[t] = res["bytes"][f"drain{t}_{n}"]
+                check(got[t] == want_b, f"rank {r} drain{t}_{n} moved "
+                      f"{got[t]} bytes, budget {want_b}")
+            check(all(2 * got["_bf16"][k] == got[""][k]
+                      for k in ("all_to_all", "result_gather")),
+                  f"rank {r} drain_{n}: bf16 partials not half of f32's")
+    log(f"  bytes per drain per rank (N = {DRAIN_N[-1]}): f32 table "
+        f"{ranks[0]['bytes'][f'drain_{DRAIN_N[-1]}']}, bf16 table "
+        f"{ranks[0]['bytes'][f'drain_bf16_{DRAIN_N[-1]}']} (equal to "
+        f"budgets.drain_bytes; the bf16 partials and answers half of f32's)")
     cb = sum(ranks[0]["bytes"]["fetch_add"].values())
     bb = sum(ranks[0]["bytes"]["fetch_add_baseline"].values())
     check(bb / cb > FANOUT / 4, f"bytes ratio {bb / cb} <= K/4")
@@ -1807,6 +2153,16 @@ def phase_sharded(torch, K, g, indptr, indices, dev, launches, smi):
         log(f"  sharded engine stats (scheduled={scheduled}, rank 0): "
             f"{ranks[0][f'stats_{scheduled}']}; collectives of the replay "
             f"{coll(ranks[0]['counts'][f'serve_{scheduled}'])}")
+    # (e) the bf16 table against the unsharded bf16 kernel engine
+    for scheduled in (True, False):
+        want_s = serve(ServingEngine, replay_traffic, bf16, indptr, indices,
+                       impl="kernel", scheduled=scheduled)
+        for r, res in enumerate(ranks):
+            compare_serving_exact(
+                want_s, res[f"serve_bf16_{scheduled}"],
+                f"bf16 rank {r} of {SHARDS}, scheduled={scheduled}",
+                torch.bfloat16, "the unsharded bf16 kernel engine")
+    del bf16
 
     nccl_wrappers(torch, dev)
 
@@ -2736,36 +3092,57 @@ def phase_island(torch, K, dev, launches, smi):
     runs = {"bfs": lambda impl: alg.bfs(S, D, Va, 0, impl=impl),
             "sssp": lambda impl: alg.sssp(S, D, W, Va, 0, impl=impl),
             "cc": lambda impl: alg.connected_components(S, D, Va, impl=impl)}
-    rounds, results = {}, {}
-    for name, fn in runs.items():
-        timed = {}
-        for impl in ("kernel", "ref"):
-            with gas.count_dispatches() as c:
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                got, lc = counted(torch, K, launches if impl == "kernel"
-                                  else {k: 0 for k in launches},
-                                  lambda: fn(impl))
-                timed[impl] = (time.perf_counter() - t0) * 1e3
-            results[impl] = got
-            if impl == "kernel":
-                rounds[name] = c["find"]
-                check(lc["gas_scatter_dense"] == c["find"] > 0,
-                      f"{name}: {c['find']} rounds, launches {lc}")
-            else:
-                check(lc == {"gas_scatter_banded": 0,
-                             "gas_scatter_dense": 0}, f"{name} ref {lc}")
-        check(torch.equal(results["kernel"], results["ref"]),
-              f"{name}: impl=kernel differs from impl=ref")
-        reached = int(torch.isfinite(results["kernel"].float()).sum()) \
-            if name != "cc" else int(torch.unique(results["kernel"]).numel())
-        log(f"  {name} on rmat({ALG_SCALE}, 16): {rounds[name]} rounds, "
-            f"kernel {timed['kernel']:.1f} ms ({timed['kernel'] / rounds[name]:.2f}"
-            f" ms per round), ref {timed['ref']:.1f} ms; bit for bit; "
-            + ("components" if name == "cc" else "reached") + f" {reached}")
-        full.setdefault("algorithms", {})[name] = {
-            "rounds": rounds[name], "kernel_ms": timed["kernel"],
-            "ref_ms": timed["ref"]}
+    # every round calls the module's gas_scatter once: count the calls
+    # (the dispatch counter counts the loop body once, as JAX's does)
+    scatters = [0]
+    scatter = alg.gas_scatter
+
+    def counting_scatter(*args, **kwargs):
+        scatters[0] += 1
+        return scatter(*args, **kwargs)
+
+    alg.gas_scatter = counting_scatter
+    try:
+        rounds, results = {}, {}
+        for name, fn in runs.items():
+            timed = {}
+            for impl in ("kernel", "ref"):
+                scatters[0] = 0
+                with gas.count_dispatches() as c:
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    got, lc = counted(torch, K, launches if impl == "kernel"
+                                      else {k: 0 for k in launches},
+                                      lambda: fn(impl))
+                    timed[impl] = (time.perf_counter() - t0) * 1e3
+                results[impl] = got
+                want = (1, 1 if impl == "kernel" else 0)
+                check((c["find"], c["kernel_scatter"]) == want,
+                      f"{name} {impl}: dispatches {dict(c)}, JAX counts "
+                      f"{want}")
+                if impl == "kernel":
+                    rounds[name] = scatters[0]
+                    check(lc["gas_scatter_dense"] == scatters[0] > 0,
+                          f"{name}: {scatters[0]} rounds, launches {lc}")
+                else:
+                    check(scatters[0] == rounds[name],
+                          f"{name}: {scatters[0]} ref rounds, {rounds[name]} "
+                          f"kernel rounds")
+                    check(lc == {"gas_scatter_banded": 0,
+                                 "gas_scatter_dense": 0}, f"{name} ref {lc}")
+            check(torch.equal(results["kernel"], results["ref"]),
+                  f"{name}: impl=kernel differs from impl=ref")
+            reached = int(torch.isfinite(results["kernel"].float()).sum()) \
+                if name != "cc" else int(torch.unique(results["kernel"]).numel())
+            log(f"  {name} on rmat({ALG_SCALE}, 16): {rounds[name]} rounds, "
+                f"kernel {timed['kernel']:.1f} ms ({timed['kernel'] / rounds[name]:.2f}"
+                f" ms per round), ref {timed['ref']:.1f} ms; bit for bit; "
+                + ("components" if name == "cc" else "reached") + f" {reached}")
+            full.setdefault("algorithms", {})[name] = {
+                "rounds": rounds[name], "kernel_ms": timed["kernel"],
+                "ref_ms": timed["ref"]}
+    finally:
+        alg.gas_scatter = scatter
     # one round's min scatter, timed alone (sssp's relaxation values)
     dist = alg.sssp(S, D, W, Va, 0, impl="ref")
     relax = (dist[S.long()] + W).contiguous()

@@ -205,6 +205,23 @@ def gcn_full_forward(dataflow: str, op: str, impl: str, n_layers: int, *,
 GRAD_ALL_REDUCE_PER_STEP = 1
 RESULT_GATHER_PER_DRAIN = 1
 
+
+
+def drain_bytes(n: int, ids: int, rows: int, F: int, itemsize: int,
+                op: str) -> Dict[str, int]:
+    """Collective bytes per rank of one cgtrans serving drain on an n-rank
+    mesh and the unencoded (``"f32"``) wire, as ``count_collectives``
+    counts them: the ``all_gather`` of each rank's ``ids`` int32 request
+    ids, the ``all_to_all`` of the (n, rows, F [+ 1 count column for add])
+    partials in the table's own ``itemsize``, and the ``result_gather`` of
+    the (rows, F) answers. A bf16 table's partials and answers take half a
+    float32 table's bytes."""
+    cols = F + (1 if op == "add" else 0)
+    return {"all_gather": n * ids * 4,
+            "all_to_all": n * rows * cols * itemsize,
+            "result_gather": n * rows * F * itemsize}
+
+
 COLLECTIVE_KEYS = ("all_gather", "all_to_all", "psum", "psum_scatter")
 DISPATCH_KEYS = ("find", "reduce", "kernel_scatter")
 

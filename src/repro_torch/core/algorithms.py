@@ -9,10 +9,11 @@ scatter on the FAST-GAS dense grid, ``impl="ref"`` on ``scatter_reduce`` /
 them without a backend.
 
 The JAX package's ``lax.while_loop`` is a Python loop here that reads its
-``changed`` flag once per round (one host sync per round). Every round is
-one ``find`` and, on the kernel route, one ``kernel_scatter`` in
-``gas.count_dispatches`` — counted per round, where the JAX trace counts
-the loop body once.
+``changed`` flag once per round (one host sync per round). As the JAX trace
+counts the loop body once, ``gas.count_dispatches`` counts the first
+round's ``find`` (and, on the kernel route, its ``kernel_scatter``) and
+the later rounds run under ``suspend_counting``; every round still
+launches its kernel.
 
 All take COO edge tensors and return dense per-vertex results on the
 device the edges are on.
@@ -23,6 +24,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.gas import gas_gather, gas_scatter
+from repro_torch.kernels.gas_scatter import ops as gas_ops
 
 
 def sssp(src: torch.Tensor, dst: torch.Tensor, weights: torch.Tensor,
@@ -39,8 +41,9 @@ def sssp(src: torch.Tensor, dst: torch.Tensor, weights: torch.Tensor,
     w = weights.to(torch.float32)
     it, changed = 0, True
     while changed and it < max_iters:
-        relax = gas_gather(dist, src) + w
-        best = gas_scatter(dst, relax, n_vertices, op="min", impl=impl)
+        with gas_ops.suspend_counting(it > 0):
+            relax = gas_gather(dist, src) + w
+            best = gas_scatter(dst, relax, n_vertices, op="min", impl=impl)
         new = torch.minimum(dist, best)
         changed = bool((new < dist).any())
         dist, it = new, it + 1
@@ -68,8 +71,9 @@ def connected_components(src: torch.Tensor, dst: torch.Tensor,
     labels = torch.arange(n_vertices, dtype=torch.float32, device=src.device)
     it, changed = 0, True
     while changed and it < max_iters:
-        prop = gas_scatter(d, gas_gather(labels, s), n_vertices, op="min",
-                           impl=impl)
+        with gas_ops.suspend_counting(it > 0):
+            prop = gas_scatter(d, gas_gather(labels, s), n_vertices,
+                               op="min", impl=impl)
         new = torch.minimum(labels, prop)
         changed = bool((new < labels).any())
         labels, it = new, it + 1

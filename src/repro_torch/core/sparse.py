@@ -77,13 +77,13 @@ def worst_case_capacity(n_features: int, density: float) -> int:
 
 
 def table_capacity(feats) -> int:
-    """The measured worst-row capacity of a table (numpy array or tensor):
-    the max row popcount, subnormals included, alignment-rounded. Once per
-    table, on the host."""
-    x = feats.detach().cpu().numpy() if torch.is_tensor(feats) \
-        else np.asarray(feats)
+    """The measured worst-row capacity of a table (numpy array or tensor,
+    of any dtype): the max row popcount, subnormals included,
+    alignment-rounded. Once per table, on the host."""
+    x = feats.detach().cpu() if torch.is_tensor(feats) else np.asarray(feats)
     F = x.shape[-1]
-    nnz = int((x.reshape(-1, F) != 0).sum(axis=-1).max()) if x.size else 0
+    nz = x.reshape(-1, F) != 0
+    nnz = int(nz.sum(-1).max()) if nz.shape[0] and F else 0
     a = _align(F)
     return min(int(F), -(-max(nnz, 1) // a) * a)
 

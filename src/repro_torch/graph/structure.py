@@ -34,6 +34,18 @@ class COOGraph:
     def n_edges(self) -> int:
         return int(self.src.shape[0])
 
+    def degree_out(self) -> np.ndarray:
+        return np.bincount(self.src, minlength=self.n_vertices)
+
+    def degree_in(self) -> np.ndarray:
+        return np.bincount(self.dst, minlength=self.n_vertices)
+
+    def sort_by_dst(self) -> "COOGraph":
+        order = np.argsort(self.dst, kind="stable")
+        return COOGraph(
+            self.n_vertices, self.src[order], self.dst[order],
+            None if self.weights is None else self.weights[order], self.features)
+
     def sort_by_src(self) -> "COOGraph":
         order = np.argsort(self.src, kind="stable")
         return COOGraph(
@@ -46,3 +58,9 @@ class COOGraph:
         indptr = np.zeros(self.n_vertices + 1, np.int64)
         np.cumsum(np.bincount(g.src, minlength=self.n_vertices), out=indptr[1:])
         return indptr, g.dst, g.weights
+
+    def undirected(self) -> "COOGraph":
+        src = np.concatenate([self.src, self.dst])
+        dst = np.concatenate([self.dst, self.src])
+        w = None if self.weights is None else np.concatenate([self.weights] * 2)
+        return COOGraph(self.n_vertices, src, dst, w, self.features)

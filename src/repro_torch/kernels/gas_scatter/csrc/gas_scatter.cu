@@ -15,12 +15,13 @@
 // on a matched edge makes its row's max / min NaN, as jnp.maximum / minimum
 // and scatter_reduce's amax / amin do (fmaxf / fminf would drop it).
 //
-// What bounds it: memory. One pass moves the value stream E*F*4 bytes, the
-// ids and weights E*8 bytes, and writes n_rows*F*4 bytes; at 3.35 TB/s that
-// is the floor. The arithmetic is one FMA (or one compare) per value. At the
-// sizes the serving and inference paths launch (one 128-row block, 2-7 edge
-// tiles) the floor is under a microsecond, so what sets the time is how
-// many SMs work at once and how many memory latencies lie end to end.
+// What bounds it: memory. One pass moves the value stream E*F*s bytes (s the
+// value type's size), the ids and weights E*8 bytes, and writes n_rows*F*s
+// bytes; at 3.35 TB/s that is the floor. The arithmetic is one FMA (or one
+// compare) per value. At the sizes the serving and inference paths launch
+// (one 128-row block, 2-7 edge tiles) the floor is under a microsecond, so
+// what sets the time is how many SMs work at once and how many memory
+// latencies lie end to end.
 //
 // The TPU kernel keeps a 128-row output block resident in VMEM while edge
 // tiles stream past it, contracting one-hot CAM match lines on the MXU. The
@@ -55,6 +56,38 @@
 // launches on the same inputs give the same bits, and integer-valued data
 // is exact whatever the grouping.
 //
+// Value types. Each kernel is a template over the value type: float,
+// __nv_bfloat16 and __half, exported as gas_scatter_{banded,dense}_{f32,
+// bf16,f16}; the output has the values' type, as the TPU kernel's does
+// (out_shape = values.dtype). Values are loaded in their own width (one
+// 16-byte cp.async carries 4 floats or 8 bf16 / f16, so a 32-feature row is
+// 8 or 4 copies); partials are held in f32 in shared memory. The float
+// instantiation is the f32 kernel unchanged. For bf16 and f16 the
+// reference's rounding points are kept (kernel.py _add_round: out_ref +=
+// dot(match, values, preferred_element_type=out.dtype), the weights cast to
+// the value type first):
+//   * an edge weight is rounded to the value type before its product;
+//   * a round's products (each exact in f32: 8- or 11-bit significands) are
+//     summed in f32, in stream order, into a round-sum tile that shares the
+//     second value buffer's bytes (the two narrow value buffers fit in the
+//     first), so Walk keeps its size;
+//   * after the round, each owner warp rounds its cells' sums once to the
+//     value type, adds them to the partial in f32 and rounds the result to
+//     the value type (f32's 24-bit significand is at least 2p + 2 bits for
+//     bf16's p = 8 and f16's p = 11, so rounding through it is the value
+//     type's own correctly rounded add).
+// Max and min compare the values exactly (every bf16 and f16 value is a
+// float), with NaN as in f32. The cluster split regroups add's rounded
+// accumulation: each CTA accumulates its share of rounds from 0 with the
+// rounding above, and the C partials are combined in rank order with one
+// rounding per add; in the dense grid a tile whose chunks straddle two
+// shares is summed and rounded as two pieces. So a cell of a sub-f32 add
+// is rounded at most twice per piece of the stream it sums (a whole tile in
+// the banded walk, a run of 32-edge chunks in the dense grid) where the
+// reference rounds twice per tile; integer data whose partial sums stay
+// within the type's exact integers (|x| <= 256 for bf16, 2048 for f16) is
+// exact either way, and max and min are exact on any data.
+//
 // Only the source of the rounds differs:
 //   * banded_cluster_kernel: the work list (W, 4 [+ F/32]) int32 holds rows
 //     [row_block, tile, live, init, feature-block live...] ordered by row
@@ -72,11 +105,14 @@
 //     does not.
 
 #include <cooperative_groups.h>
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
 #include <climits>
 #include <cstdint>
+#include <type_traits>
 
 namespace cg = cooperative_groups;
 
@@ -105,6 +141,32 @@ __device__ __forceinline__ float combine(int op, float a, float v) {
   return (v < a || v != v) ? v : a;
 }
 
+// The value types: loaded into f32, rounded and stored back.
+__device__ __forceinline__ float to_float(float x) { return x; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_float(__half x) { return __half2float(x); }
+
+template <typename T>
+__device__ __forceinline__ T from_float(float x);
+template <>
+__device__ __forceinline__ float from_float<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
+  return __float2bfloat16_rn(x);
+}
+template <>
+__device__ __forceinline__ __half from_float<__half>(float x) { return __float2half_rn(x); }
+
+// x rounded to the nearest value of T (round half to even), as a float.
+template <typename T>
+__device__ __forceinline__ float round_to(float x) {
+  return to_float(from_float<T>(x));
+}
+
+// A value type narrower than float rounds each add round (see the note).
+template <typename T>
+constexpr bool kNarrow = !std::is_same<T, float>::value;
+
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
@@ -132,10 +194,12 @@ __device__ __forceinline__ int round_tile(int r) { return r & ((1 << kTileBits) 
 __device__ __forceinline__ int round_lo(int r) { return (r >> kTileBits) & 7; }
 __device__ __forceinline__ int round_hi(int r) { return (r >> (kTileBits + 3)) & 7; }
 
-// One CTA's shared memory (dynamic, above the 48 KB static limit).
+// One CTA's shared memory (dynamic, above the 48 KB static limit), the same
+// bytes for every value type.
 struct Walk {
   float acc[kRowBlock * kFeatBlock];     // this CTA's partial [row][feature]
   float val[2][kEdgeTile * kFeatBlock];  // value rows, double-buffered
+                                         // (value_rows, round_sums)
   int ids[2][kEdgeTile];                 // their dst
   float w[2][kEdgeTile];                 // and weights
   int rounds[kWindow];                   // the current window's rounds
@@ -143,20 +207,43 @@ struct Walk {
   int count_hi[kWarps];
 };
 
+// Buffer buf's value rows in the value type: val[buf] for float; for a
+// narrower type both buffers fit in val[0].
+template <typename T>
+__device__ __forceinline__ T* value_rows(Walk& s, int buf) {
+  return reinterpret_cast<T*>(&s.val[0][0]) + buf * kEdgeTile * kFeatBlock;
+}
+
+// A narrow type's add: the current round's f32 sums [row][feature], in the
+// bytes of val[1] that its value rows leave free.
+template <typename T>
+__device__ __forceinline__ float* round_sums(Walk& s) {
+  static_assert(2 * sizeof(T) <= sizeof(float), "the value rows fill val[0]");
+  return s.val[1];
+}
+
 // What every round of one launch reads.
+template <typename T>
 struct Stream {
   const int* dst;
   const float* weights;  // null: unit weights
-  const float* values;
+  const T* values;
   long long F;
   int f0;    // the CTA's first feature
   int row0;  // its row block's first row
   int op;
 };
 
-__device__ __forceinline__ void fill_identity(float* acc, int op) {
+template <typename T>
+__device__ __forceinline__ void fill_identity(Walk& s, int op) {
   const float v = identity(op);
-  for (int i = threadIdx.x; i < kRowBlock * kFeatBlock; i += kThreads) acc[i] = v;
+  for (int i = threadIdx.x; i < kRowBlock * kFeatBlock; i += kThreads) s.acc[i] = v;
+  if constexpr (kNarrow<T>) {
+    if (op == kAdd) {
+      float* sum = round_sums<T>(s);
+      for (int i = threadIdx.x; i < kRowBlock * kFeatBlock; i += kThreads) sum[i] = 0.0f;
+    }
+  }
 }
 
 // Exclusive prefix of `flag` over the block's threads in thread order, and
@@ -187,8 +274,8 @@ __device__ __forceinline__ int round_end(int round) {
 }
 
 // cp.async one round's ids, weights and value rows into buffer buf.
-template <bool kWhole>
-__device__ __forceinline__ void stage(Walk& s, const Stream& in, int round, int buf) {
+template <bool kWhole, typename T>
+__device__ __forceinline__ void stage(Walk& s, const Stream<T>& in, int round, int buf) {
   const int tid = threadIdx.x;
   const int lo = round_first<kWhole>(round), hi = round_end<kWhole>(round);
   const long long e0 = static_cast<long long>(round_tile(round)) * kEdgeTile;
@@ -198,23 +285,31 @@ __device__ __forceinline__ void stage(Walk& s, const Stream& in, int round, int 
     const int e = tid - kEdgeTile;
     if (e >= lo && e < hi) cp_async4(&s.w[buf][e], in.weights + e0 + e);
   }
-  const float* src = in.values + e0 * in.F + in.f0;
-  constexpr int kParts = kFeatBlock / 4;  // 16-byte pieces per value row
+  const T* src = in.values + e0 * in.F + in.f0;
+  T* rows = value_rows<T>(s, buf);
+  constexpr int kPer = 16 / static_cast<int>(sizeof(T));  // values per copy
+  constexpr int kParts = kFeatBlock / kPer;  // 16-byte pieces per value row
   for (int q = lo * kParts + tid; q < hi * kParts; q += kThreads) {
-    const int e = q / kParts, part = (q % kParts) * 4;
-    cp_async16(&s.val[buf][e * kFeatBlock + part], src + e * in.F + part);
+    const int e = q / kParts, part = (q % kParts) * kPer;
+    cp_async16(&rows[e * kFeatBlock + part], src + e * in.F + part);
   }
   cp_async_commit();
 }
 
 // Warp `warp` applies its own edges of the round in buffer buf, four at a
-// time: the four edges' loads are in flight before the first is used.
-template <bool kWhole>
-__device__ __forceinline__ void apply(Walk& s, const Stream& in, int round, int buf) {
+// time: the four edges' loads are in flight before the first is used. A
+// narrow type's add sums into the round's sums, every other into the
+// partial.
+template <bool kWhole, typename T>
+__device__ __forceinline__ void apply(Walk& s, const Stream<T>& in, int round, int buf) {
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int* ids = s.ids[buf];
   const float* wt = s.w[buf];
-  const float* val = s.val[buf];
+  const T* val = value_rows<T>(s, buf);
+  float* acc = s.acc;
+  if constexpr (kNarrow<T>) {
+    if (in.op == kAdd) acc = round_sums<T>(s);
+  }
   int cur = -1;
   float reg = 0.0f;
   for (int c = round_first<kWhole>(round); c < round_end<kWhole>(round); c += kChunk) {
@@ -230,42 +325,61 @@ __device__ __forceinline__ void apply(Walk& s, const Stream& in, int round, int 
         mine &= mine - 1;
         if (e[j] >= 0) {
           re[j] = ids[e[j]] - in.row0;
-          v[j] = val[e[j] * kFeatBlock + lane];
-          w[j] = in.weights ? wt[e[j]] : 1.0f;
+          v[j] = to_float(val[e[j] * kFeatBlock + lane]);
+          w[j] = in.weights ? round_to<T>(wt[e[j]]) : 1.0f;
         }
       }
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         if (e[j] < 0) break;
         if (re[j] != cur) {
-          if (cur >= 0) s.acc[cur * kFeatBlock + lane] = reg;
+          if (cur >= 0) acc[cur * kFeatBlock + lane] = reg;
           cur = re[j];
-          reg = s.acc[cur * kFeatBlock + lane];
+          reg = acc[cur * kFeatBlock + lane];
         }
         reg = in.op == kAdd ? fmaf(w[j], v[j], reg) : combine(in.op, reg, v[j]);
       }
     }
   }
-  if (cur >= 0) s.acc[cur * kFeatBlock + lane] = reg;
+  if (cur >= 0) acc[cur * kFeatBlock + lane] = reg;
+}
+
+// A narrow type's add, after each round: every owner warp folds its cells'
+// round sums into the partial, partial = T(partial + T(sum)), and clears
+// them. The lane that summed a cell folds it, so no barrier is needed.
+template <typename T>
+__device__ __forceinline__ void fold_round(Walk& s) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  float* sum = round_sums<T>(s);
+  for (int r = warp; r < kRowBlock; r += kWarps) {
+    const int i = r * kFeatBlock + lane;
+    s.acc[i] = round_to<T>(s.acc[i] + round_to<T>(sum[i]));
+    sum[i] = 0.0f;
+  }
 }
 
 // Apply the window's `total` rounds of s.rounds in order, the next one
 // loading while this one is applied. The caller's barrier after the
 // compaction makes s.rounds visible and the previous window's buffers free.
-template <bool kWhole>
-__device__ __forceinline__ void walk(Walk& s, const Stream& in, int total) {
+template <bool kWhole, typename T>
+__device__ __forceinline__ void walk(Walk& s, const Stream<T>& in, int total) {
   if (total > 0) stage<kWhole>(s, in, s.rounds[0], 0);
   for (int t = 0; t < total; ++t) {
     cp_async_wait_all();
     __syncthreads();  // round t has landed; round t - 1's buffer is free
     if (t + 1 < total) stage<kWhole>(s, in, s.rounds[t + 1], (t + 1) & 1);
     apply<kWhole>(s, in, s.rounds[t], t & 1);
+    if constexpr (kNarrow<T>) {
+      if (in.op == kAdd) fold_round<T>(s);
+    }
   }
 }
 
-// Combine the cluster's C partials in rank order and write the tile.
+// Combine the cluster's C partials in rank order and write the tile (a
+// narrow type's add rounds each sum to the type).
+template <typename T>
 __device__ __forceinline__ void combine_store(cg::cluster_group& cluster, Walk& s,
-                                              const Stream& in, float* out, int C) {
+                                              const Stream<T>& in, T* out, int C) {
   const int rank = static_cast<int>(cluster.block_rank());
   cluster.sync();  // every partial of the cluster is complete
   const int r_lo = kRowBlock * rank / C, r_hi = kRowBlock * (rank + 1) / C;
@@ -278,9 +392,12 @@ __device__ __forceinline__ void combine_store(cg::cluster_group& cluster, Walk& 
     float a = v[0];
 #pragma unroll
     for (int k = 1; k < kMaxCluster; ++k) {
-      if (k < C) a = combine(in.op, a, v[k]);
+      if (k < C) {
+        a = kNarrow<T> && in.op == kAdd ? round_to<T>(a + v[k]) : combine(in.op, a, v[k]);
+      }
     }
-    out[static_cast<long long>(in.row0 + i / kFeatBlock) * in.F + in.f0 + i % kFeatBlock] = a;
+    out[static_cast<long long>(in.row0 + i / kFeatBlock) * in.F + in.f0 + i % kFeatBlock] =
+        from_float<T>(a);
   }
   cluster.sync();  // no CTA leaves while another still reads its partial
 }
@@ -305,10 +422,11 @@ __device__ __forceinline__ int probe_row(int q, int W) {
   return static_cast<int>(static_cast<long long>(q) * W / kThreads);
 }
 
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
 banded_cluster_kernel(const int* __restrict__ work, int W, int ncols,
                       const int* __restrict__ dst, const float* __restrict__ weights,
-                      const float* __restrict__ values, float* __restrict__ out,
+                      const T* __restrict__ values, T* __restrict__ out,
                       long long F, int op, int C) {
   extern __shared__ float4 dyn[];
   Walk& s = *reinterpret_cast<Walk*>(dyn);
@@ -316,7 +434,7 @@ banded_cluster_kernel(const int* __restrict__ work, int W, int ncols,
   const int rank = static_cast<int>(cluster.block_rank());
   const int rb = blockIdx.x / C;
   const int fb = blockIdx.y;
-  const Stream in{dst, weights, values, F, fb * kFeatBlock, rb * kRowBlock, op};
+  const Stream<T> in{dst, weights, values, F, fb * kFeatBlock, rb * kRowBlock, op};
   const bool feat_skip = ncols > 4;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
 
@@ -345,7 +463,7 @@ banded_cluster_kernel(const int* __restrict__ work, int W, int ncols,
     s.count[warp] = __popc(below_lo);
     s.count_hi[warp] = __popc(below_hi);
   }
-  fill_identity(s.acc, op);
+  fill_identity<T>(s, op);
   __syncthreads();
   int lo = 0, hi = 0;
   for (int k = 0; k < kWarps; ++k) {
@@ -388,18 +506,20 @@ banded_cluster_kernel(const int* __restrict__ work, int W, int ncols,
   combine_store(cluster, s, in, out, C);
 }
 
+// (Val is the value type here: T is the tile count, as in the wrapper.)
+template <typename Val>
 __global__ void __launch_bounds__(kThreads)
 dense_cluster_kernel(const int* __restrict__ occ, int T,
                      const int* __restrict__ dst, const float* __restrict__ weights,
-                     const float* __restrict__ values, float* __restrict__ out,
+                     const Val* __restrict__ values, Val* __restrict__ out,
                      long long F, int op, int C) {
   extern __shared__ float4 dyn[];
   Walk& s = *reinterpret_cast<Walk*>(dyn);
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = static_cast<int>(cluster.block_rank());
   const int rb = blockIdx.x / C;
-  const Stream in{dst, weights, values, F, static_cast<int>(blockIdx.y) * kFeatBlock,
-                  rb * kRowBlock, op};
+  const Stream<Val> in{dst, weights, values, F, static_cast<int>(blockIdx.y) * kFeatBlock,
+                       rb * kRowBlock, op};
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int* row = occ + static_cast<long long>(rb) * T;
 
@@ -411,7 +531,7 @@ dense_cluster_kernel(const int* __restrict__ occ, int T,
   for (int t = tid + kWindow; t < T; t += kWindow) mine += row[t] > 0;
   mine = __reduce_add_sync(0xffffffffu, mine);
   if (lane == 0) s.count[warp] = mine;
-  fill_identity(s.acc, op);
+  fill_identity<Val>(s, op);
   __syncthreads();
   int n_occ = 0;
   for (int k = 0; k < kWarps; ++k) n_occ += s.count[k];
@@ -491,36 +611,57 @@ struct GasLaunch {
   int n_meta, ncols, n_rows, F, op, cluster, smem;
 };
 
-// Plain C entry points, loaded with ctypes. Shapes: meta is the work list
-// (W, ncols) or the occupancy map (n_rows / 128, T); dst (E,), weights (E,)
-// or null, values (E, F) 16-byte aligned, out (n_rows, F); E % 128 == 0,
-// F % 32 == 0, n_rows % 128 == 0, E < 2^31. Each refuses a plan it does
-// not build (cluster size, shared bytes) and returns the launch's
-// cudaError_t.
-extern "C" int gas_scatter_banded_f32(const GasLaunch* p, const int* work, const int* dst,
-                                      const float* weights, const float* values, float* out,
-                                      void* stream) {
+namespace {
+
+template <typename T>
+int banded_entry(const GasLaunch* p, const int* work, const int* dst, const float* weights,
+                 const T* values, T* out, void* stream) {
   if (p->cluster < 1 || p->cluster > kMaxCluster || p->smem != static_cast<int>(sizeof(Walk))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  static const cudaError_t attr = allow_walk_smem(banded_cluster_kernel);
+  static const cudaError_t attr = allow_walk_smem(banded_cluster_kernel<T>);
   if (attr != cudaSuccess) return static_cast<int>(attr);
-  return launch_cluster(banded_cluster_kernel, p->cluster, p->n_rows, p->F, stream, work,
+  return launch_cluster(banded_cluster_kernel<T>, p->cluster, p->n_rows, p->F, stream, work,
                         p->n_meta, p->ncols, dst, weights, values, out,
                         static_cast<long long>(p->F), p->op, p->cluster);
 }
 
-extern "C" int gas_scatter_dense_f32(const GasLaunch* p, const int* occ, const int* dst,
-                                     const float* weights, const float* values, float* out,
-                                     void* stream) {
+template <typename T>
+int dense_entry(const GasLaunch* p, const int* occ, const int* dst, const float* weights,
+                const T* values, T* out, void* stream) {
   if (p->n_meta >= (1 << kTileBits) ||
       p->cluster != dense_cluster(p->n_meta, p->n_rows / kRowBlock) ||
       p->smem != static_cast<int>(sizeof(Walk))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  static const cudaError_t attr = allow_walk_smem(dense_cluster_kernel);
+  static const cudaError_t attr = allow_walk_smem(dense_cluster_kernel<T>);
   if (attr != cudaSuccess) return static_cast<int>(attr);
-  return launch_cluster(dense_cluster_kernel, p->cluster, p->n_rows, p->F, stream, occ,
+  return launch_cluster(dense_cluster_kernel<T>, p->cluster, p->n_rows, p->F, stream, occ,
                         p->n_meta, dst, weights, values, out, static_cast<long long>(p->F),
                         p->op, p->cluster);
 }
+
+}  // namespace
+
+// Plain C entry points, loaded with ctypes, one pair per value type (f32,
+// bf16, f16). Shapes: meta is the work list (W, ncols) or the occupancy map
+// (n_rows / 128, T); dst (E,), weights (E,) f32 or null, values (E, F) of
+// the value type, 16-byte aligned, out (n_rows, F) of the value type;
+// E % 128 == 0, F % 32 == 0, n_rows % 128 == 0, E < 2^31. Each refuses a
+// plan it does not build (cluster size, shared bytes) and returns the
+// launch's cudaError_t.
+#define GAS_SCATTER_ENTRIES(SUFFIX, T)                                                       \
+  extern "C" int gas_scatter_banded_##SUFFIX(const GasLaunch* p, const int* work,           \
+                                             const int* dst, const float* weights,          \
+                                             const T* values, T* out, void* stream) {       \
+    return banded_entry<T>(p, work, dst, weights, values, out, stream);                     \
+  }                                                                                         \
+  extern "C" int gas_scatter_dense_##SUFFIX(const GasLaunch* p, const int* occ,             \
+                                            const int* dst, const float* weights,           \
+                                            const T* values, T* out, void* stream) {        \
+    return dense_entry<T>(p, occ, dst, weights, values, out, stream);                       \
+  }
+
+GAS_SCATTER_ENTRIES(f32, float)
+GAS_SCATTER_ENTRIES(bf16, __nv_bfloat16)
+GAS_SCATTER_ENTRIES(f16, __half)

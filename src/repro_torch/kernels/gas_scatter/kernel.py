@@ -16,6 +16,15 @@ dispatches on where its tensors lie:
 * anything else raises. There is no fallback from the kernel to the plain
   version on a CUDA tensor.
 
+Values may be float32, bfloat16 or float16 (one C entry per type, the
+output in the values' type, as the Pallas kernels give it); edge weights
+are float32 at the C entry and the kernel rounds them to the value type,
+as the TPU kernel casts them. For the two narrow types the plain versions
+keep the reference's rounding points: a round's products summed in float32,
+that sum rounded once to the value type and added into an accumulator of
+the value type (``_round_plain``); the source note in ``csrc`` states how
+the kernels' cluster split regroups that accumulation.
+
 Tile constants: 128 output rows and 128 edges per round, as on the TPU;
 the feature block is 32 (one warp's width) where the TPU used 128 lanes, so
 feature-block liveness columns of a work list are per 32 features.
@@ -64,11 +73,16 @@ BANDED_SMEM = 4 * (ROW_BLOCK * FEAT_BLOCK + 2 * EDGE_TILE * FEAT_BLOCK
                    + 2 * (BANDED_THREADS // 32))
 MAX_EDGES = 1 << 31           # the kernels index edges with 32-bit ints
 
+# the value types with a kernel, and the suffix of each one's C entries
+VALUE_DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16",
+                torch.float16: "f16"}
+
 _SOURCE = Path(__file__).resolve().parent / "csrc" / "gas_scatter.cu"
 
 _lib: Optional[ctypes.CDLL] = None
 _lib_lock = threading.Lock()
-# (banded entry, dense entry, stream query), resolved at the first launch
+# ({suffix: banded entry}, {suffix: dense entry}, stream query), resolved at
+# the first launch
 _entries: Optional[tuple] = None
 
 
@@ -87,14 +101,17 @@ def build() -> Path:
 
 
 def _load() -> tuple:
-    """(banded entry, dense entry, stream query), built and bound at first
-    use."""
+    """({suffix: banded entry}, {suffix: dense entry}, stream query), built
+    and bound at first use, keyed by the suffixes of ``VALUE_DTYPES``."""
     global _lib, _entries
     with _lib_lock:
         if _entries is None:
             lib = ctypes.CDLL(str(build()))
-            fns = (lib.gas_scatter_banded_f32, lib.gas_scatter_dense_f32)
-            for fn in fns:
+            fns = tuple(
+                {sfx: getattr(lib, f"gas_scatter_{kind}_{sfx}")
+                 for sfx in VALUE_DTYPES.values()}
+                for kind in ("banded", "dense"))
+            for fn in (f for table in fns for f in table.values()):
                 fn.argtypes = [ctypes.c_void_p] * 7
                 fn.restype = ctypes.c_int
             # the raw handle of PyTorch's current stream on a device index,
@@ -122,8 +139,9 @@ def _check_common(dst, values, n_rows: int, op: str, weights):
             f"F={F} % {FEAT_BLOCK}, n_rows={n_rows} % {ROW_BLOCK}")
     if E >= MAX_EDGES:
         raise ValueError(f"E={E} edges: the kernels take fewer than 2^31")
-    if values.dtype != torch.float32:
-        raise TypeError(f"values must be float32, got {values.dtype}")
+    if values.dtype not in VALUE_DTYPES:
+        raise TypeError(f"values must be float32, bfloat16 or float16, got "
+                        f"{values.dtype}")
     if dst.dtype != torch.int32 or tuple(dst.shape) != (E,):
         raise TypeError(f"dst must be int32 of shape ({E},), got "
                         f"{dst.dtype} {tuple(dst.shape)}")
@@ -148,6 +166,7 @@ class _Checked(NamedTuple):
     address: int        # of ``launch``, what the C entry reads
     out_shape: tuple
     empty: bool         # no row or no feature: nothing to launch
+    suffix: str         # the values' C entry suffix (``VALUE_DTYPES``)
 
 
 def _signature(kernel, meta, dst, values, n_rows, op, weights):
@@ -158,11 +177,11 @@ def _signature(kernel, meta, dst, values, n_rows, op, weights):
 
 
 def _remember(key, plan: "ClusterPlan", n_meta: int, ncols: int,
-              n_rows: int, F: int, op: str) -> _Checked:
+              n_rows: int, F: int, op: str, dtype: torch.dtype) -> _Checked:
     launch = _Launch(n_meta, ncols, n_rows, F, OPS[op], plan.cluster,
                      plan.smem_bytes)
     checked = _Checked(plan, launch, ctypes.addressof(launch), (n_rows, F),
-                       n_rows == 0 or F == 0)
+                       n_rows == 0 or F == 0, VALUE_DTYPES[dtype])
     if len(_SIGNATURES) >= _SIGNATURES_MAX:
         _SIGNATURES.clear()
     _SIGNATURES[key] = checked
@@ -171,7 +190,8 @@ def _remember(key, plan: "ClusterPlan", n_meta: int, ncols: int,
 
 def _launch(which: int, name: str, checked: _Checked, meta, dst, values,
             weights):
-    """Launch entry ``which`` (0 banded, 1 dense) after the per-call checks:
+    """Launch entry ``which`` (0 banded, 1 dense) for the values' type after
+    the per-call checks:
     every tensor on ``values``' CUDA device and contiguous, ``values``
     16-byte aligned. Returns the output; a refused launch raises."""
     index = values.get_device()
@@ -191,9 +211,10 @@ def _launch(which: int, name: str, checked: _Checked, meta, dst, values,
     if checked.empty:
         return out
     entries = _entries or _load()
-    rc = entries[which](checked.address, meta.data_ptr(), dst.data_ptr(),
-                        None if weights is None else weights.data_ptr(), vp,
-                        out.data_ptr(), entries[2](index))
+    entry = entries[which][checked.suffix]
+    rc = entry(checked.address, meta.data_ptr(), dst.data_ptr(),
+               None if weights is None else weights.data_ptr(), vp,
+               out.data_ptr(), entries[2](index))
     if rc != 0:
         raise RuntimeError(f"{name} launch failed ({checked.plan}): CUDA "
                            f"error {rc}")
@@ -216,19 +237,29 @@ def _reduce_rows(acc, rel, contrib, op: str):
 
 def _round_plain(acc, dst, values, weights, op: str, tile: int, row0: int,
                  feat_live=None):
-    """One (row block × edge tile) round of the plain version."""
+    """One (row block × edge tile) round of the plain version. A bfloat16
+    or float16 add follows the reference's rounding points: the weights
+    rounded to the value type, the round's products summed in float32, the
+    sum rounded to the value type and added into ``acc`` in its type."""
     sl = slice(tile * EDGE_TILE, (tile + 1) * EDGE_TILE)
     rel = dst[sl].long() - row0
     hit = (rel >= 0) & (rel < ROW_BLOCK)
-    contrib = values[sl]
+    narrow_add = op == "add" and values.dtype != torch.float32
+    contrib = values[sl].float() if narrow_add else values[sl]
     if weights is not None:
-        contrib = contrib * weights[sl, None]
+        w = weights[sl, None]
+        contrib = contrib * (w.to(values.dtype).float() if narrow_add else w)
     if feat_live is not None:
         # a feature block flagged dead contributes nothing this round
         cols = feat_live.repeat_interleave(FEAT_BLOCK).bool()
         contrib = torch.where(cols[None, :], contrib,
                               torch.zeros((), dtype=contrib.dtype,
                                           device=contrib.device))
+    if narrow_add:
+        sums = torch.zeros(acc.shape, dtype=torch.float32, device=acc.device)
+        sums.index_add_(0, rel[hit], contrib[hit])
+        acc.copy_(acc.float() + sums.to(acc.dtype).float())
+        return
     _reduce_rows(acc, rel[hit], contrib[hit], op)
 
 
@@ -299,7 +330,8 @@ def _banded_checked(key, work, dst, values, n_rows, op, weights) -> _Checked:
     if work.shape[1] > 4 and op != "add":
         raise ValueError("feature-block liveness gates add rounds only")
     W, ncols = work.shape
-    return _remember(key, banded_plan(W, n_rows, F), W, ncols, n_rows, F, op)
+    return _remember(key, banded_plan(W, n_rows, F), W, ncols, n_rows, F, op,
+                     values.dtype)
 
 
 def gas_scatter_banded(work, dst, values, n_rows: int, *, op: str = "add",
@@ -308,7 +340,8 @@ def gas_scatter_banded(work, dst, values, n_rows: int, *, op: str = "add",
     the work list (``ops.schedule_edges``). ``work``: (W, 4 [+ F/32]) int32
     rows [row_block, tile, live, init, feature-block live…] ordered by row
     block; dst (E,) int32 with dead edges at ``n_rows``; values (E, F)
-    float32; weights (E,) float32 or None (add only). Returns (n_rows, F).
+    float32, bfloat16 or float16; weights (E,) float32 or None (add only).
+    Returns (n_rows, F) in the values' type.
     """
     key = _signature("banded", work, dst, values, n_rows, op, weights)
     checked = _SIGNATURES.get(key) or _banded_checked(
@@ -318,6 +351,7 @@ def gas_scatter_banded(work, dst, values, n_rows: int, *, op: str = "add",
                       weights)
         if not checked.empty:
             gas_scatter_banded.launches += 1
+            gas_scatter_banded.launches_by_dtype[checked.suffix] += 1
         return out
     if values.device.type == "cpu":
         with torch.no_grad():     # forward-only, as the kernel is
@@ -327,6 +361,7 @@ def gas_scatter_banded(work, dst, values, n_rows: int, *, op: str = "add",
 
 
 gas_scatter_banded.launches = 0
+gas_scatter_banded.launches_by_dtype = dict.fromkeys(VALUE_DTYPES.values(), 0)
 
 
 # ---------------------------------------------------------------------------
@@ -371,7 +406,8 @@ def _dense_checked(key, dst, values, occupancy, n_rows, op,
         raise ValueError(f"occupancy must be int32 ({n_rows // ROW_BLOCK}, "
                          f"{T}), got {occupancy.dtype} "
                          f"{tuple(occupancy.shape)}")
-    return _remember(key, dense_plan(T, n_rows, F), T, 0, n_rows, F, op)
+    return _remember(key, dense_plan(T, n_rows, F), T, 0, n_rows, F, op,
+                     values.dtype)
 
 
 def gas_scatter_dense(dst, values, occupancy, n_rows: int, *,
@@ -389,6 +425,7 @@ def gas_scatter_dense(dst, values, occupancy, n_rows: int, *,
                       weights)
         if not checked.empty:
             gas_scatter_dense.launches += 1
+            gas_scatter_dense.launches_by_dtype[checked.suffix] += 1
         return out
     if values.device.type == "cpu":
         with torch.no_grad():     # forward-only, as the kernel is
@@ -398,13 +435,22 @@ def gas_scatter_dense(dst, values, occupancy, n_rows: int, *,
 
 
 gas_scatter_dense.launches = 0
+gas_scatter_dense.launches_by_dtype = dict.fromkeys(VALUE_DTYPES.values(), 0)
 
 
 def reset_launch_counts() -> None:
-    gas_scatter_banded.launches = 0
-    gas_scatter_dense.launches = 0
+    for wrapper in (gas_scatter_banded, gas_scatter_dense):
+        wrapper.launches = 0
+        wrapper.launches_by_dtype = dict.fromkeys(VALUE_DTYPES.values(), 0)
 
 
 def launch_counts() -> dict:
+    """Launches per wrapper, every value type together."""
     return {"gas_scatter_banded": gas_scatter_banded.launches,
             "gas_scatter_dense": gas_scatter_dense.launches}
+
+
+def dtype_launch_counts() -> dict:
+    """Launches per wrapper and value type: ``{wrapper: {suffix: n}}``."""
+    return {"gas_scatter_banded": dict(gas_scatter_banded.launches_by_dtype),
+            "gas_scatter_dense": dict(gas_scatter_dense.launches_by_dtype)}

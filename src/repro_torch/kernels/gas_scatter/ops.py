@@ -229,6 +229,21 @@ def dense_skip_stats(dst: torch.Tensor, mask: Optional[torch.Tensor],
     return int(occ.sum()), int(occ.numel())
 
 
+def feat_skip_stats(schedule: EdgeSchedule, values: torch.Tensor):
+    """(live_rounds, band_rounds) of a scheduled add dispatch over these
+    ``values`` (E, F): the (row block × edge tile × feature block) rounds
+    the feature-skipping banded walk executes against the band's live rounds
+    times the feature blocks. Counted, not clocked. The port's feature
+    block is 32 wide, where the JAX package's interpret-mode kernel runs one
+    block over the whole width: the counts equal the JAX package's where
+    F ≤ 32 and follow the port's 32-feature blocks at wider F."""
+    valp = _pad_to(_pad_to(values, EDGE_TILE, 0, 0), FEAT_BLOCK, 1, 0)
+    feat = _feat_liveness(valp, schedule.work[:, 1], EDGE_TILE)
+    live = schedule.work[:, 2] == 1
+    return (int((feat * live[:, None]).sum()),
+            int(live.sum()) * feat.shape[1])
+
+
 def occupancy_map(dst: torch.Tensor, n_row_blocks: int) -> torch.Tensor:
     """(row_blocks, edge_tiles) int32: does edge tile e touch row block r?
     One bincount over (block, tile) pairs: O(E + R·T)."""
@@ -363,7 +378,7 @@ def gas_scatter_fused(dst: torch.Tensor, values: torch.Tensor,
 
 
 __all__ = ["EdgeSchedule", "KernelCall", "count_dispatches",
-           "counting_suspended", "dense_skip_stats", "fused_call",
-           "gas_scatter", "gas_scatter_fused", "gas_scatter_ref",
-           "occupancy_map", "schedule_edges", "schedule_skip_stats",
-           "suspend_counting"]
+           "counting_suspended", "dense_skip_stats", "feat_skip_stats",
+           "fused_call", "gas_scatter", "gas_scatter_fused",
+           "gas_scatter_ref", "occupancy_map", "schedule_edges",
+           "schedule_skip_stats", "suspend_counting"]

@@ -3,7 +3,7 @@
 The port runs on one device, so the lookup is the JAX package's
 single-device branch: ``table[ids]`` cast to the compute dtype. The
 CGTrans sharded lookup (owner-resolved gather, psum of the result) comes
-with the mesh dataflows (ROADMAP Queue 1 row 2).
+with the LM stack (ROADMAP Queue 1 row 10).
 """
 
 from __future__ import annotations
@@ -17,7 +17,7 @@ def embed_lookup(table: torch.Tensor, ids: torch.Tensor, *, mesh=None,
     if mesh is not None:
         raise NotImplementedError(
             "the sharded (CGTrans) embedding lookup is not ported yet "
-            "(ROADMAP Queue 1 row 2)")
+            "(ROADMAP Queue 1 row 10, the LM stack)")
     return table[ids.long()].to(compute_dtype)
 
 

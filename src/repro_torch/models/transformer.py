@@ -46,7 +46,7 @@ def _no_mesh(mesh) -> None:
     if mesh is not None:
         raise NotImplementedError(
             "mesh= is not ported yet: the port's LM path runs on one device "
-            "(ROADMAP Queue 1 row 2, the sharded dataflows)")
+            "(ROADMAP Queue 1 row 10, the LM stack)")
 
 
 # ---------------------------------------------------------------------------

@@ -13,6 +13,9 @@ row cache cannot serve them).
 
 Counters are the claim surface: ``hits``/``misses``/``hit_rate`` feed the
 bench's hot-cache row.
+
+Rows are numpy arrays, or ``torch.bfloat16`` CPU tensors for a bfloat16
+table (``ServeResult`` says why); either is kept as a bit copy.
 """
 
 from __future__ import annotations
@@ -21,6 +24,7 @@ import collections
 from typing import Dict, Tuple
 
 import numpy as np
+import torch
 
 
 class HotVertexCache:
@@ -40,27 +44,33 @@ class HotVertexCache:
     def __contains__(self, vid: int) -> bool:
         return int(vid) in self._rows
 
-    def lookup(self, ids: np.ndarray, n_features: int,
-               dtype=np.float32) -> Tuple[np.ndarray, np.ndarray]:
+    def lookup(self, ids: np.ndarray, n_features: int, dtype=np.float32,
+               touch: bool = True) -> Tuple[np.ndarray, np.ndarray]:
         """(B,) ids → ((B, F) rows, (B,) hit mask). Miss rows are zero and
         hit rows are refreshed to most-recently-used; counters tick one per
         id (repeated ids in one batch each count — they each would have
         been an SSD find). ``dtype`` is the serving table's feature dtype —
         the result block the engine substitutes hit rows into — so hits
         stay bit copies on non-f32 tables (bf16 serving) instead of being
-        silently promoted."""
+        silently promoted; ``torch.bfloat16`` gives a tensor.
+        ``touch=False`` reads without ticking the counters or refreshing
+        the order."""
         ids = np.asarray(ids).reshape(-1)
-        rows = np.zeros((ids.shape[0], n_features), dtype)
+        shape = (ids.shape[0], n_features)
+        rows = (torch.zeros(shape, dtype=dtype)
+                if isinstance(dtype, torch.dtype) else np.zeros(shape, dtype))
         hit = np.zeros(ids.shape[0], bool)
         for i, vid in enumerate(ids):
             row = self._rows.get(int(vid))
             if row is None:
-                self.misses += 1
+                if touch:
+                    self.misses += 1
                 continue
-            self._rows.move_to_end(int(vid))
+            if touch:
+                self._rows.move_to_end(int(vid))
+                self.hits += 1
             rows[i] = row
             hit[i] = True
-            self.hits += 1
         return rows, hit
 
     def fill(self, ids: np.ndarray, rows: np.ndarray) -> None:
@@ -69,11 +79,12 @@ class HotVertexCache:
         bit copies of what the find returned is the whole exactness claim
         (an f32 coercion here used to break it for bf16 tables)."""
         ids = np.asarray(ids).reshape(-1)
-        for vid, row in zip(ids, np.asarray(rows)):
+        for vid, row in zip(ids, rows):
             key = int(vid)
             if key in self._rows:
                 self._rows.move_to_end(key)
-            self._rows[key] = np.array(row, copy=True)
+            self._rows[key] = (row.clone() if torch.is_tensor(row)
+                               else np.array(row, copy=True))
             if len(self._rows) > self.capacity:
                 self._rows.popitem(last=False)
                 self.evictions += 1

@@ -30,6 +30,14 @@ scatter-back, where the JAX host reads the seed-sharded result. The queue's
 trigger is rank 0's, broadcast once per ``poll`` (``trigger_broadcast``),
 so a clock read differently on two ranks cannot split their drains.
 
+The table is served in its own dtype where it is float32, bfloat16 or
+float16, as the JAX engine serves any float table of at most 4 bytes an
+element; integer and float64 tables are served as float32. A bfloat16
+table arrives as a ``torch.bfloat16`` tensor or as a numpy array whose
+dtype is named ``bfloat16`` (``ml_dtypes``'s, read through its bits: the
+port does not import ``ml_dtypes``). ``fetch_callable`` hands out the
+fused fetch of a drain without running it, for counting.
+
 The default backend is the kernel (``impl="kernel"``), the deployment; the
 JAX engine defaults to its oracle (``impl="xla"``).
 """
@@ -54,9 +62,48 @@ from repro_torch.serving.cache import HotVertexCache
 from repro_torch.serving.queue import RequestQueue, ServeRequest
 
 
+# the table dtypes served as they come (a float of at most 4 bytes an
+# element, the JAX engine's rule); any other table is served as float32
+SERVED_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+                 "float16": torch.float16}
+
+
+def _served_dtype(feats) -> torch.dtype:
+    """The device dtype of a table given as a numpy array or a tensor."""
+    return SERVED_DTYPES.get(str(feats.dtype).removeprefix("torch."),
+                             torch.float32)
+
+
+def _table_rows(feats, rows, dtype: torch.dtype) -> torch.Tensor:
+    """A copy of rows ``rows`` of the table (a numpy array or a tensor) as
+    a tensor of ``dtype``. A numpy bfloat16 array is read through its bits;
+    of a memory-mapped table only these rows are read."""
+    part = feats[rows]
+    if torch.is_tensor(part):
+        return part.to(dtype=dtype, copy=True)
+    if part.dtype.name == "bfloat16":
+        return torch.from_numpy(np.array(part).view(np.uint16)).view(
+            torch.bfloat16)
+    return torch.from_numpy(np.array(part, np.float16 if dtype ==
+                                     torch.float16 else np.float32))
+
+
+def _host(rows: torch.Tensor):
+    """Result rows on the host: a numpy array, or a ``torch.bfloat16`` CPU
+    tensor, numpy having no bfloat16 of its own."""
+    rows = rows.cpu()
+    return rows if rows.dtype == torch.bfloat16 else rows.numpy()
+
+
 @dataclasses.dataclass
 class ServeResult:
-    """One caller's answer: its seeds' own rows + aggregated neighborhoods."""
+    """One caller's answer: its seeds' own rows + aggregated neighborhoods.
+
+    The rows are in the served table's dtype (``ServingEngine.feat_dtype``):
+    numpy arrays of float32 or float16, or, for a bfloat16 table,
+    ``torch.bfloat16`` CPU tensors (numpy has no bfloat16 without
+    ``ml_dtypes``, which the port does not import); the hot cache keeps
+    its rows in the same form, as bit copies."""
     rid: int
     tenant: int
     self_rows: np.ndarray     # (B, F) the seeds' own feature rows
@@ -67,17 +114,19 @@ class ServeResult:
 class ServingEngine:
     """Batches concurrent GraphSAGE queries into fused SSD command blocks.
 
-    ``feats`` is the (V, F) serve-time feature table and ``indptr`` /
-    ``indices`` its CSR adjacency; the table is held as float32 on
-    ``device`` (ints and float64 convert once). ``fuse=False`` degrades to
-    the one-query-one-dispatch baseline — same results, N× the finds.
-    ``mesh`` shards the table along the ``data`` axis (``V`` must divide
+    ``feats`` is the (V, F) serve-time feature table (a numpy array or a
+    tensor) and ``indptr`` / ``indices`` its CSR adjacency; the table is
+    held on ``device`` in its own dtype if that is float32, bfloat16 or
+    float16, else as float32 (ints and float64 convert once), and
+    ``feat_dtype`` is the result rows' dtype on the host (``ServeResult``).
+    ``fuse=False`` degrades to the one-query-one-dispatch baseline — same
+    results, N× the finds. ``mesh`` shards the table along the ``data`` axis (``V`` must divide
     by its size; ``device`` is then the mesh's).
 
     ``wire`` and ``features`` pass to every command block as in the JAX
     engine; ``features="sparse"`` measures the table's packed capacity once
-    (``sparse.table_capacity`` over the whole float32 table, so every rank
-    of a mesh holds the same). Unsharded both are no-ops, bit for bit.
+    (``sparse.table_capacity`` over the whole table as served, so every
+    rank of a mesh holds the same). Unsharded both are no-ops, bit for bit.
 
     ``partition="island"`` islandizes the table layout once at build
     (``graph.partition.islandize`` over the CSR, ``n_shards`` parts,
@@ -86,9 +135,6 @@ class ServingEngine:
     original ids; ``_request_segments`` translates the ids entering the
     command block, and rows come back positionally, so results are the
     interval engine's bit for bit.
-
-    Not ported yet, raising ``NotImplementedError``: sub-float32 (bf16 /
-    f16) tables.
     """
 
     def __init__(
@@ -121,15 +167,14 @@ class ServingEngine:
         if partition not in ("interval", "island"):
             raise ValueError(f"unknown partition {partition!r} "
                              "(expected 'interval' or 'island')")
-        feats = np.asarray(feats)
+        if not torch.is_tensor(feats):
+            feats = np.asarray(feats)
         if feats.ndim != 2:
-            raise ValueError(f"feats must be (V, F), got {feats.shape}")
-        if np.issubdtype(feats.dtype, np.floating) and feats.dtype.itemsize < 4:
-            raise NotImplementedError(
-                f"{feats.dtype} tables are not ported yet (ROADMAP Queue 1 "
-                f"row 7, bf16 serving); pass float32")
+            raise ValueError(f"feats must be (V, F), got {tuple(feats.shape)}")
         self.n_vertices, self.n_features = feats.shape
-        self.feat_dtype = np.dtype(np.float32)
+        dtype = _served_dtype(feats)
+        self.feat_dtype = (dtype if dtype == torch.bfloat16 else
+                           np.dtype(str(dtype).removeprefix("torch.")))
         self.mesh = mesh if sharded else None
         self.n_shards = mesh.size if sharded else 1
         if self.n_vertices % self.n_shards:
@@ -156,9 +201,8 @@ class ServingEngine:
             rows = self.islands.inverse[lo:lo + part]
         # a copy of this rank's rows only (of a memory-mapped table, the
         # rest is never read), converted once
-        self.feats = torch.from_numpy(np.array(
-            feats[rows], np.float32)).to(self.device).reshape(
-                1, part, self.n_features)
+        self.feats = _table_rows(feats, rows, dtype).to(self.device).reshape(
+            1, part, self.n_features)
         self.fanout = int(fanout)
         self.op = op
         self.dataflow = dataflow
@@ -166,10 +210,13 @@ class ServingEngine:
         self.scheduled = scheduled
         self.wire = cgtrans._check_wire(wire, dataflow, features)
         self.features = sparsefmt.validate_features(features)
-        self.sparse_capacity = (
-            sparsefmt.table_capacity(feats if feats.dtype == np.float32
-                                     else feats.astype(np.float32))
-            if features == "sparse" else None)
+        self.sparse_capacity = None
+        if features == "sparse":
+            # a served dtype has its own nonzeros; a converted table is
+            # measured as served (float64 values can round to 0)
+            served = str(feats.dtype).removeprefix("torch.") in SERVED_DTYPES
+            self.sparse_capacity = sparsefmt.table_capacity(
+                feats if served else _table_rows(feats, slice(None), dtype))
         self.fuse = fuse
         self.sample_seed = int(sample_seed)
         self.clock = clock
@@ -265,12 +312,14 @@ class ServingEngine:
                     mask[lo:lo + r], bool)).to(self.device).reshape(1, r, K),
                 R)
 
-    def _request_segments(self, req: ServeRequest):
+    def _request_segments(self, req: ServeRequest, touch: bool = True):
         """One request → its two command-block segments: the K=1 self-row
-        lookup (hot-cache hits masked out) and the fan-out aggregation."""
+        lookup (hot-cache hits masked out) and the fan-out aggregation.
+        ``touch=False`` reads the cache without counting or reordering."""
         if self.cache is not None:
             cached_rows, hit = self.cache.lookup(req.seeds, self.n_features,
-                                                 dtype=self.feat_dtype)
+                                                 dtype=self.feat_dtype,
+                                                 touch=touch)
         else:
             cached_rows = None
             hit = np.zeros(req.seeds.shape[0], bool)
@@ -286,13 +335,13 @@ class ServingEngine:
         fan = (fan_ids, req.mask)
         return lookup, fan, cached_rows, hit
 
-    def _build_blocks(self, reqs: List[ServeRequest]):
+    def _build_blocks(self, reqs: List[ServeRequest], touch: bool = True):
         """The fused command block for one drained batch: per request a
         (lookup, fan-out) segment pair, every segment tenant-tagged in the
         descriptor that scatter-back consults."""
         blocks, shapes, tenants, row_counts, cache_ctx = [], [], [], [], []
         for req in reqs:
-            lookup, fan, cached_rows, hit = self._request_segments(req)
+            lookup, fan, cached_rows, hit = self._request_segments(req, touch)
             for ids, mask in (lookup, fan):
                 dev_ids, dev_mask, R = self._shape_block(ids, mask)
                 blocks.append((dev_ids, dev_mask))
@@ -305,11 +354,28 @@ class ServingEngine:
 
     def _fetch(self, blocks):
         """ONE ``aggregate_multi`` call — the engine's only dispatch site."""
+        return self._aggregate(self.feats, blocks)
+
+    def _aggregate(self, feats, blocks):
         return cgtrans.aggregate_multi(
-            self.feats, blocks, mesh=self.mesh, dataflow=self.dataflow,
+            feats, blocks, mesh=self.mesh, dataflow=self.dataflow,
             op=self.op, impl=self.impl, scheduled=self.scheduled,
             wire=self.wire, features=self.features,
             sparse_capacity=self.sparse_capacity)
+
+    def fetch_callable(self, reqs: Optional[List[ServeRequest]] = None):
+        """(fn, args) of the fused fetch a drain of ``reqs`` (default: the
+        queue's pending requests) would dispatch, built without touching
+        engine state (the hot cache is read without counting or
+        reordering). ``fn(*args)`` runs that fetch; under
+        ``gas.count_dispatches()`` and ``collectives.count_collectives()``
+        it counts the finds, scatters and collectives of one drain. On a
+        mesh every rank calls both."""
+        reqs = list(self.queue._pending) if reqs is None else list(reqs)
+        if not reqs:
+            raise ValueError("nothing pending to trace")
+        blocks, _, _, _ = self._build_blocks(reqs, touch=False)
+        return self._aggregate, (self.feats, tuple(blocks))
 
     @torch.no_grad()
     def _dispatch(self, reqs: List[ServeRequest]) -> None:
@@ -357,20 +423,20 @@ class ServingEngine:
             self.heartbeat.touch()
 
     def _segment_rows(self, outs, row_counts) -> List[np.ndarray]:
-        """Each segment's (R_i, F) rows on the host, padding dropped, as
-        writable arrays: one device → host copy of the whole response
+        """Each segment's (R_i, F) rows on the host (``_host``), padding
+        dropped, writable: one device → host copy of the whole response
         block, after one ``result_gather`` on a mesh."""
         rows = torch.cat([o.reshape(-1, self.n_features) for o in outs])
         if self.mesh is None:
-            every = rows.cpu().numpy()[None]
+            every = _host(rows[None])
         else:
-            every = collectives.all_gather(rows, self.mesh,
-                                           name="result_gather").cpu().numpy()
+            every = _host(collectives.all_gather(rows, self.mesh,
+                                                 name="result_gather"))
         segs, off = [], 0
         for o, R in zip(outs, row_counts):   # rank-major → segment rows
             r = o.shape[1]
-            segs.append(every[:, off:off + r].reshape(-1, self.n_features)
-                        [:R].copy())
+            seg = every[:, off:off + r].reshape(-1, self.n_features)[:R]
+            segs.append(seg.clone() if torch.is_tensor(seg) else seg.copy())
             off += r
         return segs
 

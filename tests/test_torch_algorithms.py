@@ -6,8 +6,8 @@ port's ``impl="ref"`` and ``impl="kernel"`` (the dense grid's plain
 version here on the CPU): BFS levels, SSSP distances and CC labels bit
 for bit on R-MAT and uniform graphs, ``gas_sort`` exact with ties, and
 ``feature_embedding`` exact on integer data. The port's dispatch counter
-ticks once per round (a Python loop), the JAX trace once per
-``while_loop`` body; the dispatch test states both.
+counts a traversal's loop body once, as the JAX trace counts its
+``while_loop`` body.
 """
 
 import numpy as np
@@ -111,30 +111,55 @@ def test_feature_embedding_equals_reference_on_integer_data(op, impl):
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
-def test_dispatch_counts_tick_once_per_round():
-    """The port's loop ticks one ``find`` (and, on the kernel route, one
-    ``kernel_scatter``) per round it ran; the JAX trace counts the
-    ``while_loop`` body once, so its counter reads 1 of each."""
+def test_dispatch_counts_tick_once_per_round(monkeypatch):
+    """The port counts each traversal's loop body once, as the JAX trace
+    counts its ``while_loop`` body: one ``find`` and, on the kernel route,
+    one ``kernel_scatter``, whatever the number of rounds. Every round
+    still runs its scatter (counted here by wrapping it), and the rounds
+    are the fixed point's."""
     g = rmat(7, 8, seed=1, weights=True)
     V = g.n_vertices
+    calls = []
+
+    def scatter(*args, **kwargs):
+        calls.append(kwargs["impl"])
+        return gas.gas_scatter(*args, **kwargs)
+
+    monkeypatch.setattr(alg, "gas_scatter", scatter)
+    traversals = {
+        "bfs": (lambda impl: alg.bfs(_t(g.src), _t(g.dst), V, 0, impl=impl),
+                lambda impl: jalg.bfs(_j(g.src), _j(g.dst), V, 0, impl=impl)),
+        "sssp": (lambda impl: alg.sssp(_t(g.src), _t(g.dst), _t(g.weights),
+                                       V, 0, impl=impl),
+                 lambda impl: jalg.sssp(_j(g.src), _j(g.dst),
+                                        _j(g.weights), V, 0, impl=impl)),
+        "cc": (lambda impl: alg.connected_components(_t(g.src), _t(g.dst), V,
+                                                     impl=impl),
+               lambda impl: jalg.connected_components(_j(g.src), _j(g.dst), V,
+                                                      impl=impl)),
+    }
     rounds = {}
-    for impl in IMPLS:
-        with gas.count_dispatches() as c:
-            alg.sssp(_t(g.src), _t(g.dst), _t(g.weights), V, 0, impl=impl)
-        rounds[impl] = c["find"]
-        assert c["kernel_scatter"] == (c["find"] if impl == "kernel" else 0)
-    assert rounds["ref"] == rounds["kernel"] > 2
+    for name, (port, ref) in traversals.items():
+        for impl, jimpl in (("ref", "xla"), ("kernel", "pallas")):
+            calls.clear()
+            with gas.count_dispatches() as c:
+                port(impl)
+            with jgas.count_dispatches() as jc:
+                ref(jimpl)
+            assert (c["find"], c["kernel_scatter"]) == \
+                (jc["find"], jc["kernel_scatter"]) == \
+                (1, 1 if impl == "kernel" else 0), (name, impl)
+            rounds[name, impl] = len(calls)
+        assert rounds[name, "ref"] == rounds[name, "kernel"] > 2, name
     # the rounds are the fixed point's: one more round changes nothing,
     # one fewer leaves a distance to fall
+    n = rounds["sssp", "ref"]
     full = alg.sssp(_t(g.src), _t(g.dst), _t(g.weights), V, 0)
     short = alg.sssp(_t(g.src), _t(g.dst), _t(g.weights), V, 0,
-                     max_iters=rounds["ref"] - 2)
+                     max_iters=n - 2)
     assert torch.equal(alg.sssp(_t(g.src), _t(g.dst), _t(g.weights), V, 0,
-                                max_iters=rounds["ref"] - 1), full)
+                                max_iters=n - 1), full)
     assert not torch.equal(short, full)
-    with jgas.count_dispatches() as jc:
-        jalg.sssp(_j(g.src), _j(g.dst), _j(g.weights), V, 0, impl="pallas")
-    assert (jc["find"], jc["kernel_scatter"]) == (1, 1)
 
 
 def test_results_stay_on_the_edges_device():

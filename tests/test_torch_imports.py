@@ -1,6 +1,7 @@
 """The port stands alone: ``repro_torch`` imports neither JAX nor the JAX
-package, builds nothing when imported, and its entry points never fall back
-to the CPU without being asked."""
+package nor ``ml_dtypes`` (which comes with JAX and is missing where the
+port runs on the card), builds nothing when imported, and its entry points
+never fall back to the CPU without being asked."""
 
 import ast
 import os
@@ -28,13 +29,17 @@ def _modules():
         for p in PORT.rglob("*.py"))
 
 
+# what no module of the port may import
+FOREIGN = ("jax", "jaxlib", "repro", "ml_dtypes")
+
+
 def test_every_module_imports_without_jax_or_repro():
     code = (
         "import importlib, sys\n"
         f"for m in {_modules()!r}:\n"
         "    importlib.import_module(m)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'repro'))\n"
+        f"{FOREIGN!r})\n"
         "assert not bad, bad\n"
         "from repro_torch.kernels.gas_scatter import kernel\n"
         "assert kernel._lib is None\n"
@@ -63,7 +68,7 @@ def _imported_roots(path: Path):
                          ids=lambda p: str(p.relative_to(REPO)))
 def test_no_jax_or_repro_import_in_source(path):
     bad = [(line, root) for line, root in _imported_roots(path)
-           if root in ("jax", "jaxlib", "repro")]
+           if root in FOREIGN]
     assert not bad, bad
 
 

@@ -221,9 +221,9 @@ def test_unported_parts_raise_naming_their_row():
     with pytest.raises(NotImplementedError, match="Queue 1 row 10"):
         TT.layer_schema(configs.smoke_config("qwen1.5-0.5b"), "moe")
     cfg = configs.smoke_config("qwen1.5-0.5b")
-    with pytest.raises(NotImplementedError, match="Queue 1 row 2"):
+    with pytest.raises(NotImplementedError, match="Queue 1 row 10"):
         make_prefill_step(cfg, cache_len=8, mesh=object())
-    with pytest.raises(NotImplementedError, match="Queue 1 row 2"):
+    with pytest.raises(NotImplementedError, match="Queue 1 row 10"):
         make_decode_step(cfg, mesh=object())
 
 

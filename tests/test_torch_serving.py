@@ -124,8 +124,9 @@ def test_engine_knobs_outside_the_slice_raise():
     with pytest.raises(ValueError):
         ServingEngine(feats, indptr, indices, wire="bf16",
                       dataflow="baseline", **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ServingEngine(feats.astype(np.float16), indptr, indices, **kw)
+    # a float16 table is served in its own dtype (tests/test_torch_bf16.py)
+    assert ServingEngine(feats.astype(np.float16), indptr, indices,
+                         **kw).feats.dtype == torch.float16
     with pytest.raises(ValueError):
         ServingEngine(feats, indptr, indices, impl="pallas", **kw)
     eng = ServingEngine(feats.astype(np.int64), indptr, indices, **kw)

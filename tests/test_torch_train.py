@@ -281,7 +281,7 @@ def test_restore_places_leaves_and_refuses_a_mesh(tmp_path):
     assert got["b"]["c"].device.type == "cpu"
     with pytest.raises(ValueError, match="device="):
         ckpt.restore({"a": np.zeros(3), "b": {"c": np.zeros(2)}})
-    with pytest.raises(NotImplementedError, match="row 2"):
+    with pytest.raises(NotImplementedError, match="row 10"):
         ckpt.restore({"a": torch.zeros(3), "b": {"c": torch.zeros(2)}},
                      mesh=object())
 
