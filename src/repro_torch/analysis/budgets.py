@@ -56,6 +56,14 @@ SERVE_FETCH_COLLECTIVES: Dict[str, Dict[str, int]] = {
 }
 
 
+#: GAS finds of the same pair: one combined table gather per drain of any
+#: N; the naive baseline one per query
+SERVE_FETCH_FINDS: Dict[str, int] = {"fused": 1, "naive_per_query": 1}
+
+#: concurrency of the serving contracts and the counted serving rows
+SERVE_CONTRACT_N = 8
+
+
 def merge(*parts: Mapping[str, int]) -> Dict[str, int]:
     out: Dict[str, int] = {}
     for p in parts:
@@ -97,6 +105,14 @@ MULTI_BWD_PALLAS = {
                       SAGE_FETCH_KERNEL_SCATTERS_FWD_BWD["coalesced"]}),
     "baseline": {"all_gather": 1, "all_to_all": 3, "psum": 3,
                  "find": 1, "reduce": 3, "kernel_scatter": 3},
+}
+
+#: the un-coalesced twin of aggregate_multi: the same pair as two
+#: aggregate_sampled streams
+SEPARATE_FWD = {
+    "cgtrans": merge(SAGE_FETCH_COLLECTIVES["separate"],
+                     SAGE_FETCH_DISPATCH["separate"]),
+    "baseline": {"all_gather": 2, "all_to_all": 4, "find": 2, "reduce": 2},
 }
 
 # -- make_sage_train_step: grad in the PARAMS, feats closed over -------------
@@ -203,6 +219,7 @@ def gcn_full_forward(dataflow: str, op: str, impl: str, n_layers: int, *,
 #: collectives the JAX package issues outside its traced program, per
 #: train step and per serving drain (keys of their own in the port)
 GRAD_ALL_REDUCE_PER_STEP = 1
+METRIC_ALL_REDUCE_PER_STEP = 1
 RESULT_GATHER_PER_DRAIN = 1
 
 

@@ -63,6 +63,7 @@ from repro_torch.core import collectives, gas
 from repro_torch.core import sparse as sparsefmt
 from repro_torch.core import wire as wirefmt
 from repro_torch.device import check_impl
+from repro_torch.kernels import entries
 from repro_torch.kernels.gas_scatter import ops as gas_ops
 from repro_torch.launch.mesh import DataMesh
 
@@ -191,6 +192,7 @@ def _find(table: torch.Tensor, ids: torch.Tensor, *, impl: str,
     if sparse_cap is None:
         return gas.gas_gather(table, ids, impl=impl)
     gas._tick("find")
+    entries.note("find", table)
     return _SparseGather.apply(table, ids, sparse_cap, check_impl(impl))
 
 
@@ -678,7 +680,8 @@ def _sharded_fetch(f: torch.Tensor, seg_enc: List[torch.Tensor], mesh,
         return outs
 
     # baseline: gather once, ship the raw (n, N, F) rows plus the ownership
-    # bits (as bytes: NCCL has no bool) to the seed owners, reduce there
+    # bits (bool, as JAX ships them; ``collectives`` sends their bytes) to
+    # the seed owners, reduce there
     own = (rel >= 0) & (rel < part)
     rows = _find(f, torch.clamp(rel, 0, part - 1).reshape(-1), impl=impl,
                  sparse_cap=sparse_cap).reshape(n, -1, F)
@@ -691,8 +694,7 @@ def _sharded_fetch(f: torch.Tensor, seg_enc: List[torch.Tensor], mesh,
         raw = _sparse_all_to_all(rows, mesh, wire, sparse_cap)
     else:
         raw = collectives.all_to_all(rows, mesh)          # (n, N, F)
-    okk = collectives.all_to_all(own.to(torch.uint8)[..., None],
-                                 mesh)[..., 0].bool()
+    okk = collectives.all_to_all(own[..., None], mesh)[..., 0]
     outs, off = [], 0
     for r, k in shapes:
         sl = slice(off, off + r * k)

@@ -18,7 +18,9 @@ the byte counts equal the JAX package's.
 ``repro.launch.jaxpr_stats``'s collective counts: every call ticks the
 innermost context under the name of the JAX primitive it stands for
 (``all_gather``, ``all_to_all``, ``psum``, ``psum_scatter``) with its bytes,
-``max(input, output)`` as the JAX package's HLO byte count takes them.
+``max(input, output)`` as the JAX package's HLO byte count takes them,
+and the payload's logical dtype (the tensor the caller passed, before
+any ``uint8`` view), which ``analysis/dtype_flow.py`` reads.
 Collectives that JAX issues outside the traced program have keys of their
 own: ``grad_all_reduce`` (GSPMD's gradient reduction of a data-parallel
 step), ``metric_all_reduce`` (the global loss and accuracy),
@@ -37,7 +39,7 @@ from __future__ import annotations
 
 import contextlib
 from collections import Counter
-from typing import Dict, List
+from typing import Dict, List, Set
 
 import torch
 import torch.distributed as dist
@@ -53,11 +55,13 @@ _reduce_scatter = getattr(dist, "reduce_scatter_single", None) or \
 
 
 class CollectiveCounts:
-    """Calls and bytes per collective name; ``counts[name]`` is the calls."""
+    """Calls, bytes and logical payload dtypes (``"float32"``,
+    ``"int16"``, ...) per collective name; ``counts[name]`` is the calls."""
 
     def __init__(self):
         self.calls: Counter = Counter()
         self.bytes: Counter = Counter()
+        self.dtypes: Dict[str, Set[str]] = {}
 
     def __getitem__(self, name: str) -> int:
         return self.calls[name]
@@ -81,10 +85,13 @@ def count_collectives():
         _COUNTERS.remove(counts)
 
 
-def _tick(name: str, nbytes: int) -> None:
+def _tick(name: str, nbytes: int, dtype: torch.dtype) -> None:
     if _COUNTERS and not gas_ops.counting_suspended():
-        _COUNTERS[-1].calls[name] += 1
-        _COUNTERS[-1].bytes[name] += int(nbytes)
+        c = _COUNTERS[-1]
+        c.calls[name] += 1
+        c.bytes[name] += int(nbytes)
+        c.dtypes.setdefault(name, set()).add(
+            str(dtype).removeprefix("torch."))
 
 
 # dtypes gloo or NCCL refuse, shipped as their bytes
@@ -102,7 +109,7 @@ def _gather(x: torch.Tensor, mesh, name: str) -> torch.Tensor:
     flat = _flat_wire(x)
     out = flat.new_empty(mesh.size * flat.numel())
     mesh.run(lambda o, i: _all_gather(o, i, group=mesh.group), out, flat)
-    _tick(name, out.nbytes)
+    _tick(name, out.nbytes, x.dtype)
     return out.view(x.dtype).reshape((mesh.size,) + tuple(x.shape))
 
 
@@ -110,7 +117,7 @@ def _scatter_sum(x: torch.Tensor, mesh) -> torch.Tensor:
     flat = x.contiguous().reshape(-1)
     out = flat.new_empty(flat.numel() // mesh.size)
     mesh.run(lambda o, i: _reduce_scatter(o, i, group=mesh.group), out, flat)
-    _tick("psum_scatter", flat.nbytes)
+    _tick("psum_scatter", flat.nbytes, x.dtype)
     return out.reshape(tuple(x.shape[1:]))
 
 
@@ -120,7 +127,7 @@ def _exchange(x: torch.Tensor, mesh) -> torch.Tensor:
     out = torch.empty_like(flat)
     mesh.run(lambda o, i: dist.all_to_all_single(o, i, group=mesh.group),
              out, flat)
-    _tick("all_to_all", flat.nbytes)
+    _tick("all_to_all", flat.nbytes, x.dtype)
     return out.view(x.dtype).reshape(x.shape)
 
 
@@ -192,5 +199,5 @@ def all_reduce(x: torch.Tensor, mesh, *, name: str = "psum") -> torch.Tensor:
     ``name`` is the counter key."""
     out = x.detach().clone().contiguous()
     mesh.run(lambda o: dist.all_reduce(o, group=mesh.group), out)
-    _tick(name, out.nbytes)
+    _tick(name, out.nbytes, x.dtype)
     return out

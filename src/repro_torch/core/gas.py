@@ -39,6 +39,7 @@ from typing import Literal, Optional
 import torch
 
 from repro_torch.device import check_impl
+from repro_torch.kernels import entries
 from repro_torch.kernels.gas_scatter import ops as gas_ops
 
 Op = Literal["add", "max", "min", "or"]
@@ -118,6 +119,7 @@ def gas_gather(table: torch.Tensor, ids: torch.Tensor, *,
     ``impl="kernel"`` keeps the forward a plain index and routes the
     backward's scatter-add through the FAST-GAS kernel."""
     _tick("find")
+    entries.note("find", table)
     if check_impl(impl) == "kernel":
         if table.dim() != 2:
             raise NotImplementedError(
@@ -134,6 +136,7 @@ def _scatter_weighted_impl(dst, src_vals, weights, mask, n_rows: int, op: Op,
     ``schedule`` is the banded idle-skip walk for pre-permuted inputs
     (kernel backend only)."""
     _tick("reduce")
+    entries.note("reduce", src_vals, weights)
     if check_impl(impl) == "kernel":
         if op == "or":
             # boolean-or ignores edge weights; the int round trip matches

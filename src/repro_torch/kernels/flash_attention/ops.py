@@ -11,6 +11,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels import entries
 from repro_torch.kernels.flash_attention import kernel as K
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
@@ -25,6 +26,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0,
                     softcap: float = 0.0) -> torch.Tensor:
     """q: (B,S,H,hd) pre-scaled; k,v: (B,T,Hkv,hd) → (B,S,H,hd)."""
+    entries.note("flash", q, k, v)
     B, S, H, hd = q.shape
     T, Hkv = k.shape[1], k.shape[2]
     out = K.flash_attention_fwd(

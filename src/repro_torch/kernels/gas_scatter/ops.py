@@ -25,6 +25,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from repro_torch.kernels import entries
 from repro_torch.kernels.gas_scatter import kernel as K
 from repro_torch.kernels.gas_scatter.ref import gas_scatter_ref
 
@@ -294,6 +295,7 @@ def gas_scatter(dst: torch.Tensor, values: torch.Tensor, n_rows: int, *,
     ``ref.gas_scatter_ref`` exactly (out-of-range dst ignored). One public
     call = one kernel dispatch, ticked into ``count_dispatches``."""
     _tick("kernel_scatter")
+    entries.note("kernel_scatter", values)
     return _gas_scatter(dst, values, n_rows, op=op)
 
 
@@ -368,6 +370,7 @@ def gas_scatter_fused(dst: torch.Tensor, values: torch.Tensor,
     public call = one kernel dispatch, ticked into ``count_dispatches``.
     """
     _tick("kernel_scatter")
+    entries.note("kernel_scatter", values, weights)
     if values.dim() == 1:
         call = fused_call(dst, values[:, None], weights, mask, n_rows, op=op,
                           schedule=schedule)
