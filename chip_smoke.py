@@ -406,6 +406,21 @@ def profile_call(torch, fn, top=8):
              for e in kernels])
 
 
+def device_launches(torch, fn):
+    """The device kernels one call of ``fn`` launches, from the
+    profiler's trace."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA)
+
+
 def bound(call):
     """(bound_ms, bound_by) of a kernel call: the bytes this call's data
     needs (ids and weights of every visited tile, the value rows of its
@@ -1306,6 +1321,351 @@ def phase_lm(torch, FK, smi):
             + "; top device kernels (ms): "
             + "; ".join(f"{k} x{n} {ms:.2f}" for k, n, ms in kernels))
     return launches, routes
+
+
+# ---------------------------------------------------------------------------
+# phase c: LM training on one card; the recurrent, MoE and cross kinds
+# ---------------------------------------------------------------------------
+
+LM_TRAIN_ARCH = "qwen1.5-0.5b"
+# the card against the CPU: f32, B = 1, S = 128, two steps; at eps 1e-3
+# AdamW's first steps move each parameter as a smooth function of its
+# gradient (tests/_lm_parity.py says why the default eps does not)
+PARITY_B, PARITY_S, PARITY_STEPS = 1, 128, 2
+PARITY_KW = dict(learning_rate=1e-3, warmup_steps=1, total_steps=3,
+                 eps=1e-3)
+# the bf16 run on the card: B = 4, S = 512, three steps on TokenStream(0)
+BF16_B, BF16_S, BF16_STEPS = 4, 512, 3
+# the recurrent kinds, served at their published widths, and one train step
+RECURRENT_ARCHS = ("mamba2-780m", "recurrentgemma-2b")
+SSD_TRAIN_B, SSD_TRAIN_S = 2, 256
+# every architecture the kinds added, at smoke size: card against the CPU
+NEW_ARCHS = ("gemma3-12b", "phi3-medium-14b", "deepseek-moe-16b",
+             "moonshot-v1-16b-a3b", "llama-3.2-vision-90b", "mamba2-780m",
+             "recurrentgemma-2b")
+SMOKE_B, SMOKE_P, SMOKE_STEPS = 2, 8, 4
+SMOKE_KW = dict(learning_rate=1e-2, warmup_steps=1, total_steps=5, eps=1e-3)
+
+
+def _tree_to(tree, device):
+    from repro_torch.common.tree import tree_map
+    return tree_map(lambda t: t.to(device), tree)
+
+
+def _tree_max_diff(a, b):
+    """max |a - b| over two trees of tensors (b's leaves moved to a's
+    device)."""
+    from repro_torch.common.tree import leaves
+    return max(float((x.float() - y.to(x.device).float()).abs().max())
+               for x, y in zip(leaves(a), leaves(b)))
+
+
+def _close(a, b, rtol, atol):
+    """(every element within atol + rtol·|b|, max |a - b|)."""
+    b = b.to(a.device)
+    d = (a - b).abs()
+    return bool((d <= atol + rtol * b.abs()).all()), float(d.max())
+
+
+def flash_refusal_on_card(torch, FK):
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    q = torch.randn(1, 128, 2, 64, device="cuda", requires_grad=True)
+    k = torch.randn(1, 128, 2, 64, device="cuda")
+    FK.reset_launch_counts()
+    try:
+        flash_ops.flash_attention(q, k, k)
+        refused = False
+    except NotImplementedError as exc:
+        refused = "no VJP" in str(exc)
+    n = FK.launch_counts()["flash_attention"]
+    check(refused, "flash_attention took a requires_grad q on the card")
+    check(n == 0 and FK.flash_attention_plain.calls == 0,
+          f"the refusal launched: {n} launches, "
+          f"{FK.flash_attention_plain.calls} plain calls")
+    log("  flash_attention refuses a requires_grad q on the card before any "
+        "launch (0 launches, 0 plain calls)")
+
+
+def qwen_parity(torch, cfg):
+    """Two f32 steps at full width on the card and on the CPU from the
+    same parameters and batches."""
+    from repro_torch.common.config import TrainConfig
+    from repro_torch.data import TokenStream
+    from repro_torch.train import init_state, make_train_step
+
+    c32 = dataclasses.replace(cfg, compute_dtype="float32")
+    tc = TrainConfig(**PARITY_KW)
+    t0 = time.perf_counter()
+    cpu = init_state(c32, tc, 0, device="cpu", draw="device")
+    card = _tree_to(cpu, "cuda")
+    log(f"  f32 state drawn on the host and copied to the card in "
+        f"{time.perf_counter() - t0:.1f} s")
+    stream = TokenStream(vocab=cfg.vocab, batch=PARITY_B, seq_len=PARITY_S,
+                         seed=0)
+    step = make_train_step(c32, tc)
+    for i in range(PARITY_STEPS):
+        b = stream.batch_at(i)
+        t0 = time.perf_counter()
+        cpu, mc = step(cpu, b)
+        t_cpu = time.perf_counter() - t0
+        card, mg = step(card, b)
+        lc, lg = float(mc["total_loss"]), float(mg["total_loss"])
+        gc, gg = float(mc["grad_norm"]), float(mg["grad_norm"])
+        check(abs(lc - lg) <= 1e-4 * abs(lc),
+              f"f32 step {i + 1}: loss {lg} on the card, {lc} on the CPU")
+        check(abs(gc - gg) <= 1e-3 * abs(gc),
+              f"f32 step {i + 1}: grad_norm {gg} on the card, {gc} on the "
+              f"CPU")
+        log(f"  f32 step {i + 1} (B {PARITY_B}, S {PARITY_S}): loss card "
+            f"{lg:.6f} / CPU {lc:.6f}, grad_norm {gg:.6f} / {gc:.6f}; the "
+            f"CPU step took {t_cpu:.1f} s")
+    d = _tree_max_diff(card["params"], cpu["params"])
+    check(d <= 1e-5, f"f32 parameters after step {PARITY_STEPS} differ by "
+          f"{d} between the card and the CPU")
+    log(f"  f32 parameters after step {PARITY_STEPS}: max |card - CPU| "
+        f"{d:.3g} (limit 1e-5)")
+
+
+def qwen_bf16_train(torch, FK, K, cfg, smi):
+    """Three bf16 steps at B = 4, S = 512 through ``make_train_step``
+    (remat block), the port's kernel counts at 0 over them; the warm
+    step's time, memory, busy share and bound; microbatches 2 against 1."""
+    from repro_torch.common.config import TrainConfig
+    from repro_torch.common.hw import H100
+    from repro_torch.common.schema import count_params
+    from repro_torch.data import TokenStream
+    from repro_torch.models import transformer as T
+    from repro_torch.train import init_state, make_train_step
+
+    check(cfg.remat == "block" and cfg.compute_dtype == "bfloat16",
+          f"{cfg.name}: remat {cfg.remat}, compute {cfg.compute_dtype}")
+    n_params = count_params(T.model_schema(cfg))
+    tc = TrainConfig()
+    stream = TokenStream(vocab=cfg.vocab, batch=BF16_B, seq_len=BF16_S,
+                         seed=0)
+    state = init_state(cfg, tc, 0, device="cuda", draw="device")
+    step = make_train_step(cfg, tc)
+    batches = [{k: torch.from_numpy(v).cuda()
+                for k, v in stream.batch_at(i).items()}
+               for i in range(BF16_STEPS)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    FK.reset_launch_counts()
+    K.reset_launch_counts()
+    times = []
+    for i, b in enumerate(batches):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        state, m = step(state, b)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+        loss, gn = float(m["total_loss"]), float(m["grad_norm"])
+        check(torch.isfinite(m["total_loss"]) and torch.isfinite(
+            m["grad_norm"]), f"bf16 step {i + 1}: loss {loss}, grad_norm "
+            f"{gn}")
+        log(f"  bf16 step {i + 1}: loss {loss:.4f}, grad_norm {gn:.4f}, lr "
+            f"{float(m['lr']):.3g}, {times[-1]:.2f} ms (CUDA events)")
+    peak = torch.cuda.max_memory_allocated()
+    flash = FK.launch_counts()["flash_attention"]
+    gas = sum(K.launch_counts().values())
+    check(flash == 0 and gas == 0 and FK.flash_attention_plain.calls == 0,
+          f"training reached the port's kernels: flash {flash}, GAS {gas}")
+    tokens = BF16_B * BF16_S
+    warm = min(times[1:])
+    flops = 8 * n_params * tokens
+    bound_ms = flops / H100.peak_flops_bf16 * 1e3
+    log(f"  {cfg.name} bf16 training [{smi}]: {n_params / 1e9:.3f} B "
+        f"params, {tokens} tokens a step; warm step {warm:.2f} ms "
+        f"({tokens / warm * 1e3:.0f} tokens/s); peak memory "
+        f"{peak / 2**30:.2f} GiB; bound 8·N·tokens = {flops / 1e12:.3f} "
+        f"TFLOP over {H100.peak_flops_bf16 / 1e12:.0f} TFLOP/s = "
+        f"{bound_ms:.3f} ms ({100 * bound_ms / warm:.1f}% of the warm "
+        f"step); port kernel launches over {BF16_STEPS} steps: flash 0 "
+        f"(refused under autograd), GAS 0")
+    wall, device, hosts, kernels = profile_call(
+        torch, lambda: step(state, batches[0]))
+    n_launch = device_launches(torch, lambda: step(state, batches[0]))
+    log(f"  profile of one warm bf16 step (profiler on): wall {wall:.1f} ms,"
+        f" device time {device:.2f} ms ({100 * device / wall:.1f}% busy), "
+        f"{n_launch} device kernel launches a step;"
+        " top host ops (self CPU ms): "
+        + "; ".join(f"{k} x{n} {ms:.1f}" for k, n, ms in hosts)
+        + "; top device kernels (ms): "
+        + "; ".join(f"{k} x{n} {ms:.2f}" for k, n, ms in kernels))
+    _, m1 = step(state, batches[0])
+    _, m2 = make_train_step(cfg, dataclasses.replace(tc, microbatches=2))(
+        state, batches[0])
+    l1, l2 = float(m1["total_loss"]), float(m2["total_loss"])
+    check(abs(l1 - l2) <= 1e-2 * abs(l1),
+          f"bf16 microbatches=2 loss {l2} against {l1} at 1")
+    log(f"  bf16 microbatches=2: loss {l2:.5f} against {l1:.5f} at 1 "
+        f"(rtol 1e-2)")
+
+
+def recurrent_serving(torch, arch, smi):
+    """``launch.serve --workload lm`` at the published width (bf16), then
+    f32 teacher-forced decode against the full forward and bf16 logits
+    finite, on parameters drawn on the card."""
+    import numpy as np
+
+    from repro_torch import configs
+    from repro_torch.common.schema import count_params, init_params
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as T
+    from repro_torch.train import make_prefill_step
+
+    cfg = configs.get_config(arch)
+    argv = ["--workload", "lm", "--arch", arch, "--batch", str(LM_BATCH),
+            "--prompt-len", str(LM_PROMPT), "--gen", str(LM_GEN)]
+    t0 = time.perf_counter()
+    check(serve.main(argv) == 0, f"serve.main({argv}) failed")
+    log(f"  launch.serve {' '.join(argv)}: {time.perf_counter() - t0:.1f} s "
+        f"with the draw [{smi}]")
+    schema = T.model_schema(cfg, max_seq=LM_PROMPT + LM_GEN)
+    params = init_params(schema, 0, device="cuda", draw="device")
+    batch = serve.lm_batch(cfg, LM_BATCH, LM_PROMPT, seed=0)
+    forced = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab, (LM_BATCH, LM_GEN)).astype(np.int32)).cuda()
+    c32 = dataclasses.replace(cfg, compute_dtype="float32")
+    out = serve.generate(params, batch, c32, gen=LM_GEN, use_flash=False,
+                         forced=forced)
+    prompt = torch.from_numpy(batch["tokens"]).cuda()
+    fulls = []
+    with torch.no_grad():
+        for i in range(LM_GEN - 1):
+            seq = torch.cat([prompt, forced[:, :i + 1]], dim=1)
+            fulls.append(make_prefill_step(c32, cache_len=seq.shape[1])(
+                params, {"tokens": seq})[0][:, :cfg.vocab])
+    # atol 1e-3, or 1e-5 of the largest logit where that is larger: the
+    # tied table's rows have norm ~sqrt(d_model), so the logits reach
+    # 1e2 and their f32 rounding through 26-48 layers ~1e-5 of that
+    scale = max(float(f.abs().max()) for f in fulls)
+    atol = max(1e-3, 1e-5 * scale)
+    worst = 0.0
+    for i, full in enumerate(fulls):
+        ok, d = _close(out["logits"][i + 1][:, :cfg.vocab], full, 1e-4,
+                       atol)
+        worst = max(worst, d)
+        check(ok, f"{arch} f32 decode step {i + 1} off the full forward by "
+              f"{d} (atol {atol:.3g})")
+    log(f"  {arch} ({count_params(schema) / 1e9:.3f} B params) f32: "
+        f"{LM_GEN - 1} teacher-forced decode steps match the full forward, "
+        f"max |diff| {worst:.3g} of logits up to {scale:.1f} (rtol 1e-4, "
+        f"atol {atol:.3g})")
+    times = []
+    for _ in range(2):
+        bo = serve.generate(params, batch, cfg, gen=LM_GEN, use_flash=False)
+        check(all(bool(torch.isfinite(lg[:, :cfg.vocab]).all())
+                  for lg in bo["logits"]), f"{arch} bf16: non-finite logits")
+        times.append(bo)
+    steps = LM_GEN - 1
+    log(f"  {arch} bf16 [{smi}]: logits finite; prefill "
+        + ", ".join(f"{o['prefill_s'] * 1e3:.2f}" for o in times)
+        + " ms; decode "
+        + ", ".join(f"{o['decode_s'] * 1e3 / steps:.3f}" for o in times)
+        + " ms/step")
+
+
+def ssd_train_step(torch, smi):
+    from repro_torch import configs
+    from repro_torch.common.config import TrainConfig
+    from repro_torch.data import TokenStream
+    from repro_torch.train import init_state, make_train_step
+
+    cfg = configs.get_config("mamba2-780m")
+    tc = TrainConfig()
+    state = init_state(cfg, tc, 0, device="cuda", draw="device")
+    b = TokenStream(vocab=cfg.vocab, batch=SSD_TRAIN_B, seq_len=SSD_TRAIN_S,
+                    seed=0).batch_at(0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, m = make_train_step(cfg, tc)(state, b)
+    loss = float(m["total_loss"])
+    check(bool(torch.isfinite(m["total_loss"])) and bool(
+        torch.isfinite(m["grad_norm"])), f"mamba2-780m train step: loss "
+        f"{loss}")
+    log(f"  mamba2-780m train step (B {SSD_TRAIN_B}, S {SSD_TRAIN_S}, bf16, "
+        f"remat {cfg.remat}): loss {loss:.4f}, grad_norm "
+        f"{float(m['grad_norm']):.4f}, {time.perf_counter() - t0:.2f} s "
+        f"host clock, first call [{smi}]")
+
+
+def smoke_archs_on_card(torch):
+    """Each architecture the new kinds serve, at smoke size: one train
+    step, prefill and 4 decode steps on the card against the CPU."""
+    from repro_torch import configs
+    from repro_torch.common.config import TrainConfig
+    from repro_torch.common.tree import leaves
+    from repro_torch.data import TokenStream
+    from repro_torch.launch import serve
+    from repro_torch.train import init_state, make_train_step
+
+    tc = TrainConfig(**SMOKE_KW)
+    for arch in NEW_ARCHS:
+        cfg = configs.smoke_config(arch)
+        cpu = init_state(cfg, tc, 0, max_seq=SMOKE_P + SMOKE_STEPS + 1,
+                         device="cpu")
+        card = _tree_to(cpu, "cuda")
+        batch = serve.lm_batch(cfg, SMOKE_B, SMOKE_P, seed=0)
+        want = serve.generate(cpu["params"], batch, cfg, gen=SMOKE_STEPS + 1,
+                              use_flash=False)
+        got = serve.generate(card["params"], batch, cfg,
+                             gen=SMOKE_STEPS + 1, use_flash=False,
+                             forced=want["tokens"].cuda())
+        worst = 0.0
+        for i, (g, w) in enumerate(zip(got["logits"], want["logits"])):
+            ok, d = _close(g, w, 1e-4, 2e-4)
+            worst = max(worst, d)
+            check(ok, f"{arch} smoke: logits {i} off the CPU by {d}")
+        tb = TokenStream(vocab=cfg.vocab, batch=SMOKE_B, seq_len=16,
+                         with_vision=cfg.vision_seq,
+                         d_model=cfg.d_model).batch_at(0)
+        step = make_train_step(cfg, tc)
+        cpu, mc = step(cpu, tb)
+        card, mg = step(card, tb)
+        lc, lg = float(mc["total_loss"]), float(mg["total_loss"])
+        check(abs(lc - lg) <= 1e-4 * abs(lc), f"{arch} smoke: train loss "
+              f"{lg} on the card, {lc} on the CPU")
+        ok = all(_close(a, b, 1e-4, 2e-4)[0] for a, b in zip(
+            leaves(card["params"]), leaves(cpu["params"])))
+        dp = _tree_max_diff(card["params"], cpu["params"])
+        check(ok, f"{arch} smoke: parameters after a step off the CPU by "
+              f"{dp}")
+        log(f"  {arch} (smoke: {', '.join(cfg.pattern)}): prefill + "
+            f"{SMOKE_STEPS} decode logits max |card - CPU| {worst:.3g}; "
+            f"train loss {lg:.5f} / {lc:.5f}, aux "
+            f"{float(mg['aux_loss']):.4f}; parameters {dp:.3g}")
+
+
+def phase_lm_train(torch, FK, K, smi):
+    """Phase c."""
+    from repro_torch import configs
+
+    t_phase = time.perf_counter()
+    flash_refusal_on_card(torch, FK)
+    cfg = configs.get_config(LM_TRAIN_ARCH)
+    t0 = time.perf_counter()
+    qwen_parity(torch, cfg)
+    log(f"  f32 parity took {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    qwen_bf16_train(torch, FK, K, cfg, smi)
+    log(f"  bf16 training took {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    for arch in RECURRENT_ARCHS:
+        t0 = time.perf_counter()
+        recurrent_serving(torch, arch, smi)
+        torch.cuda.empty_cache()
+        log(f"  {arch} serving took {time.perf_counter() - t0:.1f} s")
+    ssd_train_step(torch, smi)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    smoke_archs_on_card(torch)
+    log(f"  the seven smoke architectures took "
+        f"{time.perf_counter() - t0:.1f} s")
+    log(f"  phase c took {time.perf_counter() - t_phase:.1f} s")
 
 
 def graph_phases(torch, phases, dev, measured, launches, smi):
@@ -3354,9 +3714,9 @@ def phase_accounting(torch, launches, smi):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phases", default="123456789ab",
-                    help="the phases to run, as characters 1-9, a and b "
-                    "(default: all)")
+    ap.add_argument("--phases", default="123456789abc",
+                    help="the phases to run, as characters 1-9, a, b and "
+                    "c (default: all)")
     phases = set(ap.parse_args(argv).phases)
     import torch
 
@@ -3414,6 +3774,11 @@ def main(argv=None) -> int:
         log("phase b: the accounting — contracts, dtype rules and counted "
             "rows on the card")
         phase_accounting(torch, launches, smi)
+    if "c" in phases:
+        log(f"phase c: LM training at full width ({LM_TRAIN_ARCH}), the "
+            "recurrent kinds at their published widths, seven "
+            "architectures at smoke size")
+        phase_lm_train(torch, FK, K, smi)
 
     kernels = []
     for name, entry in measured.items():

@@ -141,7 +141,7 @@ class CheckpointManager:
         if mesh is not None or spec_tree is not None:
             raise NotImplementedError(
                 "restore(mesh=, spec_tree=): sharded placement comes with "
-                "the LM stack (ROADMAP Queue 1 row 10)")
+                "the sharded LM (ROADMAP Queue 1 row 10.3)")
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoints in {self.dir}")

@@ -2,9 +2,9 @@
 
 One ``ModelConfig`` covers every architecture family; per-arch files in
 ``repro_torch.configs`` instantiate it with the published numbers.
-``TrainConfig`` is the optimiser's, field for field. The shape
-configurations of the JAX module come with the LM training port (ROADMAP
-Queue 1 row 10).
+``ShapeConfig`` and ``SHAPES`` are the JAX module's (train, prefill,
+decode) shape presets and ``TrainConfig`` is the optimiser's, field for
+field.
 """
 
 from __future__ import annotations
@@ -120,6 +120,25 @@ class ModelConfig:
             assert self.window > 0
         if self.is_encoder_decoder:
             assert self.n_enc_layers > 0
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # train | prefill | decode
+
+    @property
+    def tokens(self) -> int:
+        return self.seq_len * self.global_batch
+
+
+TRAIN_4K = ShapeConfig("train_4k", 4096, 256, "train")
+PREFILL_32K = ShapeConfig("prefill_32k", 32768, 32, "prefill")
+DECODE_32K = ShapeConfig("decode_32k", 32768, 128, "decode")
+LONG_500K = ShapeConfig("long_500k", 524288, 1, "decode")
+SHAPES = {s.name: s for s in (TRAIN_4K, PREFILL_32K, DECODE_32K, LONG_500K)}
 
 
 @dataclasses.dataclass(frozen=True)

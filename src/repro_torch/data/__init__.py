@@ -1,3 +1,5 @@
-from repro_torch.data.pipeline import GraphBatchStream, synthetic_node_labels
+from repro_torch.data.pipeline import (GraphBatchStream, ShardedTokenFiles,
+                                       TokenStream, synthetic_node_labels)
 
-__all__ = ["GraphBatchStream", "synthetic_node_labels"]
+__all__ = ["GraphBatchStream", "ShardedTokenFiles", "TokenStream",
+           "synthetic_node_labels"]

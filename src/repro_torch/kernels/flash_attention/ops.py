@@ -4,6 +4,10 @@ Accepts the model's (B, S, H, hd) layout, flattens heads b-major /
 h-minor, pads S and T to the 128-row blocks (the padded keys are masked
 through ``kv_len``) and slices the padded query rows off. CUDA tensors
 launch the kernel; CPU tensors run its plain version.
+
+Forward only, as the JAX kernel is: a call that autograd would record (a
+``q``, ``k`` or ``v`` requiring grad while grad mode is on) raises, on
+either device, before anything launches.
 """
 
 from __future__ import annotations
@@ -16,6 +20,13 @@ from repro_torch.kernels.flash_attention import kernel as K
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
 
+NO_GRADIENT = (
+    "the flash-attention kernel is forward only: the JAX kernel it ports "
+    "(flash_attention_pallas) has no VJP, so no gradient can flow through "
+    "it; train through the plain chunked attention (use_flash=False), as "
+    "the JAX launcher does")
+
+
 def _flat(x: torch.Tensor, pad: int) -> torch.Tensor:
     B, L, H, hd = x.shape
     x = x.transpose(1, 2).reshape(B * H, L, hd)
@@ -26,6 +37,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0,
                     softcap: float = 0.0) -> torch.Tensor:
     """q: (B,S,H,hd) pre-scaled; k,v: (B,T,Hkv,hd) → (B,S,H,hd)."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        raise NotImplementedError(f"flash_attention under autograd: "
+                                  f"{NO_GRADIENT}")
     entries.note("flash", q, k, v)
     B, S, H, hd = q.shape
     T, Hkv = k.shape[1], k.shape[2]
@@ -36,4 +51,4 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out[:, :S].reshape(B, H, S, hd).transpose(1, 2)
 
 
-__all__ = ["flash_attention", "flash_attention_ref"]
+__all__ = ["NO_GRADIENT", "flash_attention", "flash_attention_ref"]

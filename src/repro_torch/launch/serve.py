@@ -17,8 +17,9 @@
   runs where).
 
 * ``--workload lm``: batched prefill + greedy decode of an LM
-  (``--arch``), with tokens and, for an encoder-decoder, frames drawn from
-  ``--seed``. ``--impl kernel`` runs the encoder's self-attention through
+  (``--arch``, any of the ten; parameters drawn on the device from
+  ``--seed``), with tokens and, for an encoder-decoder or a vision model,
+  frames or patch embeddings drawn from ``--seed``. ``--impl kernel`` runs the encoder's self-attention through
   the flash kernel; ``--impl ref`` takes the plain chunked attention, the
   path the JAX launcher takes::
 
@@ -75,7 +76,8 @@ def replay_traffic(eng, *, requests: int, tenants: int,
 def lm_batch(cfg, batch: int, prompt_len: int, seed: int = 0
              ) -> Dict[str, np.ndarray]:
     """Prompt tokens (batch, prompt_len) int32 and, for an
-    encoder-decoder, stub frame embeddings (batch, enc_seq, d_model)
+    encoder-decoder, stub frame embeddings (batch, enc_seq, d_model), for
+    a vision model stub patch embeddings (batch, vision_seq, d_model),
     float32, drawn from ``seed``."""
     rng = np.random.default_rng(seed)
     out = {"tokens": rng.integers(0, cfg.vocab, (batch, prompt_len)
@@ -83,6 +85,9 @@ def lm_batch(cfg, batch: int, prompt_len: int, seed: int = 0
     if cfg.is_encoder_decoder:
         out["frames"] = rng.standard_normal(
             (batch, cfg.enc_seq, cfg.d_model), dtype=np.float32)
+    if cfg.vision_seq:
+        out["vision"] = rng.standard_normal(
+            (batch, cfg.vision_seq, cfg.d_model), dtype=np.float32)
     return out
 
 
@@ -142,7 +147,8 @@ def _main_lm(args) -> int:
     cfg = (configs.smoke_config(args.arch) if args.reduced
            else configs.get_config(args.arch))
     params = init_params(T.model_schema(cfg, max_seq=args.prompt_len
-                                        + args.gen), args.seed, device=dev)
+                                        + args.gen), args.seed, device=dev,
+                         draw="device")
     batch = lm_batch(cfg, args.batch, args.prompt_len, args.seed)
     out = generate(params, batch, cfg, gen=args.gen,
                    use_flash=args.impl == "kernel")

@@ -1,4 +1,4 @@
-"""Training launcher: GraphSAGE with the CGTrans dataflow.
+"""Training launcher: GraphSAGE with the CGTrans dataflow, or an LM.
 
 ``--workload graph`` (the default) is ``examples/train_graphsage.py``: an
 R-MAT graph with random features and learnable synthetic labels, the
@@ -19,9 +19,21 @@ share one card with every collective staged through host memory — the
     PYTHONPATH=src python -m repro_torch.launch.train --shards 8 \
         --backend gloo --device cpu --steps 20 --scale 10
 
+``--workload lm`` is the JAX launcher's LM training: ``--arch`` at its
+published widths (``--reduced``: the same-family smoke size) on
+``TokenStream`` batches of ``--batch`` × ``--seq-len`` tokens, AdamW with
+warmup over the first tenth of ``--steps``, the fault-tolerant loop, and
+checkpoints in ``--ckpt-dir`` when given (a rerun resumes from them)::
+
+    PYTHONPATH=src python -m repro_torch.launch.train --workload lm \
+        --arch qwen1.5-0.5b --steps 50
+
+The parameters are drawn on the device (``init_params(draw="device")``).
+``--dry-run`` and ``--multi-pod`` lower the JAX program through XLA HLO,
+which the port does not have, and raise.
+
 Runs on the card by default; ``--device cpu`` runs the same path on the
-CPU (the kernels' plain versions). ``--workload lm`` (the JAX launcher's
-LM training) is not ported yet.
+CPU (the kernels' plain versions).
 """
 
 from __future__ import annotations
@@ -124,10 +136,74 @@ def _main_graph(args) -> int:
     return max(codes)
 
 
+def _main_lm(args) -> int:
+    """The JAX launcher's LM loop, on one device."""
+    if args.dry_run or args.multi_pod:
+        raise NotImplementedError(
+            "--dry-run / --multi-pod lower the JAX program through XLA HLO "
+            "(launch/dryrun.py), which the port does not have")
+    if not args.arch:
+        print("--workload lm requires --arch", file=sys.stderr)
+        return 2
+    from repro_torch import configs
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.common.config import TrainConfig
+    from repro_torch.common.schema import count_params
+    from repro_torch.data import TokenStream
+    from repro_torch.device import resolve_device
+    from repro_torch.models import transformer as T
+    from repro_torch.runtime import PreemptionGuard, StepMonitor
+    from repro_torch.train import init_state, make_train_step, train_loop
+
+    dev = resolve_device(args.device)
+    steps = args.steps if args.steps is not None else 50
+    cfg = (configs.smoke_config(args.arch) if args.reduced
+           else configs.get_config(args.arch))
+    tc = TrainConfig(learning_rate=args.lr, warmup_steps=max(steps // 10, 1),
+                     total_steps=steps,
+                     grad_compression=args.grad_compression)
+    stream = TokenStream(
+        vocab=cfg.vocab, batch=args.batch, seq_len=args.seq_len,
+        with_frames=cfg.enc_seq if cfg.is_encoder_decoder else 0,
+        with_vision=cfg.vision_seq, d_model=cfg.d_model)
+    state = init_state(cfg, tc, tc.seed, max_seq=args.seq_len, device=dev,
+                       draw="device")
+    n_params = count_params(T.model_schema(cfg, max_seq=args.seq_len))
+    print(f"{cfg.name}: {n_params / 1e6:.2f}M params on {dev}, "
+          f"{args.batch} x {args.seq_len} tokens a step, compute "
+          f"{cfg.compute_dtype}, remat {cfg.remat}")
+    step = make_train_step(cfg, tc)
+
+    def batches():
+        for b in stream:
+            yield {k: torch.from_numpy(v).to(dev) for k, v in b.items()}
+
+    ckpt = CheckpointManager(args.ckpt_dir) if args.ckpt_dir else None
+    state, n = train_loop(step_fn=step, state=state, batches=batches(),
+                          total_steps=steps, ckpt=ckpt, ckpt_every=25,
+                          monitor=StepMonitor(), guard=PreemptionGuard(),
+                          log_every=10)
+    print(f"finished at step {n}")
+    return 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--workload", choices=("graph", "lm"), default="graph")
-    ap.add_argument("--steps", type=int, default=300)
+    ap.add_argument("--steps", type=int, default=None,
+                    help="steps to train (default: graph 300, lm 50)")
+    # lm workload: the JAX launcher's flags
+    ap.add_argument("--arch")
+    ap.add_argument("--reduced", action="store_true",
+                    help="lm: train the reduced same-family config")
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--seq-len", type=int, default=64)
+    ap.add_argument("--lr", type=float, default=1e-3)
+    ap.add_argument("--grad-compression", default="none",
+                    choices=["none", "int8_ef"])
+    ap.add_argument("--dry-run", action="store_true")
+    ap.add_argument("--multi-pod", action="store_true")
+    # graph workload
     ap.add_argument("--scale", type=int, default=14,
                     help="R-MAT scale (2^scale vertices)")
     ap.add_argument("--features", type=int, default=64)
@@ -149,8 +225,9 @@ def main(argv=None) -> int:
                          "aggregation as two request streams instead of "
                          "ONE coalesced command block")
     ap.add_argument("--ckpt-dir", default="",
-                    help="checkpoint directory (default: graphsage_ckpt "
-                         "under the temporary directory)")
+                    help="checkpoint directory (graph default: "
+                         "graphsage_ckpt under the temporary directory; lm "
+                         "default: no checkpoints)")
     ap.add_argument("--shards", type=int, default=1,
                     help="data-axis ranks, each owning an interval of the "
                          "feature table")
@@ -161,10 +238,9 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
     if args.workload == "lm":
-        raise NotImplementedError(
-            "--workload lm: LM training (transformer.loss_fn, "
-            "train.step.make_train_step) is not ported yet (ROADMAP "
-            "Queue 1 row 10)")
+        return _main_lm(args)
+    if args.steps is None:
+        args.steps = 300
     return _main_graph(args)
 
 

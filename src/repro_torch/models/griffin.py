@@ -1,0 +1,123 @@
+"""RG-LRU recurrent block (Griffin / RecurrentGemma, arXiv:2402.19427).
+
+h_t = a_t ⊙ h_{t-1} + sqrt(1 - a_t²) ⊙ (i_t ⊙ x_t)
+a_t = exp(-c · softplus(Λ) ⊙ sigmoid(r_t)),   c = 8
+
+The full-sequence path is a log-depth scan, the JAX package's
+``lax.associative_scan``: log₂ S elementwise steps over the sequence, each
+combining every position with the one 2^k before it (its rounding is not
+the JAX scan's tree, so the two agree within tolerance, not bit for bit).
+Decode is a single fused update. The temporal block wraps the RG-LRU with
+the Griffin gating: conv1d(4) on the x-branch, GeLU gate branch, output
+projection.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.common.config import ModelConfig
+from repro_torch.common.schema import ParamDef
+
+_C = 8.0
+
+
+def rglru_schema(cfg: ModelConfig) -> Dict[str, Any]:
+    D = cfg.d_model
+    W = cfg.lru_width or D
+    return {
+        "w_x": ParamDef((D, W), ("embed", "lru"), init="lecun"),
+        "w_gate": ParamDef((D, W), ("embed", "lru"), init="lecun"),
+        "conv_w": ParamDef((cfg.conv_kernel, W), (None, "lru"), init="lecun"),
+        "conv_b": ParamDef((W,), ("lru",), init="zeros"),
+        "w_rec_gate": ParamDef((W, W), ("lru", None), init="lecun"),
+        "w_in_gate": ParamDef((W, W), ("lru", None), init="lecun"),
+        "lam": ParamDef((W,), ("lru",), init="custom", custom="rglru_lambda"),
+        "w_out": ParamDef((W, D), ("lru", "embed"), init="lecun"),
+    }
+
+
+def rglru_cache_schema(cfg: ModelConfig, batch: int) -> Dict[str, ParamDef]:
+    W = cfg.lru_width or cfg.d_model
+    return {
+        "h": ParamDef((batch, W), ("batch", "lru"), init="zeros",
+                      dtype=torch.float32),
+        "conv": ParamDef((batch, cfg.conv_kernel - 1, W),
+                         ("batch", None, "lru"), init="zeros",
+                         dtype=torch.float32),
+    }
+
+
+def _gates(p, xb):
+    """Recurrence gate a and gated input from the x-branch. float32."""
+    x32 = xb.float()
+    r = torch.sigmoid(x32 @ p["w_rec_gate"].float())
+    i = torch.sigmoid(x32 @ p["w_in_gate"].float())
+    log_a = -_C * F.softplus(p["lam"].float()) * r
+    a = torch.exp(log_a)
+    beta = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), min=1e-12))
+    return a, beta * (i * x32)
+
+
+def _conv(xb, w, b, history=None):
+    K = w.shape[0]
+    B, S, W = xb.shape
+    pad = (xb.new_zeros((B, K - 1, W)) if history is None
+           else history.to(xb.dtype))
+    xp = torch.cat([pad, xb], dim=1)
+    out = sum(xp[:, i:i + S] * w[i].to(xb.dtype) for i in range(K))
+    return out + b.to(xb.dtype), xp[:, -(K - 1):]
+
+
+def linear_scan(a: torch.Tensor, b: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Inclusive scan of h_t = a_t·h_{t-1} + b_t (h_{-1} = 0) along axis 1,
+    in ceil(log₂ S) elementwise steps (Hillis–Steele). Returns the
+    prefix products of a and h."""
+    S = a.shape[1]
+    d = 1
+    while d < S:
+        # combine each position t ≥ d with the element d before it:
+        # (a', b') = (a_t·a_{t-d}, a_t·b_{t-d} + b_t)
+        b = torch.cat([b[:, :d], a[:, d:] * b[:, :-d] + b[:, d:]], dim=1)
+        a = torch.cat([a[:, :d], a[:, d:] * a[:, :-d]], dim=1)
+        d *= 2
+    return a, b
+
+
+def rglru_apply(p: Dict[str, Any], x: torch.Tensor, cfg: ModelConfig,
+                init_h=None, conv_history=None, return_cache: bool = False):
+    """Full-sequence temporal block. x: (B,S,D) → (B,S,D)."""
+    xb = x @ p["w_x"].to(x.dtype)
+    gate = F.gelu(x @ p["w_gate"].to(x.dtype), approximate="tanh")
+    xb, hist = _conv(xb, p["conv_w"], p["conv_b"], conv_history)
+    a, bx = _gates(p, xb)                      # (B,S,W) f32 each
+    if init_h is not None:
+        bx = torch.cat([bx[:, :1] + a[:, :1] * init_h.float()[:, None],
+                        bx[:, 1:]], dim=1)
+    _, h = linear_scan(a, bx)
+    y = h.to(x.dtype) * gate
+    out = y @ p["w_out"].to(x.dtype)
+    if return_cache:
+        return out, {"h": h[:, -1].float(), "conv": hist.float()}
+    return out
+
+
+def rglru_decode(p: Dict[str, Any], x: torch.Tensor,
+                 cache: Dict[str, torch.Tensor], cfg: ModelConfig
+                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Single-step update. x: (B,1,D). Returns (output, new cache); the
+    cache passed in is not written."""
+    xb = (x @ p["w_x"].to(x.dtype))[:, 0]
+    gate = F.gelu((x @ p["w_gate"].to(x.dtype))[:, 0], approximate="tanh")
+    hist = torch.cat([cache["conv"].to(xb.dtype), xb[:, None, :]], dim=1)
+    xb = (torch.sum(hist * p["conv_w"].to(xb.dtype)[None], dim=1)
+          + p["conv_b"].to(xb.dtype))
+    a, bx = _gates(p, xb)
+    h = a * cache["h"] + bx
+    y = h.to(x.dtype) * gate
+    out = (y @ p["w_out"].to(x.dtype))[:, None, :]
+    return out, {"h": h, "conv": hist[:, 1:].float()}

@@ -1,0 +1,226 @@
+"""Mamba2 mixer via SSD (state-space duality), chunked matmul formulation.
+
+The SSD algorithm (Dao & Gu, arXiv:2405.21060) computes the selective-SSM
+recurrence as block matmuls: an intra-chunk "attention-like" term plus the
+contribution of the state carried between chunks. The JAX package runs the
+chunks under one ``lax.scan``; here a Python loop over chunks carries the
+state, with the same per-chunk arithmetic.
+
+Layout: d_inner = expand·d_model, H = d_inner/head_dim heads, state N,
+single B/C group (n_groups = 1, matching mamba2-780m).
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.common.config import ModelConfig
+from repro_torch.common.schema import ParamDef
+from repro_torch.models.layers import rms_norm
+
+
+def dims(cfg: ModelConfig) -> Tuple[int, int, int, int]:
+    d_inner = cfg.ssm_expand * cfg.d_model
+    H = d_inner // cfg.ssm_head_dim
+    return d_inner, H, cfg.ssm_head_dim, cfg.ssm_state
+
+
+def ssd_schema(cfg: ModelConfig) -> Dict[str, Any]:
+    D = cfg.d_model
+    d_inner, H, _, N = dims(cfg)
+    K = cfg.conv_kernel
+    return {
+        "z_proj": ParamDef((D, d_inner), ("embed", "ssm_heads"), init="lecun"),
+        "x_proj": ParamDef((D, d_inner), ("embed", "ssm_heads"), init="lecun"),
+        "b_proj": ParamDef((D, N), ("embed", None), init="lecun"),
+        "c_proj": ParamDef((D, N), ("embed", None), init="lecun"),
+        "dt_proj": ParamDef((D, H), ("embed", "ssm_heads"), init="lecun"),
+        "conv_x_w": ParamDef((K, d_inner), (None, "ssm_heads"), init="lecun"),
+        "conv_x_b": ParamDef((d_inner,), ("ssm_heads",), init="zeros"),
+        "conv_b_w": ParamDef((K, N), (None, None), init="lecun"),
+        "conv_b_b": ParamDef((N,), (None,), init="zeros"),
+        "conv_c_w": ParamDef((K, N), (None, None), init="lecun"),
+        "conv_c_b": ParamDef((N,), (None,), init="zeros"),
+        "a_log": ParamDef((H,), ("ssm_heads",), init="custom",
+                          custom="ssm_a_log"),
+        "dt_bias": ParamDef((H,), ("ssm_heads",), init="custom",
+                            custom="ssm_dt_bias"),
+        "d_skip": ParamDef((H,), ("ssm_heads",), init="ones"),
+        "out_norm": ParamDef((d_inner,), ("ssm_heads",), init="ones"),
+        "out_proj": ParamDef((d_inner, D), ("ssm_heads", "embed"),
+                             init="lecun"),
+    }
+
+
+def ssd_cache_schema(cfg: ModelConfig, batch: int) -> Dict[str, ParamDef]:
+    d_inner, H, P_, N = dims(cfg)
+    K = cfg.conv_kernel
+    f32 = torch.float32
+    return {
+        "state": ParamDef((batch, H, P_, N), ("batch", "ssm_heads", None, None),
+                          init="zeros", dtype=f32),
+        "conv_x": ParamDef((batch, K - 1, d_inner), ("batch", None, "ssm_heads"),
+                           init="zeros", dtype=f32),
+        "conv_b": ParamDef((batch, K - 1, N), ("batch", None, None),
+                           init="zeros", dtype=f32),
+        "conv_c": ParamDef((batch, K - 1, N), ("batch", None, None),
+                           init="zeros", dtype=f32),
+    }
+
+
+def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                 history: Optional[torch.Tensor] = None, act: bool = True):
+    """Depthwise causal conv along seq. x: (B,S,C); w: (K,C). Returns
+    (output, the last K-1 inputs as the next call's history)."""
+    K = w.shape[0]
+    if history is None:
+        pad = x.new_zeros((x.shape[0], K - 1, x.shape[2]))
+    else:
+        pad = history.to(x.dtype)
+    xp = torch.cat([pad, x], dim=1)  # (B, S+K-1, C)
+    S = x.shape[1]
+    out = sum(xp[:, i:i + S] * w[i].to(x.dtype) for i in range(K))
+    out = out + b.to(x.dtype)
+    if act:
+        out = F.silu(out)
+    return out, xp[:, -(K - 1):]
+
+
+def ssd_chunked(x, dt, A, Bm, Cm, chunk: int, init_state=None):
+    """Chunked SSD: a loop over chunks, the state carried between them.
+
+    Per chunk: an intra-chunk attention-like matmul term plus the
+    contribution of the carried state; the recurrence between chunks is
+    serial. Matmul inputs in the compute dtype accumulate in f32, as the
+    JAX package's ``preferred_element_type=float32`` does.
+
+    x: (B,S,H,P)  dt: (B,S,H) post-softplus f32  A: (H,) negative
+    Bm, Cm: (B,S,N) single group.
+    Returns y: (B,S,H,P) f32, final state (B,H,P,N) f32.
+    """
+    Bsz, S, H, P_ = x.shape
+    N = Bm.shape[-1]
+    L = min(chunk, S)
+    S_orig = S
+    if S % L:
+        # pad with dt=0 steps: zero dt means no state update and no output
+        # weight, so the padding is exact
+        pad = L - S % L
+        x = F.pad(x, (0, 0, 0, 0, 0, pad))
+        dt = F.pad(dt, (0, 0, 0, pad))
+        Bm = F.pad(Bm, (0, 0, 0, pad))
+        Cm = F.pad(Cm, (0, 0, 0, pad))
+        S = S + pad
+    li = torch.arange(L, device=x.device)
+    causal = (li[:, None] >= li[None, :])[None, :, :, None]  # (1,L,L,1)
+    s = (x.new_zeros((Bsz, H, P_, N), dtype=torch.float32)
+         if init_state is None else init_state.to(torch.float32))
+    ys = []
+    for lo in range(0, S, L):
+        xi, dti = x[:, lo:lo + L], dt[:, lo:lo + L]
+        Bi, Ci = Bm[:, lo:lo + L], Cm[:, lo:lo + L]
+        dA = dti * A[None, None, :]                         # (B,L,H) ≤ 0, f32
+        cum = torch.cumsum(dA, dim=1)
+        total = cum[:, -1, :]                               # (B,H)
+        # intra-chunk: att[l,m] = C_l·B_m · exp(cum_l - cum_m) · dt_m, l ≥ m
+        cb = torch.einsum("bln,bmn->blm", Ci.float(), Bi.float())
+        seg = cum[:, :, None, :] - cum[:, None, :, :]       # (B,L,L,H)
+        # mask BEFORE exp: exp(-inf) = 0 keeps the forward and the gradient
+        # finite (the non-causal entries are positive and would overflow)
+        decay = torch.exp(torch.where(causal, seg, float("-inf")))
+        att = (cb[..., None] * decay * dti[:, None, :, :]).to(xi.dtype)
+        y = torch.einsum("blmh,bmhp->blhp", att.float(), xi.float())
+        # carried-state contribution: y_off_l = C_l · (exp(cum_l) ⊙ S_in)
+        y = y + torch.einsum("bln,blh,bhpn->blhp", Ci.float(),
+                             torch.exp(cum), s)
+        # S_out = exp(total)·S_in + Σ_m exp(total - cum_m)·dt_m·B_m ⊗ x_m
+        dstate = torch.exp(total[:, None, :] - cum) * dti   # (B,L,H)
+        cs = torch.einsum("bln,blh,blhp->bhpn", Bi.float(), dstate,
+                          xi.float())
+        s = s * torch.exp(total)[:, :, None, None] + cs
+        # chunk outputs stacked in the compute dtype, as the JAX scan does
+        ys.append(y.to(xi.dtype))
+    y = torch.cat(ys, dim=1)
+    return y[:, :S_orig].to(torch.float32), s
+
+
+def _proj(x, w):
+    return x @ w.to(x.dtype)
+
+
+def ssd_apply(p: Dict[str, Any], x: torch.Tensor, cfg: ModelConfig,
+              init_state=None, conv_history=None,
+              return_cache: bool = False):
+    """Full-sequence mamba2 mixer. x: (B,S,D) → (B,S,D)."""
+    d_inner, H, P_, _ = dims(cfg)
+    B, S, _ = x.shape
+    z = _proj(x, p["z_proj"])
+    xs = _proj(x, p["x_proj"])
+    Bm = _proj(x, p["b_proj"])
+    Cm = _proj(x, p["c_proj"])
+    dt = _proj(x, p["dt_proj"])
+    hx = hb = hc = None
+    if conv_history is not None:
+        hx, hb, hc = (conv_history["conv_x"], conv_history["conv_b"],
+                      conv_history["conv_c"])
+    xs, nhx = _causal_conv(xs, p["conv_x_w"], p["conv_x_b"], hx)
+    Bm, nhb = _causal_conv(Bm, p["conv_b_w"], p["conv_b_b"], hb)
+    Cm, nhc = _causal_conv(Cm, p["conv_c_w"], p["conv_c_b"], hc)
+    xs = xs.reshape(B, S, H, P_)
+    dt = F.softplus(dt.float() + p["dt_bias"][None, None, :])
+    A = -torch.exp(p["a_log"].float())
+    y, state = ssd_chunked(xs, dt, A, Bm, Cm, cfg.ssm_chunk, init_state)
+    y = y + xs.float() * p["d_skip"][None, None, :, None]
+    y = y.reshape(B, S, d_inner).to(x.dtype)
+    y = rms_norm(y * F.silu(z), p["out_norm"], cfg.norm_eps, False)
+    out = y @ p["out_proj"].to(x.dtype)
+    if return_cache:
+        cache = {"state": state,
+                 "conv_x": nhx.float(), "conv_b": nhb.float(),
+                 "conv_c": nhc.float()}
+        return out, cache
+    return out
+
+
+def _conv_step(v, hist, w, b, act: bool = True):
+    """Single-token depthwise conv against history. v: (B,C)."""
+    full = torch.cat([hist.to(v.dtype), v[:, None, :]], dim=1)  # (B,K,C)
+    out = torch.sum(full * w.to(v.dtype)[None], dim=1) + b.to(v.dtype)
+    if act:
+        out = F.silu(out)
+    return out, full[:, 1:]
+
+
+def ssd_decode(p: Dict[str, Any], x: torch.Tensor,
+               cache: Dict[str, torch.Tensor], cfg: ModelConfig):
+    """Single-token recurrent update. x: (B,1,D). Returns (output, new
+    cache); the cache passed in is not written."""
+    d_inner, H, P_, _ = dims(cfg)
+    B = x.shape[0]
+    x0 = x[:, 0]
+    z = _proj(x0, p["z_proj"])
+    xs = _proj(x0, p["x_proj"])
+    Bm = _proj(x0, p["b_proj"])
+    Cm = _proj(x0, p["c_proj"])
+    dt = _proj(x0, p["dt_proj"])
+    xs, nhx = _conv_step(xs, cache["conv_x"], p["conv_x_w"], p["conv_x_b"])
+    Bm, nhb = _conv_step(Bm, cache["conv_b"], p["conv_b_w"], p["conv_b_b"])
+    Cm, nhc = _conv_step(Cm, cache["conv_c"], p["conv_c_w"], p["conv_c_b"])
+    xs = xs.reshape(B, H, P_)
+    Bm = Bm.float()
+    Cm = Cm.float()
+    dt_ = F.softplus(dt.float() + p["dt_bias"][None, :])            # (B,H)
+    A = -torch.exp(p["a_log"].float())
+    dA = torch.exp(dt_ * A[None, :])                                 # (B,H)
+    upd = torch.einsum("bh,bn,bhp->bhpn", dt_, Bm, xs.float())
+    state = cache["state"] * dA[:, :, None, None] + upd
+    y = torch.einsum("bn,bhpn->bhp", Cm, state)                      # (B,H,P)
+    y = y + xs.float() * p["d_skip"][None, :, None]
+    y = y.reshape(B, d_inner).to(x.dtype)
+    y = rms_norm(y * F.silu(z), p["out_norm"], cfg.norm_eps, False)
+    out = (y @ p["out_proj"].to(x.dtype))[:, None, :]
+    return out, {"state": state, "conv_x": nhx.float(),
+                 "conv_b": nhb.float(), "conv_c": nhc.float()}

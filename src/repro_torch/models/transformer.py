@@ -1,52 +1,49 @@
-"""Model assembly: block-pattern stacks for the attention-family kinds.
+"""Model assembly: block-pattern stacks for every layer kind.
 
-The per-layer pattern (local/global attention, encoder-decoder layers) is
-a repeating block; parameters are stacked per pattern position over block
+The per-layer heterogeneity (local/global attention, cross-attention,
+MoE-vs-dense, recurrent-vs-attention, encoder-decoder) is a repeating
+block pattern; parameters are stacked per pattern position over block
 repetitions, as in the JAX package, and the stack runs as a Python loop
 over the leading block axis where the JAX package runs ``lax.scan``.
-Remainder layers are unrolled around it.
+Remainder layers and MoE first-k-dense prefixes are unrolled around it.
+Each stacked leaf is split into its blocks once per call
+(``torch.unbind``), so under autograd the backward stacks each leaf's
+gradient once instead of zero-filling a whole stacked leaf per block.
 
-Two serving entry points: ``prefill`` (last-token logits + populated
-cache) and ``decode_step`` (one token against the cache). The layer kinds
-``attn``, ``local``, ``enc`` and ``dec`` are ported; ``moe``, ``cross``,
-``rglru`` and ``ssd`` raise (ROADMAP Queue 1 row 10).
+Three entry points, as in the JAX package: ``loss_fn`` (train; with
+``cfg.remat == "block"`` each block of the loop is checkpointed, as
+``jax.checkpoint`` wraps the scan body), ``prefill`` (last-token logits +
+populated cache) and ``decode_step`` (one token against the cache).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Mapping, Optional, Tuple
+from typing import Any, Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.common.config import ModelConfig
 from repro_torch.common.schema import ParamDef, stack as stack_schema
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.models import layers
-from repro_torch.models.embedding import embed_lookup, logits_matmul
+from repro_torch.models import griffin, layers, moe, ssm
+from repro_torch.models.embedding import (chunked_softmax_xent, embed_lookup,
+                                          logits_matmul)
 from repro_torch.models.layers import (LayerCtx, apply_norm, compute_dtype,
                                        norm_schema, rope_tables)
-
-_PORTED_KINDS = ("attn", "local", "enc", "dec")
 
 
 def _cdt(cfg: ModelConfig) -> torch.dtype:
     return compute_dtype(cfg)
 
 
-def _check_kind(kind: str) -> None:
-    if kind not in _PORTED_KINDS:
-        raise NotImplementedError(
-            f"layer kind {kind!r} is not ported yet (ROADMAP Queue 1 row 10, "
-            f"the LM stack); ported: {_PORTED_KINDS}")
-
-
 def _no_mesh(mesh) -> None:
     if mesh is not None:
         raise NotImplementedError(
             "mesh= is not ported yet: the port's LM path runs on one device "
-            "(ROADMAP Queue 1 row 10, the LM stack)")
+            "(ROADMAP Queue 1 row 10.3, the sharded LM)")
 
 
 # ---------------------------------------------------------------------------
@@ -54,26 +51,50 @@ def _no_mesh(mesh) -> None:
 # ---------------------------------------------------------------------------
 
 def layer_schema(cfg: ModelConfig, kind: str) -> Dict[str, Any]:
-    _check_kind(kind)
     n = lambda: norm_schema(cfg, cfg.d_model)
+    if kind == "ssd":
+        return {"norm": n(), "mixer": ssm.ssd_schema(cfg)}
+    if kind == "rglru":
+        return {"norm": n(), "mixer": griffin.rglru_schema(cfg),
+                "norm2": n(), "mlp": layers.mlp_schema(cfg)}
+    if kind in ("attn", "local", "enc"):
+        dff = cfg.d_ff_dense or cfg.d_ff
+        is_prefix_dense = kind == "attn" and cfg.first_k_dense > 0
+        s = {"norm": n(), "attn": layers.attn_schema(cfg), "norm2": n(),
+             "mlp": layers.mlp_schema(cfg, dff if is_prefix_dense
+                                      else cfg.d_ff)}
+        if cfg.post_norms:
+            s["post_attn_norm"] = n()
+            s["post_mlp_norm"] = n()
+        return s
+    if kind == "moe":
+        return {"norm": n(), "attn": layers.attn_schema(cfg),
+                "norm2": n(), "moe": moe.moe_schema(cfg)}
+    if kind == "cross":
+        return {"norm": n(),
+                "attn": layers.attn_schema(cfg, cross=True, gated=True),
+                "norm2": n(),
+                "mlp": layers.mlp_schema(cfg, gated_tag=True)}
     if kind == "dec":
         return {"norm": n(), "self_attn": layers.attn_schema(cfg),
                 "norm_x": n(),
                 "cross_attn": layers.attn_schema(cfg, cross=True),
                 "norm2": n(), "mlp": layers.mlp_schema(cfg)}
-    dff = cfg.d_ff_dense or cfg.d_ff
-    is_prefix_dense = kind == "attn" and cfg.first_k_dense > 0
-    s = {"norm": n(), "attn": layers.attn_schema(cfg), "norm2": n(),
-         "mlp": layers.mlp_schema(cfg, dff if is_prefix_dense else cfg.d_ff)}
-    if cfg.post_norms:
-        s["post_attn_norm"] = n()
-        s["post_mlp_norm"] = n()
-    return s
+    raise ValueError(kind)
 
 
 def layer_cache_schema(cfg: ModelConfig, kind: str, batch: int,
                        seq_len: int) -> Dict[str, Any]:
-    _check_kind(kind)
+    if kind == "ssd":
+        return {"mixer": ssm.ssd_cache_schema(cfg, batch)}
+    if kind == "rglru":
+        return {"mixer": griffin.rglru_cache_schema(cfg, batch)}
+    if kind in ("attn", "local", "moe"):
+        return {"attn": layers.attn_cache_schema(cfg, batch, seq_len,
+                                                 kind=kind)}
+    if kind == "cross":
+        return {"attn": layers.cross_cache_schema(cfg, batch,
+                                                  cfg.vision_seq)}
     if kind == "dec":
         return {"self_attn": layers.attn_cache_schema(cfg, batch, seq_len,
                                                       kind="attn"),
@@ -81,7 +102,7 @@ def layer_cache_schema(cfg: ModelConfig, kind: str, batch: int,
                                                         cfg.enc_seq)}
     if kind == "enc":
         raise ValueError("encoder layers keep no decode cache")
-    return {"attn": layers.attn_cache_schema(cfg, batch, seq_len, kind=kind)}
+    raise ValueError(kind)
 
 
 def _residual(x, delta, p, cfg, post_key):
@@ -96,26 +117,86 @@ def _mlp_block(cfg, p, x):
                      "post_mlp_norm")
 
 
+def _write(cache: Dict[str, torch.Tensor], new: Dict[str, torch.Tensor]):
+    """Copy a recurrent layer's new state into its cache tensors (the
+    port's decode updates caches in place)."""
+    for k, v in new.items():
+        cache[k].copy_(v)
+    return cache
+
+
 def layer_apply(cfg: ModelConfig, kind: str, p, x, ctx: LayerCtx):
-    """Full-sequence layer. Returns (x, aux)."""
-    _check_kind(kind)
+    """Full-sequence layer. Returns (x, aux): aux is 0.0, or an MoE
+    layer's f32 load-balance loss."""
     aux = 0.0
+    if kind == "ssd":
+        h = apply_norm(p["norm"], x, cfg)
+        return x + ssm.ssd_apply(p["mixer"], h, cfg), aux
+    if kind == "rglru":
+        h = apply_norm(p["norm"], x, cfg)
+        x = x + griffin.rglru_apply(p["mixer"], h, cfg)
+        h = apply_norm(p["norm2"], x, cfg)
+        return x + layers.mlp_apply(p["mlp"], h, cfg), aux
+    if kind in ("attn", "local", "enc"):
+        h = apply_norm(p["norm"], x, cfg)
+        x = _residual(x, layers.attn_apply(p["attn"], h, ctx, kind=kind),
+                      p, cfg, "post_attn_norm")
+        return _mlp_block(cfg, p, x), aux
+    if kind == "moe":
+        h = apply_norm(p["norm"], x, cfg)
+        x = x + layers.attn_apply(p["attn"], h, ctx, kind="attn")
+        h = apply_norm(p["norm2"], x, cfg)
+        out, aux = moe.moe_apply(p["moe"], h, cfg)
+        return x + out, aux
+    if kind == "cross":
+        h = apply_norm(p["norm"], x, cfg)
+        x = x + layers.cross_attn_apply(p["attn"], h, ctx)
+        h = apply_norm(p["norm2"], x, cfg)
+        return x + layers.mlp_apply(p["mlp"], h, cfg), aux
     if kind == "dec":
         h = apply_norm(p["norm"], x, cfg)
         x = x + layers.attn_apply(p["self_attn"], h, ctx, kind="attn")
         h = apply_norm(p["norm_x"], x, cfg)
         x = x + layers.cross_attn_apply(p["cross_attn"], h, ctx)
         return _mlp_block(cfg, p, x), aux
-    h = apply_norm(p["norm"], x, cfg)
-    x = _residual(x, layers.attn_apply(p["attn"], h, ctx, kind=kind), p, cfg,
-                  "post_attn_norm")
-    return _mlp_block(cfg, p, x), aux
+    raise ValueError(kind)
 
 
 def layer_prefill(cfg: ModelConfig, kind: str, p, x, ctx: LayerCtx,
                   cache_len: int):
     """Full-sequence layer that also emits the decode cache."""
-    _check_kind(kind)
+    if kind == "ssd":
+        h = apply_norm(p["norm"], x, cfg)
+        out, cache = ssm.ssd_apply(p["mixer"], h, cfg, return_cache=True)
+        return x + out, {"mixer": cache}
+    if kind == "rglru":
+        h = apply_norm(p["norm"], x, cfg)
+        out, cache = griffin.rglru_apply(p["mixer"], h, cfg,
+                                         return_cache=True)
+        x = x + out
+        h = apply_norm(p["norm2"], x, cfg)
+        return x + layers.mlp_apply(p["mlp"], h, cfg), {"mixer": cache}
+    if kind in ("attn", "local"):
+        h = apply_norm(p["norm"], x, cfg)
+        a, cache = layers.attn_prefill(p["attn"], h, ctx, kind=kind,
+                                       cache_len=cache_len)
+        x = _residual(x, a, p, cfg, "post_attn_norm")
+        return _mlp_block(cfg, p, x), {"attn": cache}
+    if kind == "moe":
+        h = apply_norm(p["norm"], x, cfg)
+        a, cache = layers.attn_prefill(p["attn"], h, ctx, kind="attn",
+                                       cache_len=cache_len)
+        x = x + a
+        h = apply_norm(p["norm2"], x, cfg)
+        out, _ = moe.moe_apply(p["moe"], h, cfg, capacity_factor=2.0)
+        return x + out, {"attn": cache}
+    if kind == "cross":
+        cache = layers.cross_build_cache(p["attn"], ctx.memory.to(x.dtype),
+                                         cfg)
+        h = apply_norm(p["norm"], x, cfg)
+        x = x + layers.cross_attn_apply(p["attn"], h, ctx)
+        h = apply_norm(p["norm2"], x, cfg)
+        return x + layers.mlp_apply(p["mlp"], h, cfg), {"attn": cache}
     if kind == "dec":
         h = apply_norm(p["norm"], x, cfg)
         a, self_cache = layers.attn_prefill(p["self_attn"], h, ctx,
@@ -130,17 +211,44 @@ def layer_prefill(cfg: ModelConfig, kind: str, p, x, ctx: LayerCtx,
     if kind == "enc":
         raise ValueError("encoder layers run in _encode, not in a prefill "
                          "stack")
-    h = apply_norm(p["norm"], x, cfg)
-    a, cache = layers.attn_prefill(p["attn"], h, ctx, kind=kind,
-                                   cache_len=cache_len)
-    x = _residual(x, a, p, cfg, "post_attn_norm")
-    return _mlp_block(cfg, p, x), {"attn": cache}
+    raise ValueError(kind)
 
 
 def layer_decode(cfg: ModelConfig, kind: str, p, x, cache, ctx: LayerCtx):
     """One-token step. x: (B,1,D). Returns (x, cache), the cache updated in
     place."""
-    _check_kind(kind)
+    if kind == "ssd":
+        h = apply_norm(p["norm"], x, cfg)
+        out, c = ssm.ssd_decode(p["mixer"], h, cache["mixer"], cfg)
+        return x + out, {"mixer": _write(cache["mixer"], c)}
+    if kind == "rglru":
+        h = apply_norm(p["norm"], x, cfg)
+        out, c = griffin.rglru_decode(p["mixer"], h, cache["mixer"], cfg)
+        x = x + out
+        h = apply_norm(p["norm2"], x, cfg)
+        return (x + layers.mlp_apply(p["mlp"], h, cfg),
+                {"mixer": _write(cache["mixer"], c)})
+    if kind in ("attn", "local"):
+        h = apply_norm(p["norm"], x, cfg)
+        a, c = layers.attn_decode(p["attn"], h, cache["attn"], ctx,
+                                  kind=kind)
+        x = _residual(x, a, p, cfg, "post_attn_norm")
+        return _mlp_block(cfg, p, x), {"attn": c}
+    if kind == "moe":
+        h = apply_norm(p["norm"], x, cfg)
+        a, c = layers.attn_decode(p["attn"], h, cache["attn"], ctx,
+                                  kind="attn")
+        x = x + a
+        h = apply_norm(p["norm2"], x, cfg)
+        out, _ = moe.moe_apply(p["moe"], h, cfg, capacity_factor=2.0,
+                               group_size=64)
+        return x + out, {"attn": c}
+    if kind == "cross":
+        h = apply_norm(p["norm"], x, cfg)
+        a, c = layers.cross_attn_decode(p["attn"], h, cache["attn"], ctx)
+        x = x + a
+        h = apply_norm(p["norm2"], x, cfg)
+        return x + layers.mlp_apply(p["mlp"], h, cfg), {"attn": c}
     if kind == "dec":
         h = apply_norm(p["norm"], x, cfg)
         a, sc = layers.attn_decode(p["self_attn"], h, cache["self_attn"], ctx,
@@ -152,10 +260,7 @@ def layer_decode(cfg: ModelConfig, kind: str, p, x, cache, ctx: LayerCtx):
         return _mlp_block(cfg, p, x + a), {"self_attn": sc, "cross_attn": cc}
     if kind == "enc":
         raise ValueError("encoder layers do not decode")
-    h = apply_norm(p["norm"], x, cfg)
-    a, c = layers.attn_decode(p["attn"], h, cache["attn"], ctx, kind=kind)
-    x = _residual(x, a, p, cfg, "post_attn_norm")
-    return _mlp_block(cfg, p, x), {"attn": c}
+    raise ValueError(kind)
 
 
 # ---------------------------------------------------------------------------
@@ -214,11 +319,14 @@ def stack_cache_schema_for(cfg: ModelConfig, batch: int,
     return s
 
 
-def _at(tree, i: int):
-    """Block ``i`` of a tree of stacked tensors (views, no copies)."""
+def _blocks(tree, n: int) -> List[Any]:
+    """The ``n`` blocks of a tree of stacked tensors, each leaf split once
+    with ``torch.unbind`` (views, no copies; under autograd one
+    ``UnbindBackward`` per leaf stacks its blocks' gradients once)."""
     if torch.is_tensor(tree):
-        return tree[i]
-    return {k: _at(v, i) for k, v in tree.items()}
+        return list(torch.unbind(tree, 0))
+    parts = {k: _blocks(v, n) for k, v in tree.items()}
+    return [{k: v[b] for k, v in parts.items()} for b in range(n)]
 
 
 def _stacked(trees):
@@ -229,16 +337,28 @@ def _stacked(trees):
 
 
 def _run_stack_apply(cfg: ModelConfig, params, x, ctx: LayerCtx):
+    """Returns (x, aux): aux the f32 sum of the MoE layers' load-balance
+    losses, in layer order."""
     lay = stack_layout(cfg)
-    aux = 0.0
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, kind in enumerate(lay.prefix):
         x, a = layer_apply(cfg, kind, params[f"prefix_{i}"], x, ctx)
         aux = aux + a
-    for b in range(lay.n_blocks):
-        bp = _at(params["blocks"], b)
+
+    def block_fn(x, aux, bp):
         for j, kind in enumerate(lay.pattern):
             x, a = layer_apply(cfg, kind, bp[f"p{j}"], x, ctx)
             aux = aux + a
+        return x, aux
+
+    remat = cfg.remat == "block" and torch.is_grad_enabled()
+    if lay.n_blocks:
+        for bp in _blocks(params["blocks"], lay.n_blocks):
+            if remat:
+                x, aux = checkpoint(block_fn, x, aux, bp,
+                                    use_reentrant=False)
+            else:
+                x, aux = block_fn(x, aux, bp)
     for i, kind in enumerate(lay.suffix):
         x, a = layer_apply(cfg, kind, params[f"suffix_{i}"], x, ctx)
         aux = aux + a
@@ -253,13 +373,13 @@ def _run_stack_prefill(cfg: ModelConfig, params, x, ctx: LayerCtx,
         x, caches[f"prefix_{i}"] = layer_prefill(
             cfg, kind, params[f"prefix_{i}"], x, ctx, cache_len)
     blocks = []
-    for b in range(lay.n_blocks):
-        bp = _at(params["blocks"], b)
-        cs = {}
-        for j, kind in enumerate(lay.pattern):
-            x, cs[f"p{j}"] = layer_prefill(cfg, kind, bp[f"p{j}"], x, ctx,
-                                           cache_len)
-        blocks.append(cs)
+    if lay.n_blocks:
+        for bp in _blocks(params["blocks"], lay.n_blocks):
+            cs = {}
+            for j, kind in enumerate(lay.pattern):
+                x, cs[f"p{j}"] = layer_prefill(cfg, kind, bp[f"p{j}"], x,
+                                               ctx, cache_len)
+            blocks.append(cs)
     if blocks:
         caches["blocks"] = _stacked(blocks)
     for i, kind in enumerate(lay.suffix):
@@ -275,10 +395,12 @@ def _run_stack_decode(cfg: ModelConfig, params, x, caches, ctx: LayerCtx):
     for i, kind in enumerate(lay.prefix):
         x, _ = layer_decode(cfg, kind, params[f"prefix_{i}"], x,
                             caches[f"prefix_{i}"], ctx)
-    for b in range(lay.n_blocks):
-        bp, bc = _at(params["blocks"], b), _at(caches["blocks"], b)
-        for j, kind in enumerate(lay.pattern):
-            x, _ = layer_decode(cfg, kind, bp[f"p{j}"], x, bc[f"p{j}"], ctx)
+    if lay.n_blocks:
+        for bp, bc in zip(_blocks(params["blocks"], lay.n_blocks),
+                          _blocks(caches["blocks"], lay.n_blocks)):
+            for j, kind in enumerate(lay.pattern):
+                x, _ = layer_decode(cfg, kind, bp[f"p{j}"], x, bc[f"p{j}"],
+                                    ctx)
     for i, kind in enumerate(lay.suffix):
         x, _ = layer_decode(cfg, kind, params[f"suffix_{i}"], x,
                             caches[f"suffix_{i}"], ctx)
@@ -357,9 +479,8 @@ def _encode(cfg: ModelConfig, params, frames: torch.Tensor,
     x = x + _sincos_pos(x.shape[1], cfg.d_model, x.dtype, x.device)[None]
     ctx = _make_ctx(cfg, torch.arange(x.shape[1], device=x.device),
                     use_flash=use_flash)
-    blocks = params["encoder"]["blocks"]
-    for b in range(cfg.n_enc_layers):
-        x, _ = layer_apply(cfg, "enc", _at(blocks, b)["p0"], x, ctx)
+    for bp in _blocks(params["encoder"]["blocks"], cfg.n_enc_layers):
+        x, _ = layer_apply(cfg, "enc", bp["p0"], x, ctx)
     return apply_norm(params["encoder"]["norm"], x, cfg)
 
 
@@ -376,9 +497,7 @@ def _memory_from_batch(cfg, params, batch, use_flash=False):
     if cfg.is_encoder_decoder:
         return _encode(cfg, params, batch["frames"], use_flash)
     if cfg.vision_seq:
-        raise NotImplementedError(
-            "vision memory (cross layers) is not ported yet (ROADMAP Queue 1 "
-            "row 10)")
+        return batch["vision"]
     return None
 
 
@@ -395,6 +514,38 @@ def _on(x, device: torch.device) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 # entry points
 # ---------------------------------------------------------------------------
+
+def loss_fn(params, batch: Mapping[str, Any], cfg: ModelConfig, *,
+            mesh=None, use_flash: bool = False):
+    """batch: tokens (B,S), labels (B,S) (-1 = padding); + frames / vision
+    for audio / vlm, as tensors or arrays (moved to the parameters'
+    device).
+
+    Returns (total loss, {"loss", "aux_loss", "tokens"}): the mean
+    cross-entropy over the labelled tokens plus ``router_aux_coef`` times
+    the MoE layers' load-balance loss, all f32 scalars.
+    """
+    _no_mesh(mesh)
+    dev = params["embed"]["table"].device
+    tokens = _on(batch["tokens"], dev)
+    B, S = tokens.shape
+    x = _embed_tokens(cfg, params, tokens)
+    if cfg.is_encoder_decoder:
+        x = x + params["dec_pos"]["table"][:S].to(x.dtype)[None]
+    memory = _memory_from_batch(
+        cfg, params, {k: _on(v, dev) for k, v in batch.items()
+                      if k not in ("tokens", "labels")}, use_flash)
+    ctx = _make_ctx(cfg, torch.arange(S, device=dev), memory=memory,
+                    use_flash=use_flash)
+    x, aux = _run_stack_apply(cfg, params["stack"], x, ctx)
+    x = apply_norm(params["final_norm"], x, cfg)
+    loss_sum, cnt = chunked_softmax_xent(
+        x, _unembed_table(cfg, params), _on(batch["labels"], dev),
+        softcap=cfg.final_logit_softcap, valid_vocab=cfg.vocab)
+    loss = loss_sum / torch.clamp(cnt, min=1.0)
+    total = loss + cfg.router_aux_coef * aux
+    return total, {"loss": loss, "aux_loss": aux, "tokens": cnt}
+
 
 def prefill(params, batch: Mapping[str, Any], cfg: ModelConfig, *,
             cache_len: int, mesh=None, use_flash: bool = False):

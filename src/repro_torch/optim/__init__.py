@@ -5,10 +5,12 @@ from repro_torch.optim.adamw import (
     compress_grads,
     cosine_lr,
     global_norm,
+    opt_state_schema,
     quantize_int8,
 )
 
 __all__ = [
     "adamw_init", "adamw_update", "clip_by_global_norm", "compress_grads",
-    "cosine_lr", "global_norm", "quantize_int8",
+    "cosine_lr", "global_norm", "opt_state_schema",
+    "quantize_int8",
 ]

@@ -8,16 +8,20 @@ The arithmetic is the JAX package's (``repro.optim.adamw``), not
 the leaves in sorted-key order. Compression (``int8_ef``): each leaf is
 scale-quantized to int8 and the quantization residual is carried in the
 optimiser state and re-added next step (error feedback).
+``opt_state_schema`` is ``adamw_init``'s state as a schema (no
+allocation).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Any, Dict, Tuple
 
 import torch
 
 from repro_torch.common.config import TrainConfig
+from repro_torch.common.schema import ParamDef, tree_map_defs
 from repro_torch.common.tree import leaves, tree_map
 
 
@@ -119,3 +123,15 @@ def adamw_update(params, grads, opt_state, tc: TrainConfig):
     if tc.grad_compression == "int8_ef":
         new_state["ef_residual"] = new_res
     return _pick(out, 0), new_state, metrics
+
+
+def opt_state_schema(param_schema, tc: TrainConfig):
+    """Schema mirror of ``adamw_init``: f32 m and v (and the int8_ef
+    residual) shaped as the parameters, and the int32 step count."""
+    f32 = lambda d: dataclasses.replace(d, dtype=torch.float32, init="zeros")
+    s = {"m": tree_map_defs(f32, param_schema),
+         "v": tree_map_defs(f32, param_schema),
+         "count": ParamDef((), (), init="zeros", dtype=torch.int32)}
+    if tc.grad_compression == "int8_ef":
+        s["ef_residual"] = tree_map_defs(f32, param_schema)
+    return s

@@ -81,9 +81,11 @@ def test_entry_points_refuse_to_run_without_a_card():
     from repro_torch.core.gcn import (GCNConfig, feature_table, gcn_schema,
                                       params_from_jax)
     from repro_torch.configs import smoke_config
-    from repro_torch.launch import serve
+    from repro_torch.common.config import TrainConfig
+    from repro_torch.launch import serve, train
     from repro_torch.models import transformer
     from repro_torch.serving import ServingEngine
+    from repro_torch.train import init_state
 
     feats = np.zeros((4, 3), np.float32)
     indptr, indices = np.zeros(5, np.int64), np.zeros(0, np.int64)
@@ -98,6 +100,13 @@ def test_entry_points_refuse_to_run_without_a_card():
         lambda: transformer.params_from_jax({"embed": {"table": feats}}),
         lambda: serve.main(["--workload", "lm", "--arch", "whisper-base",
                             "--reduced"]),
+        lambda: serve.main(["--workload", "lm", "--arch", "mamba2-780m",
+                            "--reduced"]),
+        lambda: train.main(["--workload", "lm", "--arch", "qwen1.5-0.5b",
+                            "--reduced"]),
+        lambda: init_state(smoke_config("recurrentgemma-2b"), TrainConfig()),
+        lambda: init_params(transformer.model_schema(
+            smoke_config("deepseek-moe-16b")), draw="device"),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="device='cpu'"):

@@ -41,7 +41,9 @@ from repro_torch.kernels.flash_attention import kernel as FK
 from repro_torch.launch import serve
 from repro_torch.models import layers as TL
 from repro_torch.models import transformer as TT
-from repro_torch.train import make_decode_step, make_prefill_step
+from repro_torch.common.config import TrainConfig
+from repro_torch.train import (make_decode_step, make_prefill_step,
+                               make_train_step)
 
 # One intra-op thread: the tier-1 run puts several pytest workers on one
 # host, and torch's default thread pool in each of them oversubscribes
@@ -216,15 +218,20 @@ def test_params_from_jax_keeps_nesting_and_dtype():
 
 
 def test_unported_parts_raise_naming_their_row():
-    with pytest.raises(NotImplementedError, match="Queue 1 row 10"):
-        configs.get_config("llama-3.2-vision-90b")
-    with pytest.raises(NotImplementedError, match="Queue 1 row 10"):
-        TT.layer_schema(configs.smoke_config("qwen1.5-0.5b"), "moe")
+    """The sharded LM (``mesh=`` on every LM step and on the loss, the
+    sharded embedding lookup) is ROADMAP Queue 1 row 10.3."""
     cfg = configs.smoke_config("qwen1.5-0.5b")
-    with pytest.raises(NotImplementedError, match="Queue 1 row 10"):
+    with pytest.raises(NotImplementedError, match="Queue 1 row 10.3"):
         make_prefill_step(cfg, cache_len=8, mesh=object())
-    with pytest.raises(NotImplementedError, match="Queue 1 row 10"):
+    with pytest.raises(NotImplementedError, match="Queue 1 row 10.3"):
         make_decode_step(cfg, mesh=object())
+    with pytest.raises(NotImplementedError, match="Queue 1 row 10.3"):
+        make_train_step(cfg, TrainConfig(), mesh=object())
+    with pytest.raises(NotImplementedError, match="Queue 1 row 10.3"):
+        TT.loss_fn({}, {}, cfg, mesh=object())
+    from repro_torch.models.embedding import embed_lookup
+    with pytest.raises(NotImplementedError, match="Queue 1 row 10.3"):
+        embed_lookup(torch.zeros(4, 2), torch.zeros(1, 1), mesh=object())
 
 
 # ---------------------------------------------------------------------------

@@ -303,12 +303,18 @@ def test_launch_train_runs_on_the_cpu(tmp_path):
 
 
 def test_launch_train_defaults_to_the_card_and_refuses_lm():
+    """Both workloads default to the card; ``--workload lm`` trains (here
+    on the CPU, reduced) where it used to raise."""
     from repro_torch.launch import train
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             train.main(["--steps", "1", "--scale", "6"])
-    with pytest.raises(NotImplementedError, match="row 10"):
-        train.main(["--workload", "lm", "--device", "cpu"])
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            train.main(["--workload", "lm", "--arch", "qwen1.5-0.5b",
+                        "--reduced", "--steps", "1"])
+    assert train.main(["--workload", "lm", "--arch", "qwen1.5-0.5b",
+                       "--reduced", "--device", "cpu", "--steps", "2",
+                       "--batch", "2", "--seq-len", "8"]) == 0
 
 
 def test_inference_outputs_do_not_require_grad():
