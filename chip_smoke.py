@@ -61,8 +61,9 @@ Phases, each failing hard (exit status 1, no result line):
 6. LM serving: whisper-base at full width (d_model 512, 8 heads, 6 + 6
    layers, vocab 51865, enc_seq 1500, bf16 compute) through
    ``launch.serve``'s LM path: 4 requests of 48 prompt tokens, 24
-   generated tokens, weights and frames from a seed. The encoder runs on
-   the flash kernel: exactly 6 launches per prefill with ``impl="kernel"``,
+   generated tokens, weights and frames from a seed. The encoder and the
+   decoder's prefill self-attention run on the flash kernel: exactly
+   6 + 6 launches per prefill with ``impl="kernel"``,
    all on the route of the compute dtype, none with ``impl="ref"``, and no
    call of the plain version. In float32
    the kernel path matches ``impl="ref"`` on the prefill logits and on 23
@@ -175,21 +176,52 @@ a. islandized partitioning (``partition="island"``), the graph algorithms
 
 b. the accounting (phase 1's libraries built first): the card against
    ``common/hw.py``'s H100 spec (132 SMs, "H100" in its name); the
-   contract registry (``analysis/contracts.py``, 54 contracts at the JAX
+   contract registry (``analysis/contracts.py``, 57 contracts at the JAX
    registry's shapes: part 32, F 64, B 8, K1 3, K2 10, sparse capacity
-   16) verified on 8 gloo ranks sharing the card with CUDA tensors —
+   16; the three ``embed_lookup`` ones on a 2 × 4 mesh of the same
+   ranks) verified on 8 gloo ranks sharing the card with CUDA tensors —
    every contract's collectives, dispatches and dtypes equal to its
    budget forward and forward + backward, and every kernel-route
-   contract launching on every rank the kernel ``kernel_of`` names
-   (banded where the run is scheduled, dense otherwise) and not the
-   other; then the 37 counted rows of ``BENCH_collective_bytes.json``
+   contract launching on every rank, in the pass ``kernel_pass`` names,
+   the kernel ``kernel_of`` names (banded where the run is scheduled,
+   dense otherwise) and not the other; then the 37 counted rows of ``BENCH_collective_bytes.json``
    (``analysis/counted_rows.py``: one spawn of 2, 4 and 8 ranks on the
    card) with zero drift against the committed file, the paper row
    (baseline bytes, cgtrans bytes, ratio) printed.
 
+d. the sharded LM: 4 gloo ranks share the card as a (data 2 × model 2)
+   ``Mesh`` (``launch/mesh.py``; collectives staged through pinned host
+   memory, so no time here is an interconnect's). Full-width
+   qwen1.5-0.5b in f32 (24 layers, D 1024, vocab 151,936, tied table;
+   each rank draws the full parameters from the seed and keeps its
+   blocks), B 4, S 256: the gradients of one ``loss_fn`` (the train
+   step's reduction) against the unsharded port on the same card — the
+   loss within rtol 1e-5, each leaf within 1e-4 of its max |g| (a key
+   bias, whose gradient is zero up to rounding, against the largest
+   gradient) — then two ``make_train_step(mesh=)`` steps against two
+   unsharded steps (losses within 1e-5, then 1e-4), each rank's step
+   times, init and step peak memory (init held to the rank's state
+   plus three of the largest full leaf), held parameter and moment bytes
+   and staged
+   calls, bytes and seconds printed. bf16 serving of the stepped
+   parameters: prefill of 4 × 256 with ``use_flash=True`` (24 flash
+   launches per rank, all on ``mma_bf16``, no plain call) and 4
+   teacher-forced decode steps within 2e-2 of the largest unsharded
+   logit; then, uncounted, ``flash_mma_kernel`` against its plain
+   version at each rank's prefill shape (2 rows, 8 heads, S 256, hd 64,
+   causal) within the bf16 tolerance of phase 5. ``embed_lookup(impl="kernel")`` at qwen's width (ids 8 × 512)
+   counted against the ``embed_lookup/cgtrans/pallas`` contract (and
+   ``impl="ref"`` against ``.../xla``), one dense launch per rank per
+   gradient, the table gradient bit for bit ``impl="ref"`` on integer
+   data and within 1e-5 on normal data. deepseek-moe-16b (experts over
+   model) and llama-3.2-vision-90b at smoke size: one sharded step
+   against the unsharded port. Then, in this process, the lookup's
+   owner-side dense launch at one rank's shape, against its plain
+   version and timed beside ``index_add_`` and its bytes bound.
+
 Each kernel's launch count is set to 0 just before each path of phases 3,
-4, 6, 7, 8 (in each rank), 9, a and b (in each rank, per contract pass)
-and read just after; a kernel that a path should launch and did not
+4, 6, 7, 8 (in each rank), 9, a, b (in each rank, per contract pass) and
+d (in each rank) and read just after; a kernel that a path should launch and did not
 fails the run. The last lines are the kernels' JSON, the card's name
 and power limit, and ``{"ok": true, "device": {...}}``.
 ``--phases`` runs a subset (for example ``--phases 15`` or
@@ -204,6 +236,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import math
 import os
 import re
 import subprocess
@@ -1196,6 +1229,13 @@ def phase_flash(torch, FK, smi):
 # phase 6: whisper-base serving at full width
 # ---------------------------------------------------------------------------
 
+def flash_layers(cfg):
+    """Flash launches in one prefill with ``use_flash``: every encoder layer
+    and every decoder layer's self-attention."""
+    return cfg.n_enc_layers + sum(k in ("attn", "local", "moe", "dec")
+                                  for k in cfg.layer_kinds())
+
+
 def phase_lm(torch, FK, smi):
     """Returns the flash kernel's launches on the counted main-path run,
     all and per route."""
@@ -1217,9 +1257,9 @@ def phase_lm(torch, FK, smi):
     main_route = FK.ROUTES[getattr(torch, cfg.compute_dtype)]
     check(routes[main_route] == launches,
           f"the {cfg.compute_dtype} prefill left route {main_route}: {routes}")
-    check(launches == cfg.n_enc_layers,
+    check(launches == flash_layers(cfg),
           f"the prefill launched flash {launches} times, expected "
-          f"{cfg.n_enc_layers}")
+          f"{flash_layers(cfg)}")
     check(plain == 0, f"the card path called the plain version {plain} times")
 
     schema = T.model_schema(cfg, max_seq=LM_PROMPT + LM_GEN)
@@ -1234,7 +1274,7 @@ def phase_lm(torch, FK, smi):
         out = serve.generate(params, batch, c, gen=LM_GEN,
                              use_flash=impl == "kernel", forced=forced)
         n = FK.launch_counts()["flash_attention"]
-        want = c.n_enc_layers if impl == "kernel" else 0
+        want = flash_layers(c) if impl == "kernel" else 0
         check(n == want, f"{c.compute_dtype} impl={impl}: {n} flash launches,"
               f" expected {want}")
         route = FK.ROUTES[getattr(torch, c.compute_dtype)]
@@ -3680,19 +3720,20 @@ def phase_accounting(torch, launches, smi):
                     if contracts.kernel_of(n)]
     for r, res in enumerate(ranks):
         for n in kernel_route:
-            fwd = res["launches"][n]["forward"]
+            tag = contracts.kernel_pass(n)
+            fwd = res["launches"][n][tag]
             k = contracts.kernel_of(n)
             other = ("gas_scatter_dense" if k == "gas_scatter_banded"
                      else "gas_scatter_banded")
             check(fwd[k] > 0 and fwd[other] == 0,
-                  f"rank {r} {n}: forward launched {fwd}, expected "
+                  f"rank {r} {n}: {tag} launched {fwd}, expected "
                   f"{k} only")
         for per_pass in res["launches"].values():
             for counts in per_pass.values():
                 for k, v in counts.items():
                     launches[k] += v
     log(f"  {len(contracts.CONTRACTS)} contracts ({n_pass} passes; "
-        f"{len(contracts.WAITING)} waiting: {', '.join(contracts.WAITING)}) "
+        f"{len(contracts.WAITING)} waiting) "
         f"clean on {contracts.WAYS} gloo ranks sharing the card in "
         f"{t_verify:.1f} s; each of {len(kernel_route)} kernel-route "
         f"contracts launched its kernel on every rank")
@@ -3712,11 +3753,532 @@ def phase_accounting(torch, launches, smi):
     log(f"  phase b took {time.perf_counter() - t_phase:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# phase d: the sharded LM on a (data 2 x model 2) mesh of gloo ranks
+# ---------------------------------------------------------------------------
+
+SHARDED_LM_SHAPE = (2, 2)          # (data, model): 4 gloo ranks, one card
+SHARDED_B, SHARDED_S, SHARDED_STEPS = 4, 256, 2
+SHARDED_KW = dict(learning_rate=1e-3, warmup_steps=1, total_steps=3,
+                  eps=1e-3)
+SERVE_B, SERVE_P, SERVE_GEN = 4, 256, 4
+EMBED_B, EMBED_S = 8, 512
+SHARDED_SMOKE = ("deepseek-moe-16b", "llama-3.2-vision-90b")
+SHARDED_LM_TIMEOUT_S = 600
+
+
+def _held_bytes(tree):
+    from repro_torch.common.tree import leaves
+    return sum(t.numel() * t.element_size() for t in leaves(tree))
+
+
+def _grad_check(torch, mesh, cfg, params, specs, batch, full_params):
+    """The sharded gradients of one ``loss_fn`` (the train step's own
+    reduction) gathered, and on rank 0 held leaf by leaf against the
+    unsharded port's: (loss, {leaf: (max |diff|, max |g|)}) on rank 0."""
+    from repro_torch.common.logical import gather_leaf, spec_leaves
+    from repro_torch.common.tree import leaves_with_paths, tree_map
+    from repro_torch.models import transformer as T
+    from repro_torch.train import step as TS
+
+    live = tree_map(lambda t: t.detach().requires_grad_(True), params)
+    total, _ = T.loss_fn(live, TS._rows(batch, cfg, mesh), cfg, mesh=mesh)
+    total.backward()
+    grads = TS._sync_grads(tree_map(lambda t: t.grad, live), specs, mesh)
+    del live
+    spec_of = dict(spec_leaves(specs))
+    mine = {p: gather_leaf(g, spec_of[p], mesh)
+            for p, g in leaves_with_paths(grads)}
+    del grads
+    if mesh.rank != 0:
+        return float(total.detach()), None
+    ref = tree_map(lambda t: t.detach().requires_grad_(True), full_params)
+    rtotal, _ = T.loss_fn(ref, batch, cfg)
+    rtotal.backward()
+    diffs = {p: (float((mine[p] - g.grad).abs().max()),
+                 float(g.grad.abs().max()))
+             for p, g in leaves_with_paths(ref)}
+    return (float(total.detach()), float(rtotal.detach())), diffs
+
+
+def sharded_lm_rank(mesh, spec):
+    """One rank of phase d: full-width qwen1.5-0.5b f32 training (gradients
+    against the unsharded port on rank 0, two timed steps), bf16 serving
+    with flash prefill, the kernel-route lookup at qwen's width, and two
+    smoke architectures; each path with the kernels' launch counts set to
+    0 just before it and read just after."""
+    import numpy as np
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.analysis import contracts
+    from repro_torch.common.config import TrainConfig
+    from repro_torch.common.logical import (gather_leaf, local_block,
+                                            spec_leaves, tree_to_physical)
+    from repro_torch.common.schema import init_params, param_logical_specs
+    from repro_torch.common.tree import leaves_with_paths, unflatten
+    from repro_torch.data import TokenStream
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.kernels.gas_scatter import kernel as K
+    from repro_torch.launch.counts import count_run
+    from repro_torch.models import transformer as T
+    from repro_torch.models.embedding import embed_lookup
+    from repro_torch.models.layers import _head_split
+    from repro_torch.train import step as TS
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = mesh.device
+    rank0 = mesh.rank == 0
+    out = {"rank": mesh.rank}
+    cfg = configs.get_config(LM_TRAIN_ARCH)
+    c32 = dataclasses.replace(cfg, compute_dtype="float32")
+    tc = TrainConfig(**SHARDED_KW)
+    schema = T.model_schema(c32)
+    specs = tree_to_physical(param_logical_specs(schema), mesh)
+    stream = TokenStream(vocab=cfg.vocab, batch=SHARDED_B,
+                         seq_len=SHARDED_S, seed=0)
+    batches = [{k: torch.from_numpy(v).to(dev)
+                for k, v in stream.batch_at(i).items()}
+               for i in range(SHARDED_STEPS)]
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    # -- f32 training: gradients, then two steps --------------------------
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    state = TS.init_state(c32, tc, 0, mesh=mesh, draw="device")
+    out["init_peak"] = (torch.cuda.max_memory_allocated(dev)
+                        if dev.type == "cuda" else 0)
+    full = (init_params(schema, 0, device=dev, draw="device") if rank0
+            else None)
+    out["init_s"] = time.perf_counter() - t0
+    out["held"] = (_held_bytes(state["params"]),
+                   _held_bytes({k: v for k, v in state["opt"].items()
+                                if k in ("m", "v")}))
+    t0 = time.perf_counter()
+    out["loss_fn"] = _grad_check(torch, mesh, c32, state["params"], specs,
+                                 batches[0], full)
+    sync()
+    out["grad_check_s"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    mesh.barrier()
+
+    step = TS.make_train_step(c32, tc, mesh=mesh, param_shardings=specs)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    staged0 = dataclasses.replace(mesh.staged)
+    metrics, times = [], []
+    for b in batches:
+        sync()
+        t0 = time.perf_counter()
+        state, m = step(state, b)
+        sync()
+        times.append(time.perf_counter() - t0)
+        metrics.append({k: float(v) for k, v in m.items()})
+    out["peak"] = (torch.cuda.max_memory_allocated(dev)
+                   if dev.type == "cuda" else 0)
+    out["staged"] = (mesh.staged.calls - staged0.calls,
+                     mesh.staged.bytes - staged0.bytes,
+                     mesh.staged.seconds - staged0.seconds)
+    out["steps"], out["step_s"] = metrics, times
+    mesh.barrier()
+    if rank0:
+        ustate = {"params": full, "opt": TS.adamw_init(full, tc),
+                  "step": torch.zeros((), dtype=torch.int32, device=dev)}
+        ustep = TS.make_train_step(c32, tc)
+        um, ut = [], []
+        for b in batches:
+            sync()
+            t0 = time.perf_counter()
+            ustate, m = ustep(ustate, b)
+            sync()
+            ut.append(time.perf_counter() - t0)
+            um.append({k: float(v) for k, v in m.items()})
+        out["unsharded"] = (um, ut)
+        del ustate, full
+    torch.cuda.empty_cache()
+    mesh.barrier()
+
+    # -- bf16 serving, prefill through flash on the local heads ----------
+    params = state["params"]
+    del state
+    rng = np.random.default_rng(1)
+    prompt = {"tokens": torch.from_numpy(rng.integers(
+        0, cfg.vocab, (SERVE_B, SERVE_P)).astype(np.int32)).to(dev)}
+    forced = torch.from_numpy(rng.integers(
+        0, cfg.vocab, (SERVE_B, SERVE_GEN)).astype(np.int32)).to(dev)
+    pre = TS.make_prefill_step(cfg, cache_len=SERVE_P + SERVE_GEN + 1,
+                               mesh=mesh, use_flash=True)
+    dec = TS.make_decode_step(cfg, mesh=mesh)
+    with torch.no_grad():
+        sync()
+        FK.reset_launch_counts()
+        plain0 = FK.flash_attention_plain.calls
+        t0 = time.perf_counter()
+        logits, caches = pre(params, prompt)
+        sync()
+        out["prefill_s"] = time.perf_counter() - t0
+        out["flash"] = (FK.launch_counts()["flash_attention"],
+                        FK.route_launch_counts(),
+                        FK.flash_attention_plain.calls - plain0)
+        seq = [logits.float()]
+        t0 = time.perf_counter()
+        for i in range(SERVE_GEN):
+            logits, caches = dec(params, forced[:, i:i + 1], caches,
+                                 SERVE_P + i)
+            seq.append(logits.float())
+        sync()
+        out["decode_s"] = (time.perf_counter() - t0) / SERVE_GEN
+        spec_of = dict(spec_leaves(specs))
+        whole = unflatten(params, [gather_leaf(p, spec_of[path], mesh)
+                                   for path, p in leaves_with_paths(params)])
+        if rank0:
+            upre = TS.make_prefill_step(cfg, cache_len=SERVE_P + SERVE_GEN
+                                        + 1)
+            udec = TS.make_decode_step(cfg)
+            FK.reset_launch_counts()
+            ulog, ucache = upre(whole, prompt)
+            useq = [ulog.float()]
+            for i in range(SERVE_GEN):
+                ulog, ucache = udec(whole, forced[:, i:i + 1], ucache,
+                                    SERVE_P + i)
+                useq.append(ulog.float())
+            V = cfg.vocab
+            out["serve"] = [(float((a[:, :V] - b[:, :V]).abs().max()),
+                             float(b[:, :V].abs().max()))
+                            for a, b in zip(seq, useq)]
+            del ucache, useq
+        del whole, caches, seq
+
+    # -- the flash kernel at this rank's prefill shape -------------------
+    # (after the counted run: these launches do not count)
+    tp, q_split, kv_split = _head_split(cfg, mesh)
+    H = cfg.n_heads // tp if q_split else cfg.n_heads
+    Hkv = cfg.n_kv_heads // tp if kv_split else cfg.n_kv_heads
+    rows = SERVE_B // mesh.shape["data"]
+    args = flash_inputs(torch, FK, rows, SERVE_P, SERVE_P, H, Hkv, cfg.hd,
+                        torch.bfloat16, seed=mesh.rank)
+    kw = dict(causal=True, window=0, softcap=cfg.attn_logit_softcap,
+              kv_len=SERVE_P, n_kv_heads=Hkv)
+    FK.reset_launch_counts()
+    got = FK.flash_attention_fwd(*args, **kw)
+    launched = FK.route_launch_counts()
+    want = FK.flash_attention_plain(*args, **kw)
+    sync()
+    got, want = got[:, :SERVE_P].float(), want[:, :SERVE_P].float()
+    out["flash_check"] = {
+        "shape": (rows, H, Hkv, SERVE_P, cfg.hd), "routes": launched,
+        "ok": bool(torch.isfinite(got).all()) and bool(torch.allclose(
+            got, want, **FLASH_TOL["bfloat16"])),
+        "max_abs_err": float((got - want).abs().max())}
+    del args, got, want
+    torch.cuda.empty_cache()
+    mesh.barrier()
+
+    # -- the kernel-route lookup at qwen's width -------------------------
+    m24 = mesh
+    V, D = cfg.vocab_padded, cfg.d_model
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(7)
+    table = torch.randint(-4, 5, (V, D), generator=gen, device=dev).float()
+    ids = torch.randint(0, V, (EMBED_B, EMBED_S), generator=gen, device=dev,
+                        dtype=torch.int32)
+    cot_int = torch.randint(-2, 3, (EMBED_B, EMBED_S, D), generator=gen,
+                            device=dev).float()
+    cot_normal = torch.randn((EMBED_B, EMBED_S, D), generator=gen,
+                             device=dev)
+    tab = local_block(table, ("model", None), m24).contiguous()
+    mine = local_block(ids, ("data", None), m24).contiguous()
+    del table
+    runs = {}
+    for impl in ("kernel", "ref"):
+        for name, cot in (("int", cot_int), ("normal", cot_normal)):
+            c = local_block(cot, ("data", None, None), m24)
+            t = tab.clone().requires_grad_(True)
+            sync()
+            K.reset_launch_counts()
+            run = count_run(lambda a, b: embed_lookup(
+                a, b, mesh=m24, impl=impl, compute_dtype=torch.float32)
+                * c, t, mine, fwd_bwd=True)
+            sync()
+            runs[(impl, name)] = (run.as_dict(), K.launch_counts())
+            del run
+    fwd = count_run(lambda a, b: embed_lookup(
+        a, b, mesh=m24, impl="kernel", compute_dtype=torch.float32),
+        tab, mine)
+    out["embed_counts"] = {"forward": fwd.as_dict(), "runs": runs}
+    del fwd
+    # the table gradient of each route: sum(lookup · cot) scatters cot
+    embed_grads = {}
+    for impl in ("kernel", "ref"):
+        for name, cot in (("int", cot_int), ("normal", cot_normal)):
+            c = local_block(cot, ("data", None, None), m24)
+            t = tab.clone().requires_grad_(True)
+            (embed_lookup(t, mine, mesh=m24, impl=impl,
+                          compute_dtype=torch.float32) * c).sum().backward()
+            embed_grads[(impl, name)] = t.grad
+    out["embed"] = {
+        "int_equal": bool(torch.equal(embed_grads[("kernel", "int")],
+                                      embed_grads[("ref", "int")])),
+        "normal": _close(embed_grads[("kernel", "normal")],
+                         embed_grads[("ref", "normal")], 1e-5, 1e-5),
+        "budget": {impl: (dict(contracts.CONTRACTS[
+            f"embed_lookup/cgtrans/{jax_name}"].forward),
+            dict(contracts.CONTRACTS[
+                f"embed_lookup/cgtrans/{jax_name}"].fwd_bwd))
+            for impl, jax_name in (("kernel", "pallas"), ("ref", "xla"))}}
+    del embed_grads, tab, cot_int, cot_normal
+    torch.cuda.empty_cache()
+    mesh.barrier()
+
+    # -- two smoke architectures: one sharded step each ------------------
+    stc = TrainConfig(**SMOKE_KW)
+    out["smoke"] = {}
+    for arch in SHARDED_SMOKE:
+        c = configs.smoke_config(arch)
+        tb = {k: torch.from_numpy(v).to(dev) for k, v in TokenStream(
+            vocab=c.vocab, batch=SMOKE_B * 2, seq_len=16,
+            with_vision=c.vision_seq, d_model=c.d_model).batch_at(0).items()}
+        sstate = TS.init_state(c, stc, 0, mesh=mesh)
+        sspecs = tree_to_physical(param_logical_specs(T.model_schema(c)),
+                                  mesh)
+        sstate, m = TS.make_train_step(c, stc, mesh=mesh)(sstate, tb)
+        spec_of = dict(spec_leaves(sspecs))
+        got = {p: gather_leaf(v, spec_of[p], mesh)
+               for p, v in leaves_with_paths(sstate["params"])}
+        if rank0:
+            ustate = TS.init_state(c, stc, 0, device=dev)
+            ustate, um = TS.make_train_step(c, stc)(ustate, tb)
+            worst = max(float((got[p] - v).abs().max())
+                        for p, v in leaves_with_paths(ustate["params"]))
+            out["smoke"][arch] = (float(m["total_loss"]),
+                                  float(um["total_loss"]), worst)
+    out["staged_total"] = dataclasses.asdict(mesh.staged)
+    return out
+
+
+def _embed_dense_timing(torch, K, smi):
+    """The owner-side dense launch of the kernel-route lookup at qwen's
+    width, on one rank's inputs (data rank 0's B/2 x S ids, model rank 0's
+    vocab half): CUDA events, the profiler's device ms, the plain version,
+    ``torch.index_add`` (the library yardstick) and the bytes bound."""
+    from repro_torch import configs
+    from repro_torch.core import gas
+    from repro_torch.kernels.gas_scatter import ops
+
+    cfg = configs.get_config(LM_TRAIN_ARCH)
+    V, D = cfg.vocab_padded, cfg.d_model
+    shard = V // SHARDED_LM_SHAPE[1]
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(7)
+    ids = torch.randint(0, V, (EMBED_B // SHARDED_LM_SHAPE[0], EMBED_S),
+                        generator=gen, device="cuda").reshape(-1)
+    g = torch.randn((ids.numel(), D), generator=gen, device="cuda")
+    ok = ids < shard
+    rel = torch.where(ok, ids, 0).to(torch.int32)
+    ones = torch.ones(ids.numel(), device="cuda")
+    calls = captured_calls(ops, lambda: gas.gas_scatter_weighted(
+        rel, g, ones, ok, shard, op="add", impl="kernel"), scheduled=False)
+    check(len(calls) == 1, f"the lookup's gradient made {len(calls)} "
+          f"kernel calls, expected 1")
+    call = ops.fused_call(*calls[0][0], **calls[0][1])
+    got = call.run()
+    want = plain_in_order(torch, call)
+    ok_, d = _close(got, want, 1e-5, 1e-5)
+    check(ok_, f"the lookup's dense launch off its plain version by {d}")
+    # the library call computes the same function: a fresh (rows, D)
+    # gradient, the owned cotangent rows added in (out of place, so every
+    # call writes the whole output, as the kernel does)
+    zeros = torch.zeros((shard, D), device="cuda")
+    live = torch.nonzero(ok)[:, 0]
+    lid, lg = rel[live].long(), g[live]
+    check(torch.allclose(torch.index_add(zeros, 0, lid, lg), want[:shard, :D],
+                         rtol=1e-5, atol=1e-5),
+          "index_add differs from the lookup's dense launch")
+    t = {"tokens": int(ids.numel()), "owned": int(live.numel()),
+         "rows": shard, "width": D,
+         "ms": event_ms(torch, call.run, 50, warm=3),
+         "device_ms": device_ms(torch, call.run,
+                                KERNEL_SYMBOL["gas_scatter_dense"], 50),
+         "plain_ms": event_ms(torch, call.run_plain, 10, warm=1),
+         "library_ms": event_ms(
+             torch, lambda: torch.index_add(zeros, 0, lid, lg), 50, warm=3),
+         "occupied": int((call.args[2] > 0).sum()),
+         "max_abs_err": d}
+    t["bound_ms"], t["bound_by"] = bound(call)
+    log(f"  gas_scatter_dense at the lookup's gradient (qwen width, one "
+        f"rank: {t['tokens']} tokens, {t['owned']} owned, {shard} x {D} "
+        f"rows) [{smi}]: {json.dumps(t)}")
+    return t
+
+
+def phase_sharded_lm(torch, FK, K, launches, measured, smi):
+    """Phase d: the sharded LM on 4 gloo ranks sharing the card."""
+    from repro_torch import configs
+    from repro_torch.common.schema import count_params, leaves
+    from repro_torch.launch.mesh import spawn
+    from repro_torch.models import transformer as T
+
+    t_phase = time.perf_counter()
+    cfg = configs.get_config(LM_TRAIN_ARCH)
+    n_params = count_params(T.model_schema(cfg))
+    t0 = time.perf_counter()
+    ranks = spawn(sharded_lm_rank, SHARDED_LM_SHAPE, backend="gloo",
+                  device="cuda", timeout_s=SHARDED_LM_TIMEOUT_S,
+                  args=({},))
+    log(f"  {len(ranks)} gloo ranks on one card, mesh {SHARDED_LM_SHAPE} "
+        f"(data, model), ran in {time.perf_counter() - t0:.1f} s")
+    r0 = ranks[0]
+
+    (loss_sh, loss_un), diffs = r0["loss_fn"]
+    check(abs(loss_sh - loss_un) <= 1e-5 * abs(loss_un),
+          f"sharded f32 loss {loss_sh} against unsharded {loss_un}")
+    # the key bias's gradient is zero up to rounding (softmax is
+    # shift-invariant): held against the largest gradient, every other
+    # leaf against its own largest
+    g_max = max(m for _, m in diffs.values())
+    worst, worst_leaf = 0.0, None
+    for path, (d, m) in diffs.items():
+        scale = g_max if path[-1] == "bk" else m
+        check(d <= 1e-4 * scale, f"f32 gradient {'/'.join(map(str, path))}"
+              f" off the unsharded port by {d} (max |g| {m})")
+        if path[-1] != "bk" and d / max(m, 1e-30) > worst:
+            worst, worst_leaf = d / max(m, 1e-30), path
+    log(f"  qwen1.5-0.5b f32 at full width ({n_params / 1e6:.1f} M params),"
+        f" B {SHARDED_B}, S {SHARDED_S}: sharded loss {loss_sh:.6f}, "
+        f"unsharded {loss_un:.6f}; {len(diffs)} gradient leaves within "
+        f"1e-4 of their max |g| (worst {worst:.3g} at "
+        f"{'/'.join(map(str, worst_leaf))}; key biases against the largest "
+        f"gradient {g_max:.3g})")
+    um, ut = r0["unsharded"]
+    for i, (m, u) in enumerate(zip(r0["steps"], um)):
+        rtol = 1e-5 if i == 0 else 1e-4
+        check(abs(m["total_loss"] - u["total_loss"]) <= rtol * abs(
+            u["total_loss"]), f"sharded step {i + 1} loss "
+            f"{m['total_loss']} against unsharded {u['total_loss']}")
+    for r in ranks:
+        check([m["total_loss"] for m in r["steps"]] ==
+              [m["total_loss"] for m in r0["steps"]],
+              f"rank {r['rank']}'s losses differ from rank 0's")
+    unsharded_state = 3 * n_params * 4
+    # init draws each full leaf and keeps the rank's block before the next
+    # draw: the peak is the rank's state plus a few full leaves (the draw
+    # and its temporaries), never the whole model
+    biggest = max(4 * math.prod(d.shape)
+                  for _, d in leaves(T.model_schema(cfg)))
+    for r in ranks:
+        p_b, o_b = r["held"]
+        check(r["init_peak"] <= p_b + o_b + 3 * biggest,
+              f"rank {r['rank']}: init peaked at {r['init_peak']} bytes, "
+              f"over its state {p_b + o_b} plus three of the largest leaf "
+              f"({biggest})")
+        calls, nbytes, secs = r["staged"]
+        log(f"  rank {r['rank']} [{smi}]: steps "
+            + ", ".join(f"{1e3 * t:.1f}" for t in r["step_s"])
+            + f" ms; init peak {r['init_peak'] / 2**30:.2f} GiB (largest "
+            f"leaf {biggest / 2**30:.2f} GiB); step peak memory "
+            f"{r['peak'] / 2**30:.2f} GiB; holds "
+            f"{(p_b + o_b) / 1e9:.3f} GB of parameters and AdamW moments "
+            f"({100 * (p_b + o_b) / unsharded_state:.1f}% of the unsharded "
+            f"{unsharded_state / 1e9:.3f} GB); staged over the two steps: "
+            f"{calls} calls, {nbytes / 1e9:.3f} GB, {secs:.2f} s")
+    log(f"  losses: sharded "
+        + ", ".join(f"{m['total_loss']:.6f}" for m in r0["steps"])
+        + ", unsharded " + ", ".join(f"{m['total_loss']:.6f}" for m in um)
+        + f"; warm step (step 2): sharded {1e3 * r0['step_s'][-1]:.1f} ms "
+        f"(4 ranks on one card, gloo staged), unsharded "
+        f"{1e3 * ut[-1]:.1f} ms [{smi}]")
+
+    n_flash, routes, plain = r0["flash"]
+    by_route = measured.setdefault("flash_attention", {}).setdefault(
+        "launches_by_route", {})
+    for r in ranks:
+        n, rts, pl = r["flash"]
+        check(n == cfg.n_layers and rts.get("mma_bf16", 0) == n and pl == 0,
+              f"rank {r['rank']}: sharded prefill launched flash {n} times "
+              f"({rts}), {pl} plain calls; expected {cfg.n_layers} on "
+              f"mma_bf16")
+        launches["flash_attention"] += n
+        for route, k in rts.items():
+            by_route[route] = by_route.get(route, 0) + k
+        fc = r["flash_check"]
+        check(fc["routes"] == {"mma_bf16": 1, "fma_f32": 0},
+              f"rank {r['rank']}: the flash check at the prefill shape "
+              f"launched {fc['routes']}")
+        check(fc["ok"], f"rank {r['rank']}: flash_mma_kernel at the sharded "
+              f"prefill shape {fc['shape']} off its plain version by "
+              f"{fc['max_abs_err']} (tolerance {FLASH_TOL['bfloat16']})")
+    fc_err = max(r["flash_check"]["max_abs_err"] for r in ranks)
+    measured["flash_attention"]["sharded_prefill"] = {
+        "shape": list(r0["flash_check"]["shape"]), "max_abs_err": fc_err}
+    log(f"  flash_mma_kernel at each rank's prefill shape (rows, heads, kv "
+        f"heads, S, hd) {r0['flash_check']['shape']}, causal, bf16: max |"
+        f"kernel - plain| {fc_err:.3g} over the ranks (tolerance "
+        f"{FLASH_TOL['bfloat16']})")
+    for i, (d, scale) in enumerate(r0["serve"]):
+        check(d <= 2e-2 * scale, f"bf16 sharded "
+              f"{'prefill' if i == 0 else f'decode step {i}'} logits off "
+              f"the unsharded port by {d} (limit {2e-2 * scale:.3g})")
+    log(f"  bf16 serving (B {SERVE_B}, prompt {SERVE_P}, {SERVE_GEN} decode "
+        f"steps): flash launches per rank "
+        f"{[r['flash'][0] for r in ranks]}, all on mma_bf16 "
+        f"({routes}); logits max |sharded - unsharded| "
+        + ", ".join(f"{d:.3g}" for d, _ in r0["serve"])
+        + f" of up to {max(s for _, s in r0['serve']):.1f}; prefill "
+        f"{1e3 * r0['prefill_s']:.1f} ms, decode "
+        f"{1e3 * r0['decode_s']:.1f} ms/step [{smi}]")
+
+    fwd_budget, bwd_budget = r0["embed"]["budget"]["kernel"]
+    for r in ranks:
+        e = r["embed"]
+        check(e["int_equal"], f"rank {r['rank']}: kernel-route table "
+              f"gradient not bit for bit impl=ref on integer data")
+        check(e["normal"][0], f"rank {r['rank']}: kernel-route table "
+              f"gradient off impl=ref by {e['normal'][1]}")
+        check(r["embed_counts"]["forward"] == fwd_budget,
+              f"rank {r['rank']}: lookup forward counted "
+              f"{r['embed_counts']['forward']}, budget {fwd_budget}")
+        for (impl, name), (counts, kl) in r["embed_counts"]["runs"].items():
+            budget = r0["embed"]["budget"][impl][1]
+            check(counts == budget, f"rank {r['rank']}: lookup impl={impl} "
+                  f"fwd+bwd counted {counts}, budget {budget}")
+            if impl == "kernel":
+                check(kl["gas_scatter_dense"] == 1 and
+                      kl["gas_scatter_banded"] == 0,
+                      f"rank {r['rank']}: the kernel-route gradient "
+                      f"launched {kl}")
+                launches["gas_scatter_dense"] += kl["gas_scatter_dense"]
+            else:
+                check(sum(kl.values()) == 0, f"rank {r['rank']}: impl=ref "
+                      f"launched {kl}")
+    log(f"  embed_lookup(impl='kernel') at qwen's width (V {cfg.vocab_padded},"
+        f" D {cfg.d_model}, ids {EMBED_B} x {EMBED_S}): counts "
+        f"{bwd_budget} forward + backward = the contract's; one dense launch"
+        f" per rank per gradient; table gradient bit for bit impl=ref on "
+        f"integer data, max |diff| {r0['embed']['normal'][1]:.3g} on normal "
+        f"data")
+
+    for arch, (l, ul, d) in r0["smoke"].items():
+        check(abs(l - ul) <= 1e-5 * abs(ul) and d <= 1e-5,
+              f"{arch} smoke: sharded loss {l} against {ul}, parameters "
+              f"off by {d}")
+        log(f"  {arch} (smoke) one sharded step: loss {l:.6f} / unsharded "
+            f"{ul:.6f}, parameters max |diff| {d:.3g}")
+    torch.cuda.empty_cache()
+    timing = _embed_dense_timing(torch, K, smi)
+    log(f"  phase d took {time.perf_counter() - t_phase:.1f} s")
+    return timing
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phases", default="123456789abc",
-                    help="the phases to run, as characters 1-9, a, b and "
-                    "c (default: all)")
+    ap.add_argument("--phases", default="123456789abcd",
+                    help="the phases to run, as characters 1-9 and a-d "
+                    "(default: all)")
     phases = set(ap.parse_args(argv).phases)
     import torch
 
@@ -3779,6 +4341,12 @@ def main(argv=None) -> int:
             "recurrent kinds at their published widths, seven "
             "architectures at smoke size")
         phase_lm_train(torch, FK, K, smi)
+    if "d" in phases:
+        log(f"phase d: the sharded LM ({LM_TRAIN_ARCH} at full width) on a "
+            f"(data {SHARDED_LM_SHAPE[0]} x model {SHARDED_LM_SHAPE[1]}) "
+            f"mesh of gloo ranks sharing the card")
+        measured.setdefault("gas_scatter_dense", {})["embed_grad"] = \
+            phase_sharded_lm(torch, FK, K, launches, measured, smi)
 
     kernels = []
     for name, entry in measured.items():

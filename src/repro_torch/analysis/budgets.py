@@ -216,6 +216,32 @@ def gcn_full_forward(dataflow: str, op: str, impl: str, n_layers: int, *,
     return out
 
 
+# -- embed_lookup: the vocab table over model, ids over the batch axes -------
+#: forward: the cgtrans lookup's one psum over model of the (B, S, D)
+#: result; the baseline's one ``table_gather`` (the port's gather of the
+#: vocab shards, which GSPMD inserts when it compiles the JAX program:
+#: the JAX jaxpr holds no collective)
+EMBED_FWD = {
+    "cgtrans": {"psum": 1},
+    "baseline": {"table_gather": 1},
+}
+#: forward + backward (gradient in the table): the psum's cotangent is the
+#: cotangent, and the owner-scattered table gradient is summed over the
+#: batch axes (one psum). On the kernel route the scatter is one FAST-GAS
+#: dispatch (reduce + kernel_scatter). These psums are real, unlike the
+#: sampled / multi pallas tables' (module docstring).
+EMBED_BWD = {"cgtrans": {"psum": 2}}
+EMBED_BWD_PALLAS = {"cgtrans": {"psum": 2, "reduce": 1,
+                                "kernel_scatter": 1}}
+TABLE_GATHER_PER_LOOKUP = 1
+
+
+def table_gather_bytes(vocab: int, d: int, itemsize: int = 4) -> int:
+    """Bytes per rank of the baseline lookup's ``table_gather``: the whole
+    (V, D) table it assembles from the model axis's vocab shards."""
+    return vocab * d * itemsize
+
+
 #: collectives the JAX package issues outside its traced program, per
 #: train step and per serving drain (keys of their own in the port)
 GRAD_ALL_REDUCE_PER_STEP = 1

@@ -29,8 +29,12 @@ from ``analysis/budgets.py``; the kernel route's forward + backward is
 held through ``budgets.held`` (the pallas tables' ``psum`` entries are
 not in the reference's grad program; ``budgets.py`` says why).
 
-JAX registers 57 contracts; the port 54. The three ``embed_lookup/*``
-contracts wait for the sharded embedding lookup (``WAITING``).
+JAX registers 57 contracts and so does the port. The three
+``embed_lookup/*`` contracts run on a 2 × 4 (data × model) ``Mesh`` of the
+same ranks; the baseline's table gather, which GSPMD inserts outside the
+JAX program, is counted under ``table_gather`` (``launch.counts
+.OUTSIDE_KEYS``). Their kernel-route backward launches the dense grid:
+``kernel_pass`` names the pass a kernel-route contract launches in.
 """
 
 from __future__ import annotations
@@ -49,12 +53,8 @@ from repro_torch.launch.counts import (COLLECTIVE_PRIMITIVES, DISPATCH_KEYS,
                                        OUTSIDE_KEYS, count_run)
 
 #: the JAX contracts the port does not register yet, and the ROADMAP row
-#: that brings them (``models/embedding.py`` raises for a sharded lookup)
-WAITING = {
-    "embed_lookup/cgtrans/xla": "ROADMAP Queue 1 row 10.3",
-    "embed_lookup/cgtrans/pallas": "ROADMAP Queue 1 row 10.3",
-    "embed_lookup/baseline/xla": "ROADMAP Queue 1 row 10.3",
-}
+#: that brings them
+WAITING: Dict[str, str] = {}
 
 #: the JAX backend names of the port's routes
 IMPLS = {"xla": "ref", "pallas": "kernel"}
@@ -104,10 +104,22 @@ _DEFAULT_SCHEDULED = ("aggregate_edges/", "serving_fetch/",
                       "separate_fetch/")
 
 
+#: the entry points whose kernel launches in the backward only (the
+#: lookup's owner-side gradient scatter)
+_BACKWARD_KERNEL = ("embed_lookup/",)
+
+
+def kernel_pass(name: str) -> str:
+    """The pass whose run launches ``kernel_of(name)``: ``"forward"``,
+    or ``"fwd+bwd"`` where only the backward launches it."""
+    return "fwd+bwd" if name.startswith(_BACKWARD_KERNEL) else "forward"
+
+
 def kernel_of(name: str) -> Optional[str]:
-    """The GAS kernel a contract's forward launches on the card: none on
-    the ``ref`` route; the banded walk where the run is scheduled (every
-    ``/sched`` variant and ``_DEFAULT_SCHEDULED``), else the dense grid."""
+    """The GAS kernel a kernel-route contract launches on the card (in
+    its ``kernel_pass``): none on the ``ref`` route; the banded walk where
+    the run is scheduled (every ``/sched`` variant and
+    ``_DEFAULT_SCHEDULED``), else the dense grid."""
     if CONTRACTS[name].impl != "kernel":
         return None
     if name.endswith("/sched") or name.startswith(_DEFAULT_SCHEDULED):
@@ -393,6 +405,36 @@ def _build_train_step(impl: str, coalesce: bool, scheduled: bool):
     return build
 
 
+def _build_embed(cgtrans: bool, impl: str):
+    """The JAX registry's lookup: a (64, 16) f32 table over a 2 × 4
+    (data × model) mesh of the same ranks (vocab 16 per model rank), (4,
+    8) ids split over data; each rank passes its vocab shard and its rows,
+    as the lookup's ``shard_map`` body sees them."""
+    def build(mesh):
+        import torch
+        from repro_torch.common.logical import local_block
+        from repro_torch.models.embedding import embed_lookup
+        m = _test_mesh(mesh)
+        rng = np.random.default_rng(_SEED)
+        table = rng.standard_normal((64, 16)).astype(np.float32)
+        ids = rng.integers(0, 64, (4, 8)).astype(np.int32)
+        tab = torch.from_numpy(np.ascontiguousarray(
+            local_block(table, ("model", None), m))).to(m.device)
+        mine = torch.from_numpy(np.ascontiguousarray(
+            local_block(ids, ("data", None), m))).to(m.device)
+
+        def fn(t, i):
+            return embed_lookup(t, i, mesh=m, cgtrans=cgtrans, impl=impl)
+        return fn, (tab, mine)
+    return build
+
+
+def _test_mesh(mesh):
+    """The JAX registry's ``make_test_mesh(2, 4)`` over the ``WAYS`` ranks
+    of ``mesh``."""
+    return mesh.named((2, 4), ("data", "model"))
+
+
 def _build_edges(flow: str, impl: str, op: str, wire: str = "f32",
                  features: str = "dense"):
     def build(mesh):
@@ -530,6 +572,35 @@ for _coal in (True, False):
                 note="grad w.r.t. params only — feats is closed over, so "
                      "the backward re-ships nothing; the gradient and "
                      "metric all-reduces are GSPMD's in the JAX step"))
+
+# -- embed_lookup: the model-axis storage tier --------------------------------
+_register(DataflowContract(
+    name="embed_lookup/cgtrans/xla",
+    build=_build_embed(True, "ref"),
+    forward=budgets.EMBED_FWD["cgtrans"],
+    fwd_bwd=budgets.EMBED_BWD["cgtrans"],
+    dtype_waivers=("accum", "narrow-wire"),
+    note="bf16 transport by design (compute_dtype=bfloat16): the psum of "
+         "bf16 partials is the compressed-wire precursor the ROADMAP "
+         "tracks — transport narrow, accumulate-at-owner; waiver documents "
+         "it instead of hiding it"))
+_register(DataflowContract(
+    name="embed_lookup/cgtrans/pallas",
+    build=_build_embed(True, "kernel"),
+    forward=budgets.EMBED_FWD["cgtrans"],
+    fwd_bwd=budgets.EMBED_BWD_PALLAS["cgtrans"],
+    dtype_waivers=("accum", "narrow-wire"),
+    note="same bf16-transport waiver; the VJP GAS-scatters the cotangent "
+         "at the owner shard through the FAST-GAS kernel"))
+_register(DataflowContract(
+    name="embed_lookup/baseline/xla",
+    build=_build_embed(False, "ref"),
+    forward=budgets.EMBED_FWD["baseline"],
+    dtype_waivers=("accum",),
+    note="plain take on the whole table: the JAX jaxpr carries zero "
+         "explicit collectives (GSPMD moves the table when it compiles); "
+         "the port gathers the vocab shards itself, counted as "
+         "table_gather (budgets.EMBED_FWD)"))
 
 # -- aggregate_edges: the full-graph COO dataflow ----------------------------
 for _flow in ("cgtrans", "baseline"):

@@ -121,14 +121,17 @@ def _draw_leaf(d: ParamDef, gen: torch.Generator,
 
 
 def init_params(schema: Schema, seed: int = 0, *,
-                device: DeviceLike = "cuda",
-                draw: str = "numpy") -> Dict[str, Any]:
+                device: DeviceLike = "cuda", draw: str = "numpy",
+                mesh=None) -> Dict[str, Any]:
     """Parameters for every ``ParamDef``, with the schema's nesting, in
     sorted-key order from one ``np.random.Generator(seed)``; each leaf in
     its ``dtype`` (drawn in float32, then cast). ``draw="device"`` draws
     the same distributions from one ``torch.Generator`` on ``device``
     seeded with ``seed``: other numbers, the same on every run of one
-    device type."""
+    device type. On a ``mesh`` every rank draws each full leaf and keeps
+    its block (``shard_params``) before it draws the next, so a sharded
+    run starts from the unsharded run's numbers and a rank holds at most
+    one full leaf beside its blocks."""
     dev = resolve_device(device)
     if draw not in ("numpy", "device"):
         raise ValueError(f"unknown draw {draw!r}: 'numpy' or 'device'")
@@ -145,8 +148,40 @@ def init_params(schema: Schema, seed: int = 0, *,
         node = out
         for key in path[:-1]:
             node = node.setdefault(key, {})
-        node[path[-1]] = make(d)
+        leaf = make(d)
+        node[path[-1]] = leaf if mesh is None else _block(leaf, d, mesh)
     return out
+
+
+def param_logical_specs(schema: Schema):
+    """The tree of logical spec tuples (``common.logical
+    .tree_to_physical`` maps it onto a mesh)."""
+    return tree_map_defs(lambda d: tuple(d.logical), schema)
+
+
+def param_structs(schema: Schema):
+    """The tree of parameters as meta tensors: shape and dtype, no
+    data."""
+    return tree_map_defs(
+        lambda d: torch.empty(d.shape, dtype=d.dtype, device="meta"), schema)
+
+
+def shard_params(params, schema: Schema, mesh):
+    """This rank's block of every full leaf of ``params`` under its
+    ``ParamDef``'s logical axes on ``mesh``
+    (``local_block(leaf, to_physical(d.logical, mesh))``)."""
+    def place(node, sch):
+        if isinstance(sch, ParamDef):
+            return _block(node, sch, mesh)
+        return {k: place(node[k], sch[k]) for k in node}
+    return place(params, schema)
+
+
+def _block(leaf: torch.Tensor, d: ParamDef, mesh) -> torch.Tensor:
+    from repro_torch.common.logical import local_block, to_physical
+    # a copy, so the full leaf's storage is freed
+    return local_block(leaf, to_physical(d.logical, mesh), mesh).clone(
+        memory_format=torch.contiguous_format)
 
 
 def count_params(schema: Schema) -> int:

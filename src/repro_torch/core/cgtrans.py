@@ -65,7 +65,7 @@ from repro_torch.core import wire as wirefmt
 from repro_torch.device import check_impl
 from repro_torch.kernels import entries
 from repro_torch.kernels.gas_scatter import ops as gas_ops
-from repro_torch.launch.mesh import DataMesh
+from repro_torch.launch.mesh import DataMesh, Mesh
 
 
 # ---------------------------------------------------------------------------
@@ -241,9 +241,16 @@ def _sparse_all_to_all(x: torch.Tensor, mesh, wire: str, capacity: int):
 def is_sharded(mesh) -> bool:
     """Whether ``mesh`` splits the work: a ``DataMesh`` of more than one
     rank (a 1-rank mesh takes the reference path, as in JAX). Any other
-    kind of mesh raises: the port shards over the 1-D ``data`` axis only."""
+    kind of mesh raises: the graph dataflows shard over the 1-D ``data``
+    axis only (the named-axis ``Mesh`` is the LM's)."""
     if mesh is None:
         return False
+    if isinstance(mesh, Mesh):
+        raise NotImplementedError(
+            f"mesh=Mesh{tuple(mesh.axis_names)}: a named-axis Mesh carries "
+            f"the sharded LM (models/, train/step.py); the graph dataflows "
+            f"shard over a repro_torch.launch.mesh.DataMesh (spawn(fn, n) or "
+            f"make_data_mesh), the 1-D 'data' axis of ROADMAP Queue 1 row 2")
     if not isinstance(mesh, DataMesh):
         raise NotImplementedError(
             f"mesh={type(mesh).__name__}: the port shards over a "

@@ -1,13 +1,18 @@
 """The sharded dataflows' collectives, counted.
 
 Every collective of the port goes through this module, over a
-``repro_torch.launch.mesh.DataMesh``: ``all_gather`` (into a tensor),
-``all_to_all`` (single), ``all_reduce`` and ``reduce_scatter``. The three
-that carry values into the loss are ``torch.autograd.Function``s with the
-transposes JAX gives them: the backward of an ``all_to_all`` is an
-``all_to_all``, the backward of an ``all_gather`` a ``reduce_scatter``, and
-the backward of a ``reduce_scatter`` (JAX's ``psum_scatter``) an
-``all_gather``. An integer stream (the request ids) carries no gradient.
+``repro_torch.launch.mesh.DataMesh`` or, along one or more of its named
+axes (``axis=``, default every axis), a ``Mesh``: ``all_gather`` (into a
+tensor), ``all_to_all`` (single), ``all_reduce``, ``reduce_scatter`` and
+``ppermute``. Those that carry values into the loss are
+``torch.autograd.Function``s with the transposes JAX gives them: the
+backward of an ``all_to_all`` is an ``all_to_all``, the backward of an
+``all_gather`` a ``reduce_scatter`` and that of a ``reduce_scatter`` (JAX's
+``psum_scatter``) an ``all_gather``; a ``psum``'s cotangent is the
+cotangent, and ``pvary`` (identity) sums its cotangent; an
+``all_gather_invariant``'s backward takes the rank's block; a
+``ppermute``'s permutes back. An integer stream (the request ids) carries
+no gradient.
 
 gloo and NCCL have no int16 (and gloo no bool): a payload of such a dtype
 (the compressed wire's bf16 bits and delta ids) ships as a ``uint8`` view
@@ -28,7 +33,9 @@ step), ``metric_all_reduce`` (the global loss and accuracy),
 ``trigger_broadcast`` (the serving queue's drain decision); so does
 ``relabel_gather``, the un-permute of islandized full-graph logits, an
 all_gather where the JAX program holds an all-reduce of the same rows
-(``analysis/budgets.py``). Counting
+(``analysis/budgets.py``), and ``table_gather``, the baseline embedding
+lookup's gather of the vocab-sharded table, which GSPMD inserts when it
+compiles the JAX program. Counting
 follows the GAS dispatch counter: a call site counts once per program, so
 a chunk loop (``cgtrans.scan_request_chunks``) counts its body once, as a
 ``lax.scan`` body is traced once; every chunk still issues its
@@ -104,100 +111,227 @@ def _flat_wire(x: torch.Tensor) -> torch.Tensor:
     return flat.view(torch.uint8) if x.dtype in _BYTE_VIEW else flat
 
 
-def _gather(x: torch.Tensor, mesh, name: str) -> torch.Tensor:
+def _gather(x: torch.Tensor, mesh, name: str, axis=None) -> torch.Tensor:
     # flat buffers: the tensor forms concatenate along dim 0
+    _, n = mesh.line(axis)
     flat = _flat_wire(x)
-    out = flat.new_empty(mesh.size * flat.numel())
-    mesh.run(lambda o, i: _all_gather(o, i, group=mesh.group), out, flat)
+    out = flat.new_empty(n * flat.numel())
+    mesh.run(lambda o, i, g: _all_gather(o, i, group=g), out, flat,
+             axis=axis)
     _tick(name, out.nbytes, x.dtype)
-    return out.view(x.dtype).reshape((mesh.size,) + tuple(x.shape))
+    return out.view(x.dtype).reshape((n,) + tuple(x.shape))
 
 
-def _scatter_sum(x: torch.Tensor, mesh) -> torch.Tensor:
+def _scatter_sum(x: torch.Tensor, mesh, axis=None) -> torch.Tensor:
+    _, n = mesh.line(axis)
     flat = x.contiguous().reshape(-1)
-    out = flat.new_empty(flat.numel() // mesh.size)
-    mesh.run(lambda o, i: _reduce_scatter(o, i, group=mesh.group), out, flat)
+    out = flat.new_empty(flat.numel() // n)
+    mesh.run(lambda o, i, g: _reduce_scatter(o, i, group=g), out, flat,
+             axis=axis)
     _tick("psum_scatter", flat.nbytes, x.dtype)
     return out.reshape(tuple(x.shape[1:]))
 
 
-def _exchange(x: torch.Tensor, mesh) -> torch.Tensor:
+def _exchange(x: torch.Tensor, mesh, axis=None) -> torch.Tensor:
     # a flat buffer splits into the same n blocks as dim 0 does
     flat = _flat_wire(x)
     out = torch.empty_like(flat)
-    mesh.run(lambda o, i: dist.all_to_all_single(o, i, group=mesh.group),
-             out, flat)
+    mesh.run(lambda o, i, g: dist.all_to_all_single(o, i, group=g),
+             out, flat, axis=axis)
     _tick("all_to_all", flat.nbytes, x.dtype)
     return out.view(x.dtype).reshape(x.shape)
 
 
+_REDUCE_OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX,
+               "min": dist.ReduceOp.MIN}
+
+
+def _reduce(x: torch.Tensor, mesh, name: str, axis=None,
+            op: str = "sum") -> torch.Tensor:
+    out = x.detach().clone().contiguous()
+    mesh.run(lambda o, g: dist.all_reduce(o, op=_REDUCE_OPS[op], group=g),
+             out, axis=axis)
+    _tick(name, out.nbytes, x.dtype)
+    return out
+
+
 class _AllGather(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, mesh, name):
-        ctx.mesh, ctx.suspended = mesh, gas_ops.counting_suspended()
-        return _gather(x, mesh, name)
+    def forward(ctx, x, mesh, name, axis):
+        ctx.mesh, ctx.axis = mesh, axis
+        ctx.suspended = gas_ops.counting_suspended()
+        return _gather(x, mesh, name, axis)
 
     @staticmethod
     def backward(ctx, g):
         with gas_ops.suspend_counting(ctx.suspended):
-            return _scatter_sum(g, ctx.mesh), None, None
+            return _scatter_sum(g, ctx.mesh, ctx.axis), None, None, None
+
+
+class _AllGatherInvariant(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, name, axis):
+        ctx.index = mesh.axis_index(axis)
+        return _gather(x, mesh, name, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g[ctx.index], None, None, None
 
 
 class _ReduceScatter(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, mesh):
-        ctx.mesh, ctx.suspended = mesh, gas_ops.counting_suspended()
-        return _scatter_sum(x, mesh)
+    def forward(ctx, x, mesh, axis):
+        ctx.mesh, ctx.axis = mesh, axis
+        ctx.suspended = gas_ops.counting_suspended()
+        return _scatter_sum(x, mesh, axis)
 
     @staticmethod
     def backward(ctx, g):
         with gas_ops.suspend_counting(ctx.suspended):
-            return _gather(g, ctx.mesh, "all_gather"), None
+            return _gather(g, ctx.mesh, "all_gather", ctx.axis), None, None
 
 
 class _AllToAll(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, mesh):
-        ctx.mesh, ctx.suspended = mesh, gas_ops.counting_suspended()
-        return _exchange(x, mesh)
+    def forward(ctx, x, mesh, axis):
+        ctx.mesh, ctx.axis = mesh, axis
+        ctx.suspended = gas_ops.counting_suspended()
+        return _exchange(x, mesh, axis)
 
     @staticmethod
     def backward(ctx, g):
         with gas_ops.suspend_counting(ctx.suspended):
-            return _exchange(g, ctx.mesh), None
+            return _exchange(g, ctx.mesh, ctx.axis), None, None
 
 
-def all_gather(x: torch.Tensor, mesh, *, name: str = "all_gather"
-               ) -> torch.Tensor:
-    """(…) on every rank → (n, …), rank r's block at [r]. Differentiable
-    in a float ``x`` (the backward reduce-scatters the cotangent). ``name``
-    is the counter key."""
-    return _AllGather.apply(x, mesh, name)
+class _Psum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, name, axis):
+        return _reduce(x, mesh, name, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None, None
 
 
-def all_to_all(x: torch.Tensor, mesh) -> torch.Tensor:
+class _Pvary(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        ctx.mesh, ctx.axis = mesh, axis
+        ctx.suspended = gas_ops.counting_suspended()
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        with gas_ops.suspend_counting(ctx.suspended):
+            return _reduce(g, ctx.mesh, "psum", ctx.axis), None, None
+
+
+def _p2p(out: torch.Tensor, inp: torch.Tensor, group, sends, recvs):
+    ops = [dist.P2POp(dist.isend, inp, dist.get_global_rank(group, d),
+                      group) for d in sends]
+    ops += [dist.P2POp(dist.irecv, out, dist.get_global_rank(group, s),
+                       group) for s in recvs]
+    if ops:
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+
+
+def _permute(x: torch.Tensor, mesh, axis, perm) -> torch.Tensor:
+    me = mesh.axis_index(axis)
+    sends = [d for s, d in perm if s == me]
+    recvs = [s for s, d in perm if d == me]
+    flat = _flat_wire(x)
+    out = torch.zeros_like(flat)
+    mesh.run(lambda o, i, g: _p2p(o, i, g, sends, recvs), out, flat,
+             axis=axis)
+    _tick("ppermute", flat.nbytes, x.dtype)
+    return out.view(x.dtype).reshape(x.shape)
+
+
+class _Ppermute(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis, perm):
+        ctx.mesh, ctx.axis, ctx.perm = mesh, axis, perm
+        ctx.suspended = gas_ops.counting_suspended()
+        return _permute(x, mesh, axis, perm)
+
+    @staticmethod
+    def backward(ctx, g):
+        inverse = tuple((d, s) for s, d in ctx.perm)
+        with gas_ops.suspend_counting(ctx.suspended):
+            return _permute(g, ctx.mesh, ctx.axis, inverse), None, None, None
+
+
+def all_gather(x: torch.Tensor, mesh, *, name: str = "all_gather",
+               axis=None) -> torch.Tensor:
+    """(…) on every rank → (n, …), the block of the rank at index i along
+    ``axis`` (default: every axis of the mesh) at [i]. Differentiable in a
+    float ``x``: the backward reduce-scatters the cotangent (each rank's
+    cotangent a partial sum, as of rows only it ran). ``name`` is the
+    counter key."""
+    return _AllGather.apply(x, mesh, name, axis)
+
+
+def all_gather_invariant(x: torch.Tensor, mesh, *,
+                         name: str = "all_gather", axis=None
+                         ) -> torch.Tensor:
+    """``all_gather`` for a compute every rank of ``axis`` then repeats
+    on the same values (JAX's ``all_gather_invariant``): the cotangent is
+    the same on every rank, and the backward takes this rank's block of
+    it, with no collective."""
+    return _AllGatherInvariant.apply(x, mesh, name, axis)
+
+
+def all_to_all(x: torch.Tensor, mesh, *, axis=None) -> torch.Tensor:
     """(n, …) → (n, …): block [j] goes to rank j, and arrives at [r] from
     rank r. Differentiable (its own transpose)."""
-    if x.shape[0] != mesh.size:
+    _, n = mesh.line(axis)
+    if x.shape[0] != n:
         raise ValueError(f"all_to_all splits dim 0 ({x.shape[0]}) over "
-                         f"{mesh.size} ranks")
-    return _AllToAll.apply(x, mesh)
+                         f"{n} ranks")
+    return _AllToAll.apply(x, mesh, axis)
 
 
-def reduce_scatter(x: torch.Tensor, mesh) -> torch.Tensor:
+def reduce_scatter(x: torch.Tensor, mesh, *, axis=None) -> torch.Tensor:
     """(n, …) → (…): the sum over ranks of block [rank] (JAX's
     ``psum_scatter``). Differentiable (the backward all-gathers the
     cotangent)."""
-    if x.shape[0] != mesh.size:
+    _, n = mesh.line(axis)
+    if x.shape[0] != n:
         raise ValueError(f"reduce_scatter splits dim 0 ({x.shape[0]}) over "
-                         f"{mesh.size} ranks")
-    return _ReduceScatter.apply(x, mesh)
+                         f"{n} ranks")
+    return _ReduceScatter.apply(x, mesh, axis)
 
 
-def all_reduce(x: torch.Tensor, mesh, *, name: str = "psum") -> torch.Tensor:
-    """The sum of ``x`` over ranks, in a new tensor, with no gradient;
-    ``name`` is the counter key."""
-    out = x.detach().clone().contiguous()
-    mesh.run(lambda o: dist.all_reduce(o, group=mesh.group), out)
-    _tick(name, out.nbytes, x.dtype)
-    return out
+def all_reduce(x: torch.Tensor, mesh, *, name: str = "psum", axis=None,
+               op: str = "sum") -> torch.Tensor:
+    """The sum (or ``op="max"`` / ``"min"``) of ``x`` over the ranks of
+    ``axis``, in a new tensor, with no gradient; ``name`` is the counter
+    key."""
+    return _reduce(x, mesh, name, axis, op)
+
+
+def psum(x: torch.Tensor, mesh, *, axis=None, name: str = "psum"
+         ) -> torch.Tensor:
+    """The sum of ``x`` over the ranks of ``axis``, differentiable: the
+    cotangent of the sum is every addend's cotangent (JAX's psum
+    transpose), with no collective in the backward."""
+    return _Psum.apply(x, mesh, name, axis)
+
+
+def pvary(x: torch.Tensor, mesh, *, axis=None) -> torch.Tensor:
+    """``x`` unchanged, entering a compute that differs across the ranks
+    of ``axis`` (JAX's ``pvary``): each rank's cotangent covers its own
+    part, so the backward sums them (one ``psum``)."""
+    return _Pvary.apply(x, mesh, axis)
+
+
+def ppermute(x: torch.Tensor, mesh, *, axis, perm) -> torch.Tensor:
+    """JAX's ``ppermute`` along ``axis``: for each ``(src, dst)`` of
+    ``perm`` (indices along the axis) rank ``src``'s ``x`` arrives at
+    ``dst``; a rank nothing is sent to gets zeros. Differentiable (the
+    backward permutes the cotangent back)."""
+    perm = tuple((int(s), int(d)) for s, d in perm)
+    return _Ppermute.apply(x, mesh, axis, perm)

@@ -37,9 +37,10 @@ COLLECTIVE_PRIMITIVES = budgets.COLLECTIVE_KEYS
 
 #: the collectives JAX issues outside its traced program (GSPMD's gradient
 #: reduction, the metrics, the host reading a sharded result, the serving
-#: trigger, the island un-permute), counted under names of their own
+#: trigger, the island un-permute, the baseline lookup's table gather),
+#: counted under names of their own
 OUTSIDE_KEYS = ("grad_all_reduce", "metric_all_reduce", "result_gather",
-                "trigger_broadcast", "relabel_gather")
+                "trigger_broadcast", "relabel_gather", "table_gather")
 
 DISPATCH_KEYS = budgets.DISPATCH_KEYS
 

@@ -1,22 +1,32 @@
-"""The storage tier's ``data`` mesh on ``torch.distributed``.
+"""The port's meshes on ``torch.distributed``: the storage tier's 1-D
+``data`` mesh and the LM's named-axis mesh.
 
 The JAX package's ``make_data_mesh(n)`` is a 1-D ``data`` mesh over n
 devices of one process, and its sharded dataflows are ``shard_map`` bodies.
 Here the same axis is a process group of n ranks, one per shard, and every
 rank runs the body's per-shard view: its own ``(1, part, F)`` table slice
-and its own ``(1, R, K)`` request blocks.
+and its own ``(1, R, K)`` request blocks (``DataMesh``).
 
-``spawn(fn, n, ...)`` starts n local ranks and returns what ``fn(mesh,
-*args)`` returned on each. The backend is the caller's choice and nothing
-switches it:
+The LM's mesh (``Mesh``, ``make_mesh``, ``make_test_mesh``) has named axes
+— ``("data", "model")`` or ``("pod", "data", "model")`` — laid over the
+ranks row-major, as JAX lays a mesh over its devices: rank r sits at
+``np.unravel_index(r, shape)``. Each axis, and each set of axes, has one
+process group per line (the ranks that differ only in those axes), made
+on every rank in the same order; ``Mesh.line(axes)`` is this rank's.
+
+``spawn(fn, n, ...)`` starts local ranks and returns what ``fn(mesh,
+*args)`` returned on each: n ranks on a ``DataMesh``, or, with a shape
+such as ``(2, 2)`` or ``(2, 2, 2)``, their product on a ``Mesh``. The
+backend is the caller's choice and nothing switches it:
 
 * ``"nccl"`` needs one card per rank and raises otherwise (NCCL refuses
   two ranks on one card);
 * ``"gloo"`` runs CPU ranks, or ranks that share a card: with CUDA tensors
   every collective is staged through pinned host memory in one place,
-  ``DataMesh.run``, which counts the staged calls, bytes and seconds in
-  ``DataMesh.staged``. A staged collective measures host memory and the
-  loopback, not an interconnect.
+  ``run``, which counts the staged calls, bytes and seconds in ``staged``.
+  P gloo ranks sharing one card measure host memory and the loopback: a
+  staged second is not an interconnect second, and nothing here measures
+  an interconnect.
 """
 
 from __future__ import annotations
@@ -30,8 +40,10 @@ import pickle
 import shutil
 import tempfile
 import time
+import itertools
+import math
 import traceback
-from typing import Any, Callable, List, Optional, Sequence
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -55,21 +67,68 @@ class StagingStats:
     seconds: float = 0.0
 
 
+def _run(mesh, collective: Callable, out: torch.Tensor,
+         inp: Optional[torch.Tensor], axis) -> torch.Tensor:
+    """Issue ``collective(out, inp, group)`` (or ``collective(out, group)``
+    in place) on this rank's line of ``axis`` and return ``out``. The one
+    place a ``gloo`` mesh stages CUDA tensors through pinned host
+    memory."""
+    group, _ = mesh.line(axis)
+    if mesh.backend != "gloo" or out.device.type != "cuda":
+        if inp is None:
+            collective(out, group)
+        else:
+            collective(out, inp, group)
+        return out
+    torch.cuda.synchronize(out.device)
+    t0 = time.perf_counter()
+    h_out = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
+    moved = 2 * out.nbytes
+    if inp is None:
+        h_out.copy_(out)
+        collective(h_out, group)
+    else:
+        h_in = torch.empty(inp.shape, dtype=inp.dtype, pin_memory=True)
+        h_in.copy_(inp)
+        moved = inp.nbytes + out.nbytes
+        collective(h_out, h_in, group)
+    out.copy_(h_out)
+    mesh.staged.calls += 1
+    mesh.staged.bytes += moved
+    mesh.staged.seconds += time.perf_counter() - t0
+    return out
+
+
 @dataclasses.dataclass(eq=False)
 class DataMesh:
     """One rank's handle on the ``data`` axis: the process group, this
     rank, the axis size, the device this rank's tensors live on and the
-    backend. ``shape`` reads as a JAX mesh's does."""
+    backend. ``shape`` and ``axis_names`` read as a JAX mesh's do."""
     group: Any
     rank: int
     size: int
     device: torch.device
     backend: str
     staged: StagingStats = dataclasses.field(default_factory=StagingStats)
+    _named: Dict[tuple, "Mesh"] = dataclasses.field(default_factory=dict,
+                                                    repr=False)
+
+    axis_names = (AXIS,)
 
     @property
     def shape(self):
         return {AXIS: self.size}
+
+    def line(self, axis=None):
+        """(process group, size) of the ``data`` axis, the only one."""
+        if axis not in (None, AXIS, (AXIS,)):
+            raise ValueError(f"a DataMesh has the one axis {AXIS!r}, not "
+                             f"{axis!r}")
+        return self.group, self.size
+
+    def axis_index(self, axis=AXIS) -> int:
+        self.line(axis)
+        return self.rank
 
     def shard(self, tree):
         """This rank's ``[rank:rank + 1]`` slice of every leaf of a dict of
@@ -86,33 +145,165 @@ class DataMesh:
         dist.barrier(group=self.group)
 
     def run(self, collective: Callable, out: torch.Tensor,
-            inp: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """Issue ``collective(out, inp)`` (or ``collective(out)`` in place)
-        on this group and return ``out``. The one place a ``gloo`` mesh
-        stages CUDA tensors through pinned host memory."""
-        if self.backend != "gloo" or out.device.type != "cuda":
-            if inp is None:
-                collective(out)
-            else:
-                collective(out, inp)
-            return out
-        torch.cuda.synchronize(out.device)
-        t0 = time.perf_counter()
-        h_out = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
-        moved = 2 * out.nbytes
-        if inp is None:
-            h_out.copy_(out)
-            collective(h_out)
-        else:
-            h_in = torch.empty(inp.shape, dtype=inp.dtype, pin_memory=True)
-            h_in.copy_(inp)
-            moved = inp.nbytes + out.nbytes
-            collective(h_out, h_in)
-        out.copy_(h_out)
-        self.staged.calls += 1
-        self.staged.bytes += moved
-        self.staged.seconds += time.perf_counter() - t0
-        return out
+            inp: Optional[torch.Tensor] = None, *, axis=None
+            ) -> torch.Tensor:
+        """``collective`` on the axis's group, staged on gloo + CUDA
+        (``_run``)."""
+        return _run(self, collective, out, inp, axis)
+
+    def named(self, shape: Sequence[int],
+              axis_names: Optional[Sequence[str]] = None) -> "Mesh":
+        """A named-axis ``Mesh`` of ``shape`` over this mesh's ranks,
+        made once per shape (its process groups are collective to make:
+        every rank asks for the same meshes in the same order)."""
+        key = (tuple(shape), tuple(axis_names or ()))
+        if key not in self._named:
+            self._named[key] = make_mesh(shape, axis_names,
+                                         backend=self.backend,
+                                         device=self.device)
+        return self._named[key]
+
+
+Axes = Union[None, str, Sequence[str]]
+
+
+@dataclasses.dataclass(eq=False)
+class Mesh:
+    """One rank's handle on a named-axis mesh (``make_mesh``): the axis
+    names and sizes, this rank and its coordinates, one process group per
+    set of axes (this rank's line of it), the device and the backend.
+    ``shape`` (a dict) and ``axis_names`` read as a JAX mesh's do."""
+    axis_names: Tuple[str, ...]
+    axis_sizes: Tuple[int, ...]
+    rank: int
+    device: torch.device
+    backend: str
+    groups: Dict[Tuple[str, ...], Any] = dataclasses.field(repr=False,
+                                                          default=None)
+    staged: StagingStats = dataclasses.field(default_factory=StagingStats)
+
+    @property
+    def shape(self) -> Dict[str, int]:
+        return dict(zip(self.axis_names, self.axis_sizes))
+
+    @property
+    def size(self) -> int:
+        return math.prod(self.axis_sizes)
+
+    @property
+    def coords(self) -> Tuple[int, ...]:
+        return tuple(int(c) for c in np.unravel_index(self.rank,
+                                                      self.axis_sizes))
+
+    def _axes(self, axis: Axes) -> Tuple[str, ...]:
+        """``axis`` as a tuple of this mesh's axes in mesh order (``None``
+        is every axis)."""
+        if axis is None:
+            return self.axis_names
+        axes = (axis,) if isinstance(axis, str) else tuple(axis)
+        unknown = [a for a in axes if a not in self.axis_names]
+        if unknown or not axes:
+            raise ValueError(f"axes {axis!r} not in the mesh's "
+                             f"{self.axis_names}")
+        order = [self.axis_names.index(a) for a in axes]
+        if order != sorted(order) or len(set(order)) != len(order):
+            raise ValueError(f"axes {axis!r} must be distinct and in mesh "
+                             f"order {self.axis_names}")
+        return axes
+
+    def axis_size(self, axis: Axes) -> int:
+        return math.prod(self.shape[a] for a in self._axes(axis))
+
+    def axis_index(self, axis: Axes) -> int:
+        """This rank's index along ``axis``; over several axes the index
+        in their flattened product, the first axis major (JAX's
+        ``lax.axis_index`` of a tuple)."""
+        idx = 0
+        coords = dict(zip(self.axis_names, self.coords))
+        for a in self._axes(axis):
+            idx = idx * self.shape[a] + coords[a]
+        return idx
+
+    def line(self, axis: Axes = None):
+        """(process group, size) of this rank's line along ``axis``: the
+        ranks that differ from it only in those axes, in the order of
+        ``axis_index``."""
+        axes = self._axes(axis)
+        return self.groups[axes], self.axis_size(axes)
+
+    def barrier(self) -> None:
+        dist.barrier(group=self.groups[self.axis_names])
+
+    def run(self, collective: Callable, out: torch.Tensor,
+            inp: Optional[torch.Tensor] = None, *, axis: Axes = None
+            ) -> torch.Tensor:
+        """``collective`` on this rank's line of ``axis``, staged on gloo
+        + CUDA (``_run``)."""
+        return _run(self, collective, out, inp, axis)
+
+
+def check_named_mesh(mesh) -> None:
+    """Raise unless ``mesh`` is a named-axis ``Mesh`` (the LM's)."""
+    if not isinstance(mesh, Mesh):
+        raise TypeError(
+            f"mesh={type(mesh).__name__}: the LM shards over a "
+            f"repro_torch.launch.mesh.Mesh (make_mesh, make_test_mesh, or "
+            f"spawn(fn, (n_data, n_model)))")
+
+
+#: the axis names of a mesh by its rank, as the JAX package names them
+DEFAULT_AXES = {1: ("data",), 2: ("data", "model"),
+                3: ("pod", "data", "model")}
+
+
+def _line_groups(shape: Tuple[int, ...], names: Tuple[str, ...],
+                 rank: int, backend: str) -> Dict[Tuple[str, ...], Any]:
+    """This rank's process group for every non-empty set of axes. Every
+    rank makes every group, in the same order (``dist.new_group`` is
+    collective over the whole world)."""
+    ranks = np.arange(math.prod(shape)).reshape(shape)
+    out: Dict[Tuple[str, ...], Any] = {}
+    for k in range(1, len(names) + 1):
+        for axes in itertools.combinations(range(len(names)), k):
+            key = tuple(names[a] for a in axes)
+            if k == len(names):
+                out[key] = dist.group.WORLD
+                continue
+            rest = [a for a in range(len(names)) if a not in axes]
+            lines = np.moveaxis(ranks, rest, list(range(len(rest))))
+            lines = lines.reshape(-1, math.prod(shape[a] for a in axes))
+            for members in lines:
+                g = dist.new_group([int(r) for r in members],
+                                   backend=backend)
+                if rank in members:
+                    out[key] = g
+    return out
+
+
+def make_mesh(shape: Sequence[int], axis_names: Optional[Sequence[str]] = None,
+              *, backend: str, device: DeviceLike) -> Mesh:
+    """A named-axis mesh over this process's default group, which must
+    already hold ``prod(shape)`` ranks of ``backend`` (``spawn`` starts
+    them). ``axis_names`` defaults to ``DEFAULT_AXES``. Under ``"nccl"``
+    rank r works on ``cuda:r``; under ``"gloo"`` every rank works on
+    ``device``."""
+    shape = tuple(int(n) for n in shape)
+    names = tuple(axis_names or DEFAULT_AXES[len(shape)])
+    if len(names) != len(shape) or len(set(names)) != len(names):
+        raise ValueError(f"axis names {names} do not name the {len(shape)} "
+                         f"axes of shape {shape}")
+    n = math.prod(shape)
+    dmesh = make_data_mesh(n, backend=backend, device=device)
+    return Mesh(names, shape, dmesh.rank, dmesh.device, backend,
+                _line_groups(shape, names, dmesh.rank, backend))
+
+
+def make_test_mesh(n_data: int = 4, n_model: int = 2, *, backend: str,
+                   device: DeviceLike) -> Mesh:
+    """The JAX package's small ``(data, model)`` test mesh, over the
+    ``n_data * n_model`` ranks of this process's default group."""
+    return make_mesh((n_data, n_model), ("data", "model"), backend=backend,
+                     device=device)
 
 
 def _check_nccl(n: int, device: DeviceLike) -> None:
@@ -163,8 +354,8 @@ def make_data_mesh(n: int, *, backend: str, device: DeviceLike) -> DataMesh:
 # local ranks
 # ---------------------------------------------------------------------------
 
-def _rank_main(fn, rank: int, n: int, backend: str, device: str, work: str,
-               timeout_s: float, args: Sequence) -> None:
+def _rank_main(fn, rank: int, n, backend: str, device: str, work: str,
+               timeout_s: float, args: Sequence, axes=None) -> None:
     """One rank: join the group through the shared ``FileStore``, run
     ``fn(mesh, *args)`` and leave its result (or its traceback) in
     ``work``."""
@@ -172,11 +363,15 @@ def _rank_main(fn, rank: int, n: int, backend: str, device: str, work: str,
     try:
         if backend == "nccl":
             torch.cuda.set_device(rank)
-        store = dist.FileStore(os.path.join(work, "store"), n)
+        world = math.prod(n) if isinstance(n, tuple) else n
+        store = dist.FileStore(os.path.join(work, "store"), world)
         dist.init_process_group(
-            backend, store=store, rank=rank, world_size=n,
+            backend, store=store, rank=rank, world_size=world,
             timeout=datetime.timedelta(seconds=timeout_s))
-        out = fn(make_data_mesh(n, backend=backend, device=device), *args)
+        mesh = (make_mesh(n, axes, backend=backend, device=device)
+                if isinstance(n, tuple)
+                else make_data_mesh(n, backend=backend, device=device))
+        out = fn(mesh, *args)
         tmp = os.path.join(work, f"rank{rank}.pkl.tmp")
         with open(tmp, "wb") as f:
             pickle.dump(out, f)
@@ -197,10 +392,13 @@ def _failure(work: str, rank: int, code: Optional[int]) -> str:
     return f"rank {rank} failed (exit code {code}):\n{tb}"
 
 
-def spawn(fn: Callable, n: int, *, backend: str, device: DeviceLike,
-          timeout_s: float, args: Sequence = ()) -> List[Any]:
-    """Run ``fn(mesh, *args)`` on ``n`` local ranks and return their
-    results in rank order.
+def spawn(fn: Callable, n: Union[int, Sequence[int]], *, backend: str,
+          device: DeviceLike, timeout_s: float, args: Sequence = (),
+          axes: Optional[Sequence[str]] = None) -> List[Any]:
+    """Run ``fn(mesh, *args)`` on local ranks and return their results in
+    rank order: ``n`` ranks on a ``DataMesh``, or, where ``n`` is a mesh
+    shape such as ``(2, 2)``, ``prod(n)`` ranks on a ``Mesh`` of that
+    shape over ``axes`` (default ``DEFAULT_AXES``).
 
     The ranks start through ``torch.multiprocessing``'s spawn context, so
     ``fn``, ``args`` and the results are pickled: ``fn`` is a module-level
@@ -214,6 +412,8 @@ def spawn(fn: Callable, n: int, *, backend: str, device: DeviceLike,
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r}; expected one of "
                          f"{BACKENDS}")
+    shape = tuple(int(k) for k in n) if not isinstance(n, int) else None
+    n = math.prod(shape) if shape else n
     if backend == "nccl":
         _check_nccl(n, device)
     ctx = torch.multiprocessing.get_context("spawn")
@@ -222,8 +422,9 @@ def spawn(fn: Callable, n: int, *, backend: str, device: DeviceLike,
     try:
         for r in range(n):
             p = ctx.Process(target=_rank_main, name=f"rank{r}",
-                            args=(fn, r, n, backend, str(device), work,
-                                  timeout_s, tuple(args)))
+                            args=(fn, r, shape or n, backend, str(device),
+                                  work, timeout_s, tuple(args),
+                                  tuple(axes) if axes else None))
             p.start()
             procs.append(p)
         deadline = time.monotonic() + timeout_s

@@ -19,8 +19,9 @@
 * ``--workload lm``: batched prefill + greedy decode of an LM
   (``--arch``, any of the ten; parameters drawn on the device from
   ``--seed``), with tokens and, for an encoder-decoder or a vision model,
-  frames or patch embeddings drawn from ``--seed``. ``--impl kernel`` runs the encoder's self-attention through
-  the flash kernel; ``--impl ref`` takes the plain chunked attention, the
+  frames or patch embeddings drawn from ``--seed``. ``--impl kernel``
+  runs the encoder's and the prefill's self-attention through the flash
+  kernel; ``--impl ref`` takes the plain chunked attention, the
   path the JAX launcher takes::
 
       PYTHONPATH=src python -m repro_torch.launch.serve --workload lm \\

@@ -21,6 +21,7 @@ import torch.nn.functional as F
 
 from repro_torch.common.config import ModelConfig
 from repro_torch.common.schema import ParamDef
+from repro_torch.models.layers import ready_params
 
 _C = 8.0
 
@@ -88,9 +89,18 @@ def linear_scan(a: torch.Tensor, b: torch.Tensor
     return a, b
 
 
+def _ready(p, cfg: ModelConfig, mesh):
+    """On a mesh every weight gathered (``lru`` over ``model`` too): the
+    block's compute is replicated over ``model`` (tensor-parallel RG-LRU
+    is ROADMAP work)."""
+    return ready_params(p, rglru_schema(cfg), mesh)
+
+
 def rglru_apply(p: Dict[str, Any], x: torch.Tensor, cfg: ModelConfig,
-                init_h=None, conv_history=None, return_cache: bool = False):
+                init_h=None, conv_history=None, return_cache: bool = False,
+                mesh=None):
     """Full-sequence temporal block. x: (B,S,D) → (B,S,D)."""
+    p = _ready(p, cfg, mesh)
     xb = x @ p["w_x"].to(x.dtype)
     gate = F.gelu(x @ p["w_gate"].to(x.dtype), approximate="tanh")
     xb, hist = _conv(xb, p["conv_w"], p["conv_b"], conv_history)
@@ -107,10 +117,11 @@ def rglru_apply(p: Dict[str, Any], x: torch.Tensor, cfg: ModelConfig,
 
 
 def rglru_decode(p: Dict[str, Any], x: torch.Tensor,
-                 cache: Dict[str, torch.Tensor], cfg: ModelConfig
+                 cache: Dict[str, torch.Tensor], cfg: ModelConfig, mesh=None
                  ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Single-step update. x: (B,1,D). Returns (output, new cache); the
     cache passed in is not written."""
+    p = _ready(p, cfg, mesh)
     xb = (x @ p["w_x"].to(x.dtype))[:, 0]
     gate = F.gelu((x @ p["w_gate"].to(x.dtype))[:, 0], approximate="tanh")
     hist = torch.cat([cache["conv"].to(xb.dtype), xb[:, None, :]], dim=1)

@@ -4,11 +4,30 @@ Pure functions over dicts of tensors, as in the JAX package:
 ``*_schema(cfg)`` declares parameters, ``*_apply`` runs a full sequence,
 ``*_decode`` runs one token against a cache. Attention is chunked over
 queries (scores never materialise at (S, T) for long sequences). With
-``LayerCtx.use_flash`` set, full-sequence self-attention goes through the
-flash kernel (``repro_torch.kernels.flash_attention``) instead; prefill and
-decode attention stay plain, as they are plain XLA in the JAX package.
+``LayerCtx.use_flash`` set, full-sequence self-attention (the encoder's,
+``loss_fn``'s and the prefill's) goes through the flash kernel
+(``repro_torch.kernels.flash_attention``) instead, on a mesh on the rank's
+local heads; cross-attention and decode attention stay plain. (The JAX
+package's prefill attention is plain XLA; ROADMAP Queue 3 row 3.)
 
-The port runs on one device: ``LayerCtx`` has no mesh.
+**On a mesh** (``LayerCtx.mesh``, a ``launch.mesh.Mesh``) each parameter is
+this rank's block under ``common.logical`` (``shard_params``), and a layer
+readies its blocks right before use (``ready_params``): a dimension
+sharded over ``data`` (ZeRO-3) is all-gathered, with a reduce-scatter as
+its backward; a dimension sharded over ``model`` stays sharded where the
+compute is tensor-parallel, and is otherwise all-gathered for a compute
+every ``model`` rank repeats (its backward takes the rank's block). The
+policy is the JAX package's ``_qkv``: attention heads split over ``model``
+when ``H % tp == 0``, kv heads when ``Hkv % tp == 0``, else replicated;
+the output projection is row-parallel and ends in one ``psum`` over
+``model``; the MLP is column-parallel (gate / up over ``ff``), then
+row-parallel, then one ``psum``. Over ``model`` the replicated activations
+and their cotangents are the same on every rank: a tensor entering a
+tensor-parallel compute passes ``pvary`` (its backward sums the ranks'
+parts), a ``psum``'s cotangent is the cotangent, and so the gradient of a
+leaf replicated over ``model`` is the same on every ``model`` rank and
+needs no reduction there. Over the batch axes each rank's cotangents are
+its rows' part (``train.step`` sums them).
 """
 
 from __future__ import annotations
@@ -20,7 +39,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.common.config import ModelConfig
+from repro_torch.common.logical import axes_of, batch_axes, to_physical
 from repro_torch.common.schema import ParamDef
+from repro_torch.core import collectives
 
 NEG_INF = -2.3819763e38  # the finite mask value of the JAX package
 
@@ -107,6 +128,70 @@ class LayerCtx:
     pos: Optional[int] = None               # decode: current position
     q_chunk: int = 1024
     use_flash: bool = False                 # full attn through the kernel
+    mesh: Optional[Any] = None              # a launch.mesh.Mesh
+
+
+# ---------------------------------------------------------------------------
+# parameters on a mesh
+# ---------------------------------------------------------------------------
+
+def tp_size(mesh) -> int:
+    if mesh is not None and "model" in mesh.axis_names:
+        return mesh.shape["model"]
+    return 1
+
+
+def _gather_dim(w: torch.Tensor, dim: int, mesh, axes, invariant: bool):
+    moved = w.movedim(dim, 0).contiguous()
+    gather = (collectives.all_gather_invariant if invariant
+              else collectives.all_gather)
+    parts = gather(moved, mesh, axis=axes)
+    return parts.reshape((-1,) + tuple(moved.shape[1:])).movedim(0, dim)
+
+
+def ready_leaf(w: torch.Tensor, logical, mesh, keep=()) -> torch.Tensor:
+    """This rank's block ``w`` of a leaf with logical axes ``logical`` as
+    the compute reads it: every sharded dimension gathered except those
+    whose logical name is in ``keep`` (a tensor-parallel compute reads its
+    block of them). A gather over batch axes takes a reduce-scatter as its
+    backward, one over ``model`` the rank's block of the cotangent."""
+    if mesh is None:
+        return w
+    dp = set(batch_axes(mesh))
+    for dim, (name, entry) in enumerate(zip(logical,
+                                            to_physical(logical, mesh))):
+        axes = axes_of(entry)
+        if not axes or name in keep:
+            continue
+        if set(axes) <= dp:
+            w = _gather_dim(w, dim, mesh, axes, invariant=False)
+        elif axes == ("model",):
+            w = _gather_dim(w, dim, mesh, axes, invariant=True)
+        else:
+            raise ValueError(f"dimension {dim} of a {tuple(logical)} leaf "
+                             f"is sharded over {axes}: batch and model "
+                             f"axes on one dimension")
+    return w
+
+
+def ready_params(p: Dict[str, Any], schema: Dict[str, Any], mesh,
+                 keep=()) -> Dict[str, Any]:
+    """``ready_leaf`` over every leaf of ``p`` (a dict nested as
+    ``schema``, which may declare keys ``p`` lacks)."""
+    if mesh is None:
+        return p
+    return {k: (ready_leaf(v, schema[k].logical, mesh, keep)
+                if torch.is_tensor(v) else
+                ready_params(v, schema[k], mesh, keep))
+            for k, v in p.items()}
+
+
+def _pvary(x, mesh):
+    return collectives.pvary(x, mesh, axis="model")
+
+
+def _psum(x, mesh):
+    return collectives.psum(x, mesh, axis="model")
 
 
 def rope_for(kind: str, ctx: LayerCtx):
@@ -227,17 +312,76 @@ def _proj(x: torch.Tensor, w: torch.Tensor,
     return out if b is None else out + b.to(x.dtype)
 
 
-def _qkv(p, x, mem, cfg: ModelConfig):
-    """Project q from x and k, v from mem (mem = x for self-attention)."""
+def _head_split(cfg: ModelConfig, mesh) -> Tuple[int, bool, bool]:
+    """(tp, q heads split over model?, kv heads split over model?)."""
+    tp = tp_size(mesh)
+    return (tp, tp > 1 and cfg.n_heads % tp == 0,
+            tp > 1 and cfg.n_kv_heads % tp == 0)
+
+
+def _attn_params(p, cfg: ModelConfig, mesh):
+    """The attention weights as this rank's compute reads them."""
+    if mesh is None:
+        return p
+    _, q_split, kv_split = _head_split(cfg, mesh)
+    keep = (("heads",) if q_split else ()) + \
+        (("kv_heads",) if kv_split else ())
+    return ready_params(p, attn_schema(cfg, gated=True), mesh, keep)
+
+
+def _local_kv(t: torch.Tensor, cfg: ModelConfig, mesh) -> torch.Tensor:
+    """Where the q heads split over ``model`` and the kv heads do not:
+    the kv head of each of this rank's q heads, from the replicated
+    (B, T, Hkv, hd) keys or values (GQA ratio 1 after the pick)."""
+    tp = tp_size(mesh)
+    Hl = cfg.n_heads // tp
+    G = cfg.n_heads // cfg.n_kv_heads
+    first = mesh.axis_index("model") * Hl
+    idx = torch.div(torch.arange(first, first + Hl, device=t.device), G,
+                    rounding_mode="floor")
+    return _pvary(t, mesh)[:, :, idx]
+
+
+def _q_proj(p, x, cfg: ModelConfig, mesh=None):
+    """q (B, S, H_local, hd) from x, q_norm applied."""
     B, S, _ = x.shape
-    M = mem.shape[1]
-    H, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    q = _proj(x, p["wq"], p.get("bq")).reshape(B, S, H, hd)
-    k = _proj(mem, p["wk"], p.get("bk")).reshape(B, M, Hkv, hd)
-    v = _proj(mem, p["wv"], p.get("bv")).reshape(B, M, Hkv, hd)
+    _, q_split, _ = _head_split(cfg, mesh)
+    xq = _pvary(x, mesh) if q_split else x
+    q = _proj(xq, p["wq"], p.get("bq")).reshape(B, S, -1, cfg.hd)
     if "q_norm" in p:
-        q = rms_norm(q, p["q_norm"], cfg.norm_eps, cfg.rms_zero_centered)
-        k = rms_norm(k, p["k_norm"], cfg.norm_eps, cfg.rms_zero_centered)
+        # a replicated weight read by the rank's heads only: its cotangent
+        # is the rank's part
+        w = _pvary(p["q_norm"], mesh) if q_split else p["q_norm"]
+        q = rms_norm(q, w, cfg.norm_eps, cfg.rms_zero_centered)
+    return q, xq
+
+
+def _kv_proj(p, mem, cfg: ModelConfig, mesh=None, mem_in=None):
+    """k, v (B, M, Hkv_local, hd) from mem, k_norm applied; on a mesh
+    the rank's kv heads (``_local_kv`` where only the q heads split).
+    ``mem_in`` is ``mem`` already through ``pvary``, when it is."""
+    B, M, _ = mem.shape
+    _, q_split, kv_split = _head_split(cfg, mesh)
+    if kv_split:
+        xm = mem_in if mem_in is not None else _pvary(mem, mesh)
+    else:
+        xm = mem
+    k = _proj(xm, p["wk"], p.get("bk")).reshape(B, M, -1, cfg.hd)
+    v = _proj(xm, p["wv"], p.get("bv")).reshape(B, M, -1, cfg.hd)
+    if "k_norm" in p:
+        w = _pvary(p["k_norm"], mesh) if kv_split else p["k_norm"]
+        k = rms_norm(k, w, cfg.norm_eps, cfg.rms_zero_centered)
+    if q_split and not kv_split:
+        k, v = _local_kv(k, cfg, mesh), _local_kv(v, cfg, mesh)
+    return k, v
+
+
+def _qkv(p, x, mem, cfg: ModelConfig, mesh=None):
+    """Project q from x and k, v from mem (mem = x for self-attention)."""
+    q, xq = _q_proj(p, x, cfg, mesh)
+    _, q_split, kv_split = _head_split(cfg, mesh)
+    share = mem is x and q_split and kv_split
+    k, v = _kv_proj(p, mem, cfg, mesh, mem_in=xq if share else None)
     return q, k, v
 
 
@@ -247,15 +391,19 @@ def _q_scale(cfg: ModelConfig) -> float:
     return cfg.hd ** -0.5
 
 
-def _out_proj(p, o, x_dtype):
+def _out_proj(p, o, x_dtype, cfg: ModelConfig, mesh=None):
+    """o (B, S, H_local, hd) through wo; on a mesh with split heads a
+    row-parallel projection, then one psum over ``model``."""
     B, S = o.shape[0], o.shape[1]
-    return _proj(o.reshape(B, S, -1).to(x_dtype), p["wo"].to(x_dtype),
-                 p.get("bo"))
+    out = o.reshape(B, S, -1).to(x_dtype) @ p["wo"].to(x_dtype)
+    if _head_split(cfg, mesh)[1]:
+        out = _psum(out, mesh)
+    return out if "bo" not in p else out + p["bo"].to(x_dtype)
 
 
 def _self_attn_args(p, x, ctx: LayerCtx, kind: str):
     cfg = ctx.cfg
-    q, k, v = _qkv(p, x, x, cfg)
+    q, k, v = _qkv(p, x, x, cfg, ctx.mesh)
     cos, sin = rope_for(kind, ctx)
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
@@ -265,28 +413,35 @@ def _self_attn_args(p, x, ctx: LayerCtx, kind: str):
     return q, k, v, mask
 
 
-def attn_apply(p, x, ctx: LayerCtx, *, kind: str) -> torch.Tensor:
-    """Full-sequence attention for kinds attn/local/enc. Returns (B,S,D)."""
-    q, k, v, mask = _self_attn_args(p, x, ctx, kind)
-    q = q * _q_scale(ctx.cfg)
+def _attend(q, k, v, mask, ctx: LayerCtx):
     if ctx.use_flash:
         from repro_torch.kernels.flash_attention import ops as flash_ops
-        o = flash_ops.flash_attention(q, k, v, **mask)
-    else:
-        o = chunked_attention(q, k, v, **mask, q_chunk=ctx.q_chunk)
-    return _out_proj(p, o, x.dtype)
+        return flash_ops.flash_attention(q, k, v, **mask)
+    return chunked_attention(q, k, v, **mask, q_chunk=ctx.q_chunk)
+
+
+def attn_apply(p, x, ctx: LayerCtx, *, kind: str) -> torch.Tensor:
+    """Full-sequence attention for kinds attn/local/enc. Returns (B,S,D)."""
+    p = _attn_params(p, ctx.cfg, ctx.mesh)
+    q, k, v, mask = _self_attn_args(p, x, ctx, kind)
+    o = _attend(q * _q_scale(ctx.cfg), k, v, mask, ctx)
+    return _out_proj(p, o, x.dtype, ctx.cfg, ctx.mesh)
+
+
+def _gated(p, out, x_dtype):
+    if "gate_attn" in p:
+        out = torch.tanh(p["gate_attn"].to(x_dtype)) * out
+    return out
 
 
 def cross_attn_apply(p, x, ctx: LayerCtx) -> torch.Tensor:
     """Cross-attention to ctx.memory. No rope, no causal mask."""
     cfg = ctx.cfg
-    q, k, v = _qkv(p, x, ctx.memory.to(x.dtype), cfg)
+    p = _attn_params(p, cfg, ctx.mesh)
+    q, k, v = _qkv(p, x, ctx.memory.to(x.dtype), cfg, ctx.mesh)
     o = chunked_attention(q * _q_scale(cfg), k, v, causal=False,
                           q_chunk=ctx.q_chunk)
-    out = _out_proj(p, o, x.dtype)
-    if "gate_attn" in p:
-        out = torch.tanh(p["gate_attn"].to(x.dtype)) * out
-    return out
+    return _gated(p, _out_proj(p, o, x.dtype, cfg, ctx.mesh), x.dtype)
 
 
 # --- caches ----------------------------------------------------------------
@@ -300,7 +455,9 @@ def _cache_def(cfg: ModelConfig, batch: int, T: int) -> ParamDef:
 def attn_cache_schema(cfg: ModelConfig, batch: int, seq_len: int, *,
                       kind: str) -> Dict[str, ParamDef]:
     """Decode KV cache; a local layer whose window is shorter than the
-    sequence keeps a ring of ``window`` slots."""
+    sequence keeps a ring of ``window`` slots. (On a mesh each rank's
+    cache holds its rows and the kv heads its attention reads, as
+    ``attn_prefill`` builds it.)"""
     is_ring = kind == "local" and cfg.window and cfg.window < seq_len
     T = cfg.window if is_ring else seq_len
     return {"k": _cache_def(cfg, batch, T), "v": _cache_def(cfg, batch, T)}
@@ -322,9 +479,9 @@ def _ring_slots(pos: int, W: int, device=None) -> torch.Tensor:
 def attn_prefill(p, x, ctx: LayerCtx, *, kind: str, cache_len: int):
     """Full-seq attention that also returns the populated decode cache."""
     cfg = ctx.cfg
+    p = _attn_params(p, cfg, ctx.mesh)
     q, k, v, mask = _self_attn_args(p, x, ctx, kind)
-    o = chunked_attention(q * _q_scale(cfg), k, v, **mask,
-                          q_chunk=ctx.q_chunk)
+    o = _attend(q * _q_scale(cfg), k, v, mask, ctx)
     S = x.shape[1]
     if kind == "local" and cfg.window and cfg.window < cache_len:
         W = cfg.window
@@ -337,7 +494,7 @@ def attn_prefill(p, x, ctx: LayerCtx, *, kind: str, cache_len: int):
     else:
         pad = (0, 0, 0, 0, 0, cache_len - S)
         cache = {"k": F.pad(k, pad), "v": F.pad(v, pad)}
-    return _out_proj(p, o, x.dtype), cache
+    return _out_proj(p, o, x.dtype, cfg, ctx.mesh), cache
 
 
 def attn_decode(p, x, cache, ctx: LayerCtx, *, kind: str):
@@ -346,7 +503,8 @@ def attn_decode(p, x, cache, ctx: LayerCtx, *, kind: str):
     (output, cache)."""
     cfg = ctx.cfg
     pos = ctx.pos
-    q, k, v = _qkv(p, x, x, cfg)
+    p = _attn_params(p, cfg, ctx.mesh)
+    q, k, v = _qkv(p, x, x, cfg, ctx.mesh)
     cos, sin = rope_for(kind, ctx)  # tables for the single current position
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
@@ -362,33 +520,26 @@ def attn_decode(p, x, cache, ctx: LayerCtx, *, kind: str):
     o = decode_attention(q * _q_scale(cfg), cache["k"], cache["v"], kv_pos,
                          pos, window=cfg.window if kind == "local" else 0,
                          softcap=cfg.attn_logit_softcap)
-    return _out_proj(p, o, x.dtype), cache
+    return _out_proj(p, o, x.dtype, cfg, ctx.mesh), cache
 
 
 def cross_attn_decode(p, x, cache, ctx: LayerCtx):
     """Cross-attention during decode: static precomputed memory K/V."""
     cfg = ctx.cfg
-    B = x.shape[0]
-    q = _proj(x, p["wq"], p.get("bq")).reshape(B, 1, cfg.n_heads, cfg.hd)
-    if "q_norm" in p:
-        q = rms_norm(q, p["q_norm"], cfg.norm_eps, cfg.rms_zero_centered)
+    p = _attn_params(p, cfg, ctx.mesh)
+    q, _ = _q_proj(p, x, cfg, ctx.mesh)
     T = cache["k"].shape[1]
     o = decode_attention(q * _q_scale(cfg), cache["k"], cache["v"],
                          torch.arange(T, device=x.device), T)
-    out = _out_proj(p, o, x.dtype)
-    if "gate_attn" in p:
-        out = torch.tanh(p["gate_attn"].to(x.dtype)) * out
-    return out, cache
+    return _gated(p, _out_proj(p, o, x.dtype, cfg, ctx.mesh), x.dtype), \
+        cache
 
 
-def cross_build_cache(p, memory, cfg: ModelConfig):
-    """Precompute cross-attention K/V from encoder memory."""
-    B, M, _ = memory.shape
-    Hkv, hd = cfg.n_kv_heads, cfg.hd
-    k = _proj(memory, p["wk"], p.get("bk")).reshape(B, M, Hkv, hd)
-    v = _proj(memory, p["wv"], p.get("bv")).reshape(B, M, Hkv, hd)
-    if "k_norm" in p:
-        k = rms_norm(k, p["k_norm"], cfg.norm_eps, cfg.rms_zero_centered)
+def cross_build_cache(p, memory, cfg: ModelConfig, mesh=None):
+    """Precompute cross-attention K/V from encoder memory (on a mesh, the
+    rank's kv heads)."""
+    p = _attn_params(p, cfg, mesh)
+    k, v = _kv_proj(p, memory, cfg, mesh)
     dt = compute_dtype(cfg)
     return {"k": k.to(dt), "v": v.to(dt)}
 
@@ -424,13 +575,25 @@ def _act(x, kind: str):
     return F.silu(x)
 
 
-def mlp_apply(p, x, cfg: ModelConfig) -> torch.Tensor:
+def mlp_apply(p, x, cfg: ModelConfig, mesh=None) -> torch.Tensor:
+    """The FFN; on a mesh column-parallel over ``ff`` (gate and up), then
+    row-parallel (down), then one psum over ``model``."""
+    tp = tp_size(mesh)
+    if mesh is not None:
+        p = ready_params(p, mlp_schema(cfg, gated_tag=True), mesh,
+                         keep=("ff",))
+        if tp > 1:
+            x = _pvary(x, mesh)
     if cfg.mlp_gated:
         gu = torch.einsum("bsd,dtf->bstf", x, p["w_gateup"].to(x.dtype))
         out = _proj(_act(gu[:, :, 0], cfg.act) * gu[:, :, 1], p["w_down"])
     else:
         u = _proj(x, p["w_up"], p.get("b_up"))
-        out = _proj(_act(u, cfg.act), p["w_down"], p.get("b_down"))
+        out = _proj(_act(u, cfg.act), p["w_down"])
+    if tp > 1:
+        out = _psum(out, mesh)
+    if "b_down" in p:
+        out = out + p["b_down"].to(out.dtype)
     if "gate_ffn" in p:
         out = torch.tanh(p["gate_ffn"].to(x.dtype)) * out
     return out

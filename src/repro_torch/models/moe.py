@@ -5,8 +5,17 @@ package: top-k routing per token, each (token, k) slot's position in its
 expert's queue by a cumulative sum per group of ``group_size`` tokens,
 slots past the capacity dropped, and the combine einsum reducing the
 expert axis. Shared experts (deepseek: 2) run as an always-on dense FFN.
-The port runs on one device, so the experts are not sharded (the JAX
-package's expert parallelism over ``model`` is ROADMAP Queue 1 row 10.3).
+
+On a mesh the experts go over ``model`` (EP): each rank keeps ``E/tp``
+experts of ``w_gate``, ``w_up`` and ``w_down``. Routing runs on the
+replicated tokens; the rank dispatches to and runs its own experts, the
+combine reduces the expert axis locally, and one psum over ``model`` of
+the combined (B, S, D) crosses the axis — bytes ∝ tokens·D, not
+tokens·top_k·D (the CGTrans dataflow). The shared experts run as the
+MLP does (tensor-parallel). The batch axes split the tokens: the routing
+groups and the load-balance loss stay those of the whole batch (a group
+that spans data ranks takes its queue offsets from the ranks before it,
+and the loss's means are summed over the batch axes).
 """
 
 from __future__ import annotations
@@ -17,7 +26,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.common.config import ModelConfig
+from repro_torch.common.logical import batch_axes, dp_size
 from repro_torch.common.schema import ParamDef
+from repro_torch.core import collectives
 from repro_torch.models import layers
 
 
@@ -44,11 +55,14 @@ def _capacity(tokens_per_group: int, n_experts: int, top_k: int,
     return max(c, top_k)
 
 
-def route(router_w: torch.Tensor, x: torch.Tensor, cfg: ModelConfig):
+def route(router_w: torch.Tensor, x: torch.Tensor, cfg: ModelConfig,
+          mesh=None):
     """Top-k routing. x: (..., D) → (weights (..., k), ids (..., k), aux).
 
     ``torch.topk`` does not promise ``lax.top_k``'s order among equal
-    probabilities (lower index first); continuous inputs have no ties."""
+    probabilities (lower index first); continuous inputs have no ties.
+    On a mesh ``x`` is this rank's tokens and the aux loss's means cover
+    every rank's."""
     logits = torch.einsum("...d,de->...e", x.float(), router_w)
     probs = torch.softmax(logits, dim=-1)
     top_p, top_ids = torch.topk(probs, cfg.top_k, dim=-1)
@@ -56,34 +70,67 @@ def route(router_w: torch.Tensor, x: torch.Tensor, cfg: ModelConfig):
     # Switch-style load-balance aux loss: E·Σ_e (mean router prob)·(routed
     # fraction)
     E = cfg.n_experts
-    me = torch.mean(probs.reshape(-1, E), dim=0)
-    ce = torch.mean(F.one_hot(top_ids.reshape(-1), E).to(torch.float32),
-                    dim=0)
+    hot = F.one_hot(top_ids.reshape(-1), E).to(torch.float32)
+    if mesh is not None and dp_size(mesh) > 1:
+        dp = batch_axes(mesh)
+        n = probs.reshape(-1, E).shape[0] * dp_size(mesh)
+        me = collectives.psum(probs.reshape(-1, E).sum(0), mesh,
+                              axis=dp) / n
+        ce = collectives.all_reduce(hot.sum(0), mesh, axis=dp) / (
+            hot.shape[0] * dp_size(mesh))
+    else:
+        me = torch.mean(probs.reshape(-1, E), dim=0)
+        ce = torch.mean(hot, dim=0)
     aux = E * torch.sum(me * ce)
     return top_p, top_ids, aux
 
 
+def _groups(T_local: int, group_size: int, mesh):
+    """(groups here, tokens per group here, ranks a group spans, tokens
+    per group): the JAX package's groups of ``min(group_size, T)`` of the
+    whole batch's T tokens, over this rank's contiguous ``T_local``."""
+    dp = dp_size(mesh) if mesh is not None else 1
+    t = min(group_size, T_local * dp)
+    if dp == 1 or T_local % t == 0:
+        return T_local // t, t, 1, t
+    if t % T_local == 0:
+        return 1, T_local, t // T_local, t
+    raise ValueError(f"{T_local} tokens per rank neither hold whole "
+                     f"routing groups of {t} nor tile one")
+
+
 def moe_apply(p: Dict[str, Any], x: torch.Tensor, cfg: ModelConfig, *,
-              capacity_factor: float = 1.25, group_size: int = 512
-              ) -> Tuple[torch.Tensor, torch.Tensor]:
+              capacity_factor: float = 1.25, group_size: int = 512,
+              mesh=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: (B, S, D). Returns (output (B,S,D), aux load-balance loss, an f32
     scalar). The B·S tokens split into groups of ``min(group_size, B·S)``;
     a token count that is not a multiple of the group fails in the
-    reshape, as in the JAX package."""
+    reshape, as in the JAX package. On a mesh ``x`` is this rank's rows
+    and ``p`` its blocks."""
     B, S, D = x.shape
     E, K = cfg.n_experts, cfg.top_k
-    T = B * S
-    t = min(group_size, T)
-    G = T // t
+    tp = layers.tp_size(mesh)
+    shared = p.get("shared")
+    if mesh is not None:
+        p = layers.ready_params({k: v for k, v in p.items()
+                                 if k != "shared"}, moe_schema(cfg), mesh,
+                                keep=("experts",))
+    G, t, span, t_group = _groups(B * S, group_size, mesh)
     xf = x.reshape(G, t, D)
 
-    top_p, top_ids, aux = route(p["router"], xf, cfg)   # (G,t,K)
+    top_p, top_ids, aux = route(p["router"], xf, cfg, mesh)  # (G,t,K)
 
-    C = _capacity(t, E, K, capacity_factor)
+    C = _capacity(t_group, E, K, capacity_factor)
     # position of each (token, k) slot within its expert queue, per group
     e_onehot = F.one_hot(top_ids, E).to(torch.int32)    # (G,t,K,E)
     flat = e_onehot.reshape(G, t * K, E)
     pos_in_e = torch.cumsum(flat, dim=1) - flat          # (G,t*K,E)
+    if span > 1:
+        # the group began on an earlier rank: queue past its slots there
+        dp = batch_axes(mesh)
+        counts = collectives.all_gather(flat.sum(1), mesh, axis=dp)
+        me = mesh.axis_index(dp)
+        pos_in_e = pos_in_e + counts[me - me % span:me].sum(0)[:, None]
     pos = torch.sum(pos_in_e.reshape(G, t, K, E) * e_onehot, dim=-1)
     keep = pos < C
     w = top_p * keep.to(top_p.dtype)
@@ -95,16 +142,26 @@ def moe_apply(p: Dict[str, Any], x: torch.Tensor, cfg: ModelConfig, *,
     comb = torch.einsum("gtke,gtkc,gtk->gtec", e_onehot.to(torch.float32),
                         pos_oh.to(torch.float32),
                         w.to(torch.float32)).to(x.dtype)
+    x_in = xf
+    if tp > 1:
+        # this rank's experts: their dispatch and combine columns
+        El = E // tp
+        e0 = mesh.axis_index("model") * El
+        disp = disp[:, :, e0:e0 + El]
+        comb = collectives.pvary(comb, mesh, axis="model")[:, :, e0:e0 + El]
+        x_in = collectives.pvary(xf, mesh, axis="model")
 
     # gather expert inputs, run experts, combine (expert axis reduced)
-    xin = torch.einsum("gtec,gtd->gecd", disp, xf)                 # (G,E,C,D)
+    xin = torch.einsum("gtec,gtd->gecd", disp, x_in)              # (G,E,C,D)
     g = layers._act(torch.einsum("gecd,edf->gecf", xin,
                                  p["w_gate"].to(x.dtype)), cfg.act)
     u = torch.einsum("gecd,edf->gecf", xin, p["w_up"].to(x.dtype))
     xout = torch.einsum("gecf,efd->gecd", g * u, p["w_down"].to(x.dtype))
     out = torch.einsum("gecd,gtec->gtd", xout, comb)
+    if tp > 1:
+        out = collectives.psum(out, mesh, axis="model")
 
     out = out.reshape(B, S, D)
-    if "shared" in p:
-        out = out + layers.mlp_apply(p["shared"], x, cfg)
+    if shared is not None:
+        out = out + layers.mlp_apply(shared, x, cfg, mesh)
     return out, aux.to(torch.float32)

@@ -19,7 +19,7 @@ import torch.nn.functional as F
 
 from repro_torch.common.config import ModelConfig
 from repro_torch.common.schema import ParamDef
-from repro_torch.models.layers import rms_norm
+from repro_torch.models.layers import ready_params, rms_norm
 
 
 def dims(cfg: ModelConfig) -> Tuple[int, int, int, int]:
@@ -151,10 +151,18 @@ def _proj(x, w):
     return x @ w.to(x.dtype)
 
 
+def _ready(p, cfg: ModelConfig, mesh):
+    """On a mesh every weight gathered (``ssm_heads`` over ``model`` too):
+    the mixer's compute is replicated over ``model`` (tensor-parallel SSD
+    is ROADMAP work)."""
+    return ready_params(p, ssd_schema(cfg), mesh)
+
+
 def ssd_apply(p: Dict[str, Any], x: torch.Tensor, cfg: ModelConfig,
               init_state=None, conv_history=None,
-              return_cache: bool = False):
+              return_cache: bool = False, mesh=None):
     """Full-sequence mamba2 mixer. x: (B,S,D) → (B,S,D)."""
+    p = _ready(p, cfg, mesh)
     d_inner, H, P_, _ = dims(cfg)
     B, S, _ = x.shape
     z = _proj(x, p["z_proj"])
@@ -195,9 +203,10 @@ def _conv_step(v, hist, w, b, act: bool = True):
 
 
 def ssd_decode(p: Dict[str, Any], x: torch.Tensor,
-               cache: Dict[str, torch.Tensor], cfg: ModelConfig):
+               cache: Dict[str, torch.Tensor], cfg: ModelConfig, mesh=None):
     """Single-token recurrent update. x: (B,1,D). Returns (output, new
     cache); the cache passed in is not written."""
+    p = _ready(p, cfg, mesh)
     d_inner, H, P_, _ = dims(cfg)
     B = x.shape[0]
     x0 = x[:, 0]

@@ -14,6 +14,18 @@ Three entry points, as in the JAX package: ``loss_fn`` (train; with
 ``cfg.remat == "block"`` each block of the loop is checkpointed, as
 ``jax.checkpoint`` wraps the scan body), ``prefill`` (last-token logits +
 populated cache) and ``decode_step`` (one token against the cache).
+
+Each takes ``mesh=`` (a ``launch.mesh.Mesh``): then the parameters are
+this rank's blocks (``common.schema.shard_params``), the batch is this
+rank's rows over the batch axes, the layers run tensor- and
+expert-parallel over ``model`` (``models/layers.py``, ``models/moe.py``),
+the embedding is the CGTrans lookup on the vocab shard and the loss the
+vocab-parallel cross-entropy (``models/embedding.py``). ``loss_fn`` sums
+the loss and the label count over the batch axes before it divides, so
+its gradients are the rank's part of the unsharded gradient. The decode
+caches on a mesh hold the rank's rows and the kv heads its attention
+reads (the JAX cache schema shards the sequence over ``model`` instead;
+ROADMAP Queue 3 row 3).
 """
 
 from __future__ import annotations
@@ -26,24 +38,20 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.common.config import ModelConfig
+from repro_torch.common.logical import batch_axes, dp_size
 from repro_torch.common.schema import ParamDef, stack as stack_schema
+from repro_torch.core import collectives
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import griffin, layers, moe, ssm
+from repro_torch.launch.mesh import check_named_mesh
 from repro_torch.models.embedding import (chunked_softmax_xent, embed_lookup,
-                                          logits_matmul)
+                                          vocab_logits)
 from repro_torch.models.layers import (LayerCtx, apply_norm, compute_dtype,
-                                       norm_schema, rope_tables)
+                                       norm_schema, ready_leaf, rope_tables)
 
 
 def _cdt(cfg: ModelConfig) -> torch.dtype:
     return compute_dtype(cfg)
-
-
-def _no_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh= is not ported yet: the port's LM path runs on one device "
-            "(ROADMAP Queue 1 row 10.3, the sharded LM)")
 
 
 # ---------------------------------------------------------------------------
@@ -111,9 +119,9 @@ def _residual(x, delta, p, cfg, post_key):
     return x + delta
 
 
-def _mlp_block(cfg, p, x):
+def _mlp_block(cfg, p, x, mesh):
     h = apply_norm(p["norm2"], x, cfg)
-    return _residual(x, layers.mlp_apply(p["mlp"], h, cfg), p, cfg,
+    return _residual(x, layers.mlp_apply(p["mlp"], h, cfg, mesh), p, cfg,
                      "post_mlp_norm")
 
 
@@ -128,85 +136,89 @@ def _write(cache: Dict[str, torch.Tensor], new: Dict[str, torch.Tensor]):
 def layer_apply(cfg: ModelConfig, kind: str, p, x, ctx: LayerCtx):
     """Full-sequence layer. Returns (x, aux): aux is 0.0, or an MoE
     layer's f32 load-balance loss."""
+    m = ctx.mesh
     aux = 0.0
     if kind == "ssd":
         h = apply_norm(p["norm"], x, cfg)
-        return x + ssm.ssd_apply(p["mixer"], h, cfg), aux
+        return x + ssm.ssd_apply(p["mixer"], h, cfg, mesh=m), aux
     if kind == "rglru":
         h = apply_norm(p["norm"], x, cfg)
-        x = x + griffin.rglru_apply(p["mixer"], h, cfg)
+        x = x + griffin.rglru_apply(p["mixer"], h, cfg, mesh=m)
         h = apply_norm(p["norm2"], x, cfg)
-        return x + layers.mlp_apply(p["mlp"], h, cfg), aux
+        return x + layers.mlp_apply(p["mlp"], h, cfg, m), aux
     if kind in ("attn", "local", "enc"):
         h = apply_norm(p["norm"], x, cfg)
         x = _residual(x, layers.attn_apply(p["attn"], h, ctx, kind=kind),
                       p, cfg, "post_attn_norm")
-        return _mlp_block(cfg, p, x), aux
+        return _mlp_block(cfg, p, x, m), aux
     if kind == "moe":
         h = apply_norm(p["norm"], x, cfg)
         x = x + layers.attn_apply(p["attn"], h, ctx, kind="attn")
         h = apply_norm(p["norm2"], x, cfg)
-        out, aux = moe.moe_apply(p["moe"], h, cfg)
+        out, aux = moe.moe_apply(p["moe"], h, cfg, mesh=m)
         return x + out, aux
     if kind == "cross":
         h = apply_norm(p["norm"], x, cfg)
         x = x + layers.cross_attn_apply(p["attn"], h, ctx)
         h = apply_norm(p["norm2"], x, cfg)
-        return x + layers.mlp_apply(p["mlp"], h, cfg), aux
+        return x + layers.mlp_apply(p["mlp"], h, cfg, m), aux
     if kind == "dec":
         h = apply_norm(p["norm"], x, cfg)
         x = x + layers.attn_apply(p["self_attn"], h, ctx, kind="attn")
         h = apply_norm(p["norm_x"], x, cfg)
         x = x + layers.cross_attn_apply(p["cross_attn"], h, ctx)
-        return _mlp_block(cfg, p, x), aux
+        return _mlp_block(cfg, p, x, m), aux
     raise ValueError(kind)
 
 
 def layer_prefill(cfg: ModelConfig, kind: str, p, x, ctx: LayerCtx,
                   cache_len: int):
     """Full-sequence layer that also emits the decode cache."""
+    m = ctx.mesh
     if kind == "ssd":
         h = apply_norm(p["norm"], x, cfg)
-        out, cache = ssm.ssd_apply(p["mixer"], h, cfg, return_cache=True)
+        out, cache = ssm.ssd_apply(p["mixer"], h, cfg, return_cache=True,
+                                       mesh=m)
         return x + out, {"mixer": cache}
     if kind == "rglru":
         h = apply_norm(p["norm"], x, cfg)
         out, cache = griffin.rglru_apply(p["mixer"], h, cfg,
-                                         return_cache=True)
+                                         return_cache=True, mesh=m)
         x = x + out
         h = apply_norm(p["norm2"], x, cfg)
-        return x + layers.mlp_apply(p["mlp"], h, cfg), {"mixer": cache}
+        return x + layers.mlp_apply(p["mlp"], h, cfg, m), {"mixer": cache}
     if kind in ("attn", "local"):
         h = apply_norm(p["norm"], x, cfg)
         a, cache = layers.attn_prefill(p["attn"], h, ctx, kind=kind,
                                        cache_len=cache_len)
         x = _residual(x, a, p, cfg, "post_attn_norm")
-        return _mlp_block(cfg, p, x), {"attn": cache}
+        return _mlp_block(cfg, p, x, m), {"attn": cache}
     if kind == "moe":
         h = apply_norm(p["norm"], x, cfg)
         a, cache = layers.attn_prefill(p["attn"], h, ctx, kind="attn",
                                        cache_len=cache_len)
         x = x + a
         h = apply_norm(p["norm2"], x, cfg)
-        out, _ = moe.moe_apply(p["moe"], h, cfg, capacity_factor=2.0)
+        out, _ = moe.moe_apply(p["moe"], h, cfg, capacity_factor=2.0,
+                               mesh=m)
         return x + out, {"attn": cache}
     if kind == "cross":
         cache = layers.cross_build_cache(p["attn"], ctx.memory.to(x.dtype),
-                                         cfg)
+                                         cfg, m)
         h = apply_norm(p["norm"], x, cfg)
         x = x + layers.cross_attn_apply(p["attn"], h, ctx)
         h = apply_norm(p["norm2"], x, cfg)
-        return x + layers.mlp_apply(p["mlp"], h, cfg), {"attn": cache}
+        return x + layers.mlp_apply(p["mlp"], h, cfg, m), {"attn": cache}
     if kind == "dec":
         h = apply_norm(p["norm"], x, cfg)
         a, self_cache = layers.attn_prefill(p["self_attn"], h, ctx,
                                             kind="attn", cache_len=cache_len)
         x = x + a
         cross_cache = layers.cross_build_cache(
-            p["cross_attn"], ctx.memory.to(x.dtype), cfg)
+            p["cross_attn"], ctx.memory.to(x.dtype), cfg, m)
         h = apply_norm(p["norm_x"], x, cfg)
         x = x + layers.cross_attn_apply(p["cross_attn"], h, ctx)
-        return (_mlp_block(cfg, p, x),
+        return (_mlp_block(cfg, p, x, m),
                 {"self_attn": self_cache, "cross_attn": cross_cache})
     if kind == "enc":
         raise ValueError("encoder layers run in _encode, not in a prefill "
@@ -217,23 +229,25 @@ def layer_prefill(cfg: ModelConfig, kind: str, p, x, ctx: LayerCtx,
 def layer_decode(cfg: ModelConfig, kind: str, p, x, cache, ctx: LayerCtx):
     """One-token step. x: (B,1,D). Returns (x, cache), the cache updated in
     place."""
+    m = ctx.mesh
     if kind == "ssd":
         h = apply_norm(p["norm"], x, cfg)
-        out, c = ssm.ssd_decode(p["mixer"], h, cache["mixer"], cfg)
+        out, c = ssm.ssd_decode(p["mixer"], h, cache["mixer"], cfg, m)
         return x + out, {"mixer": _write(cache["mixer"], c)}
     if kind == "rglru":
         h = apply_norm(p["norm"], x, cfg)
-        out, c = griffin.rglru_decode(p["mixer"], h, cache["mixer"], cfg)
+        out, c = griffin.rglru_decode(p["mixer"], h, cache["mixer"], cfg,
+                                        m)
         x = x + out
         h = apply_norm(p["norm2"], x, cfg)
-        return (x + layers.mlp_apply(p["mlp"], h, cfg),
+        return (x + layers.mlp_apply(p["mlp"], h, cfg, m),
                 {"mixer": _write(cache["mixer"], c)})
     if kind in ("attn", "local"):
         h = apply_norm(p["norm"], x, cfg)
         a, c = layers.attn_decode(p["attn"], h, cache["attn"], ctx,
                                   kind=kind)
         x = _residual(x, a, p, cfg, "post_attn_norm")
-        return _mlp_block(cfg, p, x), {"attn": c}
+        return _mlp_block(cfg, p, x, m), {"attn": c}
     if kind == "moe":
         h = apply_norm(p["norm"], x, cfg)
         a, c = layers.attn_decode(p["attn"], h, cache["attn"], ctx,
@@ -241,14 +255,14 @@ def layer_decode(cfg: ModelConfig, kind: str, p, x, cache, ctx: LayerCtx):
         x = x + a
         h = apply_norm(p["norm2"], x, cfg)
         out, _ = moe.moe_apply(p["moe"], h, cfg, capacity_factor=2.0,
-                               group_size=64)
+                               group_size=64, mesh=m)
         return x + out, {"attn": c}
     if kind == "cross":
         h = apply_norm(p["norm"], x, cfg)
         a, c = layers.cross_attn_decode(p["attn"], h, cache["attn"], ctx)
         x = x + a
         h = apply_norm(p["norm2"], x, cfg)
-        return x + layers.mlp_apply(p["mlp"], h, cfg), {"attn": c}
+        return x + layers.mlp_apply(p["mlp"], h, cfg, m), {"attn": c}
     if kind == "dec":
         h = apply_norm(p["norm"], x, cfg)
         a, sc = layers.attn_decode(p["self_attn"], h, cache["self_attn"], ctx,
@@ -257,7 +271,7 @@ def layer_decode(cfg: ModelConfig, kind: str, p, x, cache, ctx: LayerCtx):
         h = apply_norm(p["norm_x"], x, cfg)
         a, cc = layers.cross_attn_decode(p["cross_attn"], h,
                                          cache["cross_attn"], ctx)
-        return _mlp_block(cfg, p, x + a), {"self_attn": sc, "cross_attn": cc}
+        return _mlp_block(cfg, p, x + a, m), {"self_attn": sc, "cross_attn": cc}
     if kind == "enc":
         raise ValueError("encoder layers do not decode")
     raise ValueError(kind)
@@ -463,52 +477,71 @@ def _sincos_pos(S: int, D: int, dtype, device) -> torch.Tensor:
 
 
 def _make_ctx(cfg: ModelConfig, positions: torch.Tensor, memory=None,
-              pos: Optional[int] = None, use_flash: bool = False) -> LayerCtx:
+              pos: Optional[int] = None, use_flash: bool = False,
+              mesh=None) -> LayerCtx:
     hd = cfg.hd
     rope_l = rope_tables(positions, hd, cfg.rope_theta)
     rope_g = (rope_tables(positions, hd, cfg.rope_theta_global)
               if cfg.rope_theta_global else rope_l)
     return LayerCtx(cfg=cfg, rope_local=rope_l, rope_global=rope_g,
-                    memory=memory, pos=pos, use_flash=use_flash)
+                    memory=memory, pos=pos, use_flash=use_flash, mesh=mesh)
 
 
 def _encode(cfg: ModelConfig, params, frames: torch.Tensor,
-            use_flash: bool = False) -> torch.Tensor:
+            use_flash: bool = False, mesh=None) -> torch.Tensor:
     """Whisper encoder over stubbed frame embeddings (B, enc_seq, D)."""
     x = frames.to(_cdt(cfg))
     x = x + _sincos_pos(x.shape[1], cfg.d_model, x.dtype, x.device)[None]
     ctx = _make_ctx(cfg, torch.arange(x.shape[1], device=x.device),
-                    use_flash=use_flash)
+                    use_flash=use_flash, mesh=mesh)
     for bp in _blocks(params["encoder"]["blocks"], cfg.n_enc_layers):
         x, _ = layer_apply(cfg, "enc", bp["p0"], x, ctx)
     return apply_norm(params["encoder"]["norm"], x, cfg)
 
 
-def _embed_tokens(cfg, params, tokens, mesh=None):
-    x = embed_lookup(params["embed"]["table"], tokens, mesh=mesh,
-                     compute_dtype=_cdt(cfg))
+def _tables(cfg, params, mesh):
+    """(embedding table, output table) as the compute reads them: on a
+    mesh each the rank's vocab shard, gathered over ``data`` (ZeRO-3)
+    once for both of its uses."""
+    spec = ("vocab", "embed")
+    emb = ready_leaf(params["embed"]["table"], spec, mesh, keep=("vocab",))
+    if cfg.tie_embeddings:
+        return emb, emb
+    return emb, ready_leaf(params["unembed"]["table"], spec, mesh,
+                           keep=("vocab",))
+
+
+def _embed_tokens(cfg, table, tokens, mesh=None):
+    # on a mesh the table's data gather sums its gradient over data
+    x = embed_lookup(table, tokens, mesh=mesh, cgtrans=cfg.cgtrans_embedding,
+                     compute_dtype=_cdt(cfg), grad_psum=False)
     if cfg.embed_scale:
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype,
                              device=x.device)
     return x
 
 
-def _memory_from_batch(cfg, params, batch, use_flash=False):
+def _dec_pos(params, mesh) -> torch.Tensor:
+    return ready_leaf(params["dec_pos"]["table"], (None, "embed"), mesh)
+
+
+def _memory_from_batch(cfg, params, batch, use_flash=False, mesh=None):
     if cfg.is_encoder_decoder:
-        return _encode(cfg, params, batch["frames"], use_flash)
+        return _encode(cfg, params, batch["frames"], use_flash, mesh)
     if cfg.vision_seq:
         return batch["vision"]
     return None
 
 
-def _unembed_table(cfg, params):
-    return (params["unembed"]["table"] if not cfg.tie_embeddings
-            else params["embed"]["table"])
-
-
 def _on(x, device: torch.device) -> torch.Tensor:
     return (x if torch.is_tensor(x) else torch.from_numpy(np.asarray(x))
             ).to(device)
+
+
+def _valid_mesh(mesh):
+    if mesh is not None:
+        check_named_mesh(mesh)
+    return mesh
 
 
 # ---------------------------------------------------------------------------
@@ -519,29 +552,35 @@ def loss_fn(params, batch: Mapping[str, Any], cfg: ModelConfig, *,
             mesh=None, use_flash: bool = False):
     """batch: tokens (B,S), labels (B,S) (-1 = padding); + frames / vision
     for audio / vlm, as tensors or arrays (moved to the parameters'
-    device).
+    device). On a mesh: this rank's parameter blocks and batch rows.
 
     Returns (total loss, {"loss", "aux_loss", "tokens"}): the mean
-    cross-entropy over the labelled tokens plus ``router_aux_coef`` times
-    the MoE layers' load-balance loss, all f32 scalars.
+    cross-entropy over the labelled tokens (of every rank) plus
+    ``router_aux_coef`` times the MoE layers' load-balance loss, all f32
+    scalars.
     """
-    _no_mesh(mesh)
+    mesh = _valid_mesh(mesh)
     dev = params["embed"]["table"].device
     tokens = _on(batch["tokens"], dev)
     B, S = tokens.shape
-    x = _embed_tokens(cfg, params, tokens)
+    emb, out_table = _tables(cfg, params, mesh)
+    x = _embed_tokens(cfg, emb, tokens, mesh)
     if cfg.is_encoder_decoder:
-        x = x + params["dec_pos"]["table"][:S].to(x.dtype)[None]
+        x = x + _dec_pos(params, mesh)[:S].to(x.dtype)[None]
     memory = _memory_from_batch(
         cfg, params, {k: _on(v, dev) for k, v in batch.items()
-                      if k not in ("tokens", "labels")}, use_flash)
+                      if k not in ("tokens", "labels")}, use_flash, mesh)
     ctx = _make_ctx(cfg, torch.arange(S, device=dev), memory=memory,
-                    use_flash=use_flash)
+                    use_flash=use_flash, mesh=mesh)
     x, aux = _run_stack_apply(cfg, params["stack"], x, ctx)
     x = apply_norm(params["final_norm"], x, cfg)
     loss_sum, cnt = chunked_softmax_xent(
-        x, _unembed_table(cfg, params), _on(batch["labels"], dev),
-        softcap=cfg.final_logit_softcap, valid_vocab=cfg.vocab)
+        x, out_table, _on(batch["labels"], dev),
+        softcap=cfg.final_logit_softcap, valid_vocab=cfg.vocab, mesh=mesh)
+    if mesh is not None and dp_size(mesh) > 1:
+        both = collectives.psum(torch.stack([loss_sum, cnt]), mesh,
+                                axis=batch_axes(mesh))
+        loss_sum, cnt = both[0], both[1]
     loss = loss_sum / torch.clamp(cnt, min=1.0)
     total = loss + cfg.router_aux_coef * aux
     return total, {"loss": loss, "aux_loss": aux, "tokens": cnt}
@@ -551,47 +590,54 @@ def prefill(params, batch: Mapping[str, Any], cfg: ModelConfig, *,
             cache_len: int, mesh=None, use_flash: bool = False):
     """Full-sequence forward building the decode cache. ``batch``: tokens
     (B, S) and, for an encoder-decoder, frames (B, enc_seq, D), as tensors
-    or arrays (moved to the parameters' device).
+    or arrays (moved to the parameters' device). ``use_flash`` runs every
+    full-sequence self-attention, the encoder's and the prefill's, through
+    the flash kernel (on a mesh on the rank's heads).
 
-    Returns (last_token_logits (B,V) f32, caches).
+    Returns (last_token_logits (B,V) f32, caches); on a mesh the rank's
+    rows of both (every vocab column of the logits).
     """
-    _no_mesh(mesh)
+    mesh = _valid_mesh(mesh)
     dev = params["embed"]["table"].device
     tokens = _on(batch["tokens"], dev)
     B, S = tokens.shape
-    x = _embed_tokens(cfg, params, tokens)
+    emb, out_table = _tables(cfg, params, mesh)
+    x = _embed_tokens(cfg, emb, tokens, mesh)
     if cfg.is_encoder_decoder:
-        x = x + params["dec_pos"]["table"][:S].to(x.dtype)[None]
+        x = x + _dec_pos(params, mesh)[:S].to(x.dtype)[None]
     memory = _memory_from_batch(
         cfg, params, {k: _on(v, dev) for k, v in batch.items()
-                      if k != "tokens"}, use_flash)
+                      if k != "tokens"}, use_flash, mesh)
     ctx = _make_ctx(cfg, torch.arange(S, device=dev), memory=memory,
-                    use_flash=use_flash)
+                    use_flash=use_flash, mesh=mesh)
     x, caches = _run_stack_prefill(cfg, params["stack"], x, ctx, cache_len)
     x = apply_norm(params["final_norm"], x, cfg)
-    logits = logits_matmul(x[:, -1], _unembed_table(cfg, params),
-                           softcap=cfg.final_logit_softcap,
-                           valid_vocab=cfg.vocab)
+    logits = vocab_logits(x[:, -1], out_table, mesh=mesh,
+                          softcap=cfg.final_logit_softcap,
+                          valid_vocab=cfg.vocab)
     return logits, caches
 
 
 def decode_step(params, token, caches, pos: int, cfg: ModelConfig, *,
                 mesh=None):
     """token: (B,1) integer; pos: the position being decoded (uniform
-    static-batch decode). The caches are updated in place.
+    static-batch decode). The caches are updated in place. On a mesh:
+    this rank's rows of the token and of the caches.
 
     Returns (logits (B,V) f32, caches).
     """
-    _no_mesh(mesh)
+    mesh = _valid_mesh(mesh)
     dev = params["embed"]["table"].device
     pos = int(pos)
-    x = _embed_tokens(cfg, params, _on(token, dev))
+    emb, out_table = _tables(cfg, params, mesh)
+    x = _embed_tokens(cfg, emb, _on(token, dev), mesh)
     if cfg.is_encoder_decoder:
-        x = x + params["dec_pos"]["table"][pos].to(x.dtype)[None, None, :]
-    ctx = _make_ctx(cfg, torch.tensor([pos], device=dev), pos=pos)
+        x = x + _dec_pos(params, mesh)[pos].to(x.dtype)[None, None, :]
+    ctx = _make_ctx(cfg, torch.tensor([pos], device=dev), pos=pos,
+                    mesh=mesh)
     x, caches = _run_stack_decode(cfg, params["stack"], x, caches, ctx)
     x = apply_norm(params["final_norm"], x, cfg)
-    logits = logits_matmul(x[:, -1], _unembed_table(cfg, params),
-                           softcap=cfg.final_logit_softcap,
-                           valid_vocab=cfg.vocab)
+    logits = vocab_logits(x[:, -1], out_table, mesh=mesh,
+                          softcap=cfg.final_logit_softcap,
+                          valid_vocab=cfg.vocab)
     return logits, caches

@@ -10,6 +10,13 @@ scale-quantized to int8 and the quantization residual is carried in the
 optimiser state and re-added next step (error feedback).
 ``opt_state_schema`` is ``adamw_init``'s state as a schema (no
 allocation).
+
+On a mesh (``mesh=`` with ``specs``, the parameters' physical specs) every
+leaf is this rank's block: AdamW is elementwise on it, and the norms and
+the int8 scales cover the whole leaf — each block's sum of squares
+counts once however many ranks hold it (divided by its ``replication``,
+then summed over every rank), and each leaf's max |g| is the max over
+every rank. One all-reduce each.
 """
 
 from __future__ import annotations
@@ -21,8 +28,9 @@ from typing import Any, Dict, Tuple
 import torch
 
 from repro_torch.common.config import TrainConfig
+from repro_torch.common.logical import replication, spec_leaves
 from repro_torch.common.schema import ParamDef, tree_map_defs
-from repro_torch.common.tree import leaves, tree_map
+from repro_torch.common.tree import leaves, tree_map, unflatten
 
 
 def cosine_lr(step: torch.Tensor, tc: TrainConfig) -> torch.Tensor:
@@ -36,36 +44,56 @@ def cosine_lr(step: torch.Tensor, tc: TrainConfig) -> torch.Tensor:
     return tc.learning_rate * warm * scale
 
 
-def global_norm(tree) -> torch.Tensor:
-    total = sum(torch.sum(torch.square(x.to(torch.float32)))
-                for x in leaves(tree))
-    return torch.sqrt(torch.as_tensor(total, dtype=torch.float32))
+def global_norm(tree, mesh=None, specs=None) -> torch.Tensor:
+    """The L2 norm over every leaf; on a mesh of the whole leaves whose
+    blocks ``tree`` holds under ``specs``."""
+    if mesh is None:
+        total = sum(torch.sum(torch.square(x.to(torch.float32)))
+                    for x in leaves(tree))
+        return torch.sqrt(torch.as_tensor(total, dtype=torch.float32))
+    from repro_torch.core import collectives
+    parts = torch.stack([
+        torch.sum(torch.square(x.to(torch.float32))) / replication(s, mesh)
+        for x, (_, s) in zip(leaves(tree), spec_leaves(specs))])
+    return torch.sqrt(collectives.all_reduce(parts, mesh).sum())
 
 
-def clip_by_global_norm(tree, max_norm: float):
-    norm = global_norm(tree)
+def clip_by_global_norm(tree, max_norm: float, mesh=None, specs=None):
+    norm = global_norm(tree, mesh, specs)
     scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
     return tree_map(lambda x: (x * scale).to(x.dtype), tree), norm
 
 
 # --- int8 error-feedback compression ---------------------------------------
 
-def quantize_int8(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    scale = torch.clamp(torch.max(torch.abs(x)), min=1e-12) / 127.0
+def quantize_int8(x: torch.Tensor, amax: torch.Tensor = None
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """int8 codes and their scale, max |x| / 127 (``amax``: the max |x|
+    of the whole leaf ``x`` is a block of)."""
+    if amax is None:
+        amax = torch.max(torch.abs(x))
+    scale = torch.clamp(amax, min=1e-12) / 127.0
     q = torch.clamp(torch.round(x / scale), -127, 127).to(torch.int8)
     return q, scale
 
 
-def compress_grads(grads, residual):
+def compress_grads(grads, residual, mesh=None):
     """Returns (dequantized grads as transmitted, new residual)."""
-    def one(g, r):
-        g32 = g.to(torch.float32) + r
-        q, s = quantize_int8(g32)
-        deq = q.to(torch.float32) * s
-        return deq.to(g.dtype), (g32 - deq).to(torch.float32)
-
-    pairs = tree_map(one, grads, residual)
-    return _pick(pairs, 0), _pick(pairs, 1)
+    gs = leaves(grads)
+    g32s = [g.to(torch.float32) + r for g, r in zip(gs, leaves(residual))]
+    amax = [None] * len(g32s)
+    if mesh is not None:
+        from repro_torch.core import collectives
+        amax = collectives.all_reduce(
+            torch.stack([torch.max(torch.abs(g)) for g in g32s]), mesh,
+            op="max").unbind()
+    deq, res = [], []
+    for g, g32, m in zip(gs, g32s, amax):
+        q, s = quantize_int8(g32, m)
+        d = q.to(torch.float32) * s
+        deq.append(d.to(g.dtype))
+        res.append((g32 - d).to(torch.float32))
+    return unflatten(grads, deq), unflatten(residual, res)
 
 
 def _pick(tree_of_tuples, i: int):
@@ -92,14 +120,17 @@ def adamw_init(params, tc: TrainConfig) -> Dict[str, Any]:
 
 
 @torch.no_grad()
-def adamw_update(params, grads, opt_state, tc: TrainConfig):
-    """Returns (new_params, new_opt_state, metrics)."""
+def adamw_update(params, grads, opt_state, tc: TrainConfig, *, mesh=None,
+                 specs=None):
+    """Returns (new_params, new_opt_state, metrics). On a mesh, ``specs``
+    are the parameters' physical specs."""
     metrics = {}
     if tc.grad_compression == "int8_ef":
-        grads, new_res = compress_grads(grads, opt_state["ef_residual"])
-        metrics["ef_residual_norm"] = global_norm(new_res)
+        grads, new_res = compress_grads(grads, opt_state["ef_residual"],
+                                        mesh)
+        metrics["ef_residual_norm"] = global_norm(new_res, mesh, specs)
 
-    grads, gnorm = clip_by_global_norm(grads, tc.grad_clip)
+    grads, gnorm = clip_by_global_norm(grads, tc.grad_clip, mesh, specs)
     metrics["grad_norm"] = gnorm
 
     count = opt_state["count"] + 1

@@ -1,4 +1,15 @@
-"""The graph workload's training step: GraphSAGE + CGTrans loss, gradients
+"""Training pipelines: the graph workload's step and GPipe stage
+parallelism.
+
+``pipelined_apply`` runs a stack of blocks as a pipeline over the ``pod``
+axis of a ``launch.mesh.Mesh`` (the JAX package's fill–drain GPipe
+schedule): stages are contiguous block ranges (``split_stages``), the
+boundary transfer is a ``ppermute`` to the next stage, microbatches
+stream through ``n_micro + n_stages - 1`` ticks, and the last stage's
+outputs are psum'd to every pod. Autograd differentiates through the
+ppermute and the psum, which gives the reverse schedule.
+
+The graph workload's training step: GraphSAGE + CGTrans loss, gradients
 and AdamW against an owner-sharded feature table.
 
 ``make_sage_train_step`` is the JAX package's function of the same name:
@@ -19,7 +30,7 @@ replicated.
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Mapping
+from typing import Any, Callable, Dict, Mapping, Tuple
 
 import numpy as np
 import torch
@@ -94,3 +105,63 @@ def state_from_jax(state: Mapping, device: DeviceLike = "cuda"
     return {"params": gcn.params_from_jax(state["params"], device=dev),
             "opt": tree_map(as_tensor, dict(state["opt"])),
             "step": as_tensor(np.asarray(state["step"], np.int32))}
+
+
+def split_stages(n_blocks: int, n_stages: int
+                 ) -> Tuple[Tuple[int, int], ...]:
+    """Contiguous block ranges per stage, balanced to ±1."""
+    base, extra = divmod(n_blocks, n_stages)
+    out = []
+    start = 0
+    for s in range(n_stages):
+        size = base + (1 if s < extra else 0)
+        out.append((start, start + size))
+        start += size
+    return tuple(out)
+
+
+def pipelined_apply(block_fn: Callable, params_stacked: Any,
+                    x: torch.Tensor, *, mesh, axis: str = "pod"
+                    ) -> torch.Tensor:
+    """Run the stacked blocks (every leaf's leading dim the block) as a
+    pipeline over ``axis`` of ``mesh``. ``x``: (n_micro, …) microbatched
+    activations, the same on every pod; ``block_fn(x, block_params)``.
+
+    Every pod holds all the stacked parameters and runs its own stage's
+    range. At tick t stage 0 takes microbatch t, the stage holding
+    microbatch t - stage keeps its result, the last stage keeps its
+    finished microbatch, and every stage ppermutes its output to the
+    next. As in the JAX package, every rank computes every tick (the
+    longest stage's block count, masked) and selects with ``where``: the
+    program, and so the order of the backward's ppermutes, is the same on
+    every rank. Returns the (n_micro, …) outputs on every pod (zeros
+    elsewhere than the last stage, then one psum over ``axis``); each
+    pod's gradient is its stage's part."""
+    n_stages = mesh.shape[axis]
+    n_micro = x.shape[0]
+    n_blocks = leaves_with_paths(params_stacked)[0][1].shape[0]
+    ranges = split_stages(n_blocks, n_stages)
+    stage = mesh.axis_index(axis)
+    start, stop = ranges[stage]
+    max_len = max(e - s for s, e in ranges)
+    ring = [(i, (i + 1) % n_stages) for i in range(n_stages)]
+    last = stage == n_stages - 1
+
+    def stage_fn(xi):
+        for j in range(max_len):
+            i = start + min(j, stop - start - 1)
+            y = block_fn(xi, tree_map(lambda a: a[i], params_stacked))
+            xi = torch.where(torch.tensor(j < stop - start), y, xi)
+        return xi
+
+    buf = torch.zeros_like(x[0])
+    outs = [torch.zeros_like(x[0]) for _ in range(n_micro)]
+    for t in range(n_micro + n_stages - 1):
+        take = stage == 0 and t < n_micro
+        inp = torch.where(torch.tensor(take), x[min(t, n_micro - 1)], buf)
+        holds = 0 <= t - stage < n_micro
+        y = torch.where(torch.tensor(holds), stage_fn(inp), inp)
+        slot = min(max(t - stage, 0), n_micro - 1)
+        outs[slot] = torch.where(torch.tensor(holds and last), y, outs[slot])
+        buf = collectives.ppermute(y, mesh, axis=axis, perm=ring)
+    return collectives.psum(torch.stack(outs), mesh, axis=axis)

@@ -6,17 +6,33 @@ AdamW, optional int8-EF gradient compression. ``state_schema`` and
 ``batch_structs`` describe the state and a batch with no allocation
 (``ParamDef`` trees and meta tensors). The graph workload's training step
 is ``train.pipeline.make_sage_train_step``.
+
+On a mesh (``mesh=``, a ``launch.mesh.Mesh``) the state holds this rank's
+blocks (``init_state(mesh=)``) and every step builder takes the global
+batch, as the JAX step does, and runs this rank's rows of it over the
+batch axes. A leaf's gradient comes back from the model as this rank's
+block: summed over ``data`` already where the leaf is sharded over it
+(the ZeRO-3 gather's reduce-scatter), the same on every ``model`` rank
+where it is replicated over ``model`` (``models/layers.py``); the step
+sums it over each batch axis the leaf is replicated on (one counted
+``grad_all_reduce`` per set of such axes).
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Tuple
 
 import torch
 
 from repro_torch.common.config import ModelConfig, ShapeConfig, TrainConfig
-from repro_torch.common.schema import ParamDef, init_params
+from repro_torch.common.logical import (batch_axes, dp_size, local_block,
+                                        local_shape, spec_axes, spec_leaves,
+                                        to_physical, tree_to_physical)
+from repro_torch.common.schema import (ParamDef, init_params,
+                                       leaves as schema_leaves,
+                                       param_logical_specs)
 from repro_torch.common.tree import leaves_with_paths, tree_map, unflatten
+from repro_torch.core import collectives
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels.flash_attention.ops import NO_GRADIENT
 from repro_torch.models import transformer as T
@@ -53,13 +69,32 @@ def batch_structs(cfg: ModelConfig, shape: ShapeConfig
     return out
 
 
+def batch_logical_specs(cfg: ModelConfig) -> Dict[str, tuple]:
+    """Each batch entry's logical axes (rows over the batch axes)."""
+    out = {"tokens": ("batch", "seq"), "labels": ("batch", "seq")}
+    if cfg.is_encoder_decoder:
+        out["frames"] = ("batch", "seq", "embed")
+    if cfg.vision_seq:
+        out["vision"] = ("batch", "seq", "embed")
+    return out
+
+
+def state_logical_specs(cfg: ModelConfig, tc: TrainConfig, *,
+                        max_seq: int = 0):
+    """The training state's logical specs (checkpoints on a mesh)."""
+    return param_logical_specs(state_schema(cfg, tc, max_seq=max_seq))
+
+
 def init_state(cfg: ModelConfig, tc: TrainConfig, seed: int = 0, *,
                max_seq: int = 0, device: DeviceLike = "cuda",
-               draw: str = "numpy"):
+               draw: str = "numpy", mesh=None):
     """{"params", "opt", "step"}: parameters from ``seed`` (``draw`` as in
-    ``init_params``), zero AdamW state, step 0."""
+    ``init_params``), zero AdamW state, step 0. On a ``mesh``: this rank's
+    blocks of the unsharded run's parameters, on the mesh's device."""
+    if mesh is not None:
+        device = mesh.device
     params = init_params(T.model_schema(cfg, max_seq=max_seq), seed,
-                         device=device, draw=draw)
+                         device=device, draw=draw, mesh=mesh)
     dev = resolve_device(device)
     return {"params": params, "opt": adamw_init(params, tc),
             "step": torch.zeros((), dtype=torch.int32, device=dev)}
@@ -68,6 +103,64 @@ def init_state(cfg: ModelConfig, tc: TrainConfig, seed: int = 0, *,
 # ---------------------------------------------------------------------------
 # steps
 # ---------------------------------------------------------------------------
+
+def _rows(batch, cfg: ModelConfig, mesh):
+    """This rank's rows of a global batch over the batch axes."""
+    if mesh is None:
+        return batch
+    specs = batch_logical_specs(cfg)
+    return {k: local_block(v, to_physical(specs[k], mesh), mesh)
+            for k, v in batch.items()}
+
+
+def _check_placement(cfg: ModelConfig, params, mesh, param_shardings):
+    """Raise unless ``params`` holds, leaf for leaf, the blocks the rule
+    table places on ``mesh`` (and ``param_shardings``, when given, names
+    those placements)."""
+    max_seq = (params["dec_pos"]["table"].shape[0]
+               if "dec_pos" in params else 0)
+    schema = T.model_schema(cfg, max_seq=max_seq)
+    want = tree_to_physical(param_logical_specs(schema), mesh)
+    if param_shardings is not None and param_shardings != want:
+        have = dict(spec_leaves(param_shardings))
+        bad = [p for p, a in spec_leaves(want) if have.get(p) != a]
+        raise ValueError(f"param_shardings disagree with the rule table's "
+                         f"placement on this mesh at {bad[:4]}")
+    for (path, spec), (_, d) in zip(spec_leaves(want),
+                                    schema_leaves(schema)):
+        leaf = params
+        for k in path:
+            leaf = leaf[k]
+        if tuple(leaf.shape) != local_shape(d.shape, spec, mesh):
+            raise ValueError(
+                f"params{list(path)} has shape {tuple(leaf.shape)}, not the "
+                f"block {local_shape(d.shape, spec, mesh)} of "
+                f"{d.shape} under {spec}: pass init_state(mesh=) state")
+    return want
+
+
+def _sync_grads(grads, specs, mesh):
+    """Sum every gradient over the batch axes its leaf is replicated on,
+    one flat all-reduce per set of such axes."""
+    dp = batch_axes(mesh)
+    paths = leaves_with_paths(grads)
+    spec_of = dict(spec_leaves(specs))
+    buckets: Dict[Tuple[str, ...], list] = {}
+    for i, (path, _) in enumerate(paths):
+        used = spec_axes(spec_of[path])
+        axes = tuple(a for a in dp if a not in used and mesh.shape[a] > 1)
+        if axes:
+            buckets.setdefault(axes, []).append(i)
+    out = [g for _, g in paths]
+    for axes, idx in buckets.items():
+        flat = torch.cat([out[i].reshape(-1).float() for i in idx])
+        flat = collectives.all_reduce(flat, mesh, axis=axes,
+                                      name="grad_all_reduce")
+        for i, part in zip(idx, torch.split(flat,
+                                            [out[i].numel() for i in idx])):
+            out[i] = part.reshape(out[i].shape).to(out[i].dtype)
+    return unflatten(grads, out)
+
 
 def make_train_step(cfg: ModelConfig, tc: TrainConfig, *, mesh=None,
                     use_flash: bool = False, param_shardings=None):
@@ -81,25 +174,36 @@ def make_train_step(cfg: ModelConfig, tc: TrainConfig, *, mesh=None,
     Metrics: the JAX step's keys (``loss``, ``aux_loss``, ``tokens``,
     ``grad_norm``, ``lr``, [``ef_residual_norm``], ``total_loss``), as
     detached tensors.
+
+    On a ``mesh`` the state is this rank's blocks and each rank runs its
+    rows of every microbatch (the JAX step's split: microbatch i is rows
+    ``[i·B/mb, (i+1)·B/mb)``, sharded over the batch axes).
+    ``param_shardings`` (a tree of physical specs) is checked against the
+    rule table's placement and the state's block shapes on the first
+    step: the step raises where they disagree.
     """
-    if mesh is not None or param_shardings is not None:
-        raise NotImplementedError(
-            "make_train_step(mesh=, param_shardings=) is not ported yet "
-            "(ROADMAP Queue 1 row 10.3, the sharded LM)")
+    mesh = T._valid_mesh(mesh)
+    if mesh is None and param_shardings is not None:
+        raise ValueError("param_shardings without a mesh")
     if use_flash:
         raise NotImplementedError(
             f"make_train_step(use_flash=True): {NO_GRADIENT}")
+    checked = {}
 
     def value_and_grad(params, batch):
         paths = leaves_with_paths(params)
         live = [p.detach().requires_grad_(True) for _, p in paths]
-        total, metrics = T.loss_fn(unflatten(params, live), batch, cfg)
+        total, metrics = T.loss_fn(unflatten(params, live),
+                                   _rows(batch, cfg, mesh), cfg, mesh=mesh)
         grads = torch.autograd.grad(total, live, materialize_grads=True)
         return (total.detach(), tree_map(torch.Tensor.detach, metrics),
                 unflatten(params, list(grads)))
 
     def train_step(state, batch):
         params = state["params"]
+        if mesh is not None and "specs" not in checked:
+            checked["specs"] = _check_placement(cfg, params, mesh,
+                                                param_shardings)
         dev = params["embed"]["table"].device
         batch = {k: T._on(v, dev) for k, v in batch.items()}
         mb = tc.microbatches
@@ -118,8 +222,11 @@ def make_train_step(cfg: ModelConfig, tc: TrainConfig, *, mesh=None,
             loss_val = l_acc / mb
         else:
             loss_val, metrics, grads = value_and_grad(params, batch)
-        new_params, new_opt, opt_metrics = adamw_update(params, grads,
-                                                        state["opt"], tc)
+        if mesh is not None:
+            grads = _sync_grads(grads, checked["specs"], mesh)
+        new_params, new_opt, opt_metrics = adamw_update(
+            params, grads, state["opt"], tc, mesh=mesh,
+            specs=checked.get("specs"))
         new_state = {"params": new_params, "opt": new_opt,
                      "step": state["step"] + 1}
         return new_state, {**metrics, **opt_metrics, "total_loss": loss_val}
@@ -127,22 +234,45 @@ def make_train_step(cfg: ModelConfig, tc: TrainConfig, *, mesh=None,
     return train_step
 
 
+def _global_rows(logits, mesh):
+    """Every rank's rows of the logits, in batch order."""
+    if mesh is None or dp_size(mesh) == 1:
+        return logits
+    parts = collectives.all_gather(logits, mesh, axis=batch_axes(mesh),
+                                   name="result_gather")
+    return parts.reshape(-1, *logits.shape[1:])
+
+
 def make_prefill_step(cfg: ModelConfig, *, cache_len: int, mesh=None,
                       use_flash: bool = False):
     """(params, batch) → (last-token logits, caches). ``use_flash`` runs
-    the encoder's self-attention through the flash kernel."""
-    T._no_mesh(mesh)
+    the encoder's and the prefill's self-attention through the flash
+    kernel. On a ``mesh``: this rank's blocks,
+    the global batch, the global (B, V) logits and this rank's caches."""
+    mesh = T._valid_mesh(mesh)
 
     def prefill_step(params, batch):
-        return T.prefill(params, batch, cfg, cache_len=cache_len,
-                         use_flash=use_flash)
+        dev = params["embed"]["table"].device
+        rows = _rows({k: T._on(v, dev) for k, v in batch.items()}, cfg,
+                     mesh)
+        logits, caches = T.prefill(params, rows, cfg, cache_len=cache_len,
+                                   mesh=mesh, use_flash=use_flash)
+        return _global_rows(logits, mesh), caches
     return prefill_step
 
 
 def make_decode_step(cfg: ModelConfig, *, mesh=None):
-    """(params, token, caches, pos) → (logits, caches updated in place)."""
-    T._no_mesh(mesh)
+    """(params, token, caches, pos) → (logits, caches updated in place).
+    On a ``mesh``: the global (B, 1) token and (B, V) logits, this rank's
+    blocks and caches."""
+    mesh = T._valid_mesh(mesh)
 
     def decode_step(params, token, caches, pos):
-        return T.decode_step(params, token, caches, pos, cfg)
+        if mesh is not None:
+            tok = T._on(token, params["embed"]["table"].device)
+            token = local_block(tok, to_physical(("batch", None), mesh),
+                                mesh)
+        logits, caches = T.decode_step(params, token, caches, pos, cfg,
+                                       mesh=mesh)
+        return _global_rows(logits, mesh), caches
     return decode_step

@@ -1,15 +1,18 @@
 """Port parity: the dataflow contract registry, checked by counting runs.
 
 * the grid: the port's contract names are the JAX package's
-  ``CONTRACTS`` minus the three waiting ``embed_lookup/*`` contracts;
-* every shared budget equals the JAX registry's static dict (the kernel
+  ``CONTRACTS``, all 57 (``WAITING`` is empty);
+* every budget equals the JAX registry's static dict (the kernel
   route's forward + backward through ``budgets.held``: the pallas tables'
-  psums are not in the reference's grad program). The reference's own
+  psums are not in the reference's grad program, except the lookup's,
+  which are real; the baseline lookup's ``table_gather`` is counted
+  outside the JAX program's keys). The reference's own
   live check cannot run on the installed JAX (its alias table does not
   know ``psum_invariant``), so the static dicts are the reference here;
 * ``verify_all`` is clean on 8 CPU gloo ranks, one case per contract and
   pass, and each kernel-route contract runs the GAS kernel
-  ``kernel_of`` names (its plain version, on the CPU);
+  ``kernel_of`` names (its plain version, on the CPU) in the pass
+  ``kernel_pass`` names;
 * a planted extra collective fails with the exact budget / counted line,
   and an unknown budget key raises;
 * the ``/sched`` and forward + backward rules of the JAX registry.
@@ -78,7 +81,7 @@ def _contracts_rank(mesh):
     for name in NAMES:
         fn, args = C.CONTRACTS[name].build(mesh)
         plain.clear()
-        count_run(fn, *args)
+        count_run(fn, *args, fwd_bwd=C.kernel_pass(name) == "fwd+bwd")
         plains[name] = dict(plain)
     planted = C.verify_contract(C.DataflowContract(
         PLANTED, _planted_build,
@@ -98,12 +101,11 @@ def ranks():
 # ---------------------------------------------------------------------------
 
 def test_grid_is_the_reference_grid_minus_waiting():
+    """Nothing waits any more: the grid is the JAX registry's, all 57."""
     jax_names = set(_jax_contracts())
-    assert len(jax_names) == 57 and len(C.CONTRACTS) == 54
-    assert set(C.WAITING) <= jax_names
+    assert len(jax_names) == 57 and len(C.CONTRACTS) == 57
+    assert C.WAITING == {}
     assert set(C.CONTRACTS) == jax_names - set(C.WAITING)
-    assert all(n.startswith("embed_lookup/") and "10.3" in row
-               for n, row in C.WAITING.items())
 
 
 def _without_outside(budget):
@@ -118,6 +120,9 @@ def test_budget_is_the_reference_static_budget(name):
     assert got.dtype_waivers == want.dtype_waivers
     if want.fwd_bwd is None:
         assert got.fwd_bwd is None
+    elif name.startswith("embed_lookup/"):
+        # the lookup's backward psum over the batch axes is real
+        assert got.fwd_bwd == dict(want.fwd_bwd)
     elif got.impl == "kernel":
         # the pallas table's psums are dropped through budgets.held: the
         # xla twin's collectives, the pallas table's dispatches
@@ -134,6 +139,9 @@ def test_outside_keys_only_on_the_train_step():
         outside = {k: v for k, v in c.forward.items() if k in OUTSIDE_KEYS}
         if name.startswith("train_step/"):
             assert outside == {"grad_all_reduce": 1, "metric_all_reduce": 1}
+        elif name == "embed_lookup/baseline/xla":
+            # GSPMD's table movement, outside the JAX program
+            assert outside == {"table_gather": 1}
         else:
             assert outside == {}
 
@@ -210,7 +218,8 @@ def test_contract_holds_on_8_ranks(ranks, name):
 @pytest.mark.parametrize("name", [n for n in NAMES
                                   if C.CONTRACTS[n].impl == "kernel"])
 def test_kernel_route_runs_the_named_kernel(ranks, name):
-    """Each kernel-route contract's forward runs the GAS kernel
+    """Each kernel-route contract's run (its forward, or forward +
+    backward where ``kernel_pass`` says so) runs the GAS kernel
     ``kernel_of`` names on every rank (its plain version on the CPU), and
     no other; the reference route runs neither."""
     kind = C.kernel_of(name).removeprefix("gas_scatter_")

@@ -113,3 +113,36 @@ def test_entry_points_refuse_to_run_without_a_card():
             call()
     assert ServingEngine(feats, indptr, indices, device="cpu").device.type \
         == "cpu"
+
+
+#: the sharded LM's modules: the rule table, the named
+#: mesh, the collectives along its axes, the mesh-aware model, step,
+#: optimiser, checkpoint and pipeline
+SHARDED_LM_MODULES = (
+    "repro_torch.common.logical", "repro_torch.launch.mesh",
+    "repro_torch.core.collectives", "repro_torch.common.schema",
+    "repro_torch.models.embedding", "repro_torch.models.layers",
+    "repro_torch.models.moe", "repro_torch.models.transformer",
+    "repro_torch.train.step", "repro_torch.train.pipeline",
+    "repro_torch.optim.adamw", "repro_torch.checkpoint.manager",
+    "repro_torch.analysis.contracts")
+
+
+def test_sharded_lm_modules_import_neither_jax_nor_repro():
+    """Each of the sharded LM's modules is among those the checks above
+    walk, and imports alone, in a fresh interpreter, no module of JAX,
+    ``repro`` or ``ml_dtypes``."""
+    assert set(SHARDED_LM_MODULES) <= set(_modules())
+    code = (
+        "import importlib, sys\n"
+        f"for m in {list(SHARDED_LM_MODULES)!r}:\n"
+        "    importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        f"{FOREIGN!r})\n"
+        "assert not bad, bad\n"
+        "print('ok')\n")
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, env=env, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.startswith("ok")

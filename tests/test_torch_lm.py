@@ -2,8 +2,9 @@
 ``launch/serve.py``'s LM workload) against the JAX package.
 
 Layers are held at 1e-6 on O(1) inputs. Whole models — reduced
-whisper-base (encoder on the flash kernel's plain version and on the
-chunked attention), qwen1.5-0.5b and gemma2-2b — run prefill and 4 decode
+whisper-base (encoder and decoder prefill self-attention on the flash
+kernel's plain version, where the JAX package's prefill stays chunked, and
+all on the chunked attention), qwen1.5-0.5b and gemma2-2b — run prefill and 4 decode
 steps on parameters drawn by the JAX package and carried across with
 ``params_from_jax``; the decode inputs are the JAX package's greedy
 tokens, and the port's greedy tokens must equal them; logits agree within
@@ -218,19 +219,22 @@ def test_params_from_jax_keeps_nesting_and_dtype():
 
 
 def test_unported_parts_raise_naming_their_row():
-    """The sharded LM (``mesh=`` on every LM step and on the loss, the
-    sharded embedding lookup) is ROADMAP Queue 1 row 10.3."""
+    """``mesh=`` on every LM step, on the loss and on the lookup takes the
+    port's named-axis ``Mesh`` (the sharded LM,
+    ``tests/test_torch_sharded_lm.py``): anything else raises a
+    ``TypeError`` naming it."""
     cfg = configs.smoke_config("qwen1.5-0.5b")
-    with pytest.raises(NotImplementedError, match="Queue 1 row 10.3"):
+    with pytest.raises(TypeError, match="launch.mesh.Mesh"):
         make_prefill_step(cfg, cache_len=8, mesh=object())
-    with pytest.raises(NotImplementedError, match="Queue 1 row 10.3"):
+    with pytest.raises(TypeError, match="launch.mesh.Mesh"):
         make_decode_step(cfg, mesh=object())
-    with pytest.raises(NotImplementedError, match="Queue 1 row 10.3"):
+    with pytest.raises(TypeError, match="launch.mesh.Mesh"):
         make_train_step(cfg, TrainConfig(), mesh=object())
-    with pytest.raises(NotImplementedError, match="Queue 1 row 10.3"):
-        TT.loss_fn({}, {}, cfg, mesh=object())
+    with pytest.raises(TypeError, match="launch.mesh.Mesh"):
+        TT.loss_fn({"embed": {"table": torch.zeros(4, 2)}}, {}, cfg,
+                   mesh=object())
     from repro_torch.models.embedding import embed_lookup
-    with pytest.raises(NotImplementedError, match="Queue 1 row 10.3"):
+    with pytest.raises(TypeError, match="launch.mesh.Mesh"):
         embed_lookup(torch.zeros(4, 2), torch.zeros(1, 1), mesh=object())
 
 
@@ -281,8 +285,9 @@ def _port_run(arch, jp, use_flash):
     out = serve.generate(TT.params_from_jax(jp, device="cpu"), batch, tcfg,
                          gen=STEPS + 1, use_flash=use_flash,
                          forced=torch.from_numpy(tokens))
+    # the encoder's layers and every decoder layer's prefill
     assert FK.flash_attention_plain.calls == (
-        tcfg.n_enc_layers if use_flash else 0)
+        tcfg.n_enc_layers + tcfg.n_layers if use_flash else 0)
     assert len(out["logits"]) == len(want) == STEPS + 1
     return ([x.numpy() for x in out["logits"]], out["tokens"].numpy(), want,
             tokens)

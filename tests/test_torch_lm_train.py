@@ -254,9 +254,14 @@ def test_stacked_leaves_get_one_gradient_per_leaf():
 
 
 def test_train_step_refuses_a_mesh_and_the_flash_route():
+    """A mesh that is not the port's ``Mesh`` raises a ``TypeError``
+    naming it (the sharded step: ``tests/test_torch_sharded_lm.py``), as
+    do shardings without a mesh; the flash route has no VJP."""
     cfg = configs.smoke_config("whisper-base")
-    with pytest.raises(NotImplementedError, match="row 10.3"):
+    with pytest.raises(TypeError, match="launch.mesh.Mesh"):
         TS.make_train_step(cfg, TrainConfig(), mesh=object())
+    with pytest.raises(ValueError, match="without a mesh"):
+        TS.make_train_step(cfg, TrainConfig(), param_shardings={})
     with pytest.raises(NotImplementedError, match="no VJP"):
         TS.make_train_step(cfg, TrainConfig(), use_flash=True)
 

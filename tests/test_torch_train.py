@@ -281,7 +281,13 @@ def test_restore_places_leaves_and_refuses_a_mesh(tmp_path):
     assert got["b"]["c"].device.type == "cpu"
     with pytest.raises(ValueError, match="device="):
         ckpt.restore({"a": np.zeros(3), "b": {"c": np.zeros(2)}})
-    with pytest.raises(NotImplementedError, match="row 10"):
+    # sharded placement takes the port's Mesh and the logical specs
+    # together (elastic restore: tests/test_torch_sharded_lm.py)
+    with pytest.raises(TypeError, match="launch.mesh.Mesh"):
+        ckpt.restore({"a": torch.zeros(3), "b": {"c": torch.zeros(2)}},
+                     mesh=object(), spec_tree={"a": (None,),
+                                               "b": {"c": (None,)}})
+    with pytest.raises(ValueError, match="together"):
         ckpt.restore({"a": torch.zeros(3), "b": {"c": torch.zeros(2)}},
                      mesh=object())
 
