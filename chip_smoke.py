@@ -189,6 +189,16 @@ b. the accounting (phase 1's libraries built first): the card against
    card) with zero drift against the committed file, the paper row
    (baseline bytes, cgtrans bytes, ratio) printed.
 
+c. LM training on one card (``phase_lm_train``): ``ops.flash_attention``
+   refusing a ``requires_grad`` query before any launch; two f32 steps of
+   full-width qwen1.5-0.5b on the card against the CPU; three bf16 steps
+   (B 4, S 512, remat ``block``) with no port-kernel launch, timed and
+   profiled, their peak memory (``torch.cuda.max_memory_allocated`` after
+   a reset) within ±10 % of the dry run's prediction for that step
+   (``launch/dryrun.py``'s trace on fake card tensors, which must equal
+   the trace on fake CPU tensors); mamba2-780m and recurrentgemma-2b
+   served at their published widths; seven architectures at smoke size.
+
 d. the sharded LM: 4 gloo ranks share the card as a (data 2 × model 2)
    ``Mesh`` (``launch/mesh.py``; collectives staged through pinned host
    memory, so no time here is an interconnect's). Full-width
@@ -201,7 +211,9 @@ d. the sharded LM: 4 gloo ranks share the card as a (data 2 × model 2)
    gradient) — then two ``make_train_step(mesh=)`` steps against two
    unsharded steps (losses within 1e-5, then 1e-4), each rank's step
    times, init and step peak memory (init held to the rank's state
-   plus three of the largest full leaf), held parameter and moment bytes
+   plus three of the largest full leaf; the step's within ±10 % of the
+   dry run's trace of that rank on a ``TraceMesh``), held parameter and
+   moment bytes
    and staged
    calls, bytes and seconds printed. bf16 serving of the stepped
    parameters: prefill of 4 × 256 with ``use_flash=True`` (24 flash
@@ -1385,6 +1397,40 @@ NEW_ARCHS = ("gemma3-12b", "phi3-medium-14b", "deepseek-moe-16b",
              "recurrentgemma-2b")
 SMOKE_B, SMOKE_P, SMOKE_STEPS = 2, 8, 4
 SMOKE_KW = dict(learning_rate=1e-2, warmup_steps=1, total_steps=5, eps=1e-3)
+# a step's measured peak memory against the dry run's prediction
+# (launch/dryrun.py, traced on fake tensors): within this share either way
+PEAK_TOL = 0.10
+
+
+def dry_run_memory(cfg, shape, mesh, tc, device=None):
+    """The dry run's trace of one rank's step (``mesh=None``: unsharded):
+    its ``memory`` record, ``dot_flops`` and the seconds it took."""
+    from repro_torch.launch import dryrun
+    t0 = time.perf_counter()
+    rec = dryrun.trace_cell(cfg, shape, mesh, tc, device=device)
+    return {**rec["memory"], "dot_flops": rec["roofline"]["flops"],
+            "fake_device": rec["fake_device"],
+            "trace_s": time.perf_counter() - t0}
+
+
+def hold_peak(label, peak, base, pred, smi):
+    """Hold a step's measured peak (``max_memory_allocated`` since a reset
+    at which ``base`` bytes were allocated, the step's arguments among
+    them) against the dry run: the base plus what the traced step holds
+    beyond its arguments."""
+    extra = pred["peak_bytes_per_device"] - pred["traced_args_bytes"]
+    want = base + extra
+    ratio = peak / want
+    check(abs(ratio - 1) <= PEAK_TOL,
+          f"{label}: peak memory {peak} B on the card, the dry run "
+          f"predicts {want} B (ratio {ratio:.4f}, limit 1 ± {PEAK_TOL})")
+    log(f"  {label} [{smi}]: peak memory {peak / 2**30:.4f} GiB measured "
+        f"(torch.cuda.max_memory_allocated), {want / 2**30:.4f} GiB "
+        f"predicted by the dry run ({base / 2**30:.4f} GiB allocated at "
+        f"the reset + {extra / 2**30:.4f} GiB the traced step holds beyond "
+        f"its arguments; fake {pred['fake_device']} tensors, traced in "
+        f"{pred['trace_s']:.1f} s): ratio {ratio:.4f}")
+    return ratio
 
 
 def _tree_to(tree, device):
@@ -1490,6 +1536,7 @@ def qwen_bf16_train(torch, FK, K, cfg, smi):
                for i in range(BF16_STEPS)]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
     FK.reset_launch_counts()
     K.reset_launch_counts()
     times = []
@@ -1512,6 +1559,25 @@ def qwen_bf16_train(torch, FK, K, cfg, smi):
     gas = sum(K.launch_counts().values())
     check(flash == 0 and gas == 0 and FK.flash_attention_plain.calls == 0,
           f"training reached the port's kernels: flash {flash}, GAS {gas}")
+    # the dry run of this step on fake card tensors, and on fake CPU ones
+    # (what a machine without CUDA traces): the same numbers
+    from repro_torch.common.config import ShapeConfig
+    shape = ShapeConfig("chip_c_train", BF16_S, BF16_B, "train")
+    pred = dry_run_memory(cfg, shape, None, tc)
+    pred_cpu = dry_run_memory(cfg, shape, None, tc, device="cpu")
+    same = ("peak_bytes_per_device", "traced_args_bytes", "dot_flops")
+    check(all(pred[k] == pred_cpu[k] for k in same),
+          f"the dry run on fake {pred['fake_device']} tensors "
+          f"{[pred[k] for k in same]} against fake CPU tensors "
+          f"{[pred_cpu[k] for k in same]}")
+    check(pred["dot_flops"] > 0 and pred["traced_args_bytes"] > 0,
+          f"an empty dry run: {pred}")
+    hold_peak(f"{cfg.name} bf16 step (B {BF16_B}, S {BF16_S}, one card)",
+              peak, base, pred, smi)
+    log(f"  the same dry run on fake cpu tensors: peak "
+        f"{pred_cpu['peak_bytes_per_device']} B, dot FLOPs "
+        f"{pred_cpu['dot_flops']:.6g} (fake {pred['fake_device']}: "
+        f"{pred['peak_bytes_per_device']} B, {pred['dot_flops']:.6g})")
     tokens = BF16_B * BF16_S
     warm = min(times[1:])
     flops = 8 * n_params * tokens
@@ -3870,6 +3936,8 @@ def sharded_lm_rank(mesh, spec):
     step = TS.make_train_step(c32, tc, mesh=mesh, param_shardings=specs)
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
+    out["base"] = (torch.cuda.memory_allocated(dev)
+                   if dev.type == "cuda" else 0)
     staged0 = dataclasses.replace(mesh.staged)
     metrics, times = [], []
     for b in batches:
@@ -3885,6 +3953,13 @@ def sharded_lm_rank(mesh, spec):
                      mesh.staged.bytes - staged0.bytes,
                      mesh.staged.seconds - staged0.seconds)
     out["steps"], out["step_s"] = metrics, times
+    # this rank's step traced by the dry run on a TraceMesh of the same
+    # shape and rank
+    from repro_torch.common.config import ShapeConfig
+    from repro_torch.launch.mesh import TraceMesh
+    out["pred"] = dry_run_memory(
+        c32, ShapeConfig("chip_d_train", SHARDED_S, SHARDED_B, "train"),
+        TraceMesh(mesh.axis_names, mesh.axis_sizes, mesh.rank, dev), tc)
     mesh.barrier()
     if rank0:
         ustate = {"params": full, "opt": TS.adamw_init(full, tc),
@@ -4170,6 +4245,10 @@ def phase_sharded_lm(torch, FK, K, launches, measured, smi):
     # and its temporaries), never the whole model
     biggest = max(4 * math.prod(d.shape)
                   for _, d in leaves(T.model_schema(cfg)))
+    for r in ranks:
+        hold_peak(f"rank {r['rank']} sharded f32 step (B {SHARDED_B}, S "
+                  f"{SHARDED_S}, mesh {SHARDED_LM_SHAPE})", r["peak"],
+                  r["base"], r["pred"], smi)
     for r in ranks:
         p_b, o_b = r["held"]
         check(r["init_peak"] <= p_b + o_b + 3 * biggest,

@@ -2,8 +2,8 @@
 
 The counterpart of the JAX package's TPU ``ChipSpec``: the peaks a bound is
 computed from (``launch.roofline.roofline_terms``, ``chip_smoke.py``'s
-kernel bounds). The JAX package's TPU pod mesh shapes have no counterpart:
-the port's mesh is a process group of any size (``launch/mesh.py``).
+kernel bounds, ``launch/dryrun.py``'s roofline). The JAX package's
+production mesh shapes are ``launch.mesh.PRODUCTION_SHAPES``.
 """
 
 from __future__ import annotations

@@ -39,12 +39,16 @@ def unflatten(template, values: List[Any]):
     ``leaves_with_paths`` order, by ``values``."""
     it = iter(values)
     order = {path: next(it) for path, _ in leaves_with_paths(template)}
+    return _build(template, (), order)
 
-    def build(node, prefix):
-        if isinstance(node, dict):
-            return {k: build(node[k], (*prefix, k)) for k in node}
-        if isinstance(node, (list, tuple)):
-            return type(node)(build(v, (*prefix, i))
-                              for i, v in enumerate(node))
-        return order[prefix]
-    return build(template, ())
+
+def _build(node, prefix, order):
+    # module level, not a closure: a recursive closure is a reference
+    # cycle, which would keep ``order``'s tensors alive until the cyclic
+    # garbage collector ran
+    if isinstance(node, dict):
+        return {k: _build(node[k], (*prefix, k), order) for k in node}
+    if isinstance(node, (list, tuple)):
+        return type(node)(_build(v, (*prefix, i), order)
+                          for i, v in enumerate(node))
+    return order[prefix]

@@ -20,8 +20,9 @@ replaces and dispatches on where its tensors lie:
   stream comes from PyTorch's raw query;
 * CPU tensors run ``flash_attention_plain``, the same blocked walk in
   PyTorch;
-* anything else raises. There is no fallback from the kernel to the plain
-  version on a CUDA tensor.
+* anything else raises, a fake tensor first of all
+  (``entries.refuse_fake``). There is no fallback from the kernel to the
+  plain version on a CUDA tensor.
 """
 
 from __future__ import annotations
@@ -33,7 +34,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, entries
 
 NEG_INF = -2.3819763e38
 BLOCK_Q = 128
@@ -215,6 +216,7 @@ def flash_attention_fwd(q, k, v, *, causal: bool, window: int,
     batch row b reads kv head ``b·Hkv + h // (H/Hkv)``. S and T multiples
     of 128; keys at ``kv_len`` and past it are padding. float32 or bfloat16
     in, float32 statistics and accumulator, out in q's dtype."""
+    entries.refuse_fake("flash_attention_fwd", q, k, v)
     H, _ = _check(q, k, v, kv_len, n_kv_heads)
     if not q.is_cuda:
         if q.device.type != "cpu":

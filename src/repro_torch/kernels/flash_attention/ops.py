@@ -41,6 +41,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                                     or v.requires_grad):
         raise NotImplementedError(f"flash_attention under autograd: "
                                   f"{NO_GRADIENT}")
+    entries.refuse_fake("flash_attention", q, k, v)
     entries.note("flash", q, k, v)
     B, S, H, hd = q.shape
     T, Hkv = k.shape[1], k.shape[2]

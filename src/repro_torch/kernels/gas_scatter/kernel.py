@@ -13,8 +13,9 @@ dispatches on where its tensors lie:
   to the wrapper's ``launches`` count); a refused launch raises;
 * CPU tensors run the plain PyTorch version in this module, which walks the
   same work list or occupancy map, one vectorised step per work row;
-* anything else raises. There is no fallback from the kernel to the plain
-  version on a CUDA tensor.
+* anything else raises, a fake tensor first of all
+  (``entries.refuse_fake``). There is no fallback from the kernel to the
+  plain version on a CUDA tensor.
 
 Values may be float32, bfloat16 or float16 (one C entry per type, the
 output in the values' type, as the Pallas kernels give it); edge weights
@@ -53,7 +54,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, entries
 
 ROW_BLOCK = 128
 EDGE_TILE = 128
@@ -343,6 +344,7 @@ def gas_scatter_banded(work, dst, values, n_rows: int, *, op: str = "add",
     float32, bfloat16 or float16; weights (E,) float32 or None (add only).
     Returns (n_rows, F) in the values' type.
     """
+    entries.refuse_fake("gas_scatter_banded", values, dst)
     key = _signature("banded", work, dst, values, n_rows, op, weights)
     checked = _SIGNATURES.get(key) or _banded_checked(
         key, work, dst, values, n_rows, op, weights)
@@ -417,6 +419,7 @@ def gas_scatter_dense(dst, values, occupancy, n_rows: int, *,
     ``occupancy[row_block, tile]`` is set (``ops.occupancy_map``), its CTAs
     on contiguous shares of their 32-edge chunks. Arguments as in
     ``gas_scatter_banded``."""
+    entries.refuse_fake("gas_scatter_dense", values, dst)
     key = _signature("dense", occupancy, dst, values, n_rows, op, weights)
     checked = _SIGNATURES.get(key) or _dense_checked(
         key, dst, values, occupancy, n_rows, op, weights)

@@ -294,6 +294,7 @@ def gas_scatter(dst: torch.Tensor, values: torch.Tensor, n_rows: int, *,
     ``dst`` (E,) through the dense-grid kernel. Matches
     ``ref.gas_scatter_ref`` exactly (out-of-range dst ignored). One public
     call = one kernel dispatch, ticked into ``count_dispatches``."""
+    entries.refuse_fake("gas_scatter", values, dst)
     _tick("kernel_scatter")
     entries.note("kernel_scatter", values)
     return _gas_scatter(dst, values, n_rows, op=op)
@@ -369,6 +370,7 @@ def gas_scatter_fused(dst: torch.Tensor, values: torch.Tensor,
     inputs are already in) swaps the dense grid for the banded walk. One
     public call = one kernel dispatch, ticked into ``count_dispatches``.
     """
+    entries.refuse_fake("gas_scatter_fused", values, dst)
     _tick("kernel_scatter")
     entries.note("kernel_scatter", values, weights)
     if values.dim() == 1:

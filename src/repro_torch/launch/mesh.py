@@ -14,6 +14,11 @@ ranks row-major, as JAX lays a mesh over its devices: rank r sits at
 process group per line (the ranks that differ only in those axes), made
 on every rank in the same order; ``Mesh.line(axes)`` is this rank's.
 
+``TraceMesh`` is one rank of such a mesh with no processes behind it:
+collectives return without moving anything, so a rank's step can be
+traced on fake tensors (``launch/dryrun.py``); ``make_production_mesh``
+gives a rank of the JAX package's (16, 16) and (2, 16, 16) meshes.
+
 ``spawn(fn, n, ...)`` starts local ranks and returns what ``fn(mesh,
 *args)`` returned on each: n ranks on a ``DataMesh``, or, with a shape
 such as ``(2, 2)`` or ``(2, 2, 2)``, their product on a ``Mesh``. The
@@ -48,6 +53,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 import torch.distributed as dist
+from torch.utils._python_dispatch import _disable_current_modes
 
 from repro_torch.device import DeviceLike, resolve_device
 
@@ -72,7 +78,15 @@ def _run(mesh, collective: Callable, out: torch.Tensor,
     """Issue ``collective(out, inp, group)`` (or ``collective(out, group)``
     in place) on this rank's line of ``axis`` and return ``out``. The one
     place a ``gloo`` mesh stages CUDA tensors through pinned host
-    memory."""
+    memory. What the backend runs to move the bytes (gloo splits and
+    copies on the host) is hidden from Python dispatch modes, so a
+    counted run (``launch/trace_analysis.py``) sees the program's ops on
+    every backend, and a ``TraceMesh``'s."""
+    with _disable_current_modes():
+        return _issue(mesh, collective, out, inp, axis)
+
+
+def _issue(mesh, collective, out, inp, axis) -> torch.Tensor:
     group, _ = mesh.line(axis)
     if mesh.backend != "gloo" or out.device.type != "cuda":
         if inp is None:
@@ -240,6 +254,48 @@ class Mesh:
         """``collective`` on this rank's line of ``axis``, staged on gloo
         + CUDA (``_run``)."""
         return _run(self, collective, out, inp, axis)
+
+
+@dataclasses.dataclass(eq=False)
+class TraceMesh(Mesh):
+    """One rank's view of a named-axis mesh with no process behind it: the
+    axis names and sizes, the rank and its coordinates, ``line`` and
+    ``axis_index`` as a ``Mesh`` has them, and no process group. ``run``
+    returns ``out`` as the collective left it unwritten and ``barrier``
+    waits for nobody, so a step traced on it (``launch/dryrun.py``) issues
+    every collective of a real rank through ``core/collectives.py``, with
+    the same names and bytes in ``count_collectives``, and moves nothing.
+    """
+    backend: str = "trace"
+
+    def line(self, axis: Axes = None):
+        """(None, size) of this rank's line along ``axis``."""
+        return None, self.axis_size(self._axes(axis))
+
+    def barrier(self) -> None:
+        pass
+
+    def run(self, collective: Callable, out: torch.Tensor,
+            inp: Optional[torch.Tensor] = None, *, axis: Axes = None
+            ) -> torch.Tensor:
+        self.line(axis)
+        return out
+
+
+#: the JAX package's production meshes: one pod, and two pods
+PRODUCTION_SHAPES = {False: ((16, 16), ("data", "model")),
+                     True: ((2, 16, 16), ("pod", "data", "model"))}
+
+
+def make_production_mesh(*, multi_pod: bool = False,
+                         rank: int = 0) -> TraceMesh:
+    """Rank ``rank``'s ``TraceMesh`` of the (16, 16) ``("data", "model")``
+    mesh, or with ``multi_pod`` of the (2, 16, 16) ``("pod", "data",
+    "model")`` one: the shapes the JAX package's dry run compiles for."""
+    shape, names = PRODUCTION_SHAPES[multi_pod]
+    if not 0 <= rank < math.prod(shape):
+        raise ValueError(f"rank {rank} is not on a {shape} mesh")
+    return TraceMesh(names, shape, rank, torch.device("cuda"))
 
 
 def check_named_mesh(mesh) -> None:

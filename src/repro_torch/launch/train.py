@@ -29,8 +29,12 @@ checkpoints in ``--ckpt-dir`` when given (a rerun resumes from them)::
         --arch qwen1.5-0.5b --steps 50
 
 The parameters are drawn on the device (``init_params(draw="device")``).
-``--dry-run`` and ``--multi-pod`` lower the JAX program through XLA HLO,
-which the port does not have, and raise.
+``--dry-run`` traces one rank's step of ``--arch`` at ``--shape`` on the
+(16, 16) production mesh (``--multi-pod``: the (2, 16, 16) one) on fake
+tensors, in this process, and prints its record (``launch/dryrun.py``)::
+
+    PYTHONPATH=src python -m repro_torch.launch.train --workload lm \
+        --arch qwen1.5-0.5b --shape train_4k --dry-run
 
 Runs on the card by default; ``--device cpu`` runs the same path on the
 CPU (the kernels' plain versions).
@@ -137,14 +141,18 @@ def _main_graph(args) -> int:
 
 
 def _main_lm(args) -> int:
-    """The JAX launcher's LM loop, on one device."""
-    if args.dry_run or args.multi_pod:
-        raise NotImplementedError(
-            "--dry-run / --multi-pod lower the JAX program through XLA HLO "
-            "(launch/dryrun.py), which the port does not have")
+    """The JAX launcher's LM loop, on one device, or the dry run of one
+    production cell."""
     if not args.arch:
         print("--workload lm requires --arch", file=sys.stderr)
         return 2
+    if args.dry_run or args.multi_pod:
+        import json
+
+        from repro_torch.launch import dryrun
+        rec = dryrun.run_cell(args.arch, args.shape, args.multi_pod)
+        print(json.dumps(rec, indent=1))
+        return 0 if rec["ok"] else 1
     from repro_torch import configs
     from repro_torch.checkpoint import CheckpointManager
     from repro_torch.common.config import TrainConfig
@@ -201,8 +209,14 @@ def main(argv=None) -> int:
     ap.add_argument("--lr", type=float, default=1e-3)
     ap.add_argument("--grad-compression", default="none",
                     choices=["none", "int8_ef"])
-    ap.add_argument("--dry-run", action="store_true")
-    ap.add_argument("--multi-pod", action="store_true")
+    ap.add_argument("--shape", default="train_4k",
+                    help="lm dry run: the production shape to trace")
+    ap.add_argument("--dry-run", action="store_true",
+                    help="lm: trace one rank's step of --arch at --shape on "
+                         "the production mesh (no card) and print the "
+                         "record")
+    ap.add_argument("--multi-pod", action="store_true",
+                    help="lm dry run on the (2, 16, 16) mesh")
     # graph workload
     ap.add_argument("--scale", type=int, default=14,
                     help="R-MAT scale (2^scale vertices)")

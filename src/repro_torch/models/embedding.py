@@ -92,9 +92,13 @@ class _OwnerLookup(torch.autograd.Function):
                            device=gf.device),
                 ok.reshape(-1), shape[0], op="add", impl="kernel")
         else:
-            keep = ok.reshape(-1)
-            dtab = torch.zeros(shape, dtype=torch.float32, device=gf.device)
-            dtab.index_add_(0, rel.reshape(-1)[keep], gf[keep])
+            # ids another rank owns add into a spare last row, dropped
+            # after: the same sums as taking the owned ids alone, with no
+            # shape that depends on the ids
+            idx = torch.where(ok.reshape(-1), rel.reshape(-1), shape[0])
+            dtab = torch.zeros((shape[0] + 1, shape[1]), dtype=torch.float32,
+                               device=gf.device)
+            dtab = dtab.index_add_(0, idx, gf)[:shape[0]]
         if grad_axes:
             dtab = collectives.all_reduce(dtab, mesh, axis=grad_axes)
         return (dtab.to(dtype),) + (None,) * 8

@@ -42,12 +42,15 @@ def rglru_schema(cfg: ModelConfig) -> Dict[str, Any]:
 
 
 def rglru_cache_schema(cfg: ModelConfig, batch: int) -> Dict[str, ParamDef]:
+    """The decode state. On a mesh a rank's holds its rows and the whole
+    width: the block computes replicated over ``model`` (``_ready``),
+    where the JAX schema splits ``lru`` over it."""
     W = cfg.lru_width or cfg.d_model
     return {
-        "h": ParamDef((batch, W), ("batch", "lru"), init="zeros",
+        "h": ParamDef((batch, W), ("batch", None), init="zeros",
                       dtype=torch.float32),
         "conv": ParamDef((batch, cfg.conv_kernel - 1, W),
-                         ("batch", None, "lru"), init="zeros",
+                         ("batch", None, None), init="zeros",
                          dtype=torch.float32),
     }
 

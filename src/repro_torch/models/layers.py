@@ -37,6 +37,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.common.config import ModelConfig
 from repro_torch.common.logical import axes_of, batch_axes, to_physical
@@ -247,13 +248,25 @@ def chunked_attention(
     qc = q_chunk if S % q_chunk == 0 else S
     qr = q.reshape(B, S // qc, qc, Hkv, G, hd)
     kpos = torch.arange(T, device=q.device)
+    # under autograd each chunk is checkpointed, as the JAX package's
+    # jax.checkpoint per chunk: its (qc, T) f32 scores are recomputed in
+    # the backward instead of stored for every chunk
+    remat = torch.is_grad_enabled()
     outs = []
     for i in range(S // qc):
-        s = _scores(qr[:, i], k, softcap)
         qpos = q_offset + i * qc + torch.arange(qc, device=q.device)
-        s = s + _mask_bias(qpos, kpos, causal=causal, window=window)
-        outs.append(_softmax_pv(s, v))
+        args = (qr[:, i], k, v, qpos, kpos, causal, window, softcap)
+        outs.append(checkpoint(_chunk_attention, *args, use_reentrant=False)
+                    if remat else _chunk_attention(*args))
     return torch.stack(outs, dim=1).reshape(B, S, H, hd)
+
+
+def _chunk_attention(qi, k, v, qpos, kpos, causal: bool, window: int,
+                     softcap: float) -> torch.Tensor:
+    """One query chunk: (b, q, k, g, h) against all keys."""
+    s = _scores(qi, k, softcap)
+    s = s + _mask_bias(qpos, kpos, causal=causal, window=window)
+    return _softmax_pv(s, v)
 
 
 def decode_attention(
@@ -312,11 +325,16 @@ def _proj(x: torch.Tensor, w: torch.Tensor,
     return out if b is None else out + b.to(x.dtype)
 
 
+def _splits(cfg: ModelConfig, tp: int) -> Tuple[bool, bool]:
+    """(q heads split over a ``model`` axis of ``tp`` ranks?, kv heads?)."""
+    return (tp > 1 and cfg.n_heads % tp == 0,
+            tp > 1 and cfg.n_kv_heads % tp == 0)
+
+
 def _head_split(cfg: ModelConfig, mesh) -> Tuple[int, bool, bool]:
     """(tp, q heads split over model?, kv heads split over model?)."""
     tp = tp_size(mesh)
-    return (tp, tp > 1 and cfg.n_heads % tp == 0,
-            tp > 1 and cfg.n_kv_heads % tp == 0)
+    return (tp, *_splits(cfg, tp))
 
 
 def _attn_params(p, cfg: ModelConfig, mesh):
@@ -434,11 +452,16 @@ def _gated(p, out, x_dtype):
     return out
 
 
-def cross_attn_apply(p, x, ctx: LayerCtx) -> torch.Tensor:
-    """Cross-attention to ctx.memory. No rope, no causal mask."""
+def cross_attn_apply(p, x, ctx: LayerCtx, cache=None) -> torch.Tensor:
+    """Cross-attention to ctx.memory. No rope, no causal mask. ``cache``:
+    the memory's keys and values, when ``cross_build_cache`` has them
+    already (a prefill)."""
     cfg = ctx.cfg
     p = _attn_params(p, cfg, ctx.mesh)
-    q, k, v = _qkv(p, x, ctx.memory.to(x.dtype), cfg, ctx.mesh)
+    if cache is None:
+        q, k, v = _qkv(p, x, ctx.memory.to(x.dtype), cfg, ctx.mesh)
+    else:
+        (q, _), k, v = _q_proj(p, x, cfg, ctx.mesh), cache["k"], cache["v"]
     o = chunked_attention(q * _q_scale(cfg), k, v, causal=False,
                           q_chunk=ctx.q_chunk)
     return _gated(p, _out_proj(p, o, x.dtype, cfg, ctx.mesh), x.dtype)
@@ -446,27 +469,43 @@ def cross_attn_apply(p, x, ctx: LayerCtx) -> torch.Tensor:
 
 # --- caches ----------------------------------------------------------------
 
-def _cache_def(cfg: ModelConfig, batch: int, T: int) -> ParamDef:
-    return ParamDef((batch, T, cfg.n_kv_heads, cfg.hd),
-                    ("batch", None, None, None), init="zeros",
-                    dtype=compute_dtype(cfg))
+def cache_heads(cfg: ModelConfig, tp: int = 1) -> Tuple[int, Optional[str]]:
+    """(heads, logical axis) of a KV cache laid out for a ``model`` axis
+    of ``tp`` ranks, as ``attn_prefill`` builds it there: the kv heads
+    split over ``model`` where they divide (``kv_heads``); where only the
+    q heads do, one kv head per q head, split with them (``heads``, the
+    ``_local_kv`` pick); else every kv head on every rank."""
+    q_split, kv_split = _splits(cfg, tp)
+    if kv_split:
+        return cfg.n_kv_heads, "kv_heads"
+    if q_split:
+        return cfg.n_heads, "heads"
+    return cfg.n_kv_heads, None
+
+
+def _cache_def(cfg: ModelConfig, batch: int, T: int, tp: int) -> ParamDef:
+    heads, axis = cache_heads(cfg, tp)
+    return ParamDef((batch, T, heads, cfg.hd), ("batch", None, axis, None),
+                    init="zeros", dtype=compute_dtype(cfg))
 
 
 def attn_cache_schema(cfg: ModelConfig, batch: int, seq_len: int, *,
-                      kind: str) -> Dict[str, ParamDef]:
+                      kind: str, tp: int = 1) -> Dict[str, ParamDef]:
     """Decode KV cache; a local layer whose window is shorter than the
-    sequence keeps a ring of ``window`` slots. (On a mesh each rank's
-    cache holds its rows and the kv heads its attention reads, as
-    ``attn_prefill`` builds it.)"""
+    sequence keeps a ring of ``window`` slots. ``tp``: the ``model`` axis
+    the cache is laid out for (``cache_heads``); at 1 the unsharded cache,
+    whose shapes are the JAX package's. (The JAX schema shards the
+    sequence over ``model`` instead; ROADMAP Queue 3 row 3.)"""
     is_ring = kind == "local" and cfg.window and cfg.window < seq_len
     T = cfg.window if is_ring else seq_len
-    return {"k": _cache_def(cfg, batch, T), "v": _cache_def(cfg, batch, T)}
+    return {"k": _cache_def(cfg, batch, T, tp),
+            "v": _cache_def(cfg, batch, T, tp)}
 
 
-def cross_cache_schema(cfg: ModelConfig, batch: int,
-                       mem_len: int) -> Dict[str, ParamDef]:
-    return {"k": _cache_def(cfg, batch, mem_len),
-            "v": _cache_def(cfg, batch, mem_len)}
+def cross_cache_schema(cfg: ModelConfig, batch: int, mem_len: int, *,
+                       tp: int = 1) -> Dict[str, ParamDef]:
+    return {"k": _cache_def(cfg, batch, mem_len, tp),
+            "v": _cache_def(cfg, batch, mem_len, tp)}
 
 
 def _ring_slots(pos: int, W: int, device=None) -> torch.Tensor:

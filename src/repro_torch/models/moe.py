@@ -63,7 +63,8 @@ def route(router_w: torch.Tensor, x: torch.Tensor, cfg: ModelConfig,
     probabilities (lower index first); continuous inputs have no ties.
     On a mesh ``x`` is this rank's tokens and the aux loss's means cover
     every rank's."""
-    logits = torch.einsum("...d,de->...e", x.float(), router_w)
+    # a bf16 router (serving parameters) promotes to f32, as JAX's einsum
+    logits = torch.einsum("...d,de->...e", x.float(), router_w.float())
     probs = torch.softmax(logits, dim=-1)
     top_p, top_ids = torch.topk(probs, cfg.top_k, dim=-1)
     top_p = top_p / (torch.sum(top_p, dim=-1, keepdim=True) + 1e-9)

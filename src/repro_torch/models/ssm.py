@@ -56,13 +56,16 @@ def ssd_schema(cfg: ModelConfig) -> Dict[str, Any]:
 
 
 def ssd_cache_schema(cfg: ModelConfig, batch: int) -> Dict[str, ParamDef]:
+    """The decode state. On a mesh a rank's holds its rows and every head:
+    the mixer computes replicated over ``model`` (``_ready``), where the
+    JAX schema splits the heads over it."""
     d_inner, H, P_, N = dims(cfg)
     K = cfg.conv_kernel
     f32 = torch.float32
     return {
-        "state": ParamDef((batch, H, P_, N), ("batch", "ssm_heads", None, None),
+        "state": ParamDef((batch, H, P_, N), ("batch", None, None, None),
                           init="zeros", dtype=f32),
-        "conv_x": ParamDef((batch, K - 1, d_inner), ("batch", None, "ssm_heads"),
+        "conv_x": ParamDef((batch, K - 1, d_inner), ("batch", None, None),
                            init="zeros", dtype=f32),
         "conv_b": ParamDef((batch, K - 1, N), ("batch", None, None),
                            init="zeros", dtype=f32),

@@ -92,22 +92,24 @@ def layer_schema(cfg: ModelConfig, kind: str) -> Dict[str, Any]:
 
 
 def layer_cache_schema(cfg: ModelConfig, kind: str, batch: int,
-                       seq_len: int) -> Dict[str, Any]:
+                       seq_len: int, tp: int = 1) -> Dict[str, Any]:
+    """One layer's decode cache, its KV heads laid out for a ``model``
+    axis of ``tp`` ranks (``layers.cache_heads``)."""
     if kind == "ssd":
         return {"mixer": ssm.ssd_cache_schema(cfg, batch)}
     if kind == "rglru":
         return {"mixer": griffin.rglru_cache_schema(cfg, batch)}
     if kind in ("attn", "local", "moe"):
         return {"attn": layers.attn_cache_schema(cfg, batch, seq_len,
-                                                 kind=kind)}
+                                                 kind=kind, tp=tp)}
     if kind == "cross":
         return {"attn": layers.cross_cache_schema(cfg, batch,
-                                                  cfg.vision_seq)}
+                                                  cfg.vision_seq, tp=tp)}
     if kind == "dec":
         return {"self_attn": layers.attn_cache_schema(cfg, batch, seq_len,
-                                                      kind="attn"),
+                                                      kind="attn", tp=tp),
                 "cross_attn": layers.cross_cache_schema(cfg, batch,
-                                                        cfg.enc_seq)}
+                                                        cfg.enc_seq, tp=tp)}
     if kind == "enc":
         raise ValueError("encoder layers keep no decode cache")
     raise ValueError(kind)
@@ -206,7 +208,7 @@ def layer_prefill(cfg: ModelConfig, kind: str, p, x, ctx: LayerCtx,
         cache = layers.cross_build_cache(p["attn"], ctx.memory.to(x.dtype),
                                          cfg, m)
         h = apply_norm(p["norm"], x, cfg)
-        x = x + layers.cross_attn_apply(p["attn"], h, ctx)
+        x = x + layers.cross_attn_apply(p["attn"], h, ctx, cache)
         h = apply_norm(p["norm2"], x, cfg)
         return x + layers.mlp_apply(p["mlp"], h, cfg, m), {"attn": cache}
     if kind == "dec":
@@ -217,7 +219,7 @@ def layer_prefill(cfg: ModelConfig, kind: str, p, x, ctx: LayerCtx,
         cross_cache = layers.cross_build_cache(
             p["cross_attn"], ctx.memory.to(x.dtype), cfg, m)
         h = apply_norm(p["norm_x"], x, cfg)
-        x = x + layers.cross_attn_apply(p["cross_attn"], h, ctx)
+        x = x + layers.cross_attn_apply(p["cross_attn"], h, ctx, cross_cache)
         return (_mlp_block(cfg, p, x, m),
                 {"self_attn": self_cache, "cross_attn": cross_cache})
     if kind == "enc":
@@ -318,18 +320,20 @@ def stack_schema_for(cfg: ModelConfig) -> Dict[str, Any]:
     return s
 
 
-def stack_cache_schema_for(cfg: ModelConfig, batch: int,
-                           seq_len: int) -> Dict[str, Any]:
+def stack_cache_schema_for(cfg: ModelConfig, batch: int, seq_len: int,
+                           tp: int = 1) -> Dict[str, Any]:
+    """The stack's decode caches, nested as ``prefill`` returns them, laid
+    out for a ``model`` axis of ``tp`` ranks (1: unsharded)."""
     lay = stack_layout(cfg)
     s: Dict[str, Any] = {}
     for i, kind in enumerate(lay.prefix):
-        s[f"prefix_{i}"] = layer_cache_schema(cfg, kind, batch, seq_len)
+        s[f"prefix_{i}"] = layer_cache_schema(cfg, kind, batch, seq_len, tp)
     if lay.n_blocks:
-        block = {f"p{j}": layer_cache_schema(cfg, k, batch, seq_len)
+        block = {f"p{j}": layer_cache_schema(cfg, k, batch, seq_len, tp)
                  for j, k in enumerate(lay.pattern)}
         s["blocks"] = stack_schema(block, lay.n_blocks)
     for i, kind in enumerate(lay.suffix):
-        s[f"suffix_{i}"] = layer_cache_schema(cfg, kind, batch, seq_len)
+        s[f"suffix_{i}"] = layer_cache_schema(cfg, kind, batch, seq_len, tp)
     return s
 
 
@@ -511,10 +515,10 @@ def _tables(cfg, params, mesh):
                            keep=("vocab",))
 
 
-def _embed_tokens(cfg, table, tokens, mesh=None):
+def _embed_tokens(cfg, table, tokens, mesh=None, impl="ref"):
     # on a mesh the table's data gather sums its gradient over data
     x = embed_lookup(table, tokens, mesh=mesh, cgtrans=cfg.cgtrans_embedding,
-                     compute_dtype=_cdt(cfg), grad_psum=False)
+                     compute_dtype=_cdt(cfg), impl=impl, grad_psum=False)
     if cfg.embed_scale:
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype,
                              device=x.device)
@@ -549,10 +553,12 @@ def _valid_mesh(mesh):
 # ---------------------------------------------------------------------------
 
 def loss_fn(params, batch: Mapping[str, Any], cfg: ModelConfig, *,
-            mesh=None, use_flash: bool = False):
+            mesh=None, use_flash: bool = False, impl: str = "ref"):
     """batch: tokens (B,S), labels (B,S) (-1 = padding); + frames / vision
     for audio / vlm, as tensors or arrays (moved to the parameters'
-    device). On a mesh: this rank's parameter blocks and batch rows.
+    device). On a mesh: this rank's parameter blocks and batch rows, and
+    ``impl`` the backend of the CGTrans lookup's owner-side gradient
+    (``embedding.embed_lookup``).
 
     Returns (total loss, {"loss", "aux_loss", "tokens"}): the mean
     cross-entropy over the labelled tokens (of every rank) plus
@@ -564,7 +570,7 @@ def loss_fn(params, batch: Mapping[str, Any], cfg: ModelConfig, *,
     tokens = _on(batch["tokens"], dev)
     B, S = tokens.shape
     emb, out_table = _tables(cfg, params, mesh)
-    x = _embed_tokens(cfg, emb, tokens, mesh)
+    x = _embed_tokens(cfg, emb, tokens, mesh, impl)
     if cfg.is_encoder_decoder:
         x = x + _dec_pos(params, mesh)[:S].to(x.dtype)[None]
     memory = _memory_from_batch(

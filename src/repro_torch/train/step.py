@@ -30,7 +30,7 @@ from repro_torch.common.logical import (batch_axes, dp_size, local_block,
                                         to_physical, tree_to_physical)
 from repro_torch.common.schema import (ParamDef, init_params,
                                        leaves as schema_leaves,
-                                       param_logical_specs)
+                                       param_logical_specs, param_structs)
 from repro_torch.common.tree import leaves_with_paths, tree_map, unflatten
 from repro_torch.core import collectives
 from repro_torch.device import DeviceLike, resolve_device
@@ -77,6 +77,24 @@ def batch_logical_specs(cfg: ModelConfig) -> Dict[str, tuple]:
     if cfg.vision_seq:
         out["vision"] = ("batch", "seq", "embed")
     return out
+
+
+def decode_structs(cfg: ModelConfig, shape: ShapeConfig, tp: int = 16):
+    """(token, caches, pos) of a decode step at ``shape`` as meta tensors,
+    the caches laid out for a ``model`` axis of ``tp`` ranks
+    (``transformer.stack_cache_schema_for``). The port's step takes the
+    position as a host int; ``pos`` is the JAX step's int32 scalar."""
+    B, S = shape.global_batch, shape.seq_len
+    meta = lambda *shp: torch.empty(shp, dtype=torch.int32, device="meta")
+    caches = param_structs(T.stack_cache_schema_for(cfg, B, S, tp))
+    return meta(B, 1), caches, meta()
+
+
+def decode_logical_specs(cfg: ModelConfig, shape: ShapeConfig, tp: int = 16):
+    """The logical specs of ``decode_structs``'s (token, caches, pos)."""
+    cache = T.stack_cache_schema_for(cfg, shape.global_batch, shape.seq_len,
+                                     tp)
+    return ("batch", None), param_logical_specs(cache), ()
 
 
 def state_logical_specs(cfg: ModelConfig, tc: TrainConfig, *,
@@ -163,7 +181,8 @@ def _sync_grads(grads, specs, mesh):
 
 
 def make_train_step(cfg: ModelConfig, tc: TrainConfig, *, mesh=None,
-                    use_flash: bool = False, param_shardings=None):
+                    use_flash: bool = False, param_shardings=None,
+                    impl: str = "ref"):
     """(state, batch) → (state, metrics) for LM training.
 
     ``state`` is ``{"params", "opt", "step"}`` (``init_state``); ``batch``
@@ -180,7 +199,9 @@ def make_train_step(cfg: ModelConfig, tc: TrainConfig, *, mesh=None,
     ``[i·B/mb, (i+1)·B/mb)``, sharded over the batch axes).
     ``param_shardings`` (a tree of physical specs) is checked against the
     rule table's placement and the state's block shapes on the first
-    step: the step raises where they disagree.
+    step: the step raises where they disagree. ``impl`` is the backend of
+    the CGTrans lookup's owner-side gradient on a mesh (``"kernel"``: the
+    dense FAST-GAS grid).
     """
     mesh = T._valid_mesh(mesh)
     if mesh is None and param_shardings is not None:
@@ -194,7 +215,8 @@ def make_train_step(cfg: ModelConfig, tc: TrainConfig, *, mesh=None,
         paths = leaves_with_paths(params)
         live = [p.detach().requires_grad_(True) for _, p in paths]
         total, metrics = T.loss_fn(unflatten(params, live),
-                                   _rows(batch, cfg, mesh), cfg, mesh=mesh)
+                                   _rows(batch, cfg, mesh), cfg, mesh=mesh,
+                                   impl=impl)
         grads = torch.autograd.grad(total, live, materialize_grads=True)
         return (total.detach(), tree_map(torch.Tensor.detach, metrics),
                 unflatten(params, list(grads)))

@@ -339,7 +339,8 @@ def test_lm_checkpoints_cross_between_the_packages(tmp_path):
     assert tm == jm.replace('"step": 1', '"step": 3')
 
 
-def test_launch_train_lm_runs_and_resumes_on_the_cpu(tmp_path, capsys):
+def test_launch_train_lm_runs_and_resumes_on_the_cpu(tmp_path, capsys,
+                                                     monkeypatch):
     argv = ["--workload", "lm", "--arch", "recurrentgemma-2b", "--reduced",
             "--device", "cpu", "--batch", "2", "--seq-len", "16",
             "--ckpt-dir", str(tmp_path)]
@@ -351,7 +352,13 @@ def test_launch_train_lm_runs_and_resumes_on_the_cpu(tmp_path, capsys):
     out = capsys.readouterr().out
     assert "[resume] restored checkpoint at step 3" in out
     assert "finished at step 5" in out
-    for flag in ("--dry-run", "--multi-pod"):
-        with pytest.raises(NotImplementedError, match="XLA HLO"):
-            launch_train.main(["--workload", "lm", "--arch", "qwen1.5-0.5b",
-                               flag, "--device", "cpu"])
+    # the dry run of a production cell, on the one mesh or on two pods
+    from repro_torch.launch import dryrun
+    monkeypatch.setattr(dryrun, "RESULTS_DIR", str(tmp_path / "dryrun"))
+    for flag, mesh in (("--dry-run", "pod16x16"),
+                       ("--multi-pod", "pod2x16x16")):
+        assert launch_train.main(["--workload", "lm", "--arch",
+                                  "qwen1.5-0.5b", "--shape", "decode_32k",
+                                  flag]) == 0
+        out = capsys.readouterr().out
+        assert f'"mesh": "{mesh}"' in out and '"ok": true' in out
