@@ -227,9 +227,32 @@ d. the sharded LM: 4 gloo ranks share the card as a (data 2 × model 2)
    gradient, the table gradient bit for bit ``impl="ref"`` on integer
    data and within 1e-5 on normal data. deepseek-moe-16b (experts over
    model) and llama-3.2-vision-90b at smoke size: one sharded step
-   against the unsharded port. Then, in this process, the lookup's
-   owner-side dense launch at one rank's shape, against its plain
-   version and timed beside ``index_add_`` and its bytes bound.
+   against the unsharded port. Long-context decode: gemma2-2b at its
+   published width and depth (26 layers, local and global, softcaps,
+   GQA) in bf16, B 1 under long_500k's rule table
+   (``LONG_CONTEXT_RULES``: every rank holds the token) with the JAX
+   cache layout (``cache_layout="seq"``: each model rank a 65,536-slot
+   slice of every global layer's cache, the 4,096-slot rings on every
+   rank), 131,072 slots (**cut** from 524,288: four ranks and the
+   unsharded reference share the card); keys and values of positions 0
+   … 98,303 drawn from the seed into the unsharded cache, each rank's
+   slice taken from the same tensors; 4 teacher-forced steps from
+   98,304 and 4 from 4,095 (where model rank 1's slice holds no valid
+   position) against the unsharded port, and 4 from 98,304 in the
+   other ``"heads"`` layout: bf16 tensor parallelism rounds each row-parallel
+   partial product before its psum, which with gemma2's final softcap
+   puts both layouts a few per cent of the largest logit off the
+   unsharded run, so in bf16 the ``"seq"`` runs are held to 1.5 times
+   the ``"heads"`` run's distance; the same two ``"seq"`` runs in f32
+   at 32,768 slots (2 steps from 24,576 and 2 from 4,095) within 2e-2
+   of the largest unsharded logit. Each rank's ms/step, cache bytes, peak
+   memory and staged collectives by name are printed, and the decode's
+   collectives counted (per step one q/k/v gather per layer, one
+   ``decode_max`` and one ``decode_sum`` per global layer, no row
+   gather). Then, in this
+   process, the lookup's owner-side dense launch at one rank's shape,
+   against its plain version and timed beside ``index_add_`` and its
+   bytes bound.
 
 Each kernel's launch count is set to 0 just before each path of phases 3,
 4, 6, 7, 8 (in each rank), 9, a, b (in each rank, per contract pass) and
@@ -1438,6 +1461,11 @@ def _tree_to(tree, device):
     return tree_map(lambda t: t.to(device), tree)
 
 
+def _tree_clone(tree):
+    from repro_torch.common.tree import tree_map
+    return tree_map(lambda t: t.clone(), tree)
+
+
 def _tree_max_diff(a, b):
     """max |a - b| over two trees of tensors (b's leaves moved to a's
     device)."""
@@ -1600,7 +1628,8 @@ def qwen_bf16_train(torch, FK, K, cfg, smi):
         + "; ".join(f"{k} x{n} {ms:.1f}" for k, n, ms in hosts)
         + "; top device kernels (ms): "
         + "; ".join(f"{k} x{n} {ms:.2f}" for k, n, ms in kernels))
-    _, m1 = step(state, batches[0])
+    # the step consumes its state: microbatches 1 steps from a copy
+    _, m1 = step(_tree_clone(state), batches[0])
     _, m2 = make_train_step(cfg, dataclasses.replace(tc, microbatches=2))(
         state, batches[0])
     l1, l2 = float(m1["total_loss"]), float(m2["total_loss"])
@@ -3539,7 +3568,9 @@ def island_full_graph(torch, K, dev, launches, smi):
     after = {}
     for name in ("interval", "island"):
         cfg, relabel = cfgs[name]
-        state = {"params": nparams, "opt": adamw_init(nparams, tc),
+        # a copy each: the step updates its state in place
+        start = _tree_clone(nparams)
+        state = {"params": start, "opt": adamw_init(start, tc),
                  "step": torch.zeros((), dtype=torch.int32, device=dev)}
         step = make_sage_train_step(cfg, tc, feats=tables[name],
                                     relabel=relabel)
@@ -3828,9 +3859,29 @@ SHARDED_B, SHARDED_S, SHARDED_STEPS = 4, 256, 2
 SHARDED_KW = dict(learning_rate=1e-3, warmup_steps=1, total_steps=3,
                   eps=1e-3)
 SERVE_B, SERVE_P, SERVE_GEN = 4, 256, 4
+SERVE_T = SERVE_P + SERVE_GEN + 2   # the "seq" cache's slots split over model
 EMBED_B, EMBED_S = 8, 512
 SHARDED_SMOKE = ("deepseek-moe-16b", "llama-3.2-vision-90b")
 SHARDED_LM_TIMEOUT_S = 600
+# the long-context decode of phase d: gemma2-2b at full width in bf16, B 1
+# under long_500k's rule table, its 524,288-slot cache cut to 131,072 (the
+# four ranks and the unsharded reference share the card); keys and values
+# of positions [0, LONG_FILL) drawn from the seed; two runs of LONG_GEN
+# teacher-forced steps, one from LONG_FILL (every model rank's slice holds
+# valid positions) and one from LONG_EARLY (model rank 1's holds none)
+LONG_ARCH, LONG_T, LONG_FILL, LONG_EARLY, LONG_GEN = (
+    "gemma2-2b", 131072, 98304, 4095, 4)
+# (run, cache layout, first position) of the bf16 decode; the "heads"
+# run (the port's other layout) is the yardstick of bf16 tensor-parallel
+# rounding
+LONG_RUNS = (("seq_late", "seq", LONG_FILL),
+             ("seq_early", "seq", LONG_EARLY),
+             ("heads_late", "heads", LONG_FILL))
+# the f32 decode, where rounding cannot hide a layout fault: a 32,768-slot
+# cache (model rank 1's slice starts at 16,384), two steps from each start
+LONG_T_F32, LONG_GEN_F32 = 32768, 2
+LONG_RUNS_F32 = (("seq_late", "seq", 24576), ("seq_early", "seq",
+                                              LONG_EARLY))
 
 
 def _held_bytes(tree):
@@ -3865,6 +3916,158 @@ def _grad_check(torch, mesh, cfg, params, specs, batch, full_params):
                  float(g.grad.abs().max()))
              for p, g in leaves_with_paths(ref)}
     return (float(total.detach()), float(rtotal.detach())), diffs
+
+
+def _long_caches(torch, cfg, mesh, dev, T, start, layout="seq"):
+    """The decode caches of ``cfg`` at ``T`` slots in ``layout`` under
+    long_500k's rules: (this rank's caches, on rank 0 also
+    the unsharded caches, else None). Every layer's keys and values are
+    drawn whole from a seed of their own, the slots from ``start`` on
+    zeroed where the cache is a full one (a ring's slots all hold valid
+    positions), and each rank keeps its sequence slice of the drawn
+    tensor, so both hold the same numbers."""
+    from repro_torch.common.logical import (local_block, spec_leaves,
+                                            tree_to_physical)
+    from repro_torch.common.schema import leaves, param_logical_specs
+    from repro_torch.launch.specs import LONG_CONTEXT_RULES
+    from repro_torch.models import transformer as TT
+
+    schema = TT.stack_cache_schema_for(cfg, 1, T, mesh.shape["model"],
+                                       layout)
+    phys = dict(spec_leaves(tree_to_physical(param_logical_specs(schema),
+                                             mesh, LONG_CONTEXT_RULES)))
+    mine, whole = {}, ({} if mesh.rank == 0 else None)
+    for i, (path, d) in enumerate(leaves(schema)):
+        blocks, fulls = [], []
+        for b in range(d.shape[0]):             # the stacked layers
+            gen = torch.Generator(device=dev)
+            gen.manual_seed(1000 + 64 * i + b)
+            t = torch.randn(d.shape[1:], generator=gen, device=dev,
+                            dtype=torch.float32).to(d.dtype)
+            if d.shape[2] == T:
+                t[:, start:] = 0
+            blocks.append(local_block(t, phys[path][1:], mesh).clone())
+            if whole is not None:
+                fulls.append(t)
+            del t
+        for tree, parts in ((mine, blocks), (whole, fulls)):
+            if tree is None:
+                continue
+            for key in path[:-1]:
+                tree = tree.setdefault(key, {})
+            tree[path[-1]] = torch.stack(parts)
+        del blocks, fulls
+    return mine, whole
+
+
+def _staged_since(before, after):
+    """The staged [calls, bytes, seconds] by collective name between two
+    ``StagingStats``."""
+    out = {}
+    for name, (c, b, t) in after.by_name.items():
+        c0, b0, t0 = before.by_name.get(name, (0, 0, 0.0))
+        if c != c0:
+            out[name] = [c - c0, b - b0, t - t0]
+    return out
+
+
+def long_decode_rank(mesh, cfg=None, dtype="bfloat16", T=LONG_T,
+                     runs=LONG_RUNS, gen=LONG_GEN):
+    """Phase d's long-context decode on this rank: ``cfg`` (default
+    ``LONG_ARCH`` at its published width) in ``dtype``, B 1,
+    ``LONG_CONTEXT_RULES``, ``T`` cache slots; each run ``(name, layout,
+    start)`` decodes ``gen`` teacher-forced tokens from position
+    ``start`` with ``cache_layout=layout``, against the unsharded port on
+    rank 0: per run the steps' logits differences and scales, ms per
+    step, cache bytes, peak memory and the staged collectives by name."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.common.schema import init_params, tree_map_defs
+    from repro_torch.core import collectives
+    from repro_torch.launch.specs import LONG_CONTEXT_RULES
+    from repro_torch.models import transformer as TT
+    from repro_torch.train import step as TS
+
+    dev, rank0 = mesh.device, mesh.rank == 0
+    cuda = dev.type == "cuda"
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize(dev)
+
+    cfg = dataclasses.replace(cfg or configs.get_config(LONG_ARCH),
+                              compute_dtype=dtype)
+    tdt = getattr(torch, dtype)
+    schema = tree_map_defs(
+        lambda d: dataclasses.replace(d, dtype=tdt)
+        if d.dtype == torch.float32 else d, TT.model_schema(cfg))
+    # every rank draws each full leaf and keeps its block; rank 0 draws
+    # the same numbers whole for the unsharded port
+    params = init_params(schema, 3, device=dev, draw="device", mesh=mesh)
+    whole = (init_params(schema, 3, device=dev, draw="device") if rank0
+             else None)
+    tokens = np.random.default_rng(4).integers(
+        0, cfg.vocab, (1, gen)).astype(np.int32)
+    forced = torch.from_numpy(tokens).to(dev)
+    out = {}
+    for run, layout, start in runs:
+        dec = TS.make_decode_step(cfg, mesh=mesh, rules=LONG_CONTEXT_RULES,
+                                  cache_layout=layout)
+        sync()
+        caches, ucaches = _long_caches(torch, cfg, mesh, dev, T, start,
+                                       layout)
+        cache_bytes = _held_bytes(caches)
+        if cuda:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev) if cuda else 0
+        staged0 = copy.deepcopy(mesh.staged)
+        mesh.barrier()
+        seq, times = [], []
+        with torch.no_grad(), collectives.count_collectives() as counted:
+            for i in range(gen):
+                sync()
+                t0 = time.perf_counter()
+                logits, caches = dec(params, forced[:, i:i + 1], caches,
+                                     start + i)
+                sync()
+                times.append(time.perf_counter() - t0)
+                seq.append(logits.float())
+        peak = torch.cuda.max_memory_allocated(dev) if cuda else 0
+        lo = mesh.axis_index("model") * (T // mesh.shape["model"])
+        res = {"layout": layout, "start": start, "T": T, "dtype": dtype,
+               "ms": [1e3 * t for t in times], "cache_bytes": cache_bytes,
+               "base": base, "peak": peak,
+               "staged": _staged_since(staged0, mesh.staged),
+               "counts": dict(counted.calls), "bytes": dict(counted.bytes),
+               "finite": all(bool(torch.isfinite(x).all()) for x in seq),
+               "model_index": mesh.axis_index("model"),
+               "valid_here": layout == "heads" or lo <= start}
+        del caches
+        if rank0:
+            udec = TS.make_decode_step(cfg)
+            useq = []
+            with torch.no_grad():
+                for i in range(gen):
+                    ulog, ucaches = udec(whole, forced[:, i:i + 1], ucaches,
+                                         start + i)
+                    useq.append(ulog.float())
+            V = cfg.vocab
+            res["diff"] = [(float((a[:, :V] - b[:, :V]).abs().max()),
+                            float(b[:, :V].abs().max()),
+                            float((a[:, :V] - b[:, :V]).abs().mean()))
+                           for a, b in zip(seq, useq)]
+            del ucaches, useq
+        out[run] = res
+        del seq
+        if cuda:
+            torch.cuda.empty_cache()
+        mesh.barrier()
+    return out
 
 
 def sharded_lm_rank(mesh, spec):
@@ -3986,7 +4189,7 @@ def sharded_lm_rank(mesh, spec):
         0, cfg.vocab, (SERVE_B, SERVE_P)).astype(np.int32)).to(dev)}
     forced = torch.from_numpy(rng.integers(
         0, cfg.vocab, (SERVE_B, SERVE_GEN)).astype(np.int32)).to(dev)
-    pre = TS.make_prefill_step(cfg, cache_len=SERVE_P + SERVE_GEN + 1,
+    pre = TS.make_prefill_step(cfg, cache_len=SERVE_T,
                                mesh=mesh, use_flash=True)
     dec = TS.make_decode_step(cfg, mesh=mesh)
     with torch.no_grad():
@@ -4012,8 +4215,7 @@ def sharded_lm_rank(mesh, spec):
         whole = unflatten(params, [gather_leaf(p, spec_of[path], mesh)
                                    for path, p in leaves_with_paths(params)])
         if rank0:
-            upre = TS.make_prefill_step(cfg, cache_len=SERVE_P + SERVE_GEN
-                                        + 1)
+            upre = TS.make_prefill_step(cfg, cache_len=SERVE_T)
             udec = TS.make_decode_step(cfg)
             FK.reset_launch_counts()
             ulog, ucache = upre(whole, prompt)
@@ -4132,6 +4334,17 @@ def sharded_lm_rank(mesh, spec):
                         for p, v in leaves_with_paths(ustate["params"]))
             out["smoke"][arch] = (float(m["total_loss"]),
                                   float(um["total_loss"]), worst)
+    del sstate, got
+    torch.cuda.empty_cache()
+    mesh.barrier()
+
+    # -- long-context decode: gemma2-2b under long_500k's rules ----------
+    t0 = time.perf_counter()
+    out["long"] = {"bfloat16": long_decode_rank(mesh),
+                   "float32": long_decode_rank(
+                       mesh, dtype="float32", T=LONG_T_F32,
+                       runs=LONG_RUNS_F32, gen=LONG_GEN_F32)}
+    out["long_s"] = time.perf_counter() - t0
     out["staged_total"] = dataclasses.asdict(mesh.staged)
     return out
 
@@ -4189,6 +4402,80 @@ def _embed_dense_timing(torch, K, smi):
         f"rank: {t['tokens']} tokens, {t['owned']} owned, {shard} x {D} "
         f"rows) [{smi}]: {json.dumps(t)}")
     return t
+
+
+def check_long_decode(ranks, smi, cfg=None):
+    """Phase d's long-context decode. Every run: logits finite on every
+    rank; the decode's collectives per step and layer; model rank 1's
+    slice without a valid position in the early runs. f32: within 2e-2
+    of the largest unsharded logit on rank 0. bf16: the ``"seq"`` layout
+    no further from the unsharded port than 1.5 times the ``"heads"``
+    layout's distance on the same run (the tensor-parallel rounding both
+    share: row-parallel partial products round to bf16 before their
+    psum). Per rank ms/step, cache bytes, peak memory and the staged
+    collectives by name printed."""
+    from repro_torch import configs
+    cfg = cfg or configs.get_config(LONG_ARCH)
+    n_full = sum(k == "attn" for k in cfg.layer_kinds())
+    r0 = ranks[0]
+    for dtype, runs in r0["long"].items():
+        for run, res0 in runs.items():
+            seq = res0["layout"] == "seq"
+            gen = len(res0["ms"])
+            want = ({"decode_qkv_gather": cfg.n_layers * gen,
+                     "decode_max": n_full * gen,
+                     "decode_sum": n_full * gen} if seq else
+                    {"decode_qkv_gather": 0, "decode_max": 0,
+                     "decode_sum": 0})
+            label = (f"long decode ({dtype}, {res0['layout']}, from "
+                     f"{res0['start']})")
+            for r in ranks:
+                res = r["long"][dtype][run]
+                check(res["finite"], f"{label}: rank {r['rank']}'s logits "
+                      f"are not finite")
+                got = {k: res["counts"].get(k, 0) for k in want}
+                check(got == want and "result_gather" not in res["counts"],
+                      f"{label}: rank {r['rank']} counted {res['counts']}, "
+                      f"expected {want} and no row gather")
+                early = res["start"] < res["T"] // 2
+                check(res["valid_here"] == (not (seq and early)
+                                            or res["model_index"] == 0),
+                      f"{label}: rank {r['rank']} (model index "
+                      f"{res['model_index']}) valid-slice flag "
+                      f"{res['valid_here']}")
+            diff = res0["diff"]
+            worst = max(d for d, _, _ in diff)
+            scale = max(sc for _, sc, _ in diff)
+            if dtype == "float32":
+                check(all(d <= 2e-2 * sc for d, sc, _ in diff),
+                      f"{label}: logits off the unsharded port by {diff}")
+            elif seq:
+                yard = max(d for d, _, _ in runs["heads_late"]["diff"])
+                check(worst <= 1.5 * yard, f"{label}: logits off the "
+                      f"unsharded port by {worst}, over 1.5 times the "
+                      f"heads layout's {yard}")
+            log(f"  long-context decode, {LONG_ARCH} at full width, {dtype}, "
+                f"B 1, long_500k's rules, cache_layout='{res0['layout']}', "
+                f"{res0['T']} slots (cut from 524288), positions "
+                f"{res0['start']}..{res0['start'] + gen - 1}: logits "
+                f"max |sharded - unsharded| "
+                + ", ".join(f"{d:.4g}" for d, _, _ in diff)
+                + f" (mean " + ", ".join(f"{m:.3g}" for _, _, m in diff)
+                + f") of up to {scale:.1f} ({worst / scale:.3g} of it); "
+                f"decode collectives over the {gen} steps {want}")
+            for r in ranks:
+                res = r["long"][dtype][run]
+                log(f"    rank {r['rank']} (model {res['model_index']}, "
+                    f"{'a' if res['valid_here'] else 'no'} valid slot in "
+                    f"its cache) [{smi}]: ms/step "
+                    + ", ".join(f"{t:.1f}" for t in res["ms"])
+                    + f"; cache {res['cache_bytes'] / 1e9:.4f} GB; peak "
+                    f"{res['peak'] / 2**30:.3f} GiB "
+                    f"({res['base'] / 2**30:.3f} GiB at the reset); staged "
+                    f"by name [calls, bytes, s]: "
+                    + json.dumps({k: [c, b, round(t, 4)] for k, (c, b, t)
+                                  in sorted(res["staged"].items())}))
+    log(f"  long-context decode took {r0['long_s']:.1f} s on rank 0")
 
 
 def phase_sharded_lm(torch, FK, K, launches, measured, smi):
@@ -4347,6 +4634,7 @@ def phase_sharded_lm(torch, FK, K, launches, measured, smi):
               f"off by {d}")
         log(f"  {arch} (smoke) one sharded step: loss {l:.6f} / unsharded "
             f"{ul:.6f}, parameters max |diff| {d:.3g}")
+    check_long_decode(ranks, smi)
     torch.cuda.empty_cache()
     timing = _embed_dense_timing(torch, K, smi)
     log(f"  phase d took {time.perf_counter() - t_phase:.1f} s")

@@ -132,16 +132,17 @@ def spec_leaves(spec_tree, prefix: tuple = ()):
             for item in spec_leaves(v, (*prefix, i))]
 
 
-def batch_axes(mesh) -> tuple:
-    """The physical axes that carry data parallelism on this mesh."""
-    return tuple(a for a in ("pod", "data") if a in mesh.axis_names)
+def batch_axes(mesh, rules=None) -> tuple:
+    """The physical axes the logical ``"batch"`` axis resolves to on this
+    mesh under ``rules`` (default ``DEFAULT_RULES``: ``("pod", "data")``
+    where present; a long-context table's ``batch=()``: none, so every
+    rank holds the whole batch)."""
+    return axes_of(resolve_axis("batch", mesh.axis_names, rules))
 
 
-def dp_size(mesh) -> int:
-    size = 1
-    for a in batch_axes(mesh):
-        size *= mesh.shape[a]
-    return size
+def dp_size(mesh, rules=None) -> int:
+    """How many ranks split the batch under ``rules``."""
+    return math.prod(mesh.shape[a] for a in batch_axes(mesh, rules))
 
 
 def axes_of(entry: PhysicalAxis) -> Tuple[str, ...]:

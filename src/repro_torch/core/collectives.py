@@ -35,7 +35,14 @@ step), ``metric_all_reduce`` (the global loss and accuracy),
 all_gather where the JAX program holds an all-reduce of the same rows
 (``analysis/budgets.py``), and ``table_gather``, the baseline embedding
 lookup's gather of the vocab-sharded table, which GSPMD inserts when it
-compiles the JAX program. Counting
+compiles the JAX program. The LM's decode caches in the ``"seq"`` layout
+(``models/layers.py``) name theirs: ``cache_relayout`` (the prefill's
+all_to_all of its keys and values into sequence slices),
+``cache_gather`` (the heads of a replicated ring or cross cache),
+``decode_qkv_gather`` (a decode step's one-token q, k, v) and
+``decode_max`` / ``decode_sum`` (the flash-decode combine's two
+all-reduces); JAX's partitioner moves the same shardings' bytes inside
+the program. Counting
 follows the GAS dispatch counter: a call site counts once per program, so
 a chunk loop (``cgtrans.scan_request_chunks``) counts its body once, as a
 ``lax.scan`` body is traced once; every chunk still issues its
@@ -101,6 +108,20 @@ def _tick(name: str, nbytes: int, dtype: torch.dtype) -> None:
             str(dtype).removeprefix("torch."))
 
 
+def _staged_run(mesh, name: str, collective, out, inp, axis) -> None:
+    """``mesh.run`` of one collective; what a gloo mesh on the card
+    staged for it (calls, bytes, seconds) is also kept under ``name`` in
+    ``mesh.staged.by_name``."""
+    st = mesh.staged
+    calls, nbytes, secs = st.calls, st.bytes, st.seconds
+    mesh.run(collective, out, inp, axis=axis)
+    if st.calls != calls:
+        row = st.by_name.setdefault(name, [0, 0, 0.0])
+        row[0] += st.calls - calls
+        row[1] += st.bytes - nbytes
+        row[2] += st.seconds - secs
+
+
 # dtypes gloo or NCCL refuse, shipped as their bytes
 _BYTE_VIEW = (torch.int16, torch.bool)
 
@@ -116,8 +137,8 @@ def _gather(x: torch.Tensor, mesh, name: str, axis=None) -> torch.Tensor:
     _, n = mesh.line(axis)
     flat = _flat_wire(x)
     out = flat.new_empty(n * flat.numel())
-    mesh.run(lambda o, i, g: _all_gather(o, i, group=g), out, flat,
-             axis=axis)
+    _staged_run(mesh, name, lambda o, i, g: _all_gather(o, i, group=g),
+                out, flat, axis)
     _tick(name, out.nbytes, x.dtype)
     return out.view(x.dtype).reshape((n,) + tuple(x.shape))
 
@@ -126,19 +147,22 @@ def _scatter_sum(x: torch.Tensor, mesh, axis=None) -> torch.Tensor:
     _, n = mesh.line(axis)
     flat = x.contiguous().reshape(-1)
     out = flat.new_empty(flat.numel() // n)
-    mesh.run(lambda o, i, g: _reduce_scatter(o, i, group=g), out, flat,
-             axis=axis)
+    _staged_run(mesh, "psum_scatter",
+                lambda o, i, g: _reduce_scatter(o, i, group=g), out, flat,
+                axis)
     _tick("psum_scatter", flat.nbytes, x.dtype)
     return out.reshape(tuple(x.shape[1:]))
 
 
-def _exchange(x: torch.Tensor, mesh, axis=None) -> torch.Tensor:
+def _exchange(x: torch.Tensor, mesh, axis=None,
+              name: str = "all_to_all") -> torch.Tensor:
     # a flat buffer splits into the same n blocks as dim 0 does
     flat = _flat_wire(x)
     out = torch.empty_like(flat)
-    mesh.run(lambda o, i, g: dist.all_to_all_single(o, i, group=g),
-             out, flat, axis=axis)
-    _tick("all_to_all", flat.nbytes, x.dtype)
+    _staged_run(mesh, name,
+                lambda o, i, g: dist.all_to_all_single(o, i, group=g),
+                out, flat, axis)
+    _tick(name, flat.nbytes, x.dtype)
     return out.view(x.dtype).reshape(x.shape)
 
 
@@ -149,8 +173,9 @@ _REDUCE_OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX,
 def _reduce(x: torch.Tensor, mesh, name: str, axis=None,
             op: str = "sum") -> torch.Tensor:
     out = x.detach().clone().contiguous()
-    mesh.run(lambda o, g: dist.all_reduce(o, op=_REDUCE_OPS[op], group=g),
-             out, axis=axis)
+    _staged_run(mesh, name,
+                lambda o, g: dist.all_reduce(o, op=_REDUCE_OPS[op], group=g),
+                out, None, axis)
     _tick(name, out.nbytes, x.dtype)
     return out
 
@@ -194,15 +219,15 @@ class _ReduceScatter(torch.autograd.Function):
 
 class _AllToAll(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, mesh, axis):
+    def forward(ctx, x, mesh, axis, name):
         ctx.mesh, ctx.axis = mesh, axis
         ctx.suspended = gas_ops.counting_suspended()
-        return _exchange(x, mesh, axis)
+        return _exchange(x, mesh, axis, name)
 
     @staticmethod
     def backward(ctx, g):
         with gas_ops.suspend_counting(ctx.suspended):
-            return _exchange(g, ctx.mesh, ctx.axis), None, None
+            return _exchange(g, ctx.mesh, ctx.axis), None, None, None
 
 
 class _Psum(torch.autograd.Function):
@@ -244,8 +269,9 @@ def _permute(x: torch.Tensor, mesh, axis, perm) -> torch.Tensor:
     recvs = [s for s, d in perm if d == me]
     flat = _flat_wire(x)
     out = torch.zeros_like(flat)
-    mesh.run(lambda o, i, g: _p2p(o, i, g, sends, recvs), out, flat,
-             axis=axis)
+    _staged_run(mesh, "ppermute",
+                lambda o, i, g: _p2p(o, i, g, sends, recvs), out, flat,
+                axis)
     _tick("ppermute", flat.nbytes, x.dtype)
     return out.view(x.dtype).reshape(x.shape)
 
@@ -284,14 +310,16 @@ def all_gather_invariant(x: torch.Tensor, mesh, *,
     return _AllGatherInvariant.apply(x, mesh, name, axis)
 
 
-def all_to_all(x: torch.Tensor, mesh, *, axis=None) -> torch.Tensor:
+def all_to_all(x: torch.Tensor, mesh, *, axis=None,
+               name: str = "all_to_all") -> torch.Tensor:
     """(n, …) → (n, …): block [j] goes to rank j, and arrives at [r] from
-    rank r. Differentiable (its own transpose)."""
+    rank r. Differentiable (its own transpose). ``name`` is the counter
+    key."""
     _, n = mesh.line(axis)
     if x.shape[0] != n:
         raise ValueError(f"all_to_all splits dim 0 ({x.shape[0]}) over "
                          f"{n} ranks")
-    return _AllToAll.apply(x, mesh, axis)
+    return _AllToAll.apply(x, mesh, axis, name)
 
 
 def reduce_scatter(x: torch.Tensor, mesh, *, axis=None) -> torch.Tensor:

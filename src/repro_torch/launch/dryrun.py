@@ -23,9 +23,9 @@ Each cell's record goes to ``build/dryrun/<arch>__<shape>__<mesh>.json``
 ``n_devices``, ``n_params``, ``n_active_params``, ``trace_s``; ``memory``
 (``args_bytes_per_device_exact``: the rank's blocks of the parameters,
 optimiser state, batch rows and caches; ``cache_bytes_per_device``;
-``peak_bytes_per_device``: the trace's peak live storage, which holds the
-old and the new train state at once, since the port's step donates
-nothing, and the whole batch the step receives); ``roofline``
+``peak_bytes_per_device``: the trace's peak live storage, which holds one
+train state, since the step updates it in place as the JAX case donates
+it, and the whole batch the step receives); ``roofline``
 (``launch/roofline.py``'s terms against ``common/hw.py``'s H100 and the
 6·N·D / 2·N·D model FLOPs); ``fits_hbm`` (peak ≤ the card's 80 GB);
 ``collectives`` and the per-op table ``ops``. A failing cell records its
@@ -58,7 +58,7 @@ from repro_torch.models import transformer as T
 
 RESULTS_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                            "..", "..", "..", "build", "dryrun")
-VERSION = "t1"  # bump to invalidate cached cells after code changes
+VERSION = "t3"  # bump to invalidate cached cells after code changes
 MESHES = {False: "pod16x16", True: "pod2x16x16"}
 TOP_OPS = 40    # the per-op table's length in a record
 

@@ -67,10 +67,13 @@ _log = logging.getLogger(__name__)
 class StagingStats:
     """Collectives a ``gloo`` mesh staged through host memory: calls, the
     bytes copied device → host and back, and the host seconds spent from
-    the first copy to the last (the collective itself included)."""
+    the first copy to the last (the collective itself included); and the
+    same three as ``[calls, bytes, seconds]`` by collective name
+    (``core/collectives.py`` fills ``by_name``)."""
     calls: int = 0
     bytes: int = 0
     seconds: float = 0.0
+    by_name: Dict[str, list] = dataclasses.field(default_factory=dict)
 
 
 def _run(mesh, collective: Callable, out: torch.Tensor,
@@ -516,9 +519,10 @@ def spawn(fn: Callable, n: Union[int, Sequence[int]], *, backend: str,
 
 def host(x):
     """A tensor (or a dict of them) as numpy on the host — the form a
-    rank's result takes back through ``spawn``."""
+    rank's result takes back through ``spawn``: a copy, so a snapshot of
+    state that a train step later updates in place."""
     if isinstance(x, dict):
         return {k: host(v) for k, v in x.items()}
     if torch.is_tensor(x):
-        return x.detach().cpu().numpy()
+        return x.detach().to("cpu", copy=True).numpy()
     return np.asarray(x)

@@ -17,13 +17,15 @@ shapes and dtypes only and do not depend on the device
 (``tests/test_torch_dryrun.py`` holds a fake trace equal to a real run).
 
 Per-shape logical rule overrides, as in the JAX package:
-  * long_500k (global_batch=1): "batch" resolves to no axis; the KV-cache
-    sequence dim ("seq_shard") takes ("pod","data").
+  * long_500k (global_batch=1): "batch" resolves to no axis, so every
+    rank holds the B = 1 token and the steps sum nothing over ``pod`` or
+    ``data`` (``logical.batch_axes(mesh, rules)``); "seq_shard" takes
+    ("pod","data"), which no schema of either package reads.
 
-The port's steps shard their activations under ``DEFAULT_RULES``
-(``logical.batch_axes``); nothing of the port reads ``seq_shard``, so a
-long_500k rank receives the whole B = 1 batch and its decode step refuses
-to split it over ``data`` (ROADMAP Queue 1).
+The serving cases lay their caches out as the JAX cache schema does
+(``cache_layout="seq"``): a full cache's sequence over ``seq_kv`` (→
+``model``), rings and cross caches replicated over ``model``, every kv
+head.
 """
 
 from __future__ import annotations
@@ -92,13 +94,16 @@ def build_case(cfg: ModelConfig, shape: ShapeConfig, mesh,
     one unsharded device) step at ``shape`` and its fake arguments:
 
     * train: the f32 state with AdamW's moments, and the batch; the step
-      donates nothing, so it holds the old state (the caller's) while it
-      builds the new one;
+      updates the state in place (it consumes it, as the JAX case's
+      ``donate=(0,)`` does), so one copy of the state is live;
     * prefill: bf16 parameters (the serving dtype), the tokens (+ frames
-      / vision); the caches come out;
-    * decode: bf16 parameters, the (B, 1) token, the caches (laid out as
-      the port's prefill builds them, ``layers.cache_heads``), and the
-      last position as a host int.
+      / vision); the caches come out in the ``"seq"`` layout;
+    * decode: bf16 parameters, the (B, 1) token, the caches in the
+      ``"seq"`` layout (the JAX package's cache schema, as the prefill
+      builds them), and the last position as a host int.
+
+    Every serving placement and step reads the shape's rule table
+    (``rules_for``).
 
     A rank holds its block of each parameter, moment and cache. The
     port's steps take the global batch (or token) and split off the
@@ -161,8 +166,9 @@ def build_case(cfg: ModelConfig, shape: ShapeConfig, mesh,
     params, _, n_params = place(param_structs(bf16),
                                 param_logical_specs(bf16))
     tp = tp_size(mesh)
-    tok_spec, cache_spec, _ = S.decode_logical_specs(cfg, shape, tp)
-    tok_s, cache_s, _ = S.decode_structs(cfg, shape, tp)
+    tok_spec, cache_spec, _ = S.decode_logical_specs(cfg, shape, tp,
+                                                     layout="seq")
+    tok_s, cache_s, _ = S.decode_structs(cfg, shape, tp, layout="seq")
     caches, _, n_cache = place(cache_s, cache_spec)
 
     if shape.kind == "prefill":
@@ -171,14 +177,16 @@ def build_case(cfg: ModelConfig, shape: ShapeConfig, mesh,
         spec.pop("labels")
         batch, _, n_batch = place(bs, spec, whole=True)
         fn = S.make_prefill_step(cfg, cache_len=shape.seq_len, mesh=mesh,
-                                 use_flash=use_flash)
+                                 use_flash=use_flash, rules=rules,
+                                 cache_layout="seq")
         # the caches come out of the step: not an argument
         return DryRunCase(cfg.name, shape.name, fn, (params, batch), mode,
                           n_params + n_batch, n_cache)
 
     if shape.kind == "decode":
         token, _, n_token = place(tok_s, tok_spec, whole=True)
-        fn = S.make_decode_step(cfg, mesh=mesh)
+        fn = S.make_decode_step(cfg, mesh=mesh, rules=rules,
+                                cache_layout="seq")
         return DryRunCase(cfg.name, shape.name, fn,
                           (params, token, caches, shape.seq_len - 1), mode,
                           n_params + n_token + n_cache, n_cache)

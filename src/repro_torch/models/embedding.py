@@ -108,7 +108,7 @@ def embed_lookup(table: torch.Tensor, ids: torch.Tensor, *, mesh=None,
                  cgtrans: bool = True,
                  compute_dtype: torch.dtype = torch.bfloat16,
                  impl: str = "ref", request_chunk: Optional[int] = None,
-                 grad_psum: bool = True) -> torch.Tensor:
+                 grad_psum: bool = True, rules=None) -> torch.Tensor:
     """ids: (B, S) integer → (B, S, D) in ``compute_dtype``.
 
     On a mesh ``table`` is this rank's vocab shard ``(V/tp, D)`` and
@@ -116,7 +116,9 @@ def embed_lookup(table: torch.Tensor, ids: torch.Tensor, *, mesh=None,
     owner-side gradient scatter and ``request_chunk`` streams the
     flattened tokens through the lookup; both are inert off the cgtrans
     path, as in the JAX package. The table gradient is summed over the
-    batch axes (the table is replicated over them); ``grad_psum=False``
+    batch axes of ``rules`` (default ``DEFAULT_RULES``; the table is
+    replicated over them, and under ``batch=()`` every rank holds the same
+    rows, so nothing is summed); ``grad_psum=False``
     leaves each rank its rows' part, for a caller whose table arrived
     through a gather that sums it (the LM's ZeRO-3 gather over ``data``).
     """
@@ -127,8 +129,8 @@ def embed_lookup(table: torch.Tensor, ids: torch.Tensor, *, mesh=None,
     check_named_mesh(mesh)
 
     axis = model_axis(mesh)
-    dp = batch_axes(mesh)
-    grad_axes = dp if grad_psum and dp_size(mesh) > 1 else None
+    dp = batch_axes(mesh, rules)
+    grad_axes = dp if grad_psum and dp_size(mesh, rules) > 1 else None
     # the shard is (V/tp, D), so V splits evenly over model by construction
     # (local_block refuses an uneven split): JAX's V % tp fallback to a
     # plain take cannot arise here

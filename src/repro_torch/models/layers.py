@@ -28,6 +28,27 @@ parts), a ``psum``'s cotangent is the cotangent, and so the gradient of a
 leaf replicated over ``model`` is the same on every ``model`` rank and
 needs no reduction there. Over the batch axes each rank's cotangents are
 its rows' part (``train.step`` sums them).
+
+**Decode caches on a mesh** take one of two layouts (``cache_layout``,
+``LayerCtx.cache_layout``; the two are the same tensors off a mesh):
+
+* ``"seq"``, the JAX package's and the default: a full cache holds the
+  rank's ``T/tp`` sequence slots of every kv head (logical spec
+  ``("batch", "seq_kv", None, None)``); a ring (a local layer whose window
+  is shorter than the cache) and a cross-attention cache hold every kv
+  head on every ``model`` rank. The prefill computes k and v on the
+  rank's heads and lays them out with one counted ``all_to_all`` over
+  ``model`` (``cache_relayout``) where the kv heads split, else a plain
+  slice; a replicated cache gathers the heads (``cache_gather``). A
+  decode step gathers the one-token q (and k, v where they split) over
+  ``model`` (``decode_qkv_gather``), the rank owning slot ``pos`` writes
+  it, every rank attends over its slice, and the flash-decode combine
+  (``combine_partials``: one ``decode_max`` and one ``decode_sum``
+  all-reduce of (B, H) statistics) gives every rank the whole output,
+  whose heads of the rank go through the row-parallel ``wo``.
+* ``"heads"``: every sequence slot of the kv heads the rank's attention
+  reads (``cache_heads``); prefill and decode need no collective of
+  their own.
 """
 
 from __future__ import annotations
@@ -45,6 +66,7 @@ from repro_torch.common.schema import ParamDef
 from repro_torch.core import collectives
 
 NEG_INF = -2.3819763e38  # the finite mask value of the JAX package
+CACHE_LAYOUTS = ("seq", "heads")
 
 
 def compute_dtype(cfg: ModelConfig) -> torch.dtype:
@@ -130,6 +152,8 @@ class LayerCtx:
     q_chunk: int = 1024
     use_flash: bool = False                 # full attn through the kernel
     mesh: Optional[Any] = None              # a launch.mesh.Mesh
+    rules: Optional[dict] = None            # logical rules (None: default)
+    cache_layout: str = "seq"               # decode caches on a mesh
 
 
 # ---------------------------------------------------------------------------
@@ -158,6 +182,10 @@ def ready_leaf(w: torch.Tensor, logical, mesh, keep=()) -> torch.Tensor:
     backward, one over ``model`` the rank's block of the cotangent."""
     if mesh is None:
         return w
+    # Weight axes, not rows: ``embed`` is sharded over the physical data
+    # axes (ZeRO-3) whatever a shape's rule table does with the logical
+    # ``batch`` axis, so this reads the default table's data axes and not
+    # the caller's rules.
     dp = set(batch_axes(mesh))
     for dim, (name, entry) in enumerate(zip(logical,
                                             to_physical(logical, mesh))):
@@ -290,6 +318,57 @@ def decode_attention(
     return _softmax_pv(s, v).reshape(B, 1, H, hd)
 
 
+def decode_partials(
+    q: torch.Tensor,             # (B, 1, H, hd) — already scaled
+    k: torch.Tensor,             # (B, T, Hkv, hd) one slice of a cache
+    v: torch.Tensor,
+    kv_positions: torch.Tensor,  # (T,) absolute position per slot
+    pos: int,
+    *,
+    window: int = 0,
+    softcap: float = 0.0,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``decode_attention``'s softmax over one slice of the cache, left
+    unnormalised: (m, l, o), f32, m and l (B, 1, Hkv, G, 1), o (B, 1, Hkv,
+    G, hd) — the largest masked score, the sum of exp(s − m) and the sum
+    of exp(s − m)·v. Masked slots score the finite ``NEG_INF``, so a slice
+    with no valid slot has m = NEG_INF and finite l and o, and
+    ``combine_partials`` weighs it exp(NEG_INF − M) = 0."""
+    B, _, H, hd = q.shape
+    Hkv = k.shape[2]
+    G = H // Hkv
+    s = _scores(q.reshape(B, 1, Hkv, G, hd), k, softcap)   # (b,k,g,1,t)
+    ok = (kv_positions >= 0) & (kv_positions <= pos)
+    if window:
+        ok &= kv_positions > pos - window
+    s = torch.where(ok, s, torch.tensor(NEG_INF, device=s.device))
+    m = torch.amax(s, dim=-1, keepdim=True)
+    e = torch.exp(s - m)
+    o = torch.einsum("bkgqt,btkh->bqkgh", e.to(v.dtype), v).float()
+    to_q = lambda t: t.permute(0, 3, 1, 2, 4)              # noqa: E731
+    return to_q(m), to_q(torch.sum(e, dim=-1, keepdim=True)), o
+
+
+def combine_partials(m: torch.Tensor, ssum: torch.Tensor,
+                     o: torch.Tensor, mesh=None) -> torch.Tensor:
+    """The flash-decode combine: o = Σ_r e^{m_r−M}·o_r / Σ_r e^{m_r−M}·l_r
+    with M = max_r m_r (``ssum`` is l), as (B, 1, Hkv, G, hd) f32. With
+    ``mesh``, the slices r are the ranks of ``model`` and (m, l, o) this
+    rank's: one max all-reduce of m (``decode_max``) and one sum of the
+    rescaled [l | o] (``decode_sum``), both over (B, H) rows. Without, the
+    slices are stacked on a leading axis of the three."""
+    if mesh is None:
+        M = torch.amax(m, dim=0)
+        w = torch.exp(m - M)
+        return torch.sum(o * w, dim=0) / torch.sum(ssum * w, dim=0)
+    M = collectives.all_reduce(m, mesh, axis="model", op="max",
+                               name="decode_max")
+    w = torch.exp(m - M)
+    both = collectives.all_reduce(torch.cat([ssum * w, o * w], dim=-1),
+                                  mesh, axis="model", name="decode_sum")
+    return both[..., 1:] / both[..., :1]
+
+
 # ---------------------------------------------------------------------------
 # attention layer (kinds: attn, local, enc, and the attention of dec)
 # ---------------------------------------------------------------------------
@@ -374,10 +453,12 @@ def _q_proj(p, x, cfg: ModelConfig, mesh=None):
     return q, xq
 
 
-def _kv_proj(p, mem, cfg: ModelConfig, mesh=None, mem_in=None):
+def _kv_proj(p, mem, cfg: ModelConfig, mesh=None, mem_in=None,
+             pick: bool = True):
     """k, v (B, M, Hkv_local, hd) from mem, k_norm applied; on a mesh
-    the rank's kv heads (``_local_kv`` where only the q heads split).
-    ``mem_in`` is ``mem`` already through ``pvary``, when it is."""
+    the rank's kv heads (``_local_kv`` where only the q heads split;
+    with ``pick=False`` every kv head there instead). ``mem_in`` is
+    ``mem`` already through ``pvary``, when it is."""
     B, M, _ = mem.shape
     _, q_split, kv_split = _head_split(cfg, mesh)
     if kv_split:
@@ -389,17 +470,19 @@ def _kv_proj(p, mem, cfg: ModelConfig, mesh=None, mem_in=None):
     if "k_norm" in p:
         w = _pvary(p["k_norm"], mesh) if kv_split else p["k_norm"]
         k = rms_norm(k, w, cfg.norm_eps, cfg.rms_zero_centered)
-    if q_split and not kv_split:
+    if pick and q_split and not kv_split:
         k, v = _local_kv(k, cfg, mesh), _local_kv(v, cfg, mesh)
     return k, v
 
 
-def _qkv(p, x, mem, cfg: ModelConfig, mesh=None):
-    """Project q from x and k, v from mem (mem = x for self-attention)."""
+def _qkv(p, x, mem, cfg: ModelConfig, mesh=None, pick: bool = True):
+    """Project q from x and k, v from mem (mem = x for self-attention);
+    ``pick`` as in ``_kv_proj``."""
     q, xq = _q_proj(p, x, cfg, mesh)
     _, q_split, kv_split = _head_split(cfg, mesh)
     share = mem is x and q_split and kv_split
-    k, v = _kv_proj(p, mem, cfg, mesh, mem_in=xq if share else None)
+    k, v = _kv_proj(p, mem, cfg, mesh, mem_in=xq if share else None,
+                    pick=pick)
     return q, k, v
 
 
@@ -419,9 +502,9 @@ def _out_proj(p, o, x_dtype, cfg: ModelConfig, mesh=None):
     return out if "bo" not in p else out + p["bo"].to(x_dtype)
 
 
-def _self_attn_args(p, x, ctx: LayerCtx, kind: str):
+def _self_attn_args(p, x, ctx: LayerCtx, kind: str, pick: bool = True):
     cfg = ctx.cfg
-    q, k, v = _qkv(p, x, x, cfg, ctx.mesh)
+    q, k, v = _qkv(p, x, x, cfg, ctx.mesh, pick)
     cos, sin = rope_for(kind, ctx)
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
@@ -455,13 +538,16 @@ def _gated(p, out, x_dtype):
 def cross_attn_apply(p, x, ctx: LayerCtx, cache=None) -> torch.Tensor:
     """Cross-attention to ctx.memory. No rope, no causal mask. ``cache``:
     the memory's keys and values, when ``cross_build_cache`` has them
-    already (a prefill)."""
+    already (a prefill; in ``ctx.cache_layout``)."""
     cfg = ctx.cfg
     p = _attn_params(p, cfg, ctx.mesh)
     if cache is None:
         q, k, v = _qkv(p, x, ctx.memory.to(x.dtype), cfg, ctx.mesh)
     else:
         (q, _), k, v = _q_proj(p, x, cfg, ctx.mesh), cache["k"], cache["v"]
+        if _seq_layout(ctx):
+            k = _rank_kv_heads(k, cfg, ctx.mesh)
+            v = _rank_kv_heads(v, cfg, ctx.mesh)
     o = chunked_attention(q * _q_scale(cfg), k, v, causal=False,
                           q_chunk=ctx.q_chunk)
     return _gated(p, _out_proj(p, o, x.dtype, cfg, ctx.mesh), x.dtype)
@@ -469,12 +555,19 @@ def cross_attn_apply(p, x, ctx: LayerCtx, cache=None) -> torch.Tensor:
 
 # --- caches ----------------------------------------------------------------
 
+def check_cache_layout(layout: str) -> str:
+    if layout not in CACHE_LAYOUTS:
+        raise ValueError(f"cache_layout={layout!r}: one of {CACHE_LAYOUTS}")
+    return layout
+
+
 def cache_heads(cfg: ModelConfig, tp: int = 1) -> Tuple[int, Optional[str]]:
-    """(heads, logical axis) of a KV cache laid out for a ``model`` axis
-    of ``tp`` ranks, as ``attn_prefill`` builds it there: the kv heads
-    split over ``model`` where they divide (``kv_heads``); where only the
-    q heads do, one kv head per q head, split with them (``heads``, the
-    ``_local_kv`` pick); else every kv head on every rank."""
+    """(heads, logical axis) of a KV cache in the ``"heads"`` layout for a
+    ``model`` axis of ``tp`` ranks, as ``attn_prefill`` builds it there:
+    the kv heads split over ``model`` where they divide (``kv_heads``);
+    where only the q heads do, one kv head per q head, split with them
+    (``heads``, the ``_local_kv`` pick); else every kv head on every
+    rank."""
     q_split, kv_split = _splits(cfg, tp)
     if kv_split:
         return cfg.n_kv_heads, "kv_heads"
@@ -483,29 +576,40 @@ def cache_heads(cfg: ModelConfig, tp: int = 1) -> Tuple[int, Optional[str]]:
     return cfg.n_kv_heads, None
 
 
-def _cache_def(cfg: ModelConfig, batch: int, T: int, tp: int) -> ParamDef:
-    heads, axis = cache_heads(cfg, tp)
-    return ParamDef((batch, T, heads, cfg.hd), ("batch", None, axis, None),
-                    init="zeros", dtype=compute_dtype(cfg))
+def _cache_def(cfg: ModelConfig, batch: int, T: int, tp: int, layout: str,
+               seq_sharded: bool) -> ParamDef:
+    if check_cache_layout(layout) == "seq":
+        heads, spec = cfg.n_kv_heads, (
+            "batch", "seq_kv" if seq_sharded else None, None, None)
+    else:
+        heads, axis = cache_heads(cfg, tp)
+        spec = ("batch", None, axis, None)
+    return ParamDef((batch, T, heads, cfg.hd), spec, init="zeros",
+                    dtype=compute_dtype(cfg))
 
 
 def attn_cache_schema(cfg: ModelConfig, batch: int, seq_len: int, *,
-                      kind: str, tp: int = 1) -> Dict[str, ParamDef]:
+                      kind: str, tp: int = 1,
+                      layout: str = "seq") -> Dict[str, ParamDef]:
     """Decode KV cache; a local layer whose window is shorter than the
-    sequence keeps a ring of ``window`` slots. ``tp``: the ``model`` axis
-    the cache is laid out for (``cache_heads``); at 1 the unsharded cache,
-    whose shapes are the JAX package's. (The JAX schema shards the
-    sequence over ``model`` instead; ROADMAP Queue 3 row 3.)"""
-    is_ring = kind == "local" and cfg.window and cfg.window < seq_len
+    sequence keeps a ring of ``window`` slots. ``layout="seq"`` (the JAX
+    package's schema): a full cache's sequence over ``seq_kv`` (→
+    ``model``), a ring replicated over ``model``, every kv head in both;
+    ``"heads"``: the heads laid out for a ``model`` axis of ``tp`` ranks
+    (``cache_heads``). Off a mesh the two are the same tensors."""
+    is_ring = bool(kind == "local" and cfg.window and cfg.window < seq_len)
     T = cfg.window if is_ring else seq_len
-    return {"k": _cache_def(cfg, batch, T, tp),
-            "v": _cache_def(cfg, batch, T, tp)}
+    return {name: _cache_def(cfg, batch, T, tp, layout, not is_ring)
+            for name in ("k", "v")}
 
 
 def cross_cache_schema(cfg: ModelConfig, batch: int, mem_len: int, *,
-                       tp: int = 1) -> Dict[str, ParamDef]:
-    return {"k": _cache_def(cfg, batch, mem_len, tp),
-            "v": _cache_def(cfg, batch, mem_len, tp)}
+                       tp: int = 1, layout: str = "seq"
+                       ) -> Dict[str, ParamDef]:
+    """The encoder-memory (cross-attention) cache: under ``"seq"`` every
+    kv head on every ``model`` rank, as in the JAX schema."""
+    return {name: _cache_def(cfg, batch, mem_len, tp, layout, False)
+            for name in ("k", "v")}
 
 
 def _ring_slots(pos: int, W: int, device=None) -> torch.Tensor:
@@ -515,12 +619,85 @@ def _ring_slots(pos: int, W: int, device=None) -> torch.Tensor:
     return pos - torch.remainder(pos - j, W)
 
 
+def _seq_layout(ctx: LayerCtx) -> bool:
+    """Whether this layer's caches take the ``"seq"`` layout on a split
+    ``model`` axis (elsewhere the two layouts are the same tensors)."""
+    return (check_cache_layout(ctx.cache_layout) == "seq"
+            and tp_size(ctx.mesh) > 1)
+
+
+def _gather_heads(parts, mesh, name: str):
+    """Each (B, M, h, hd) tensor of ``parts``, the rank's block of h heads,
+    as every rank's blocks in head order (B, M, tp·h, hd): one all-gather
+    over ``model`` of the parts side by side, counted under ``name``."""
+    sizes = [t.shape[2] for t in parts]
+    both = torch.cat(parts, dim=2).contiguous()
+    got = collectives.all_gather(both, mesh, axis="model", name=name)
+    out, lo = [], 0
+    for h in sizes:
+        blk = got[:, :, :, lo:lo + h]                # (tp, B, M, h, hd)
+        out.append(blk.permute(1, 2, 0, 3, 4).reshape(
+            blk.shape[1], blk.shape[2], -1, blk.shape[4]))
+        lo += h
+    return out
+
+
+def _rank_kv_heads(t: torch.Tensor, cfg: ModelConfig, mesh) -> torch.Tensor:
+    """From a cache holding every kv head, the heads the rank's q heads
+    read (its block where the kv heads split, the ``_local_kv`` pick
+    where only the q heads do)."""
+    tp, q_split, kv_split = _head_split(cfg, mesh)
+    if kv_split:
+        h = cfg.n_kv_heads // tp
+        r = mesh.axis_index("model")
+        return t[:, :, r * h:(r + 1) * h]
+    if q_split:
+        return _local_kv(t, cfg, mesh)
+    return t
+
+
+def _seq_slice(k, v, cfg: ModelConfig, mesh):
+    """(B, T, h, hd) keys and values on the rank's kv heads (all of them
+    where they do not split over ``model``) as the rank's ``T/tp``
+    sequence slots of every kv head: one ``all_to_all`` over ``model``
+    (``cache_relayout``) where the heads split, else a slice."""
+    tp, _, kv_split = _head_split(cfg, mesh)
+    B, T, h, hd = k.shape
+    if T % tp:
+        raise ValueError(f"a cache of {T} slots does not split over a "
+                         f"model axis of {tp} ranks")
+    Tl = T // tp
+    r = mesh.axis_index("model")
+    if not kv_split:
+        # copies: a slice of one row is contiguous already, and as a view
+        # it would keep the whole padded cache alive
+        return (k[:, r * Tl:(r + 1) * Tl].clone(),
+                v[:, r * Tl:(r + 1) * Tl].clone())
+    # block j (slots of rank j) goes to rank j; block i arrives from rank
+    # i, its heads of this rank's slots
+    blocks = torch.stack([t.reshape(B, tp, Tl, h, hd).movedim(1, 0)
+                          for t in (k, v)], dim=1)   # (tp, 2, B, Tl, h, hd)
+    got = collectives.all_to_all(blocks, mesh, axis="model",
+                                 name="cache_relayout")
+    full = got.permute(1, 2, 3, 0, 4, 5).reshape(2, B, Tl, tp * h, hd)
+    return full[0], full[1]
+
+
 def attn_prefill(p, x, ctx: LayerCtx, *, kind: str, cache_len: int):
-    """Full-seq attention that also returns the populated decode cache."""
+    """Full-seq attention that also returns the populated decode cache, in
+    ``ctx.cache_layout``."""
     cfg = ctx.cfg
-    p = _attn_params(p, cfg, ctx.mesh)
-    q, k, v, mask = _self_attn_args(p, x, ctx, kind)
-    o = _attend(q * _q_scale(cfg), k, v, mask, ctx)
+    mesh = ctx.mesh
+    p = _attn_params(p, cfg, mesh)
+    seq = _seq_layout(ctx)
+    # under "seq" the cache takes every kv head the rank computed
+    q, k, v, mask = _self_attn_args(p, x, ctx, kind, pick=not seq)
+    ka, va = k, v
+    _, q_split, kv_split = _head_split(cfg, mesh)
+    if seq and q_split and not kv_split:
+        ka, va = _local_kv(k, cfg, mesh), _local_kv(v, cfg, mesh)
+    o = _attend(q * _q_scale(cfg), ka, va, mask, ctx)
+    del ka, va
     S = x.shape[1]
     if kind == "local" and cfg.window and cfg.window < cache_len:
         W = cfg.window
@@ -530,16 +707,29 @@ def attn_prefill(p, x, ctx: LayerCtx, *, kind: str, cache_len: int):
             ring = torch.zeros_like(t[:, S - W:])
             ring[:, slots] = t[:, S - W:]
             cache[name] = ring
+        if seq and kv_split:
+            cache["k"], cache["v"] = _gather_heads(
+                [cache["k"], cache["v"]], mesh, "cache_gather")
     else:
         pad = (0, 0, 0, 0, 0, cache_len - S)
-        cache = {"k": F.pad(k, pad), "v": F.pad(v, pad)}
-    return _out_proj(p, o, x.dtype, cfg, ctx.mesh), cache
+        k, v = F.pad(k, pad), F.pad(v, pad)
+        if seq:
+            k, v = _seq_slice(k, v, cfg, mesh)
+        cache = {"k": k, "v": v}
+    return _out_proj(p, o, x.dtype, cfg, mesh), cache
+
+
+def _write_slot(cache, slot: int, k, v) -> None:
+    cache["k"][:, slot] = k[:, 0].to(cache["k"].dtype)
+    cache["v"][:, slot] = v[:, 0].to(cache["v"].dtype)
 
 
 def attn_decode(p, x, cache, ctx: LayerCtx, *, kind: str):
     """One-token attention against the cache. x: (B,1,D). Writes the new
     key and value into ``cache`` in place (one slot each) and returns
     (output, cache)."""
+    if _seq_layout(ctx):
+        return _attn_decode_seq(p, x, cache, ctx, kind=kind)
     cfg = ctx.cfg
     pos = ctx.pos
     p = _attn_params(p, cfg, ctx.mesh)
@@ -549,9 +739,7 @@ def attn_decode(p, x, cache, ctx: LayerCtx, *, kind: str):
     k = apply_rope(k, cos, sin)
     T = cache["k"].shape[1]
     is_ring = kind == "local" and cfg.window and cfg.window == T
-    slot = (pos % T) if is_ring else pos
-    cache["k"][:, slot] = k[:, 0].to(cache["k"].dtype)
-    cache["v"][:, slot] = v[:, 0].to(cache["v"].dtype)
+    _write_slot(cache, (pos % T) if is_ring else pos, k, v)
     if is_ring:
         kv_pos = _ring_slots(pos, T, x.device)
     else:
@@ -562,23 +750,84 @@ def attn_decode(p, x, cache, ctx: LayerCtx, *, kind: str):
     return _out_proj(p, o, x.dtype, cfg, ctx.mesh), cache
 
 
+def _attn_decode_seq(p, x, cache, ctx: LayerCtx, *, kind: str):
+    """``attn_decode`` against a ``"seq"`` cache on a split ``model``
+    axis. The one-token projections run on the rank's heads as the
+    prefill's do; one gather over ``model`` then gives every rank every
+    head of q (and of k and v where those split), the choice of a
+    gathered (B, 1, H, hd) row over the replicated projection, which would
+    gather the whole of wq, wk and wv. A ring (replicated) writes its slot
+    on every rank and attends on the rank's heads; a full cache's slot
+    ``pos`` is written by the rank that holds it, at ``pos − r·T/tp``, and
+    every rank attends over its slice, then ``combine_partials``."""
+    cfg, pos, mesh = ctx.cfg, ctx.pos, ctx.mesh
+    p = _attn_params(p, cfg, mesh)
+    tp, q_split, kv_split = _head_split(cfg, mesh)
+    q, xq = _q_proj(p, x, cfg, mesh)
+    k, v = _kv_proj(p, x, cfg, mesh, pick=False,
+                    mem_in=xq if q_split and kv_split else None)
+    cos, sin = rope_for(kind, ctx)
+    q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
+    q = q * _q_scale(cfg)
+    T = cache["k"].shape[1]
+    window = cfg.window if kind == "local" else 0
+    softcap = cfg.attn_logit_softcap
+    if kind == "local" and cfg.window and cfg.window == T:
+        if kv_split:
+            k, v = _gather_heads([k, v], mesh, "decode_qkv_gather")
+        _write_slot(cache, pos % T, k, v)
+        o = decode_attention(q, _rank_kv_heads(cache["k"], cfg, mesh),
+                             _rank_kv_heads(cache["v"], cfg, mesh),
+                             _ring_slots(pos, T, x.device), pos,
+                             window=window, softcap=softcap)
+        return _out_proj(p, o, x.dtype, cfg, mesh), cache
+    if kv_split:
+        q, k, v = _gather_heads([q, k, v], mesh, "decode_qkv_gather")
+    elif q_split:
+        (q,) = _gather_heads([q], mesh, "decode_qkv_gather")
+    r = mesh.axis_index("model")
+    lo = r * T
+    if lo <= pos < lo + T:
+        _write_slot(cache, pos - lo, k, v)
+    B, _, H, hd = q.shape
+    parts = decode_partials(q, cache["k"], cache["v"],
+                            lo + torch.arange(T, device=x.device), pos,
+                            window=window, softcap=softcap)
+    o = combine_partials(*parts, mesh=mesh).reshape(B, 1, H, hd)
+    o = o.to(cache["v"].dtype)
+    if q_split:
+        hl = H // tp
+        o = o[:, :, r * hl:(r + 1) * hl]
+    return _out_proj(p, o, x.dtype, cfg, mesh), cache
+
+
 def cross_attn_decode(p, x, cache, ctx: LayerCtx):
-    """Cross-attention during decode: static precomputed memory K/V."""
+    """Cross-attention during decode: static precomputed memory K/V (under
+    ``"seq"`` every kv head, of which the rank's q heads read theirs)."""
     cfg = ctx.cfg
     p = _attn_params(p, cfg, ctx.mesh)
     q, _ = _q_proj(p, x, cfg, ctx.mesh)
-    T = cache["k"].shape[1]
-    o = decode_attention(q * _q_scale(cfg), cache["k"], cache["v"],
+    k, v = cache["k"], cache["v"]
+    if _seq_layout(ctx):
+        k = _rank_kv_heads(k, cfg, ctx.mesh)
+        v = _rank_kv_heads(v, cfg, ctx.mesh)
+    T = k.shape[1]
+    o = decode_attention(q * _q_scale(cfg), k, v,
                          torch.arange(T, device=x.device), T)
     return _gated(p, _out_proj(p, o, x.dtype, cfg, ctx.mesh), x.dtype), \
         cache
 
 
-def cross_build_cache(p, memory, cfg: ModelConfig, mesh=None):
-    """Precompute cross-attention K/V from encoder memory (on a mesh, the
-    rank's kv heads)."""
+def cross_build_cache(p, memory, cfg: ModelConfig, mesh=None,
+                      layout: str = "seq"):
+    """Precompute cross-attention K/V from encoder memory: on a mesh in
+    ``layout`` (``"heads"``: the rank's kv heads; ``"seq"``: every kv
+    head, gathered over ``model`` where they split)."""
     p = _attn_params(p, cfg, mesh)
-    k, v = _kv_proj(p, memory, cfg, mesh)
+    seq = check_cache_layout(layout) == "seq" and tp_size(mesh) > 1
+    k, v = _kv_proj(p, memory, cfg, mesh, pick=not seq)
+    if seq and _head_split(cfg, mesh)[2]:
+        k, v = _gather_heads([k, v], mesh, "cache_gather")
     dt = compute_dtype(cfg)
     return {"k": k.to(dt), "v": v.to(dt)}
 

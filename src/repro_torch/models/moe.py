@@ -56,13 +56,13 @@ def _capacity(tokens_per_group: int, n_experts: int, top_k: int,
 
 
 def route(router_w: torch.Tensor, x: torch.Tensor, cfg: ModelConfig,
-          mesh=None):
+          mesh=None, rules=None):
     """Top-k routing. x: (..., D) → (weights (..., k), ids (..., k), aux).
 
     ``torch.topk`` does not promise ``lax.top_k``'s order among equal
     probabilities (lower index first); continuous inputs have no ties.
     On a mesh ``x`` is this rank's tokens and the aux loss's means cover
-    every rank's."""
+    every rank's (the ranks the batch splits over under ``rules``)."""
     # a bf16 router (serving parameters) promotes to f32, as JAX's einsum
     logits = torch.einsum("...d,de->...e", x.float(), router_w.float())
     probs = torch.softmax(logits, dim=-1)
@@ -72,13 +72,13 @@ def route(router_w: torch.Tensor, x: torch.Tensor, cfg: ModelConfig,
     # fraction)
     E = cfg.n_experts
     hot = F.one_hot(top_ids.reshape(-1), E).to(torch.float32)
-    if mesh is not None and dp_size(mesh) > 1:
-        dp = batch_axes(mesh)
-        n = probs.reshape(-1, E).shape[0] * dp_size(mesh)
+    if mesh is not None and dp_size(mesh, rules) > 1:
+        dp = batch_axes(mesh, rules)
+        n = probs.reshape(-1, E).shape[0] * dp_size(mesh, rules)
         me = collectives.psum(probs.reshape(-1, E).sum(0), mesh,
                               axis=dp) / n
         ce = collectives.all_reduce(hot.sum(0), mesh, axis=dp) / (
-            hot.shape[0] * dp_size(mesh))
+            hot.shape[0] * dp_size(mesh, rules))
     else:
         me = torch.mean(probs.reshape(-1, E), dim=0)
         ce = torch.mean(hot, dim=0)
@@ -86,11 +86,11 @@ def route(router_w: torch.Tensor, x: torch.Tensor, cfg: ModelConfig,
     return top_p, top_ids, aux
 
 
-def _groups(T_local: int, group_size: int, mesh):
+def _groups(T_local: int, group_size: int, mesh, rules=None):
     """(groups here, tokens per group here, ranks a group spans, tokens
     per group): the JAX package's groups of ``min(group_size, T)`` of the
     whole batch's T tokens, over this rank's contiguous ``T_local``."""
-    dp = dp_size(mesh) if mesh is not None else 1
+    dp = dp_size(mesh, rules) if mesh is not None else 1
     t = min(group_size, T_local * dp)
     if dp == 1 or T_local % t == 0:
         return T_local // t, t, 1, t
@@ -102,12 +102,14 @@ def _groups(T_local: int, group_size: int, mesh):
 
 def moe_apply(p: Dict[str, Any], x: torch.Tensor, cfg: ModelConfig, *,
               capacity_factor: float = 1.25, group_size: int = 512,
-              mesh=None) -> Tuple[torch.Tensor, torch.Tensor]:
+              mesh=None, rules=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: (B, S, D). Returns (output (B,S,D), aux load-balance loss, an f32
     scalar). The B·S tokens split into groups of ``min(group_size, B·S)``;
     a token count that is not a multiple of the group fails in the
     reshape, as in the JAX package. On a mesh ``x`` is this rank's rows
-    and ``p`` its blocks."""
+    (its block over the batch axes of ``rules``, default
+    ``DEFAULT_RULES``; all of them under a table with ``batch=()``) and
+    ``p`` its blocks."""
     B, S, D = x.shape
     E, K = cfg.n_experts, cfg.top_k
     tp = layers.tp_size(mesh)
@@ -116,10 +118,10 @@ def moe_apply(p: Dict[str, Any], x: torch.Tensor, cfg: ModelConfig, *,
         p = layers.ready_params({k: v for k, v in p.items()
                                  if k != "shared"}, moe_schema(cfg), mesh,
                                 keep=("experts",))
-    G, t, span, t_group = _groups(B * S, group_size, mesh)
+    G, t, span, t_group = _groups(B * S, group_size, mesh, rules)
     xf = x.reshape(G, t, D)
 
-    top_p, top_ids, aux = route(p["router"], xf, cfg, mesh)  # (G,t,K)
+    top_p, top_ids, aux = route(p["router"], xf, cfg, mesh, rules)
 
     C = _capacity(t_group, E, K, capacity_factor)
     # position of each (token, k) slot within its expert queue, per group
@@ -128,7 +130,7 @@ def moe_apply(p: Dict[str, Any], x: torch.Tensor, cfg: ModelConfig, *,
     pos_in_e = torch.cumsum(flat, dim=1) - flat          # (G,t*K,E)
     if span > 1:
         # the group began on an earlier rank: queue past its slots there
-        dp = batch_axes(mesh)
+        dp = batch_axes(mesh, rules)
         counts = collectives.all_gather(flat.sum(1), mesh, axis=dp)
         me = mesh.axis_index(dp)
         pos_in_e = pos_in_e + counts[me - me % span:me].sum(0)[:, None]

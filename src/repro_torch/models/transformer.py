@@ -22,10 +22,16 @@ expert-parallel over ``model`` (``models/layers.py``, ``models/moe.py``),
 the embedding is the CGTrans lookup on the vocab shard and the loss the
 vocab-parallel cross-entropy (``models/embedding.py``). ``loss_fn`` sums
 the loss and the label count over the batch axes before it divides, so
-its gradients are the rank's part of the unsharded gradient. The decode
-caches on a mesh hold the rank's rows and the kv heads its attention
-reads (the JAX cache schema shards the sequence over ``model`` instead;
-ROADMAP Queue 3 row 3).
+its gradients are the rank's part of the unsharded gradient.
+
+``rules=`` is the shape's logical rule table (default ``DEFAULT_RULES``):
+the batch axes are where the logical ``"batch"`` axis resolves under it,
+so a long-context table's ``batch=()`` leaves every rank the whole batch
+and sums nothing over ``pod`` or ``data``. ``cache_layout=`` is the decode
+caches' layout on a mesh (``models/layers.py``): ``"seq"`` (default), the
+JAX cache schema's, each rank's rows of a ``T/tp`` sequence slice of every
+kv head with a flash-decode combine over ``model``; ``"heads"``, every
+sequence slot of the kv heads the rank's attention reads.
 """
 
 from __future__ import annotations
@@ -92,24 +98,27 @@ def layer_schema(cfg: ModelConfig, kind: str) -> Dict[str, Any]:
 
 
 def layer_cache_schema(cfg: ModelConfig, kind: str, batch: int,
-                       seq_len: int, tp: int = 1) -> Dict[str, Any]:
-    """One layer's decode cache, its KV heads laid out for a ``model``
-    axis of ``tp`` ranks (``layers.cache_heads``)."""
+                       seq_len: int, tp: int = 1,
+                       layout: str = "seq") -> Dict[str, Any]:
+    """One layer's decode cache in ``layout`` (``layers.attn_cache_schema``:
+    ``"seq"``, the JAX package's schema; ``"heads"``, its kv heads laid
+    out for a ``model`` axis of ``tp`` ranks, ``layers.cache_heads``)."""
+    kw = dict(tp=tp, layout=layout)
     if kind == "ssd":
         return {"mixer": ssm.ssd_cache_schema(cfg, batch)}
     if kind == "rglru":
         return {"mixer": griffin.rglru_cache_schema(cfg, batch)}
     if kind in ("attn", "local", "moe"):
         return {"attn": layers.attn_cache_schema(cfg, batch, seq_len,
-                                                 kind=kind, tp=tp)}
+                                                 kind=kind, **kw)}
     if kind == "cross":
         return {"attn": layers.cross_cache_schema(cfg, batch,
-                                                  cfg.vision_seq, tp=tp)}
+                                                  cfg.vision_seq, **kw)}
     if kind == "dec":
         return {"self_attn": layers.attn_cache_schema(cfg, batch, seq_len,
-                                                      kind="attn", tp=tp),
+                                                      kind="attn", **kw),
                 "cross_attn": layers.cross_cache_schema(cfg, batch,
-                                                        cfg.enc_seq, tp=tp)}
+                                                        cfg.enc_seq, **kw)}
     if kind == "enc":
         raise ValueError("encoder layers keep no decode cache")
     raise ValueError(kind)
@@ -157,7 +166,7 @@ def layer_apply(cfg: ModelConfig, kind: str, p, x, ctx: LayerCtx):
         h = apply_norm(p["norm"], x, cfg)
         x = x + layers.attn_apply(p["attn"], h, ctx, kind="attn")
         h = apply_norm(p["norm2"], x, cfg)
-        out, aux = moe.moe_apply(p["moe"], h, cfg, mesh=m)
+        out, aux = moe.moe_apply(p["moe"], h, cfg, mesh=m, rules=ctx.rules)
         return x + out, aux
     if kind == "cross":
         h = apply_norm(p["norm"], x, cfg)
@@ -202,11 +211,11 @@ def layer_prefill(cfg: ModelConfig, kind: str, p, x, ctx: LayerCtx,
         x = x + a
         h = apply_norm(p["norm2"], x, cfg)
         out, _ = moe.moe_apply(p["moe"], h, cfg, capacity_factor=2.0,
-                               mesh=m)
+                               mesh=m, rules=ctx.rules)
         return x + out, {"attn": cache}
     if kind == "cross":
         cache = layers.cross_build_cache(p["attn"], ctx.memory.to(x.dtype),
-                                         cfg, m)
+                                         cfg, m, ctx.cache_layout)
         h = apply_norm(p["norm"], x, cfg)
         x = x + layers.cross_attn_apply(p["attn"], h, ctx, cache)
         h = apply_norm(p["norm2"], x, cfg)
@@ -217,7 +226,8 @@ def layer_prefill(cfg: ModelConfig, kind: str, p, x, ctx: LayerCtx,
                                             kind="attn", cache_len=cache_len)
         x = x + a
         cross_cache = layers.cross_build_cache(
-            p["cross_attn"], ctx.memory.to(x.dtype), cfg, m)
+            p["cross_attn"], ctx.memory.to(x.dtype), cfg, m,
+            ctx.cache_layout)
         h = apply_norm(p["norm_x"], x, cfg)
         x = x + layers.cross_attn_apply(p["cross_attn"], h, ctx, cross_cache)
         return (_mlp_block(cfg, p, x, m),
@@ -257,7 +267,7 @@ def layer_decode(cfg: ModelConfig, kind: str, p, x, cache, ctx: LayerCtx):
         x = x + a
         h = apply_norm(p["norm2"], x, cfg)
         out, _ = moe.moe_apply(p["moe"], h, cfg, capacity_factor=2.0,
-                               group_size=64, mesh=m)
+                               group_size=64, mesh=m, rules=ctx.rules)
         return x + out, {"attn": c}
     if kind == "cross":
         h = apply_norm(p["norm"], x, cfg)
@@ -321,19 +331,25 @@ def stack_schema_for(cfg: ModelConfig) -> Dict[str, Any]:
 
 
 def stack_cache_schema_for(cfg: ModelConfig, batch: int, seq_len: int,
-                           tp: int = 1) -> Dict[str, Any]:
-    """The stack's decode caches, nested as ``prefill`` returns them, laid
-    out for a ``model`` axis of ``tp`` ranks (1: unsharded)."""
+                           tp: int = 1, layout: str = "seq"
+                           ) -> Dict[str, Any]:
+    """The stack's decode caches, nested as ``prefill`` returns them, in
+    ``layout`` (``"heads"``: laid out for a ``model`` axis of ``tp``
+    ranks; the two layouts' global shapes are the same)."""
     lay = stack_layout(cfg)
+
+    def one(kind):
+        return layer_cache_schema(cfg, kind, batch, seq_len, tp, layout)
+
     s: Dict[str, Any] = {}
     for i, kind in enumerate(lay.prefix):
-        s[f"prefix_{i}"] = layer_cache_schema(cfg, kind, batch, seq_len, tp)
+        s[f"prefix_{i}"] = one(kind)
     if lay.n_blocks:
-        block = {f"p{j}": layer_cache_schema(cfg, k, batch, seq_len, tp)
-                 for j, k in enumerate(lay.pattern)}
-        s["blocks"] = stack_schema(block, lay.n_blocks)
+        s["blocks"] = stack_schema({f"p{j}": one(k)
+                                    for j, k in enumerate(lay.pattern)},
+                                   lay.n_blocks)
     for i, kind in enumerate(lay.suffix):
-        s[f"suffix_{i}"] = layer_cache_schema(cfg, kind, batch, seq_len, tp)
+        s[f"suffix_{i}"] = one(kind)
     return s
 
 
@@ -482,13 +498,15 @@ def _sincos_pos(S: int, D: int, dtype, device) -> torch.Tensor:
 
 def _make_ctx(cfg: ModelConfig, positions: torch.Tensor, memory=None,
               pos: Optional[int] = None, use_flash: bool = False,
-              mesh=None) -> LayerCtx:
+              mesh=None, rules=None, cache_layout: str = "seq") -> LayerCtx:
     hd = cfg.hd
     rope_l = rope_tables(positions, hd, cfg.rope_theta)
     rope_g = (rope_tables(positions, hd, cfg.rope_theta_global)
               if cfg.rope_theta_global else rope_l)
     return LayerCtx(cfg=cfg, rope_local=rope_l, rope_global=rope_g,
-                    memory=memory, pos=pos, use_flash=use_flash, mesh=mesh)
+                    memory=memory, pos=pos, use_flash=use_flash, mesh=mesh,
+                    rules=rules,
+                    cache_layout=layers.check_cache_layout(cache_layout))
 
 
 def _encode(cfg: ModelConfig, params, frames: torch.Tensor,
@@ -553,7 +571,8 @@ def _valid_mesh(mesh):
 # ---------------------------------------------------------------------------
 
 def loss_fn(params, batch: Mapping[str, Any], cfg: ModelConfig, *,
-            mesh=None, use_flash: bool = False, impl: str = "ref"):
+            mesh=None, use_flash: bool = False, impl: str = "ref",
+            rules=None):
     """batch: tokens (B,S), labels (B,S) (-1 = padding); + frames / vision
     for audio / vlm, as tensors or arrays (moved to the parameters'
     device). On a mesh: this rank's parameter blocks and batch rows, and
@@ -577,15 +596,15 @@ def loss_fn(params, batch: Mapping[str, Any], cfg: ModelConfig, *,
         cfg, params, {k: _on(v, dev) for k, v in batch.items()
                       if k not in ("tokens", "labels")}, use_flash, mesh)
     ctx = _make_ctx(cfg, torch.arange(S, device=dev), memory=memory,
-                    use_flash=use_flash, mesh=mesh)
+                    use_flash=use_flash, mesh=mesh, rules=rules)
     x, aux = _run_stack_apply(cfg, params["stack"], x, ctx)
     x = apply_norm(params["final_norm"], x, cfg)
     loss_sum, cnt = chunked_softmax_xent(
         x, out_table, _on(batch["labels"], dev),
         softcap=cfg.final_logit_softcap, valid_vocab=cfg.vocab, mesh=mesh)
-    if mesh is not None and dp_size(mesh) > 1:
+    if mesh is not None and dp_size(mesh, rules) > 1:
         both = collectives.psum(torch.stack([loss_sum, cnt]), mesh,
-                                axis=batch_axes(mesh))
+                                axis=batch_axes(mesh, rules))
         loss_sum, cnt = both[0], both[1]
     loss = loss_sum / torch.clamp(cnt, min=1.0)
     total = loss + cfg.router_aux_coef * aux
@@ -593,7 +612,8 @@ def loss_fn(params, batch: Mapping[str, Any], cfg: ModelConfig, *,
 
 
 def prefill(params, batch: Mapping[str, Any], cfg: ModelConfig, *,
-            cache_len: int, mesh=None, use_flash: bool = False):
+            cache_len: int, mesh=None, use_flash: bool = False,
+            rules=None, cache_layout: str = "seq"):
     """Full-sequence forward building the decode cache. ``batch``: tokens
     (B, S) and, for an encoder-decoder, frames (B, enc_seq, D), as tensors
     or arrays (moved to the parameters' device). ``use_flash`` runs every
@@ -601,7 +621,8 @@ def prefill(params, batch: Mapping[str, Any], cfg: ModelConfig, *,
     the flash kernel (on a mesh on the rank's heads).
 
     Returns (last_token_logits (B,V) f32, caches); on a mesh the rank's
-    rows of both (every vocab column of the logits).
+    rows of both (its rows under ``rules``, every vocab column of the
+    logits), the caches in ``cache_layout``.
     """
     mesh = _valid_mesh(mesh)
     dev = params["embed"]["table"].device
@@ -615,7 +636,8 @@ def prefill(params, batch: Mapping[str, Any], cfg: ModelConfig, *,
         cfg, params, {k: _on(v, dev) for k, v in batch.items()
                       if k != "tokens"}, use_flash, mesh)
     ctx = _make_ctx(cfg, torch.arange(S, device=dev), memory=memory,
-                    use_flash=use_flash, mesh=mesh)
+                    use_flash=use_flash, mesh=mesh, rules=rules,
+                    cache_layout=cache_layout)
     x, caches = _run_stack_prefill(cfg, params["stack"], x, ctx, cache_len)
     x = apply_norm(params["final_norm"], x, cfg)
     logits = vocab_logits(x[:, -1], out_table, mesh=mesh,
@@ -625,10 +647,11 @@ def prefill(params, batch: Mapping[str, Any], cfg: ModelConfig, *,
 
 
 def decode_step(params, token, caches, pos: int, cfg: ModelConfig, *,
-                mesh=None):
+                mesh=None, rules=None, cache_layout: str = "seq"):
     """token: (B,1) integer; pos: the position being decoded (uniform
     static-batch decode). The caches are updated in place. On a mesh:
-    this rank's rows of the token and of the caches.
+    this rank's rows of the token (under ``rules``) and of the caches, in
+    the ``cache_layout`` the prefill built them in.
 
     Returns (logits (B,V) f32, caches).
     """
@@ -640,7 +663,7 @@ def decode_step(params, token, caches, pos: int, cfg: ModelConfig, *,
     if cfg.is_encoder_decoder:
         x = x + _dec_pos(params, mesh)[pos].to(x.dtype)[None, None, :]
     ctx = _make_ctx(cfg, torch.tensor([pos], device=dev), pos=pos,
-                    mesh=mesh)
+                    mesh=mesh, rules=rules, cache_layout=cache_layout)
     x, caches = _run_stack_decode(cfg, params["stack"], x, caches, ctx)
     x = apply_norm(params["final_norm"], x, cfg)
     logits = vocab_logits(x[:, -1], out_table, mesh=mesh,

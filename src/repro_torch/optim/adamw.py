@@ -96,15 +96,6 @@ def compress_grads(grads, residual, mesh=None):
     return unflatten(grads, deq), unflatten(residual, res)
 
 
-def _pick(tree_of_tuples, i: int):
-    """Component ``i`` of every tuple leaf of a ``tree_map`` result."""
-    if isinstance(tree_of_tuples, dict):
-        return {k: _pick(v, i) for k, v in tree_of_tuples.items()}
-    if isinstance(tree_of_tuples, list):
-        return [_pick(v, i) for v in tree_of_tuples]
-    return tree_of_tuples[i]
-
-
 # --- AdamW ------------------------------------------------------------------
 
 def adamw_init(params, tc: TrainConfig) -> Dict[str, Any]:
@@ -122,38 +113,42 @@ def adamw_init(params, tc: TrainConfig) -> Dict[str, Any]:
 @torch.no_grad()
 def adamw_update(params, grads, opt_state, tc: TrainConfig, *, mesh=None,
                  specs=None):
-    """Returns (new_params, new_opt_state, metrics). On a mesh, ``specs``
-    are the parameters' physical specs."""
+    """Returns (params, opt_state, metrics), the parameters and the
+    optimiser state updated in place: the state passed in is consumed, as
+    the JAX step's donated state is, and no second copy of it is ever
+    live. A caller that reads the old values after the update clones them
+    first. On a mesh, ``specs`` are the parameters' physical specs."""
     metrics = {}
     if tc.grad_compression == "int8_ef":
         grads, new_res = compress_grads(grads, opt_state["ef_residual"],
                                         mesh)
         metrics["ef_residual_norm"] = global_norm(new_res, mesh, specs)
+        for r, n in zip(leaves(opt_state["ef_residual"]), leaves(new_res)):
+            r.copy_(n)
 
     grads, gnorm = clip_by_global_norm(grads, tc.grad_clip, mesh, specs)
     metrics["grad_norm"] = gnorm
 
-    count = opt_state["count"] + 1
+    count = opt_state["count"].add_(1)
     lr = cosine_lr(count, tc)
     metrics["lr"] = lr
     b1, b2 = tc.beta1, tc.beta2
     bc1 = 1 - b1 ** count.to(torch.float32)
     bc2 = 1 - b2 ** count.to(torch.float32)
 
-    def upd(p, g, m, v):
+    # leaf by leaf, the out-of-place arithmetic copied into the old
+    # storage: the same roundings as building new tensors, and at most one
+    # leaf's temporaries live at a time
+    for p, g, m, v in zip(leaves(params), leaves(grads),
+                          leaves(opt_state["m"]), leaves(opt_state["v"])):
         g32 = g.to(torch.float32)
-        m_ = b1 * m + (1 - b1) * g32
-        v_ = b2 * v + (1 - b2) * torch.square(g32)
-        step = (m_ / bc1) / (torch.sqrt(v_ / bc2) + tc.eps)
+        m.copy_(b1 * m + (1 - b1) * g32)
+        v.copy_(b2 * v + (1 - b2) * torch.square(g32))
+        step = (m / bc1) / (torch.sqrt(v / bc2) + tc.eps)
         p32 = p.to(torch.float32)
-        p_ = p32 - lr * (step + tc.weight_decay * p32)
-        return p_.to(p.dtype), m_, v_
-
-    out = tree_map(upd, params, grads, opt_state["m"], opt_state["v"])
-    new_state = {"m": _pick(out, 1), "v": _pick(out, 2), "count": count}
-    if tc.grad_compression == "int8_ef":
-        new_state["ef_residual"] = new_res
-    return _pick(out, 0), new_state, metrics
+        p.copy_((p32 - lr * (step + tc.weight_decay * p32)).to(p.dtype))
+        del g32, step, p32
+    return params, opt_state, metrics
 
 
 def opt_state_schema(param_schema, tc: TrainConfig):

@@ -60,6 +60,11 @@ def make_sage_train_step(cfg: gcn.GCNConfig, tc: TrainConfig, *,
     (``IslandPartition.relabel_rows`` order) and ``relabel`` the old → new
     id map; every batch's ids are translated at the ``sage_loss`` entry,
     so islandized ≡ interval bit for bit, gradients included.
+
+    The step consumes ``state``: its parameters, optimiser state and step
+    count are updated in place (``optim.adamw_update``), as the JAX step's
+    donated state is, and the returned state holds the same tensors. A
+    caller that reads the old state after a step clones it first.
     """
     sharded = cgtrans.is_sharded(mesh)
     gcn._check_partition_knob(cfg, relabel)
@@ -76,7 +81,9 @@ def make_sage_train_step(cfg: gcn.GCNConfig, tc: TrainConfig, *,
         new_p, new_opt, om = adamw_update(
             state["params"], unflatten(state["params"], grads), state["opt"],
             tc)
-        return ({"params": new_p, "opt": new_opt, "step": state["step"] + 1},
+        with torch.no_grad():
+            state["step"].add_(1)
+        return ({"params": new_p, "opt": new_opt, "step": state["step"]},
                 {**metrics, **om, "total_loss": metrics["loss"]})
 
     return train_step

@@ -25,9 +25,10 @@ from typing import Dict, Tuple
 import torch
 
 from repro_torch.common.config import ModelConfig, ShapeConfig, TrainConfig
-from repro_torch.common.logical import (batch_axes, dp_size, local_block,
-                                        local_shape, spec_axes, spec_leaves,
-                                        to_physical, tree_to_physical)
+from repro_torch.common.logical import (DEFAULT_RULES, batch_axes, dp_size,
+                                        local_block, local_shape, spec_axes,
+                                        spec_leaves, to_physical,
+                                        tree_to_physical)
 from repro_torch.common.schema import (ParamDef, init_params,
                                        leaves as schema_leaves,
                                        param_logical_specs, param_structs)
@@ -79,21 +80,27 @@ def batch_logical_specs(cfg: ModelConfig) -> Dict[str, tuple]:
     return out
 
 
-def decode_structs(cfg: ModelConfig, shape: ShapeConfig, tp: int = 16):
+def decode_structs(cfg: ModelConfig, shape: ShapeConfig, tp: int = 16, *,
+                   layout: str = "seq"):
     """(token, caches, pos) of a decode step at ``shape`` as meta tensors,
-    the caches laid out for a ``model`` axis of ``tp`` ranks
-    (``transformer.stack_cache_schema_for``). The port's step takes the
-    position as a host int; ``pos`` is the JAX step's int32 scalar."""
+    the caches' global shapes (``transformer.stack_cache_schema_for``;
+    ``layout="heads"`` lays them out for a ``model`` axis of ``tp``
+    ranks). The port's step takes the position as a host int; ``pos`` is
+    the JAX step's int32 scalar. A shape's rule table places these
+    (``launch/specs.py``) and changes none of them."""
     B, S = shape.global_batch, shape.seq_len
     meta = lambda *shp: torch.empty(shp, dtype=torch.int32, device="meta")
-    caches = param_structs(T.stack_cache_schema_for(cfg, B, S, tp))
+    caches = param_structs(T.stack_cache_schema_for(cfg, B, S, tp, layout))
     return meta(B, 1), caches, meta()
 
 
-def decode_logical_specs(cfg: ModelConfig, shape: ShapeConfig, tp: int = 16):
-    """The logical specs of ``decode_structs``'s (token, caches, pos)."""
+def decode_logical_specs(cfg: ModelConfig, shape: ShapeConfig, tp: int = 16,
+                         *, layout: str = "seq"):
+    """The logical specs of ``decode_structs``'s (token, caches, pos):
+    under ``"seq"`` the JAX package's (a full cache's sequence over
+    ``seq_kv``)."""
     cache = T.stack_cache_schema_for(cfg, shape.global_batch, shape.seq_len,
-                                     tp)
+                                     tp, layout)
     return ("batch", None), param_logical_specs(cache), ()
 
 
@@ -122,12 +129,13 @@ def init_state(cfg: ModelConfig, tc: TrainConfig, seed: int = 0, *,
 # steps
 # ---------------------------------------------------------------------------
 
-def _rows(batch, cfg: ModelConfig, mesh):
-    """This rank's rows of a global batch over the batch axes."""
+def _rows(batch, cfg: ModelConfig, mesh, rules=None):
+    """This rank's rows of a global batch over the batch axes of
+    ``rules`` (default ``DEFAULT_RULES``; under ``batch=()`` every row)."""
     if mesh is None:
         return batch
     specs = batch_logical_specs(cfg)
-    return {k: local_block(v, to_physical(specs[k], mesh), mesh)
+    return {k: local_block(v, to_physical(specs[k], mesh, rules), mesh)
             for k, v in batch.items()}
 
 
@@ -197,6 +205,12 @@ def make_train_step(cfg: ModelConfig, tc: TrainConfig, *, mesh=None,
     On a ``mesh`` the state is this rank's blocks and each rank runs its
     rows of every microbatch (the JAX step's split: microbatch i is rows
     ``[i·B/mb, (i+1)·B/mb)``, sharded over the batch axes).
+
+    The step consumes ``state``, as the JAX step's ``donate=(0,)`` does:
+    the parameters, the AdamW moments and the step count are updated in
+    place (``optim.adamw_update``), so one copy of the state is live, and
+    the returned state holds the same tensors. A caller that reads the old
+    state after a step clones it first.
     ``param_shardings`` (a tree of physical specs) is checked against the
     rule table's placement and the state's block shapes on the first
     step: the step raises where they disagree. ``impl`` is the backend of
@@ -249,52 +263,63 @@ def make_train_step(cfg: ModelConfig, tc: TrainConfig, *, mesh=None,
         new_params, new_opt, opt_metrics = adamw_update(
             params, grads, state["opt"], tc, mesh=mesh,
             specs=checked.get("specs"))
+        with torch.no_grad():
+            state["step"].add_(1)
         new_state = {"params": new_params, "opt": new_opt,
-                     "step": state["step"] + 1}
+                     "step": state["step"]}
         return new_state, {**metrics, **opt_metrics, "total_loss": loss_val}
 
     return train_step
 
 
-def _global_rows(logits, mesh):
-    """Every rank's rows of the logits, in batch order."""
-    if mesh is None or dp_size(mesh) == 1:
+def _global_rows(logits, mesh, rules=None):
+    """Every rank's rows of the logits, in batch order (the batch axes of
+    ``rules``; under ``batch=()`` each rank holds them all already)."""
+    if mesh is None or dp_size(mesh, rules) == 1:
         return logits
-    parts = collectives.all_gather(logits, mesh, axis=batch_axes(mesh),
+    parts = collectives.all_gather(logits, mesh,
+                                   axis=batch_axes(mesh, rules),
                                    name="result_gather")
     return parts.reshape(-1, *logits.shape[1:])
 
 
 def make_prefill_step(cfg: ModelConfig, *, cache_len: int, mesh=None,
-                      use_flash: bool = False):
+                      use_flash: bool = False, rules=DEFAULT_RULES,
+                      cache_layout: str = "seq"):
     """(params, batch) → (last-token logits, caches). ``use_flash`` runs
     the encoder's and the prefill's self-attention through the flash
-    kernel. On a ``mesh``: this rank's blocks,
-    the global batch, the global (B, V) logits and this rank's caches."""
+    kernel. On a ``mesh``: this rank's blocks, the global batch (split
+    over the batch axes of ``rules``, the shape's logical rule table), the
+    global (B, V) logits and this rank's caches in ``cache_layout``
+    (``models/layers.py``)."""
     mesh = T._valid_mesh(mesh)
 
     def prefill_step(params, batch):
         dev = params["embed"]["table"].device
         rows = _rows({k: T._on(v, dev) for k, v in batch.items()}, cfg,
-                     mesh)
+                     mesh, rules)
         logits, caches = T.prefill(params, rows, cfg, cache_len=cache_len,
-                                   mesh=mesh, use_flash=use_flash)
-        return _global_rows(logits, mesh), caches
+                                   mesh=mesh, use_flash=use_flash,
+                                   rules=rules, cache_layout=cache_layout)
+        return _global_rows(logits, mesh, rules), caches
     return prefill_step
 
 
-def make_decode_step(cfg: ModelConfig, *, mesh=None):
+def make_decode_step(cfg: ModelConfig, *, mesh=None, rules=DEFAULT_RULES,
+                     cache_layout: str = "seq"):
     """(params, token, caches, pos) → (logits, caches updated in place).
-    On a ``mesh``: the global (B, 1) token and (B, V) logits, this rank's
-    blocks and caches."""
+    On a ``mesh``: the global (B, 1) token (split over the batch axes of
+    ``rules``) and (B, V) logits, this rank's blocks and its caches in
+    ``cache_layout``, as ``make_prefill_step`` built them."""
     mesh = T._valid_mesh(mesh)
 
     def decode_step(params, token, caches, pos):
         if mesh is not None:
             tok = T._on(token, params["embed"]["table"].device)
-            token = local_block(tok, to_physical(("batch", None), mesh),
-                                mesh)
+            token = local_block(tok, to_physical(("batch", None), mesh,
+                                                 rules), mesh)
         logits, caches = T.decode_step(params, token, caches, pos, cfg,
-                                       mesh=mesh)
-        return _global_rows(logits, mesh), caches
+                                       mesh=mesh, rules=rules,
+                                       cache_layout=cache_layout)
+        return _global_rows(logits, mesh, rules), caches
     return decode_step

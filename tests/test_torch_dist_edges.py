@@ -524,7 +524,8 @@ def _island_rank(mesh, iw, params):
         cfg = GCNConfig(n_features=F, hidden=HIDDEN, n_classes=CLASSES,
                         fanout=IK, impl="kernel", partition=layout)
         relabel = rl if layout == "island" else None
-        tp = {k: torch.from_numpy(v) for k, v in params.items()}
+        # a copy: the train step below updates its parameters in place
+        tp = {k: torch.from_numpy(v.copy()) for k, v in params.items()}
         with torch.no_grad():
             out[("sage", layout)] = sage_forward(
                 tp, tables[layout], batch, cfg, mesh=mesh,

@@ -5,9 +5,13 @@
   optimiser state and batch rows equal the JAX dry run's ``_arg_bytes``
   formula (``src/repro/launch/dryrun.py:99-109``) over JAX's own schemas,
   logical specs, ``to_physical`` on a stand-in mesh and
-  ``specs.rules_for``. The caches are held to the port's layout (the rank's
-  rows, the kv heads its attention reads, every recurrent head), with the
-  JAX layout's bytes beside them (``record_property``).
+  ``specs.rules_for``. The serving cases' caches take the JAX layout
+  (``cache_layout="seq"``): their attention caches' bytes equal the JAX
+  formula's, and with them the whole caches of every arch without a
+  recurrent layer; a recurrent layer's state holds every head on each
+  rank (ROADMAP Queue 1 row 16). The port's other layout (``"heads"``:
+  the rank's rows and every slot of the kv heads its attention reads) is
+  held to its own formula.
 * **Trace ≡ real run** on 4 gloo ranks as (data 2 × model 2): rank r's
   fake trace of reduced qwen1.5-0.5b's train and decode steps and of one
   reduced deepseek-moe-16b train step gives exactly the real run's
@@ -16,8 +20,9 @@
   unsharded, train and prefill: the traced dot FLOPs within 1e-2 of
   ``repro.launch.hlo_analysis.analyze(...).dot_flops`` of the JAX step
   compiled here on its one CPU device.
-* One production trace (qwen1.5-0.5b × decode_32k × (16, 16)) with a
-  complete record, the CLI's ``--list`` against JAX's, ``launch.train
+* Two production traces with a complete record (qwen1.5-0.5b ×
+  decode_32k and gemma2-2b × long_500k under its rule table, both on
+  (16, 16)), the CLI's ``--list`` against JAX's, ``launch.train
   --dry-run``, and the kernel wrappers refusing fake tensors.
 
 The ranks import ``torch`` and ``repro_torch`` only (this module imports
@@ -61,16 +66,20 @@ class _StandIn:
         self.shape = dict(zip(names, shape))
 
 
-def _jax_bytes(structs, logical, mesh, rules):
+def _jax_bytes(structs, logical, mesh, rules, keep=lambda path: True):
     """The JAX dry run's ``_arg_bytes`` summed over a tree: each struct's
-    bytes divided by the mesh sizes of the axes of its PartitionSpec."""
+    bytes divided by the mesh sizes of the axes of its PartitionSpec
+    (``keep``: a test of each leaf's key path, the leaves to count)."""
     import jax
 
     from repro.common.logical import to_physical
     is_spec = lambda x: isinstance(x, tuple)  # noqa: E731
     total = 0.0
-    for st, spec in zip(jax.tree.leaves(structs),
-                        jax.tree.leaves(logical, is_leaf=is_spec)):
+    paths = jax.tree_util.tree_flatten_with_path(structs)[0]
+    for (path, st), spec in zip(paths,
+                                jax.tree.leaves(logical, is_leaf=is_spec)):
+        if not keep(tuple(getattr(k, "key", k) for k in path)):
+            continue
         div = 1
         for entry in to_physical(spec, mesh, rules):
             for ax in ((entry,) if isinstance(entry, str)
@@ -80,9 +89,14 @@ def _jax_bytes(structs, logical, mesh, rules):
     return total
 
 
+def _is_kv(path):
+    return path[-1] in ("k", "v")
+
+
 def _jax_case_bytes(arch, shape_name, multi_pod):
-    """(bytes of the parameters / state and batch, bytes of the caches)
-    per device in the JAX dry run's layout."""
+    """(bytes of the parameters / state and batch, bytes of the caches,
+    bytes of the attention caches) per device in the JAX dry run's
+    layout."""
     import jax.numpy as jnp
 
     from repro import configs as jconfigs
@@ -101,7 +115,8 @@ def _jax_case_bytes(arch, shape_name, multi_pod):
         return (_jax_bytes(param_structs(schema),
                            param_logical_specs(schema), mesh, rules)
                 + _jax_bytes(JS.batch_structs(cfg, shape),
-                             JS.batch_logical_specs(cfg), mesh, rules), 0.0)
+                             JS.batch_logical_specs(cfg), mesh, rules), 0.0,
+                0.0)
     bf16 = tree_map_defs(
         lambda d: dataclasses.replace(d, dtype=jnp.bfloat16)
         if d.dtype == jnp.float32 else d,
@@ -117,15 +132,34 @@ def _jax_case_bytes(arch, shape_name, multi_pod):
         args += _jax_bytes(bs, spec, mesh, rules)
     else:
         args += _jax_bytes(tok, tok_spec, mesh, rules)
-    return args, _jax_bytes(caches, cache_spec, mesh, rules)
+    return (args, _jax_bytes(caches, cache_spec, mesh, rules),
+            _jax_bytes(caches, cache_spec, mesh, rules, keep=_is_kv))
+
+
+def _layout_bytes(cfg, shape, multi_pod, layout, keep=lambda path: True):
+    """The rank's bytes of the caches in ``layout`` on a production mesh
+    under the shape's rules (``keep``: the leaves to count)."""
+    from repro_torch.common.logical import (local_shape, spec_leaves,
+                                            tree_to_physical)
+    from repro_torch.common.tree import leaves_with_paths
+    from repro_torch.train import step as TS
+    mesh = meshlib.make_production_mesh(multi_pod=multi_pod)
+    tp = mesh.shape["model"]
+    _, spec, _ = TS.decode_logical_specs(cfg, shape, tp, layout=layout)
+    _, structs, _ = TS.decode_structs(cfg, shape, tp, layout=layout)
+    phys = dict(spec_leaves(tree_to_physical(spec, mesh,
+                                             specs.rules_for(shape))))
+    return sum(math.prod(local_shape(tuple(t.shape), phys[p], mesh))
+               * t.element_size()
+               for p, t in leaves_with_paths(structs) if keep(p))
 
 
 def _port_cache_bytes(cfg, shape, multi_pod):
-    """The rank's caches in the port's layout, from the layer kinds: its
-    B/dp rows (all of them under long_500k's rules); an attention cache's
-    window or sequence slots and its kv heads split over ``model`` where
-    they divide, else one per q head where those divide, else all; every
-    recurrent head and channel."""
+    """The rank's caches in the port's ``"heads"`` layout, from the layer
+    kinds: its B/dp rows (all of them under long_500k's rules); an
+    attention cache's window or sequence slots and its kv heads split over
+    ``model`` where they divide, else one per q head where those divide,
+    else all; every recurrent head and channel."""
     from repro_torch.models import ssm
     from repro_torch.models.transformer import stack_layout
     dims, names = meshlib.PRODUCTION_SHAPES[multi_pod]
@@ -176,13 +210,20 @@ def test_arg_bytes_equal_the_jax_formula(arch, shape, multi_pod,
     cfg, shp = configs.get_config(arch), configs.get_shape(shape)
     case = specs.build_case(cfg, shp, meshlib.make_production_mesh(
         multi_pod=multi_pod))
-    want_args, jax_caches = _jax_case_bytes(arch, shape, multi_pod)
+    want_args, jax_caches, jax_kv = _jax_case_bytes(arch, shape, multi_pod)
     held = case.arg_bytes - (case.cache_bytes if shp.kind == "decode" else 0)
     assert held == want_args
     if shp.kind == "train":
         assert case.cache_bytes == 0
     else:
-        assert case.cache_bytes == _port_cache_bytes(cfg, shp, multi_pod) > 0
+        # the "seq" layout: the JAX caches, but each recurrent state whole
+        recurrent = _layout_bytes(cfg, shp, multi_pod, "seq",
+                                  keep=lambda p: not _is_kv(p))
+        assert case.cache_bytes == jax_kv + recurrent > 0
+        if jax_kv == jax_caches:
+            assert case.cache_bytes == jax_caches
+        assert _layout_bytes(cfg, shp, multi_pod, "heads") == \
+            _port_cache_bytes(cfg, shp, multi_pod) > 0
     record_property("cache_bytes_port", case.cache_bytes)
     record_property("cache_bytes_jax_layout", jax_caches)
 
@@ -355,6 +396,27 @@ def test_production_decode_trace_is_complete(tmp_path):
     peak = f"{m['peak_bytes_per_device'] / 1e9:.2f}"
     assert f"| qwen1.5-0.5b | decode_32k | {peak} · not run |" in \
         dryrun.table(str(tmp_path))
+
+
+def test_production_long_context_trace_is_complete(tmp_path):
+    """long_500k's rule table leaves the B = 1 token whole on every rank,
+    and the decode step combines its sequence-sharded cache: one max and
+    one sum all-reduce per global layer (gemma2-2b's 13), no row
+    gather."""
+    rec = dryrun.run_cell("gemma2-2b", "long_500k", False,
+                          results_dir=str(tmp_path), verbose=False)
+    assert rec["ok"], rec.get("traceback")
+    assert rec["n_devices"] == 256 and rec["fits_hbm"] is True
+    m = rec["memory"]
+    _, jax_caches, _ = _jax_case_bytes("gemma2-2b", "long_500k", False)
+    assert m["cache_bytes_per_device"] == jax_caches > 0
+    assert m["peak_bytes_per_device"] >= m["traced_args_bytes"] > 0
+    coll = rec["collectives"]
+    assert coll["decode_max"]["count"] == coll["decode_sum"]["count"] == 13
+    assert "result_gather" not in coll
+    # gemma2-2b's 8 heads and 4 kv heads do not split over 16 model
+    # ranks: the one-token q, k, v are every rank's already
+    assert "decode_qkv_gather" not in coll
 
 
 def test_list_matches_the_jax_dry_run(capsys):

@@ -96,6 +96,33 @@ def test_double_use_guard_resolve_and_batch_axes():
 
 
 @pytest.mark.parametrize("shape", list(MESHES), ids=str)
+def test_batch_axes_follow_the_long_context_rule_table(shape):
+    """Under the JAX package's long_500k table (``batch=()``) the batch
+    resolves to no axis: every rank holds the whole batch, and a row
+    spec leaves it whole; the default table's axes are unchanged."""
+    from repro.common.logical import to_physical as j_to_physical
+    from repro.launch.specs import LONG_CONTEXT_RULES as J_LONG
+    from repro_torch.launch.specs import LONG_CONTEXT_RULES
+    assert LONG_CONTEXT_RULES == J_LONG
+    names = MESHES[shape]
+    mesh = StandIn(shape, names)
+    assert L.batch_axes(mesh, LONG_CONTEXT_RULES) == ()
+    assert L.dp_size(mesh, LONG_CONTEXT_RULES) == 1
+    assert L.batch_axes(mesh, L.DEFAULT_RULES) == L.batch_axes(mesh) == \
+        tuple(a for a in ("pod", "data") if a in names)
+    for spec in [("batch", None), ("batch", "seq_kv", None, None),
+                 ("batch", "seq", "embed")]:
+        assert L.to_physical(spec, mesh, LONG_CONTEXT_RULES) == tuple(
+            j_to_physical(spec, mesh, J_LONG)), spec
+    full = np.arange(6).reshape(1, 6)
+    for r in range(int(np.prod(shape))):
+        blk = L.local_block(full, L.to_physical(("batch", None), mesh,
+                                                LONG_CONTEXT_RULES),
+                            StandIn(shape, names, r))
+        assert (blk == full).all()
+
+
+@pytest.mark.parametrize("shape", list(MESHES), ids=str)
 def test_blocks_of_every_rank_tile_the_leaf(shape):
     names = MESHES[shape]
     full = np.arange(8 * 4 * 8).reshape(8, 4, 8)

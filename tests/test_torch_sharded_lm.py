@@ -11,8 +11,10 @@ process, on the same numpy inputs.
   microbatches against the JAX step (metrics within 1e-4, parameters
   within 1e-5); prefill (plain, and with ``use_flash=True``, the flash
   kernel's plain version on the local heads) plus 4 decode steps within
-  rtol 1e-4, atol 2e-4 on the JAX package's greedy tokens; the caches'
-  local layout (ROADMAP Queue 3 row 3). Then reduced gemma3-12b's loss
+  rtol 1e-4, atol 2e-4 on the JAX package's greedy tokens, the plain
+  prefill's caches in the ``"heads"`` layout (the rank's rows and kv
+  heads) and the flash prefill's in the JAX package's ``"seq"`` layout
+  (the rank's sequence slice of every kv head). Then reduced gemma3-12b's loss
   and gradients (q and k norms on split heads) and one step each of
   deepseek-moe-16b (experts over ``model``), mamba2-780m and
   recurrentgemma-2b against the unsharded port.
@@ -24,7 +26,10 @@ process, on the same numpy inputs.
   ``table_gather`` (counts and bytes, the divergence of ROADMAP Queue 3
   row 3) and the three ``embed_lookup`` contracts counted clean; qwen's
   loss and gradients with the q heads split and the kv heads not (2 × 4)
-  and over a pod axis (2 × 2 × 2); the elastic checkpoint (save on
+  and over a pod axis (2 × 2 × 2); prefill and decode in the ``"seq"``
+  layout where only the q heads split (qwen on 2 × 4) and where neither
+  does (gemma2-2b on 1 × 8, most ranks' slices empty) against the
+  unsharded port; the elastic checkpoint (save on
   (4, 2), restore on (2, 4) with shard shape (16, 2), and whole) and the
   JAX package restoring the sharded save; ``pipelined_apply`` over
   ``pod`` against the sequential blocks, values and gradients.
@@ -48,6 +53,7 @@ TIMEOUT_S = 600
 ARCH = "qwen1.5-0.5b"
 B, S = 4, 8              # the global batch: 2 rows per data rank
 P, GEN = 8, 4            # prompt and decode steps
+SEQ_T = P + GEN + 2       # a "seq" cache: its slots split over model
 SMOKE = ("deepseek-moe-16b", "mamba2-780m", "recurrentgemma-2b")
 TRAIN_STEPS = 2
 
@@ -109,6 +115,7 @@ def _model_rank(mesh, jp, train_kw, forced):
     from repro_torch.common.logical import tree_to_physical
     from repro_torch.common.schema import (init_params, param_logical_specs,
                                            shard_params)
+    from repro_torch.common.tree import tree_map
     from repro_torch.core import collectives
     from repro_torch.kernels.flash_attention import kernel as FK
     from repro_torch.models import transformer as TT
@@ -124,7 +131,9 @@ def _model_rank(mesh, jp, train_kw, forced):
 
     for mb in (1, 2):
         tc = TrainConfig(**train_kw, microbatches=mb)
-        state = {"params": params, "opt": adamw_init(params, tc),
+        # a copy: the step consumes its state, and ``params`` serves on
+        mine = tree_map(torch.clone, params)
+        state = {"params": mine, "opt": adamw_init(mine, tc),
                  "step": torch.zeros((), dtype=torch.int32)}
         step = TS.make_train_step(cfg, tc, mesh=mesh, param_shardings=specs)
         ms = []
@@ -161,9 +170,13 @@ def _model_rank(mesh, jp, train_kw, forced):
     for flash in (False, True):
         FK.reset_launch_counts()
         calls0 = FK.flash_attention_plain.calls
-        pre = TS.make_prefill_step(cfg, cache_len=P + GEN + 1, mesh=mesh,
-                                   use_flash=flash)
-        dec = TS.make_decode_step(cfg, mesh=mesh)
+        # the plain prefill keeps the "heads" layout, the flash one the
+        # default "seq", whose cache splits its slots over model
+        layout = "seq" if flash else "heads"
+        pre = TS.make_prefill_step(cfg, cache_len=SEQ_T if flash else
+                                   P + GEN + 1, mesh=mesh, use_flash=flash,
+                                   cache_layout=layout)
+        dec = TS.make_decode_step(cfg, mesh=mesh, cache_layout=layout)
         with torch.no_grad():
             logits, caches = pre(params, prompt)
             seq = [logits.numpy()]
@@ -193,6 +206,30 @@ def _model_rank(mesh, jp, train_kw, forced):
     return out
 
 
+SEQ_SERVE = (("qwen24_seq", ARCH, "m24"), ("gemma18_seq", "gemma2-2b",
+                                          "m18"))
+SEQ_LEN = 16             # the cache: 16 / tp slots per model rank
+
+
+def _seq_serve(cfg, params, mesh):
+    """Prefill of P tokens and GEN decode steps (cache ``"seq"``, the
+    default) of a B = 2 batch: the logits of every step."""
+    from repro_torch.train import step as TS
+    rng = np.random.default_rng(5)
+    prompt = rng.integers(0, cfg.vocab, (2, P)).astype(np.int32)
+    forced = rng.integers(0, cfg.vocab, (2, GEN)).astype(np.int32)
+    logits, caches = TS.make_prefill_step(cfg, cache_len=SEQ_LEN,
+                                          mesh=mesh)(
+        params, {"tokens": torch.from_numpy(prompt)})
+    dec = TS.make_decode_step(cfg, mesh=mesh)
+    seq = [logits.numpy()]
+    for i in range(GEN):
+        logits, caches = dec(params, torch.from_numpy(forced[:, i:i + 1]),
+                             caches, P + i)
+        seq.append(logits.numpy())
+    return seq
+
+
 def _block_fn(x, w):
     return torch.tanh(x @ w)
 
@@ -212,6 +249,7 @@ def _eight_rank(dmesh, table, ids, qbatch, ckpt_dir, W, x):
     m24 = meshlib.make_test_mesh(2, 4, **kw)
     m42 = meshlib.make_test_mesh(4, 2, **kw)
     m222 = meshlib.make_mesh((2, 2, 2), **kw)
+    m18 = meshlib.make_mesh((1, 8), **kw)
     out = {}
 
     # -- the lookup on 2 x 4 -----------------------------------------------
@@ -250,6 +288,14 @@ def _eight_rank(dmesh, table, ids, qbatch, ckpt_dir, W, x):
     for name, m in (("qwen24", m24), ("qwen222", m222)):
         out[name] = _loss_and_grads(cfg, init_params(
             TT.model_schema(cfg), 0, device="cpu", mesh=m), qbatch, m)
+
+    # -- "seq" caches where the heads split unevenly ----------------------
+    for name, arch, mname in SEQ_SERVE:
+        m = {"m24": m24, "m18": m18}[mname]
+        c = configs.smoke_config(arch)
+        with torch.no_grad():
+            out[name] = _seq_serve(c, init_params(
+                TT.model_schema(c), 0, device="cpu", mesh=m), m)
 
     # -- elastic checkpoint ------------------------------------------------
     spec_tree = {"w": ("vocab", "embed"), "b": (None,)}
@@ -472,6 +518,16 @@ def test_caches_hold_the_rank_rows_and_heads(model):
                          cfg.n_kv_heads // 2, cfg.hd)
 
 
+def test_flash_prefill_caches_hold_a_sequence_slice(model):
+    """The default ``"seq"`` layout (the JAX cache schema): each rank's
+    cache holds its B/dp rows, its half of the slots and every kv
+    head."""
+    cfg = configs.smoke_config(ARCH)
+    for r in model[0]:
+        assert r["serve_flash1"][2] == (cfg.n_layers, B // 2, SEQ_T // 2,
+                                        cfg.n_kv_heads, cfg.hd)
+
+
 def test_qk_norms_on_split_heads_match_the_unsharded_port(model):
     cfg = configs.smoke_config("gemma3-12b")
     loss, metrics, grads = _port_loss_and_grads(cfg, _batch(cfg, 0))
@@ -573,6 +629,22 @@ def test_qwen_on_other_meshes_matches_the_unsharded_port(eight, name):
         np.testing.assert_allclose(gl, loss, rtol=1e-5)
         assert gm["tokens"] == metrics["tokens"]
         _assert_grads_close(gg, grads)
+
+
+@pytest.mark.parametrize("name,arch", [(n, a) for n, a, _ in SEQ_SERVE])
+def test_seq_serving_matches_the_unsharded_port(eight, name, arch):
+    """2 × 4: the q heads split over model and the kv heads do not (the
+    prefill slices its cache, no relayout); 1 × 8: neither splits, and at
+    each decode step six of the eight slices hold no valid position."""
+    from repro_torch.common.schema import init_params
+    from repro_torch.models import transformer as TT
+    cfg = configs.smoke_config(arch)
+    with torch.no_grad():
+        want = _seq_serve(cfg, init_params(TT.model_schema(cfg), 0,
+                                           device="cpu"), None)
+    for r in eight[0]:
+        for got, w in zip(r[name], want):
+            np.testing.assert_allclose(got, w, rtol=1e-5, atol=1e-5)
 
 
 def test_elastic_checkpoint_and_the_reference_restores_it(eight):

@@ -199,18 +199,26 @@ def _tiny_run():
     return step, state, stream
 
 
+def _fresh(state):
+    """A copy of ``state``: the step consumes the state it is given."""
+    from repro_torch.common.tree import tree_map
+    return tree_map(torch.clone, state)
+
+
 def test_train_loop_resumes_bit_exact_and_keeps_the_newest(tmp_path):
     step, state0, stream = _tiny_run()
-    want, n = train_loop(step_fn=step, state=state0, batches=iter(stream),
-                         total_steps=7, log_fn=lambda s: None)
+    want, n = train_loop(step_fn=step, state=_fresh(state0),
+                         batches=iter(stream), total_steps=7,
+                         log_fn=lambda s: None)
     assert n == 7
     ckpt = CheckpointManager(str(tmp_path), keep=2)
-    _, n = train_loop(step_fn=step, state=state0, batches=iter(stream),
-                      total_steps=5, ckpt=ckpt, ckpt_every=2,
-                      log_fn=lambda s: None)
+    _, n = train_loop(step_fn=step, state=_fresh(state0),
+                      batches=iter(stream), total_steps=5, ckpt=ckpt,
+                      ckpt_every=2, log_fn=lambda s: None)
     assert n == 5 and ckpt.steps() == [4, 5]
     logs = []
-    got, n = train_loop(step_fn=step, state=state0, batches=iter(stream),
+    got, n = train_loop(step_fn=step, state=_fresh(state0),
+                        batches=iter(stream),
                         total_steps=7, ckpt=ckpt, ckpt_every=2,
                         log_fn=logs.append)
     assert n == 7 and "[resume] restored checkpoint at step 5" in logs
@@ -230,7 +238,7 @@ def test_train_loop_checkpoints_and_stops_on_preemption(tmp_path):
 
     ckpt = CheckpointManager(str(tmp_path), keep=3)
     logs = []
-    state, n = train_loop(step_fn=preempted_after_two, state=state0,
+    state, n = train_loop(step_fn=preempted_after_two, state=_fresh(state0),
                           batches=iter(stream), total_steps=7, ckpt=ckpt,
                           ckpt_every=100, guard=guard, log_fn=logs.append)
     assert n == 2 and ckpt.steps() == [2]
