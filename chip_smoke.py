@@ -227,7 +227,27 @@ d. the sharded LM: 4 gloo ranks share the card as a (data 2 × model 2)
    gradient, the table gradient bit for bit ``impl="ref"`` on integer
    data and within 1e-5 on normal data. deepseek-moe-16b (experts over
    model) and llama-3.2-vision-90b at smoke size: one sharded step
-   against the unsharded port. Long-context decode: gemma2-2b at its
+   against the unsharded port. The tensor-parallel recurrent mixers
+   (``ssd`` over its heads, ``rglru`` over its width): mamba2-780m and
+   recurrentgemma-2b at their published widths and depths, prefill of 2
+   × 256 and 2 teacher-forced decode steps, in f32 (logits within 1e-4
+   of the largest unsharded logit) and in bf16 on bf16 copies of the
+   parameters with the flash prefill (logits finite, their distance
+   printed; recurrentgemma's 8 local layers launch ``flash_mma_kernel``
+   on the rank's 5 q heads, one launch each, no plain call); every
+   forward's ``psum`` calls those of its layers, each rank's caches the
+   bytes the JAX cache schema places on it; then one f32 ``loss_fn``
+   gradient check (loss within 1e-5, each leaf within 1e-4 of its max
+   |g|) and one ``make_train_step`` step with ``impl="kernel"`` (the
+   CGTrans lookup's owner-side gradient on the dense grid: one launch
+   per forward + backward for recurrentgemma-2b, none for mamba2-780m's
+   baseline lookup), B 4 × S 256, mamba2-780m at full depth and
+   recurrentgemma-2b **cut** to one pattern block (rglru, rglru, local:
+   f32 AdamW state of 2.7 B parameters beside the unsharded reference's
+   does not fit the card), each rank's step peak within ±10 % of the dry
+   run's trace; per prefill, decode step and train step the time, the
+   staged collectives by name and the collective counts are printed.
+   Long-context decode: gemma2-2b at its
    published width and depth (26 layers, local and global, softcaps,
    GQA) in bf16, B 1 under long_500k's rule table
    (``LONG_CONTEXT_RULES``: every rank holds the token) with the JAX
@@ -250,9 +270,12 @@ d. the sharded LM: 4 gloo ranks share the card as a (data 2 × model 2)
    collectives counted (per step one q/k/v gather per layer, one
    ``decode_max`` and one ``decode_sum`` per global layer, no row
    gather). Then, in this
-   process, the lookup's owner-side dense launch at one rank's shape,
-   against its plain version and timed beside ``index_add_`` and its
-   bytes bound.
+   process, the lookup's owner-side dense launch at one rank's shape, at
+   qwen's width and at recurrentgemma-2b's, against its plain version
+   and timed beside ``index_add_`` and its bytes bound; and
+   ``flash_mma_kernel`` at the shape recurrentgemma-2b's local layers
+   give it on a rank (1 row, 5 heads, S 256, hd 256, window 2048)
+   against its plain version, timed beside SDPA and its bound.
 
 Each kernel's launch count is set to 0 just before each path of phases 3,
 4, 6, 7, 8 (in each rank), 9, a, b (in each rank, per contract pass) and
@@ -3877,6 +3900,16 @@ LONG_ARCH, LONG_T, LONG_FILL, LONG_EARLY, LONG_GEN = (
 LONG_RUNS = (("seq_late", "seq", LONG_FILL),
              ("seq_early", "seq", LONG_EARLY),
              ("heads_late", "heads", LONG_FILL))
+# the tensor-parallel recurrent mixers of phase d at their published
+# widths: f32 and bf16 (flash prefill) serving of B 2 x P 256 and 2 decode
+# steps, and one f32 train step of B 4 x S 256 with the kernel-route
+# lookup; recurrentgemma-2b's step cut to one pattern block (f32 AdamW
+# state of its 2.7 B parameters beside the unsharded reference's does not
+# fit the card at full depth)
+TP_RECURRENT = ("mamba2-780m", "recurrentgemma-2b")
+TP_SERVE_B, TP_SERVE_P, TP_SERVE_GEN = 2, 256, 2
+TP_TRAIN_B, TP_TRAIN_S = 4, 256
+TP_TRAIN_LAYERS = {"recurrentgemma-2b": 3}
 # the f32 decode, where rounding cannot hide a layout fault: a 32,768-slot
 # cache (model rank 1's slice starts at 16,384), two steps from each start
 LONG_T_F32, LONG_GEN_F32 = 32768, 2
@@ -3889,17 +3922,20 @@ def _held_bytes(tree):
     return sum(t.numel() * t.element_size() for t in leaves(tree))
 
 
-def _grad_check(torch, mesh, cfg, params, specs, batch, full_params):
+def _grad_check(torch, mesh, cfg, params, specs, batch, full_params,
+                impl="ref"):
     """The sharded gradients of one ``loss_fn`` (the train step's own
-    reduction) gathered, and on rank 0 held leaf by leaf against the
-    unsharded port's: (loss, {leaf: (max |diff|, max |g|)}) on rank 0."""
+    reduction; ``impl`` the lookup gradient's backend) gathered, and on
+    rank 0 held leaf by leaf against the unsharded port's: (loss, {leaf:
+    (max |diff|, max |g|)}) on rank 0."""
     from repro_torch.common.logical import gather_leaf, spec_leaves
     from repro_torch.common.tree import leaves_with_paths, tree_map
     from repro_torch.models import transformer as T
     from repro_torch.train import step as TS
 
     live = tree_map(lambda t: t.detach().requires_grad_(True), params)
-    total, _ = T.loss_fn(live, TS._rows(batch, cfg, mesh), cfg, mesh=mesh)
+    total, _ = T.loss_fn(live, TS._rows(batch, cfg, mesh), cfg, mesh=mesh,
+                         impl=impl)
     total.backward()
     grads = TS._sync_grads(tree_map(lambda t: t.grad, live), specs, mesh)
     del live
@@ -4067,6 +4103,231 @@ def long_decode_rank(mesh, cfg=None, dtype="bfloat16", T=LONG_T,
         if cuda:
             torch.cuda.empty_cache()
         mesh.barrier()
+    return out
+
+
+def _forward_psums(cfg) -> int:
+    """``psum`` calls of one sharded forward over ``model``: two per SSD
+    layer (its norm's statistic, its ``out_proj``), three per RG-LRU layer
+    (the gates, ``w_out``, the MLP's), two per attention layer (the output
+    projection, the MLP's), and one for the CGTrans lookup."""
+    per = {"ssd": 2, "rglru": 3, "local": 2, "attn": 2}
+    return (sum(per[k] for k in cfg.layer_kinds())
+            + int(cfg.cgtrans_embedding))
+
+
+def _cache_bytes_of(cfg, B, T, mesh):
+    """The rank's bytes of the decode caches the JAX cache schema places
+    (``"seq"``) on ``mesh``."""
+    from repro_torch.common.logical import (local_shape, spec_leaves,
+                                            tree_to_physical)
+    from repro_torch.common.schema import leaves, param_logical_specs
+    from repro_torch.models import transformer as TT
+
+    schema = TT.stack_cache_schema_for(cfg, B, T)
+    phys = dict(spec_leaves(tree_to_physical(param_logical_specs(schema),
+                                             mesh)))
+    return sum(math.prod(local_shape(d.shape, phys[p], mesh))
+               * d.dtype.itemsize for p, d in leaves(schema))
+
+
+def _tp_serve(mesh, cfg, params, whole, use_flash, prompt, forced):
+    """Prefill and TP_SERVE_GEN teacher-forced decode steps of ``cfg`` on
+    the mesh (flash prefill with ``use_flash``), against the unsharded
+    port on rank 0: per prefill and step the time, ``psum`` calls,
+    staged collectives by name and flash launches; the rank's cache
+    bytes; on rank 0 each logits' (max |diff|, max |unsharded|)."""
+    import copy
+
+    import torch
+
+    from repro_torch.core import collectives
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.train import step as TS
+
+    dev = mesh.device
+    sync = (lambda: torch.cuda.synchronize(dev)) if dev.type == "cuda" \
+        else (lambda: None)
+    T_ = TP_SERVE_P + TP_SERVE_GEN
+    pre = TS.make_prefill_step(cfg, cache_len=T_, mesh=mesh,
+                               use_flash=use_flash)
+    dec = TS.make_decode_step(cfg, mesh=mesh)
+    out = {"steps": []}
+    seq = []
+    with torch.no_grad():
+        for i in range(TP_SERVE_GEN + 1):
+            staged0 = copy.deepcopy(mesh.staged)
+            FK.reset_launch_counts()
+            sync()
+            t0 = time.perf_counter()
+            with collectives.count_collectives() as counted:
+                if i == 0:
+                    logits, caches = pre(params, prompt)
+                else:
+                    logits, caches = dec(params, forced[:, i - 1:i],
+                                         caches, TP_SERVE_P + i - 1)
+            sync()
+            out["steps"].append({
+                "ms": 1e3 * (time.perf_counter() - t0),
+                "psum": counted.calls["psum"],
+                "counts": counted.as_dict(),
+                "staged": _staged_since(staged0, mesh.staged),
+                "flash": FK.route_launch_counts(),
+                "flash_plain": FK.flash_attention_plain.calls})
+            seq.append(logits.float())
+        out["cache_bytes"] = _held_bytes(caches)
+        out["cache_want"] = _cache_bytes_of(cfg, TP_SERVE_B, T_, mesh)
+        out["finite"] = all(bool(torch.isfinite(x).all()) for x in seq)
+        del caches
+        if whole is not None:
+            upre = TS.make_prefill_step(cfg, cache_len=T_,
+                                        use_flash=use_flash)
+            udec = TS.make_decode_step(cfg)
+            ulog, ucache = upre(whole, prompt)
+            useq = [ulog.float()]
+            for i in range(TP_SERVE_GEN):
+                ulog, ucache = udec(whole, forced[:, i:i + 1], ucache,
+                                    TP_SERVE_P + i)
+                useq.append(ulog.float())
+            V = cfg.vocab
+            out["diff"] = [(float((a[:, :V] - b[:, :V]).abs().max()),
+                            float(b[:, :V].abs().max()))
+                           for a, b in zip(seq, useq)]
+            del ucache, useq
+    return out
+
+
+def _tp_train(mesh, cfg, tc, batch, state, full):
+    """One f32 ``loss_fn`` gradient check and one ``make_train_step``
+    step of ``cfg`` with the kernel-route lookup (``impl="kernel"``): the
+    gradients against the unsharded port on rank 0, each path's time and
+    GAS kernel launches, the step's collectives, staged bytes by name and
+    peak memory beside the dry run's trace of this rank."""
+    import copy
+
+    import torch
+
+    from repro_torch.common.config import ShapeConfig
+    from repro_torch.common.logical import tree_to_physical
+    from repro_torch.common.schema import param_logical_specs
+    from repro_torch.core import collectives
+    from repro_torch.kernels.gas_scatter import kernel as K
+    from repro_torch.launch.mesh import TraceMesh
+    from repro_torch.models import transformer as T
+    from repro_torch.train import step as TS
+
+    dev, cuda = mesh.device, mesh.device.type == "cuda"
+    sync = (lambda: torch.cuda.synchronize(dev)) if cuda else (lambda: None)
+    specs = tree_to_physical(param_logical_specs(T.model_schema(cfg)), mesh)
+    out = {}
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    out["loss_fn"] = _grad_check(torch, mesh, cfg, state["params"], specs,
+                                 batch, full, impl="kernel")
+    sync()
+    out["grad_s"] = time.perf_counter() - t0
+    out["grad_launches"] = K.launch_counts()
+    del full
+    if cuda:
+        torch.cuda.empty_cache()
+    mesh.barrier()
+    step = TS.make_train_step(cfg, tc, mesh=mesh, param_shardings=specs,
+                              impl="kernel")
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(dev)
+    out["base"] = torch.cuda.memory_allocated(dev) if cuda else 0
+    staged0 = copy.deepcopy(mesh.staged)
+    K.reset_launch_counts()
+    sync()
+    t0 = time.perf_counter()
+    with collectives.count_collectives() as counted:
+        state, m = step(state, batch)
+    sync()
+    out["step_s"] = time.perf_counter() - t0
+    out["peak"] = torch.cuda.max_memory_allocated(dev) if cuda else 0
+    out["step_launches"] = K.launch_counts()
+    out["step_counts"] = counted.as_dict()
+    out["step_bytes"] = {k: v for k, v in counted.bytes.items() if v}
+    out["staged"] = _staged_since(staged0, mesh.staged)
+    out["loss"] = float(m["total_loss"])
+    del state
+    out["pred"] = dry_run_memory(
+        cfg, ShapeConfig("chip_d_tp_train", TP_TRAIN_S, TP_TRAIN_B, "train"),
+        TraceMesh(mesh.axis_names, mesh.axis_sizes, mesh.rank, dev), tc)
+    return out
+
+
+def recurrent_tp_rank(mesh, smoke=False):
+    """Phase d's tensor-parallel recurrent mixers on this rank: for
+    mamba2-780m and recurrentgemma-2b at their published widths (``smoke``:
+    their CPU-test sizes, for a rehearsal on CPU gloo ranks), f32 and bf16
+    serving through ``_tp_serve`` (bf16 with the flash prefill) and one f32
+    train step through ``_tp_train``, each against the unsharded port on
+    rank 0, every path's kernel counts set to 0 just before it."""
+    import numpy as np
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.common.config import TrainConfig
+    from repro_torch.common.schema import init_params
+    from repro_torch.common.tree import tree_map
+    from repro_torch.data import TokenStream
+    from repro_torch.models import transformer as T
+    from repro_torch.train import step as TS
+
+    dev, rank0 = mesh.device, mesh.rank == 0
+    cuda = dev.type == "cuda"
+    out = {}
+    for arch in TP_RECURRENT:
+        cfg = configs.smoke_config(arch) if smoke else \
+            configs.get_config(arch)
+        c32 = dataclasses.replace(cfg, compute_dtype="float32")
+        res = {"layers": cfg.n_layers}
+        rng = np.random.default_rng(11)
+        prompt = {"tokens": torch.from_numpy(rng.integers(
+            0, cfg.vocab, (TP_SERVE_B, TP_SERVE_P)).astype(np.int32)).to(
+                dev)}
+        forced = torch.from_numpy(rng.integers(
+            0, cfg.vocab, (TP_SERVE_B, TP_SERVE_GEN)).astype(np.int32)).to(
+                dev)
+        # f32 parameters, each rank's blocks and rank 0's whole tensors
+        # drawn from one seed; bf16 serving on their bf16 copies (the
+        # serving dtype, half the bytes each ZeRO-3 gather stages)
+        schema = T.model_schema(c32)
+        params = init_params(schema, 5, device=dev, draw="device", mesh=mesh)
+        whole = (init_params(schema, 5, device=dev, draw="device")
+                 if rank0 else None)
+        t0 = time.perf_counter()
+        res["serve_f32"] = _tp_serve(mesh, c32, params, whole, False,
+                                     prompt, forced)
+        params, whole = (None if t is None else tree_map(
+            lambda x: x.to(torch.bfloat16), t) for t in (params, whole))
+        res["serve_bf16"] = _tp_serve(mesh, cfg, params, whole, True,
+                                      prompt, forced)
+        res["serve_s"] = time.perf_counter() - t0
+        del params, whole
+        if cuda:
+            torch.cuda.empty_cache()
+        mesh.barrier()
+        tcfg = c32
+        if not smoke and arch in TP_TRAIN_LAYERS:
+            tcfg = dataclasses.replace(c32, n_layers=TP_TRAIN_LAYERS[arch])
+        res["train_layers"] = tcfg.n_layers
+        tc = TrainConfig(**SHARDED_KW)
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in TokenStream(
+            vocab=cfg.vocab, batch=TP_TRAIN_B, seq_len=TP_TRAIN_S,
+            seed=0).batch_at(0).items()}
+        state = TS.init_state(tcfg, tc, 0, mesh=mesh, draw="device")
+        full = (init_params(T.model_schema(tcfg), 0, device=dev,
+                            draw="device") if rank0 else None)
+        t0 = time.perf_counter()
+        res["train"] = _tp_train(mesh, tcfg, tc, batch, state, full)
+        res["train_s"] = time.perf_counter() - t0
+        del state, full
+        if cuda:
+            torch.cuda.empty_cache()
+        mesh.barrier()
+        out[arch] = res
     return out
 
 
@@ -4338,6 +4599,11 @@ def sharded_lm_rank(mesh, spec):
     torch.cuda.empty_cache()
     mesh.barrier()
 
+    # -- tensor-parallel SSD and RG-LRU at their published widths -------
+    t0 = time.perf_counter()
+    out["tp_recurrent"] = recurrent_tp_rank(mesh)
+    out["tp_recurrent_s"] = time.perf_counter() - t0
+
     # -- long-context decode: gemma2-2b under long_500k's rules ----------
     t0 = time.perf_counter()
     out["long"] = {"bfloat16": long_decode_rank(mesh),
@@ -4349,21 +4615,23 @@ def sharded_lm_rank(mesh, spec):
     return out
 
 
-def _embed_dense_timing(torch, K, smi):
-    """The owner-side dense launch of the kernel-route lookup at qwen's
-    width, on one rank's inputs (data rank 0's B/2 x S ids, model rank 0's
-    vocab half): CUDA events, the profiler's device ms, the plain version,
-    ``torch.index_add`` (the library yardstick) and the bytes bound."""
+def _embed_dense_timing(torch, K, smi, arch=LM_TRAIN_ARCH, batch=EMBED_B,
+                        seq=EMBED_S):
+    """The owner-side dense launch of the kernel-route lookup at
+    ``arch``'s width, on one rank's inputs (data rank 0's batch/2 x seq
+    ids, model rank 0's vocab half): CUDA events, the profiler's device
+    ms, the plain version, ``torch.index_add`` (the library yardstick) and
+    the bytes bound."""
     from repro_torch import configs
     from repro_torch.core import gas
     from repro_torch.kernels.gas_scatter import ops
 
-    cfg = configs.get_config(LM_TRAIN_ARCH)
+    cfg = configs.get_config(arch)
     V, D = cfg.vocab_padded, cfg.d_model
     shard = V // SHARDED_LM_SHAPE[1]
     gen = torch.Generator(device="cuda")
     gen.manual_seed(7)
-    ids = torch.randint(0, V, (EMBED_B // SHARDED_LM_SHAPE[0], EMBED_S),
+    ids = torch.randint(0, V, (batch // SHARDED_LM_SHAPE[0], seq),
                         generator=gen, device="cuda").reshape(-1)
     g = torch.randn((ids.numel(), D), generator=gen, device="cuda")
     ok = ids < shard
@@ -4398,10 +4666,182 @@ def _embed_dense_timing(torch, K, smi):
          "occupied": int((call.args[2] > 0).sum()),
          "max_abs_err": d}
     t["bound_ms"], t["bound_by"] = bound(call)
-    log(f"  gas_scatter_dense at the lookup's gradient (qwen width, one "
+    log(f"  gas_scatter_dense at the lookup's gradient ({arch} width, one "
         f"rank: {t['tokens']} tokens, {t['owned']} owned, {shard} x {D} "
         f"rows) [{smi}]: {json.dumps(t)}")
     return t
+
+
+def _tp_flash_check(torch, FK, smi):
+    """``flash_mma_kernel`` against its plain version at the shape
+    recurrentgemma-2b's local layers give it on a rank of the bf16
+    sharded prefill (its rows, the rank's 5 q heads, the one kv head
+    picked for each, window 2048), timed beside the plain version, SDPA
+    and the bound."""
+    from repro_torch import configs
+    from repro_torch.models.layers import _splits
+
+    cfg = configs.get_config("recurrentgemma-2b")
+    tp = SHARDED_LM_SHAPE[1]
+    q_split, kv_split = _splits(cfg, tp)
+    check(q_split and not kv_split, f"recurrentgemma-2b on {tp} model "
+          f"ranks: q split {q_split}, kv split {kv_split}")
+    rows, H, S_ = TP_SERVE_B // SHARDED_LM_SHAPE[0], cfg.n_heads // tp, \
+        TP_SERVE_P
+    args = flash_inputs(torch, FK, rows, S_, S_, H, H, cfg.hd,
+                        torch.bfloat16, seed=3)
+    kw = dict(causal=True, window=cfg.window,
+              softcap=cfg.attn_logit_softcap, kv_len=S_, n_kv_heads=H)
+    FK.reset_launch_counts()
+    got = FK.flash_attention_fwd(*args, **kw)
+    routes = FK.route_launch_counts()
+    want = FK.flash_attention_plain(*args, **kw)
+    got, want = got[:, :S_].float(), want[:, :S_].float()
+    err = float((got - want).abs().max())
+    check(routes == {"mma_bf16": 1, "fma_f32": 0}, f"the flash check at "
+          f"recurrentgemma's sharded prefill shape launched {routes}")
+    check(bool(torch.isfinite(got).all()) and bool(torch.allclose(
+        got, want, **FLASH_TOL["bfloat16"])), f"flash_mma_kernel at "
+        f"recurrentgemma's sharded prefill shape off its plain version by "
+        f"{err} (tolerance {FLASH_TOL['bfloat16']})")
+    q, k, v = (t.reshape(rows, H, -1, cfg.hd)[:, :, :S_] for t in args)
+    mask = torch.ones(S_, S_, dtype=torch.bool, device="cuda").tril()
+    mask &= ~torch.ones_like(mask).tril(-cfg.window)
+    t = {"shape": [rows, H, H, S_, cfg.hd], "max_abs_err": err,
+         "ms": event_ms(torch, lambda: FK.flash_attention_fwd(*args, **kw),
+                        20),
+         "plain_ms": event_ms(torch, lambda: FK.flash_attention_plain(
+             *args, **kw), 3, warm=1),
+         "library_ms": event_ms(torch, lambda: torch.nn.functional.
+                                scaled_dot_product_attention(
+                                    q, k, v, attn_mask=mask, scale=1.0), 20)}
+    t["bound_ms"], t["bound_by"], _, _ = flash_bound(
+        S_, S_, H, H, rows, cfg.hd, kw, 2)
+    log(f"  flash_mma_kernel at recurrentgemma-2b's sharded local-layer "
+        f"prefill shape (rows, q heads, kv heads, S, hd) {t['shape']}, "
+        f"causal, window {cfg.window} [{smi}]: {json.dumps(t)}")
+    return t
+
+
+def check_tp_recurrent(ranks, launches, measured, smi):
+    """Phase d's tensor-parallel SSD and RG-LRU. Serving: f32 logits
+    within 1e-4 of the largest unsharded logit, bf16 logits finite (their
+    distance printed); every forward's ``psum`` calls those of its layers
+    (``_forward_psums``); each rank's caches the bytes the JAX cache schema
+    places on it; the bf16 prefill's flash launches one per local layer on
+    ``mma_bf16``, no plain call. Training: the loss within 1e-5 and every
+    gradient leaf within 1e-4 of its max |g| of the unsharded port; the
+    kernel-route lookup's dense launches one per forward + backward where
+    the config's lookup is CGTrans; each rank's step peak within ±10 % of
+    its dry-run trace."""
+    from repro_torch import configs
+    by_route = measured.setdefault("flash_attention", {}).setdefault(
+        "launches_by_route", {})
+    for arch in TP_RECURRENT:
+        cfg = configs.get_config(arch)
+        r0 = ranks[0]["tp_recurrent"][arch]
+        n_local = sum(k == "local" for k in cfg.layer_kinds())
+        for mode in ("serve_f32", "serve_bf16"):
+            c = dataclasses.replace(cfg, compute_dtype="float32") \
+                if mode == "serve_f32" else cfg
+            want_psum = _forward_psums(c)
+            for r in ranks:
+                res = r["tp_recurrent"][arch][mode]
+                check(res["finite"], f"{arch} {mode}: rank {r['rank']}'s "
+                      f"logits are not finite")
+                check(res["cache_bytes"] == res["cache_want"],
+                      f"{arch} {mode}: rank {r['rank']} holds "
+                      f"{res['cache_bytes']} B of caches, the JAX schema "
+                      f"places {res['cache_want']}")
+                for i, st in enumerate(res["steps"]):
+                    check(st["psum"] == want_psum, f"{arch} {mode} step "
+                          f"{i}: rank {r['rank']} counted {st['psum']} "
+                          f"psum, expected {want_psum}")
+                    n = st["flash"]["mma_bf16"] + st["flash"]["fma_f32"]
+                    want_n = n_local if (mode == "serve_bf16" and i == 0) \
+                        else 0
+                    check(n == st["flash"]["mma_bf16"] == want_n
+                          and st["flash_plain"] == 0,
+                          f"{arch} {mode} step {i}: rank {r['rank']} "
+                          f"launched flash {st['flash']}, "
+                          f"{st['flash_plain']} plain calls; expected "
+                          f"{want_n} on mma_bf16")
+                    launches["flash_attention"] += n
+                    for route, k in st["flash"].items():
+                        by_route[route] = by_route.get(route, 0) + k
+            diff = r0[mode]["diff"]
+            scale = max(sc for _, sc in diff)
+            if mode == "serve_f32":
+                check(all(d <= 1e-4 * scale for d, _ in diff),
+                      f"{arch} f32 sharded logits off the unsharded port "
+                      f"by {diff} (limit {1e-4 * scale:.3g})")
+            st0 = r0[mode]["steps"]
+            log(f"  {arch} {mode[6:]} serving at full width (B "
+                f"{TP_SERVE_B}, prompt {TP_SERVE_P}, {TP_SERVE_GEN} decode "
+                f"steps, {'flash' if mode == 'serve_bf16' else 'plain'} "
+                f"prefill): logits max |sharded - unsharded| "
+                + ", ".join(f"{d:.4g}" for d, _ in diff)
+                + f" of up to {scale:.1f} ({max(d for d, _ in diff) / scale:.3g} "
+                f"of it); psum per layer and forward "
+                f"{st0[0]['psum']}/{cfg.n_layers}; rank 0 cache "
+                f"{r0[mode]['cache_bytes'] / 1e9:.4f} GB; flash launches per "
+                f"rank {[r['tp_recurrent'][arch][mode]['steps'][0]['flash'] for r in ranks][0]} [{smi}]")
+            for r in ranks:
+                res = r["tp_recurrent"][arch][mode]
+                log(f"    rank {r['rank']}: ms prefill, steps "
+                    + ", ".join(f"{st['ms']:.1f}" for st in res["steps"])
+                    + "; staged by name [calls, bytes, s] per prefill / "
+                    "step: " + " | ".join(json.dumps(
+                        {k: [c_, b_, round(t_, 4)] for k, (c_, b_, t_)
+                         in sorted(st["staged"].items())})
+                        for st in res["steps"]))
+        tr0 = r0["train"]
+        (loss_sh, loss_un), diffs = tr0["loss_fn"]
+        check(abs(loss_sh - loss_un) <= 1e-5 * abs(loss_un),
+              f"{arch} sharded f32 loss {loss_sh} against unsharded "
+              f"{loss_un}")
+        g_max = max(m for _, m in diffs.values())
+        worst, worst_leaf = 0.0, None
+        for path, (d, m) in diffs.items():
+            scale = g_max if path[-1] == "bk" else m
+            check(d <= 1e-4 * scale, f"{arch} f32 gradient "
+                  f"{'/'.join(map(str, path))} off the unsharded port by "
+                  f"{d} (max |g| {m})")
+            if path[-1] != "bk" and d / max(m, 1e-30) > worst:
+                worst, worst_leaf = d / max(m, 1e-30), path
+        dense = int(cfg.cgtrans_embedding)
+        for r in ranks:
+            tr = r["tp_recurrent"][arch]["train"]
+            for what in ("grad_launches", "step_launches"):
+                kl = tr[what]
+                check(kl == {"gas_scatter_banded": 0,
+                             "gas_scatter_dense": dense},
+                      f"{arch} train ({what}): rank {r['rank']} launched "
+                      f"{kl}, expected {dense} dense")
+                launches["gas_scatter_dense"] += kl["gas_scatter_dense"]
+            hold_peak(f"rank {r['rank']} {arch} sharded f32 step "
+                      f"({r['tp_recurrent'][arch]['train_layers']} layers, "
+                      f"B {TP_TRAIN_B}, S {TP_TRAIN_S}, impl='kernel')",
+                      tr["peak"], tr["base"], tr["pred"], smi)
+        log(f"  {arch} f32 training at full width "
+            f"({r0['train_layers']} of {cfg.n_layers} layers), B "
+            f"{TP_TRAIN_B}, S {TP_TRAIN_S}, impl='kernel': loss sharded "
+            f"{loss_sh:.6f} / unsharded {loss_un:.6f}; {len(diffs)} "
+            f"gradient leaves within 1e-4 of their max |g| (worst "
+            f"{worst:.3g} at {'/'.join(map(str, worst_leaf))}); dense "
+            f"launches per rank {dense} per fwd+bwd; grad check "
+            f"{tr0['grad_s']:.2f} s, step {tr0['step_s']:.2f} s on rank 0; "
+            f"step collectives {tr0['step_counts']} (psum per layer "
+            f"{tr0['step_counts'].get('psum', 0) / r0['train_layers']:.2f}) "
+            f"[{smi}]")
+        for r in ranks:
+            tr = r["tp_recurrent"][arch]["train"]
+            log(f"    rank {r['rank']}: step {1e3 * tr['step_s']:.1f} ms, "
+                f"staged by name [calls, bytes, s] " + json.dumps(
+                    {k: [c_, b_, round(t_, 4)] for k, (c_, b_, t_)
+                     in sorted(tr["staged"].items())}))
+    log(f"  tensor-parallel recurrent section took "
+        f"{ranks[0]['tp_recurrent_s']:.1f} s on rank 0")
 
 
 def check_long_decode(ranks, smi, cfg=None):
@@ -4634,9 +5074,15 @@ def phase_sharded_lm(torch, FK, K, launches, measured, smi):
               f"off by {d}")
         log(f"  {arch} (smoke) one sharded step: loss {l:.6f} / unsharded "
             f"{ul:.6f}, parameters max |diff| {d:.3g}")
+    check_tp_recurrent(ranks, launches, measured, smi)
     check_long_decode(ranks, smi)
     torch.cuda.empty_cache()
     timing = _embed_dense_timing(torch, K, smi)
+    measured.setdefault("gas_scatter_dense", {})[
+        "embed_grad_recurrentgemma"] = _embed_dense_timing(
+            torch, K, smi, "recurrentgemma-2b", TP_TRAIN_B, TP_TRAIN_S)
+    measured["flash_attention"]["sharded_recurrent_prefill"] = \
+        _tp_flash_check(torch, FK, smi)
     log(f"  phase d took {time.perf_counter() - t_phase:.1f} s")
     return timing
 

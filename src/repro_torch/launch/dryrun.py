@@ -58,7 +58,7 @@ from repro_torch.models import transformer as T
 
 RESULTS_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                            "..", "..", "..", "build", "dryrun")
-VERSION = "t3"  # bump to invalidate cached cells after code changes
+VERSION = "t4"  # bump to invalidate cached cells after code changes
 MESHES = {False: "pod16x16", True: "pod2x16x16"}
 TOP_OPS = 40    # the per-op table's length in a record
 

@@ -25,7 +25,8 @@ Per-shape logical rule overrides, as in the JAX package:
 The serving cases lay their caches out as the JAX cache schema does
 (``cache_layout="seq"``): a full cache's sequence over ``seq_kv`` (→
 ``model``), rings and cross caches replicated over ``model``, every kv
-head.
+head; a recurrent state's heads (``ssm_heads``) or channels (``lru``)
+over ``model`` under every shape's rules.
 """
 
 from __future__ import annotations

@@ -10,6 +10,21 @@ the JAX scan's tree, so the two agree within tolerance, not bit for bit).
 Decode is a single fused update. The temporal block wraps the RG-LRU with
 the Griffin gating: conv1d(4) on the x-branch, GeLU gate branch, output
 projection.
+
+**On a mesh** (``mesh=``) the block is tensor-parallel over ``model``, as
+the JAX schema's ``lru`` axis places it: ``w_x`` and ``w_gate`` are
+column-parallel (the rank's W/tp channels, ``x`` through ``pvary``), and
+the conv, ``lam`` and the scan run on those channels. The two gate
+products contract over the split width against the rank's rows of
+``w_rec_gate`` and ``w_in_gate``: each rank forms both f32 (B, S, W)
+partials, stacked, and one all-reduce over ``model`` sums them (the one
+tuple all-reduce of the JAX program lowered by GSPMD), then the rank takes
+its W/tp columns. ``w_out`` is row-parallel and ends in one all-reduce of
+(B, S, D). The decode cache is the rank's channels of ``h`` and ``conv``
+(``rglru_cache_schema``, the JAX schema's specs). A ``model`` axis that
+does not divide W cannot hold these leaves (``shard_params`` refuses,
+as JAX's ``device_put`` does), so on a mesh the width splits wherever
+the ``model`` axis has more than one rank.
 """
 
 from __future__ import annotations
@@ -21,7 +36,8 @@ import torch.nn.functional as F
 
 from repro_torch.common.config import ModelConfig
 from repro_torch.common.schema import ParamDef
-from repro_torch.models.layers import ready_params
+from repro_torch.models.layers import (ready_params, tp_size, tp_sum,
+                                       tp_vary)
 
 _C = 8.0
 
@@ -42,24 +58,34 @@ def rglru_schema(cfg: ModelConfig) -> Dict[str, Any]:
 
 
 def rglru_cache_schema(cfg: ModelConfig, batch: int) -> Dict[str, ParamDef]:
-    """The decode state. On a mesh a rank's holds its rows and the whole
-    width: the block computes replicated over ``model`` (``_ready``),
-    where the JAX schema splits ``lru`` over it."""
+    """The decode state, with the JAX schema's logical specs: on a mesh a
+    rank's holds its rows and its channels of the width."""
     W = cfg.lru_width or cfg.d_model
     return {
-        "h": ParamDef((batch, W), ("batch", None), init="zeros",
+        "h": ParamDef((batch, W), ("batch", "lru"), init="zeros",
                       dtype=torch.float32),
         "conv": ParamDef((batch, cfg.conv_kernel - 1, W),
-                         ("batch", None, None), init="zeros",
+                         ("batch", None, "lru"), init="zeros",
                          dtype=torch.float32),
     }
 
 
-def _gates(p, xb):
-    """Recurrence gate a and gated input from the x-branch. float32."""
+def _gates(p, xb, mesh=None):
+    """Recurrence gate a and gated input from the x-branch. float32. On a
+    mesh ``xb`` is the rank's channels, and so are a and the input: the
+    gate products' f32 partials are summed over ``model`` in one psum,
+    then sliced."""
     x32 = xb.float()
-    r = torch.sigmoid(x32 @ p["w_rec_gate"].float())
-    i = torch.sigmoid(x32 @ p["w_in_gate"].float())
+    r = x32 @ p["w_rec_gate"].float()
+    i = x32 @ p["w_in_gate"].float()
+    if tp_size(mesh) > 1:
+        # the whole (2, B, S, W) sum enters the rank's columns: pvary's
+        # backward sums the ranks' column cotangents into every column's
+        both = tp_vary(tp_sum(torch.stack([r, i]), mesh), mesh)
+        Wl = xb.shape[-1]
+        lo = mesh.axis_index("model") * Wl
+        r, i = both[0, ..., lo:lo + Wl], both[1, ..., lo:lo + Wl]
+    r, i = torch.sigmoid(r), torch.sigmoid(i)
     log_a = -_C * F.softplus(p["lam"].float()) * r
     a = torch.exp(log_a)
     beta = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), min=1e-12))
@@ -93,27 +119,30 @@ def linear_scan(a: torch.Tensor, b: torch.Tensor
 
 
 def _ready(p, cfg: ModelConfig, mesh):
-    """On a mesh every weight gathered (``lru`` over ``model`` too): the
-    block's compute is replicated over ``model`` (tensor-parallel RG-LRU
-    is ROADMAP work)."""
-    return ready_params(p, rglru_schema(cfg), mesh)
+    """The weights as the rank's compute reads them: its ``lru`` blocks,
+    every ``embed`` dimension gathered over ``data``."""
+    keep = ("lru",) if tp_size(mesh) > 1 else ()
+    return ready_params(p, rglru_schema(cfg), mesh, keep)
 
 
 def rglru_apply(p: Dict[str, Any], x: torch.Tensor, cfg: ModelConfig,
                 init_h=None, conv_history=None, return_cache: bool = False,
                 mesh=None):
-    """Full-sequence temporal block. x: (B,S,D) → (B,S,D)."""
+    """Full-sequence temporal block. x: (B,S,D) → (B,S,D); on a mesh the
+    rank's channels (``init_h``, ``conv_history`` and the cache too), then
+    the psum over ``model``."""
     p = _ready(p, cfg, mesh)
-    xb = x @ p["w_x"].to(x.dtype)
-    gate = F.gelu(x @ p["w_gate"].to(x.dtype), approximate="tanh")
+    xv = tp_vary(x, mesh)
+    xb = xv @ p["w_x"].to(x.dtype)
+    gate = F.gelu(xv @ p["w_gate"].to(x.dtype), approximate="tanh")
     xb, hist = _conv(xb, p["conv_w"], p["conv_b"], conv_history)
-    a, bx = _gates(p, xb)                      # (B,S,W) f32 each
+    a, bx = _gates(p, xb, mesh)                # (B,S,W) f32 each
     if init_h is not None:
         bx = torch.cat([bx[:, :1] + a[:, :1] * init_h.float()[:, None],
                         bx[:, 1:]], dim=1)
     _, h = linear_scan(a, bx)
     y = h.to(x.dtype) * gate
-    out = y @ p["w_out"].to(x.dtype)
+    out = tp_sum(y @ p["w_out"].to(x.dtype), mesh)
     if return_cache:
         return out, {"h": h[:, -1].float(), "conv": hist.float()}
     return out
@@ -123,15 +152,17 @@ def rglru_decode(p: Dict[str, Any], x: torch.Tensor,
                  cache: Dict[str, torch.Tensor], cfg: ModelConfig, mesh=None
                  ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Single-step update. x: (B,1,D). Returns (output, new cache); the
-    cache passed in is not written."""
+    cache passed in is not written. On a mesh the cache is the rank's
+    (``rglru_cache_schema``) and so is the new one."""
     p = _ready(p, cfg, mesh)
-    xb = (x @ p["w_x"].to(x.dtype))[:, 0]
-    gate = F.gelu((x @ p["w_gate"].to(x.dtype))[:, 0], approximate="tanh")
+    xv = tp_vary(x, mesh)
+    xb = (xv @ p["w_x"].to(x.dtype))[:, 0]
+    gate = F.gelu((xv @ p["w_gate"].to(x.dtype))[:, 0], approximate="tanh")
     hist = torch.cat([cache["conv"].to(xb.dtype), xb[:, None, :]], dim=1)
     xb = (torch.sum(hist * p["conv_w"].to(xb.dtype)[None], dim=1)
           + p["conv_b"].to(xb.dtype))
-    a, bx = _gates(p, xb)
+    a, bx = _gates(p, xb, mesh)
     h = a * cache["h"] + bx
     y = h.to(x.dtype) * gate
-    out = (y @ p["w_out"].to(x.dtype))[:, None, :]
+    out = tp_sum(y @ p["w_out"].to(x.dtype), mesh)[:, None, :]
     return out, {"h": h, "conv": hist[:, 1:].float()}

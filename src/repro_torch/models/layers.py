@@ -21,7 +21,11 @@ policy is the JAX package's ``_qkv``: attention heads split over ``model``
 when ``H % tp == 0``, kv heads when ``Hkv % tp == 0``, else replicated;
 the output projection is row-parallel and ends in one ``psum`` over
 ``model``; the MLP is column-parallel (gate / up over ``ff``), then
-row-parallel, then one ``psum``. Over ``model`` the replicated activations
+row-parallel, then one ``psum``; the recurrent mixers split their heads
+(``models/ssm.py``, ``ssm_heads``) or width (``models/griffin.py``,
+``lru``) the same way, with one more all-reduce each where the JAX
+program holds it (SSD's norm statistic over the whole d_inner, RG-LRU's
+gate partials). Over ``model`` the replicated activations
 and their cotangents are the same on every rank: a tensor entering a
 tensor-parallel compute passes ``pvary`` (its backward sums the ranks'
 parts), a ``psum``'s cotangent is the cotangent, and so the gradient of a
@@ -221,6 +225,18 @@ def _pvary(x, mesh):
 
 def _psum(x, mesh):
     return collectives.psum(x, mesh, axis="model")
+
+
+def tp_vary(x, mesh):
+    """``x``, replicated over ``model``, entering a tensor-parallel compute
+    (``pvary``) where the mesh splits ``model``; else ``x``."""
+    return _pvary(x, mesh) if tp_size(mesh) > 1 else x
+
+
+def tp_sum(x, mesh):
+    """The sum of the ranks' parts ``x`` over ``model`` (``psum``) where
+    the mesh splits it; else ``x``."""
+    return _psum(x, mesh) if tp_size(mesh) > 1 else x
 
 
 def rope_for(kind: str, ctx: LayerCtx):

@@ -8,6 +8,23 @@ state, with the same per-chunk arithmetic.
 
 Layout: d_inner = expand·d_model, H = d_inner/head_dim heads, state N,
 single B/C group (n_groups = 1, matching mamba2-780m).
+
+**On a mesh** (``mesh=``) the mixer is tensor-parallel over ``model``, as
+the JAX schema's ``ssm_heads`` axis places it: the rank reads its H/tp
+heads of ``z_proj``, ``x_proj``, ``dt_proj``, the x-conv, ``a_log``,
+``dt_bias``, ``d_skip`` and ``out_norm`` (ZeRO-3 ``embed`` blocks are
+still gathered over ``data``), and B and C come from the replicated
+``b_proj`` / ``c_proj`` and their convs, then pass ``pvary`` into the
+rank's heads (their cotangents are the rank's part; ``models/layers.py``
+says why). The forward holds the two all-reduces over ``model`` that the
+JAX program lowered by GSPMD holds: the f32 (B, S) sum of squares of
+``out_norm``, an RMS over the whole d_inner, and the (B, S, D) output of
+the row-parallel ``out_proj``. Its decode cache is the rank's heads of
+``state`` and channels of ``conv_x``, ``conv_b`` and ``conv_c`` whole
+(``ssd_cache_schema``, the JAX schema's specs). A ``model`` axis that
+does not divide H cannot hold these leaves: ``shard_params`` refuses the
+placement, as JAX's ``device_put`` does, so on a mesh the heads split
+wherever the ``model`` axis has more than one rank.
 """
 
 from __future__ import annotations
@@ -19,7 +36,8 @@ import torch.nn.functional as F
 
 from repro_torch.common.config import ModelConfig
 from repro_torch.common.schema import ParamDef
-from repro_torch.models.layers import ready_params, rms_norm
+from repro_torch.models.layers import (ready_params, rms_norm, tp_size,
+                                       tp_sum, tp_vary)
 
 
 def dims(cfg: ModelConfig) -> Tuple[int, int, int, int]:
@@ -56,16 +74,19 @@ def ssd_schema(cfg: ModelConfig) -> Dict[str, Any]:
 
 
 def ssd_cache_schema(cfg: ModelConfig, batch: int) -> Dict[str, ParamDef]:
-    """The decode state. On a mesh a rank's holds its rows and every head:
-    the mixer computes replicated over ``model`` (``_ready``), where the
-    JAX schema splits the heads over it."""
+    """The decode state, with the JAX schema's logical specs: on a mesh a
+    rank's holds its rows, its heads of ``state`` and its channels of
+    ``conv_x``; ``conv_b`` and ``conv_c`` are replicated over
+    ``model``."""
     d_inner, H, P_, N = dims(cfg)
     K = cfg.conv_kernel
     f32 = torch.float32
     return {
-        "state": ParamDef((batch, H, P_, N), ("batch", None, None, None),
+        "state": ParamDef((batch, H, P_, N),
+                          ("batch", "ssm_heads", None, None),
                           init="zeros", dtype=f32),
-        "conv_x": ParamDef((batch, K - 1, d_inner), ("batch", None, None),
+        "conv_x": ParamDef((batch, K - 1, d_inner),
+                           ("batch", None, "ssm_heads"),
                            init="zeros", dtype=f32),
         "conv_b": ParamDef((batch, K - 1, N), ("batch", None, None),
                            init="zeros", dtype=f32),
@@ -155,24 +176,46 @@ def _proj(x, w):
 
 
 def _ready(p, cfg: ModelConfig, mesh):
-    """On a mesh every weight gathered (``ssm_heads`` over ``model`` too):
-    the mixer's compute is replicated over ``model`` (tensor-parallel SSD
-    is ROADMAP work)."""
-    return ready_params(p, ssd_schema(cfg), mesh)
+    """The weights as the rank's compute reads them: its ``ssm_heads``
+    blocks, every ``embed`` dimension gathered over ``data``."""
+    keep = ("ssm_heads",) if tp_size(mesh) > 1 else ()
+    return ready_params(p, ssd_schema(cfg), mesh, keep)
+
+
+def _out_norm(y, w, cfg: ModelConfig, mesh):
+    """``rms_norm`` of y (B, S, d_inner/tp) over the whole d_inner: the
+    rank's f32 sum of squares, one psum over ``model`` of the (B, S)
+    statistic, then the rank's scale."""
+    if tp_size(mesh) == 1:
+        return rms_norm(y, w, cfg.norm_eps, False)
+    yf = y.float()
+    ss = tp_sum(torch.sum(torch.square(yf), dim=-1), mesh)
+    # the statistic enters the rank's channels: its cotangent is the
+    # rank's part, summed by pvary's backward
+    var = tp_vary(ss, mesh)[..., None] / (yf.shape[-1] * tp_size(mesh))
+    return (yf * torch.rsqrt(var + cfg.norm_eps) * w.float()).to(y.dtype)
+
+
+def _mixer_out(y, z, p, cfg: ModelConfig, mesh, x_dtype):
+    """The gated norm and the (row-parallel on a mesh) ``out_proj``."""
+    y = _out_norm(y * F.silu(z), p["out_norm"], cfg, mesh)
+    return tp_sum(y @ p["out_proj"].to(x_dtype), mesh)
 
 
 def ssd_apply(p: Dict[str, Any], x: torch.Tensor, cfg: ModelConfig,
               init_state=None, conv_history=None,
               return_cache: bool = False, mesh=None):
-    """Full-sequence mamba2 mixer. x: (B,S,D) → (B,S,D)."""
+    """Full-sequence mamba2 mixer. x: (B,S,D) → (B,S,D); on a mesh the
+    rank's heads, then the psums over ``model``."""
     p = _ready(p, cfg, mesh)
-    d_inner, H, P_, _ = dims(cfg)
+    _, _, P_, _ = dims(cfg)
     B, S, _ = x.shape
-    z = _proj(x, p["z_proj"])
-    xs = _proj(x, p["x_proj"])
+    xv = tp_vary(x, mesh)
+    z = _proj(xv, p["z_proj"])
+    xs = _proj(xv, p["x_proj"])
+    dt = _proj(xv, p["dt_proj"])
     Bm = _proj(x, p["b_proj"])
     Cm = _proj(x, p["c_proj"])
-    dt = _proj(x, p["dt_proj"])
     hx = hb = hc = None
     if conv_history is not None:
         hx, hb, hc = (conv_history["conv_x"], conv_history["conv_b"],
@@ -180,14 +223,15 @@ def ssd_apply(p: Dict[str, Any], x: torch.Tensor, cfg: ModelConfig,
     xs, nhx = _causal_conv(xs, p["conv_x_w"], p["conv_x_b"], hx)
     Bm, nhb = _causal_conv(Bm, p["conv_b_w"], p["conv_b_b"], hb)
     Cm, nhc = _causal_conv(Cm, p["conv_c_w"], p["conv_c_b"], hc)
-    xs = xs.reshape(B, S, H, P_)
+    # B and C from the replicated projections, into the rank's heads
+    Bm, Cm = tp_vary(Bm, mesh), tp_vary(Cm, mesh)
+    xs = xs.reshape(B, S, -1, P_)
     dt = F.softplus(dt.float() + p["dt_bias"][None, None, :])
     A = -torch.exp(p["a_log"].float())
     y, state = ssd_chunked(xs, dt, A, Bm, Cm, cfg.ssm_chunk, init_state)
     y = y + xs.float() * p["d_skip"][None, None, :, None]
-    y = y.reshape(B, S, d_inner).to(x.dtype)
-    y = rms_norm(y * F.silu(z), p["out_norm"], cfg.norm_eps, False)
-    out = y @ p["out_proj"].to(x.dtype)
+    y = y.reshape(B, S, -1).to(x.dtype)
+    out = _mixer_out(y, z, p, cfg, mesh, x.dtype)
     if return_cache:
         cache = {"state": state,
                  "conv_x": nhx.float(), "conv_b": nhb.float(),
@@ -208,22 +252,24 @@ def _conv_step(v, hist, w, b, act: bool = True):
 def ssd_decode(p: Dict[str, Any], x: torch.Tensor,
                cache: Dict[str, torch.Tensor], cfg: ModelConfig, mesh=None):
     """Single-token recurrent update. x: (B,1,D). Returns (output, new
-    cache); the cache passed in is not written."""
+    cache); the cache passed in is not written. On a mesh the cache is the
+    rank's (``ssd_cache_schema``) and so is the new one."""
     p = _ready(p, cfg, mesh)
-    d_inner, H, P_, _ = dims(cfg)
+    _, _, P_, _ = dims(cfg)
     B = x.shape[0]
     x0 = x[:, 0]
-    z = _proj(x0, p["z_proj"])
-    xs = _proj(x0, p["x_proj"])
+    xv = tp_vary(x0, mesh)
+    z = _proj(xv, p["z_proj"])
+    xs = _proj(xv, p["x_proj"])
+    dt = _proj(xv, p["dt_proj"])
     Bm = _proj(x0, p["b_proj"])
     Cm = _proj(x0, p["c_proj"])
-    dt = _proj(x0, p["dt_proj"])
     xs, nhx = _conv_step(xs, cache["conv_x"], p["conv_x_w"], p["conv_x_b"])
     Bm, nhb = _conv_step(Bm, cache["conv_b"], p["conv_b_w"], p["conv_b_b"])
     Cm, nhc = _conv_step(Cm, cache["conv_c"], p["conv_c_w"], p["conv_c_b"])
-    xs = xs.reshape(B, H, P_)
-    Bm = Bm.float()
-    Cm = Cm.float()
+    xs = xs.reshape(B, -1, P_)
+    Bm = tp_vary(Bm, mesh).float()
+    Cm = tp_vary(Cm, mesh).float()
     dt_ = F.softplus(dt.float() + p["dt_bias"][None, :])            # (B,H)
     A = -torch.exp(p["a_log"].float())
     dA = torch.exp(dt_ * A[None, :])                                 # (B,H)
@@ -231,8 +277,7 @@ def ssd_decode(p: Dict[str, Any], x: torch.Tensor,
     state = cache["state"] * dA[:, :, None, None] + upd
     y = torch.einsum("bn,bhpn->bhp", Cm, state)                      # (B,H,P)
     y = y + xs.float() * p["d_skip"][None, :, None]
-    y = y.reshape(B, d_inner).to(x.dtype)
-    y = rms_norm(y * F.silu(z), p["out_norm"], cfg.norm_eps, False)
-    out = (y @ p["out_proj"].to(x.dtype))[:, None, :]
+    y = y.reshape(B, -1).to(x.dtype)
+    out = _mixer_out(y, z, p, cfg, mesh, x.dtype)[:, None, :]
     return out, {"state": state, "conv_x": nhx.float(),
                  "conv_b": nhb.float(), "conv_c": nhc.float()}

@@ -102,7 +102,10 @@ def layer_cache_schema(cfg: ModelConfig, kind: str, batch: int,
                        layout: str = "seq") -> Dict[str, Any]:
     """One layer's decode cache in ``layout`` (``layers.attn_cache_schema``:
     ``"seq"``, the JAX package's schema; ``"heads"``, its kv heads laid
-    out for a ``model`` axis of ``tp`` ranks, ``layers.cache_heads``)."""
+    out for a ``model`` axis of ``tp`` ranks, ``layers.cache_heads``). The
+    layout concerns attention caches only: a recurrent layer's state takes
+    the JAX schema's specs in both, its heads or channels split over
+    ``model``."""
     kw = dict(tp=tp, layout=layout)
     if kind == "ssd":
         return {"mixer": ssm.ssd_cache_schema(cfg, batch)}

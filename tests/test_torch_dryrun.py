@@ -6,11 +6,10 @@
   formula (``src/repro/launch/dryrun.py:99-109``) over JAX's own schemas,
   logical specs, ``to_physical`` on a stand-in mesh and
   ``specs.rules_for``. The serving cases' caches take the JAX layout
-  (``cache_layout="seq"``): their attention caches' bytes equal the JAX
-  formula's, and with them the whole caches of every arch without a
-  recurrent layer; a recurrent layer's state holds every head on each
-  rank (ROADMAP Queue 1 row 16). The port's other layout (``"heads"``:
-  the rank's rows and every slot of the kv heads its attention reads) is
+  (``cache_layout="seq"``): their bytes equal the JAX formula's in every
+  cell, the recurrent layers' states too (the rank's heads and channels).
+  The port's other layout (``"heads"``: the rank's rows and every slot of
+  the kv heads its attention reads; a recurrent state as in ``"seq"``) is
   held to its own formula.
 * **Trace ≡ real run** on 4 gloo ranks as (data 2 × model 2): rank r's
   fake trace of reduced qwen1.5-0.5b's train and decode steps and of one
@@ -19,7 +18,10 @@
 * **FLOPs against JAX**: reduced qwen1.5-0.5b, gemma2-2b and whisper-base,
   unsharded, train and prefill: the traced dot FLOPs within 1e-2 of
   ``repro.launch.hlo_analysis.analyze(...).dot_flops`` of the JAX step
-  compiled here on its one CPU device.
+  compiled here on its one CPU device. One SSD and one RG-LRU layer at
+  their published widths, traced on rank 0 of the (16, 16) mesh: the
+  dot FLOPs of the unsharded layer with every head- or width-split
+  product divided by 16.
 * Two production traces with a complete record (qwen1.5-0.5b ×
   decode_32k and gemma2-2b × long_500k under its rule table, both on
   (16, 16)), the CLI's ``--list`` against JAX's, ``launch.train
@@ -66,20 +68,16 @@ class _StandIn:
         self.shape = dict(zip(names, shape))
 
 
-def _jax_bytes(structs, logical, mesh, rules, keep=lambda path: True):
+def _jax_bytes(structs, logical, mesh, rules):
     """The JAX dry run's ``_arg_bytes`` summed over a tree: each struct's
-    bytes divided by the mesh sizes of the axes of its PartitionSpec
-    (``keep``: a test of each leaf's key path, the leaves to count)."""
+    bytes divided by the mesh sizes of the axes of its PartitionSpec."""
     import jax
 
     from repro.common.logical import to_physical
     is_spec = lambda x: isinstance(x, tuple)  # noqa: E731
     total = 0.0
-    paths = jax.tree_util.tree_flatten_with_path(structs)[0]
-    for (path, st), spec in zip(paths,
-                                jax.tree.leaves(logical, is_leaf=is_spec)):
-        if not keep(tuple(getattr(k, "key", k) for k in path)):
-            continue
+    for st, spec in zip(jax.tree.leaves(structs),
+                        jax.tree.leaves(logical, is_leaf=is_spec)):
         div = 1
         for entry in to_physical(spec, mesh, rules):
             for ax in ((entry,) if isinstance(entry, str)
@@ -89,14 +87,9 @@ def _jax_bytes(structs, logical, mesh, rules, keep=lambda path: True):
     return total
 
 
-def _is_kv(path):
-    return path[-1] in ("k", "v")
-
-
 def _jax_case_bytes(arch, shape_name, multi_pod):
-    """(bytes of the parameters / state and batch, bytes of the caches,
-    bytes of the attention caches) per device in the JAX dry run's
-    layout."""
+    """(bytes of the parameters / state and batch, bytes of the caches)
+    per device in the JAX dry run's layout."""
     import jax.numpy as jnp
 
     from repro import configs as jconfigs
@@ -115,8 +108,7 @@ def _jax_case_bytes(arch, shape_name, multi_pod):
         return (_jax_bytes(param_structs(schema),
                            param_logical_specs(schema), mesh, rules)
                 + _jax_bytes(JS.batch_structs(cfg, shape),
-                             JS.batch_logical_specs(cfg), mesh, rules), 0.0,
-                0.0)
+                             JS.batch_logical_specs(cfg), mesh, rules), 0.0)
     bf16 = tree_map_defs(
         lambda d: dataclasses.replace(d, dtype=jnp.bfloat16)
         if d.dtype == jnp.float32 else d,
@@ -132,13 +124,12 @@ def _jax_case_bytes(arch, shape_name, multi_pod):
         args += _jax_bytes(bs, spec, mesh, rules)
     else:
         args += _jax_bytes(tok, tok_spec, mesh, rules)
-    return (args, _jax_bytes(caches, cache_spec, mesh, rules),
-            _jax_bytes(caches, cache_spec, mesh, rules, keep=_is_kv))
+    return args, _jax_bytes(caches, cache_spec, mesh, rules)
 
 
-def _layout_bytes(cfg, shape, multi_pod, layout, keep=lambda path: True):
+def _layout_bytes(cfg, shape, multi_pod, layout):
     """The rank's bytes of the caches in ``layout`` on a production mesh
-    under the shape's rules (``keep``: the leaves to count)."""
+    under the shape's rules."""
     from repro_torch.common.logical import (local_shape, spec_leaves,
                                             tree_to_physical)
     from repro_torch.common.tree import leaves_with_paths
@@ -151,7 +142,7 @@ def _layout_bytes(cfg, shape, multi_pod, layout, keep=lambda path: True):
                                              specs.rules_for(shape))))
     return sum(math.prod(local_shape(tuple(t.shape), phys[p], mesh))
                * t.element_size()
-               for p, t in leaves_with_paths(structs) if keep(p))
+               for p, t in leaves_with_paths(structs))
 
 
 def _port_cache_bytes(cfg, shape, multi_pod):
@@ -159,7 +150,8 @@ def _port_cache_bytes(cfg, shape, multi_pod):
     kinds: its B/dp rows (all of them under long_500k's rules); an
     attention cache's window or sequence slots and its kv heads split over
     ``model`` where they divide, else one per q head where those divide,
-    else all; every recurrent head and channel."""
+    else all; a recurrent state's heads and channels split over ``model``
+    (the SSD's B and C convs whole)."""
     from repro_torch.models import ssm
     from repro_torch.models.transformer import stack_layout
     dims, names = meshlib.PRODUCTION_SHAPES[multi_pod]
@@ -195,10 +187,11 @@ def _port_cache_bytes(cfg, shape, multi_pod):
         elif kind == "ssd":
             d_inner, H, P_, N = ssm.dims(cfg)
             K = cfg.conv_kernel
-            total += rows * 4 * (H * P_ * N + (K - 1) * (d_inner + 2 * N))
+            total += rows * 4 * ((H * P_ * N + (K - 1) * d_inner) // tp
+                                 + (K - 1) * 2 * N)
         elif kind == "rglru":
             W = cfg.lru_width or cfg.d_model
-            total += rows * 4 * W * cfg.conv_kernel
+            total += rows * 4 * W * cfg.conv_kernel // tp
     return total
 
 
@@ -210,18 +203,13 @@ def test_arg_bytes_equal_the_jax_formula(arch, shape, multi_pod,
     cfg, shp = configs.get_config(arch), configs.get_shape(shape)
     case = specs.build_case(cfg, shp, meshlib.make_production_mesh(
         multi_pod=multi_pod))
-    want_args, jax_caches, jax_kv = _jax_case_bytes(arch, shape, multi_pod)
+    want_args, jax_caches = _jax_case_bytes(arch, shape, multi_pod)
     held = case.arg_bytes - (case.cache_bytes if shp.kind == "decode" else 0)
     assert held == want_args
     if shp.kind == "train":
         assert case.cache_bytes == 0
     else:
-        # the "seq" layout: the JAX caches, but each recurrent state whole
-        recurrent = _layout_bytes(cfg, shp, multi_pod, "seq",
-                                  keep=lambda p: not _is_kv(p))
-        assert case.cache_bytes == jax_kv + recurrent > 0
-        if jax_kv == jax_caches:
-            assert case.cache_bytes == jax_caches
+        assert case.cache_bytes == jax_caches > 0
         assert _layout_bytes(cfg, shp, multi_pod, "heads") == \
             _port_cache_bytes(cfg, shp, multi_pod) > 0
     record_property("cache_bytes_port", case.cache_bytes)
@@ -366,6 +354,69 @@ def test_dot_flops_match_the_jax_hlo(arch, kind):
     assert math.isclose(got, want, rel_tol=1e-2), (got, want)
 
 
+# one recurrent mixer per rank: the split products divided by the model size
+MIXER_B, MIXER_S = 1, 1024
+
+
+def _mixer_dot_flops(kind, mesh):
+    """The traced dot FLOPs of one forward of the SSD (mamba2-780m) or
+    RG-LRU (recurrentgemma-2b) mixer at its published width, on fake
+    tensors: the rank's parameter blocks on ``mesh`` (``None``:
+    unsharded) and MIXER_B × MIXER_S rows."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.common.logical import local_shape, to_physical
+    from repro_torch.common.schema import leaves
+    from repro_torch.models import griffin, ssm
+    arch, schema_fn, apply = (
+        ("mamba2-780m", ssm.ssd_schema, ssm.ssd_apply) if kind == "ssd"
+        else ("recurrentgemma-2b", griffin.rglru_schema,
+              griffin.rglru_apply))
+    cfg = configs.get_config(arch)
+    mode = FakeTensorMode()
+    with mode:
+        params = {path[-1]: torch.empty(
+            d.shape if mesh is None else
+            local_shape(d.shape, to_physical(d.logical, mesh), mesh))
+            for path, d in leaves(schema_fn(cfg))}
+        x = torch.empty(MIXER_B, MIXER_S, cfg.d_model)
+        with torch.no_grad():
+            got = trace_analysis.analyze(
+                lambda p, x: apply(p, x, cfg, mesh=mesh), params, x)
+    return cfg, got.dot_flops
+
+
+@pytest.mark.parametrize("kind", ["ssd", "rglru"])
+def test_mixer_dot_flops_split_over_model(kind):
+    """Rank 0 of the (16, 16) mesh runs the unsharded layer's products
+    with every head- or width-split one divided by 16. SSD (chunk L, nC =
+    S / L chunks): whole on every rank, ``b_proj`` and ``c_proj`` (2·B·S·
+    D·N each) and the chunks' C·Bᵀ (2·B·L²·N each); split, the z / x / dt
+    projections (2·B·S·D·(2·d_inner + H)), ``out_proj`` (2·B·S·d_inner·D)
+    and per chunk the intra-chunk product (2·B·H·L²·P), the carried
+    state's (2·B·L·H·P·N) and the state update's (2·B·H·N·P·L). RG-LRU:
+    all split, w_x and w_gate (2·B·S·D·W each), the two gate products
+    (2·B·S·W² each), ``w_out`` (2·B·S·W·D)."""
+    from repro_torch.models import ssm
+    mesh = meshlib.TraceMesh(("data", "model"), (16, 16), 0,
+                             torch.device("cpu"))
+    cfg, unsharded = _mixer_dot_flops(kind, None)
+    _, rank = _mixer_dot_flops(kind, mesh)
+    B, S, D = MIXER_B, MIXER_S, cfg.d_model
+    if kind == "ssd":
+        E, H, P_, N = ssm.dims(cfg)
+        L = cfg.ssm_chunk
+        nC = S // L
+        whole = 2 * (2 * B * S * D * N) + nC * 2 * B * L * L * N
+        split = (2 * B * S * D * (2 * E + H) + 2 * B * S * E * D
+                 + nC * 2 * B * H * P_ * L * (L + 2 * N))
+    else:
+        W = cfg.lru_width
+        whole, split = 0, 2 * B * S * (3 * D * W + 2 * W * W)
+    assert unsharded == whole + split
+    assert rank == whole + split // 16
+
+
 # ---------------------------------------------------------------------------
 # one production trace, the CLI, the launcher, the kernels' refusal
 # ---------------------------------------------------------------------------
@@ -408,7 +459,7 @@ def test_production_long_context_trace_is_complete(tmp_path):
     assert rec["ok"], rec.get("traceback")
     assert rec["n_devices"] == 256 and rec["fits_hbm"] is True
     m = rec["memory"]
-    _, jax_caches, _ = _jax_case_bytes("gemma2-2b", "long_500k", False)
+    _, jax_caches = _jax_case_bytes("gemma2-2b", "long_500k", False)
     assert m["cache_bytes_per_device"] == jax_caches > 0
     assert m["peak_bytes_per_device"] >= m["traced_args_bytes"] > 0
     coll = rec["collectives"]
