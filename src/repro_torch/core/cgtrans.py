@@ -66,6 +66,7 @@ from repro_torch.device import check_impl
 from repro_torch.kernels import entries
 from repro_torch.kernels.gas_scatter import ops as gas_ops
 from repro_torch.launch.mesh import DataMesh, Mesh
+from repro_torch.runtime import trace
 
 
 # ---------------------------------------------------------------------------
@@ -189,11 +190,12 @@ def _find(table: torch.Tensor, ids: torch.Tensor, *, impl: str,
     """The find of find-and-compute: dense tables through
     ``gas.gas_gather``; a packed capacity swaps in the compressed-table
     gather. Ticks ``find`` once either way."""
-    if sparse_cap is None:
-        return gas.gas_gather(table, ids, impl=impl)
-    gas._tick("find")
-    entries.note("find", table)
-    return _SparseGather.apply(table, ids, sparse_cap, check_impl(impl))
+    with trace.span("gas.find", table):
+        if sparse_cap is None:
+            return gas.gas_gather(table, ids, impl=impl)
+        gas._tick("find")
+        entries.note("find", table)
+        return _SparseGather.apply(table, ids, sparse_cap, check_impl(impl))
 
 
 def _sparse_ship(x: torch.Tensor, mesh, wire: str, capacity: int):
@@ -281,9 +283,17 @@ def build_edge_schedule(dst_global: torch.Tensor, mask: torch.Tensor,
     the flattened edge list; on a sharded mesh each rank builds its own
     shard's schedule from its ``(1, E)`` slice."""
     if not is_sharded(mesh):
-        return gas.schedule_edges(dst_global.reshape(-1), mask.reshape(-1),
-                                  n_vertices)
-    return gas.schedule_edges(dst_global[0], mask[0], n_vertices)
+        return _schedule(dst_global.reshape(-1), mask.reshape(-1),
+                         n_vertices)
+    return _schedule(dst_global[0], mask[0], n_vertices)
+
+
+def _schedule(dst: torch.Tensor, mask: torch.Tensor,
+              n_rows: int) -> gas_ops.EdgeSchedule:
+    """``gas.schedule_edges`` inside the ``cgtrans.schedule`` span: every
+    schedule the full-graph path builds."""
+    with trace.span("cgtrans.schedule", dst):
+        return gas.schedule_edges(dst, mask, n_rows)
 
 
 def apply_edge_schedule(schedule: gas_ops.EdgeSchedule,
@@ -317,8 +327,7 @@ def _edges_cgtrans(f, s, d, w, m, mesh, op, impl, use_sched, schedule,
     V = n * part
     sched = None
     if use_sched:
-        sched = schedule if schedule is not None else \
-            gas.schedule_edges(d, m, V)
+        sched = schedule if schedule is not None else _schedule(d, m, V)
         if not schedule_applied:
             s, d, w, m = _permuted(sched, s, d, w, m)
     partial = _agg_local(f, s, d, w, m, V, op, impl, schedule=sched,
@@ -361,7 +370,7 @@ def _edges_baseline(f, s, d, w, m, mesh, op, impl, use_sched, sparse_cap):
     if use_sched:
         # binned after assembly: the scatter's row space is this owner's
         # interval, which exists only after the all_gather
-        sched = gas.schedule_edges(rel, ok, part)
+        sched = _schedule(rel, ok, part)
         rel, ok, vals = _permuted(sched, rel, ok, vals)
     return gas.gas_scatter_weighted(
         torch.clamp(rel, 0, part - 1).to(torch.int32), vals,
@@ -402,48 +411,50 @@ def aggregate_edges(
     ``features="sparse"`` (with ``sparse_capacity``) reads the table
     packed; every result is bit for bit the dense path's.
     """
-    if dataflow not in ("cgtrans", "baseline"):
-        raise ValueError(dataflow)
-    check_impl(impl)
-    _check_wire(wire, dataflow, features)
-    Pn, part, F = feats.shape
-    sparse_cap = _resolve_sparse(features, sparse_capacity, F)
-    use_sched = _resolve_scheduled(scheduled, impl) or schedule is not None
-    if schedule_applied and schedule is None:
-        raise ValueError("schedule_applied requires schedule=")
+    with trace.span("cgtrans.aggregate", feats):
+        if dataflow not in ("cgtrans", "baseline"):
+            raise ValueError(dataflow)
+        check_impl(impl)
+        _check_wire(wire, dataflow, features)
+        Pn, part, F = feats.shape
+        sparse_cap = _resolve_sparse(features, sparse_capacity, F)
+        use_sched = (_resolve_scheduled(scheduled, impl)
+                     or schedule is not None)
+        if schedule_applied and schedule is None:
+            raise ValueError("schedule_applied requires schedule=")
 
-    if not is_sharded(mesh):
-        if schedule_applied:
-            raise ValueError(
-                "schedule_applied is a sharded-mesh layout (per-rank perms); "
-                "the single-shard path flattens partitions and permutes "
-                "itself")
-        V = Pn * part
-        off = torch.arange(Pn, dtype=src_local.dtype,
-                           device=src_local.device)[:, None] * part
-        s = (src_local + off).reshape(-1)
-        d, w, m = (dst_global.reshape(-1), weights.reshape(-1),
-                   mask.reshape(-1))
-        sched = None
-        if use_sched:
-            sched = schedule if schedule is not None else \
-                gas.schedule_edges(d, m, V)
-            s, d, w, m = _permuted(sched, s, d, w, m)
-        out = _agg_local(feats.reshape(V, F), s, d, w, m, V, op, impl,
-                         schedule=sched, sparse_cap=sparse_cap)
-        return out.reshape(Pn, part, F)
+        if not is_sharded(mesh):
+            if schedule_applied:
+                raise ValueError(
+                    "schedule_applied is a sharded-mesh layout (per-rank "
+                    "perms); the single-shard path flattens partitions and "
+                    "permutes itself")
+            V = Pn * part
+            off = torch.arange(Pn, dtype=src_local.dtype,
+                               device=src_local.device)[:, None] * part
+            s = (src_local + off).reshape(-1)
+            d, w, m = (dst_global.reshape(-1), weights.reshape(-1),
+                       mask.reshape(-1))
+            sched = None
+            if use_sched:
+                sched = schedule if schedule is not None else \
+                    _schedule(d, m, V)
+                s, d, w, m = _permuted(sched, s, d, w, m)
+            out = _agg_local(feats.reshape(V, F), s, d, w, m, V, op, impl,
+                             schedule=sched, sparse_cap=sparse_cap)
+            return out.reshape(Pn, part, F)
 
-    if Pn != 1:
-        raise ValueError(f"on a mesh feats is this rank's (1, part, F) "
-                         f"slice, got {tuple(feats.shape)}")
-    args = (feats[0], src_local[0], dst_global[0], weights[0], mask[0], mesh,
-            op, impl, use_sched)
-    if dataflow == "cgtrans":
-        out = _edges_cgtrans(*args, schedule, schedule_applied, wire,
-                             sparse_cap)
-    else:
-        out = _edges_baseline(*args, sparse_cap)
-    return out[None]
+        if Pn != 1:
+            raise ValueError(f"on a mesh feats is this rank's (1, part, F) "
+                             f"slice, got {tuple(feats.shape)}")
+        args = (feats[0], src_local[0], dst_global[0], weights[0], mask[0],
+                mesh, op, impl, use_sched)
+        if dataflow == "cgtrans":
+            out = _edges_cgtrans(*args, schedule, schedule_applied, wire,
+                                 sparse_cap)
+        else:
+            out = _edges_baseline(*args, sparse_cap)
+        return out[None]
 
 
 # ---------------------------------------------------------------------------

@@ -41,6 +41,7 @@ import torch
 from repro_torch.device import check_impl
 from repro_torch.kernels import entries
 from repro_torch.kernels.gas_scatter import ops as gas_ops
+from repro_torch.runtime import trace
 
 Op = Literal["add", "max", "min", "or"]
 
@@ -99,12 +100,14 @@ class _GatherKernel(torch.autograd.Function):
         ctx.save_for_backward(ids)
         ctx.n_rows, ctx.dtype = table.shape[0], table.dtype
         ctx.suspended = gas_ops.counting_suspended()
+        ctx.call = trace.current_call()
         return table[ids.long()]
 
     @staticmethod
     def backward(ctx, g):
         ids, = ctx.saved_tensors
-        with gas_ops.suspend_counting(ctx.suspended):
+        with trace.span("gas.gather_backward", g, call=ctx.call), \
+                gas_ops.suspend_counting(ctx.suspended):
             gf = g.reshape(-1, g.shape[-1]).to(torch.float32)
             # fused dispatch without mask or weights: out-of-range ids ride
             # the dead-row convention inside the kernel wrapper

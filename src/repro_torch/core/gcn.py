@@ -33,6 +33,7 @@ from repro_torch.common.schema import ParamDef
 from repro_torch.core import cgtrans, collectives
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.graph.partition import interval_size
+from repro_torch.runtime import trace
 
 
 @dataclasses.dataclass(frozen=True)
@@ -154,39 +155,40 @@ def gcn_forward_full(params: Mapping[str, torch.Tensor], feats: torch.Tensor,
     interval bit for bit over ``[0, V)``. On a mesh this costs one
     ``all_gather`` of the logits (``relabel_gather``).
     """
-    _check_partition_knob(cfg, relabel)
-    impl_r = impl or cfg.impl
-    use_sched = cgtrans._resolve_scheduled(cfg.scheduled, impl_r)
-    sharded = cgtrans.is_sharded(mesh)
-    sched, applied = None, False
-    if use_sched and (cfg.dataflow == "cgtrans" or not sharded):
-        sched = cgtrans.build_edge_schedule(
-            dst_global, mask, feats.shape[0] * feats.shape[1] *
-            (mesh.size if sharded else 1), mesh=mesh)
-        if sharded:
-            src_local, dst_global, weights, mask = \
-                cgtrans.apply_edge_schedule(sched, src_local, dst_global,
-                                            weights, mask)
-            applied = True
-    h = feats
-    for i in range(cfg.n_layers):
-        agg = cgtrans.aggregate_edges(
-            h, src_local, dst_global, weights, mask, mesh=mesh,
-            dataflow=cfg.dataflow, op=cfg.aggregate, impl=impl_r,
-            scheduled=use_sched, schedule=sched, schedule_applied=applied,
-            wire=cfg.wire,
-            # sparse only where the gather reads the raw table: deeper
-            # layers' activations would measure a capacity of F anyway
-            features=cfg.features if i == 0 else "dense",
-            sparse_capacity=cfg.sparse_capacity if i == 0 else None)
-        if cfg.aggregate in ("max", "min"):
-            agg = torch.where(torch.isfinite(agg), agg, torch.zeros((),
-                              dtype=agg.dtype, device=agg.device))
-        h = torch.cat([h, agg], dim=-1)
-        h = torch.relu(torch.einsum("pvf,fh->pvh", h, params[f"w{i}"])
-                       + params[f"b{i}"])
-    out = torch.einsum("pvh,hc->pvc", h, params["w_out"]) + params["b_out"]
-    return out if relabel is None else _unpermute(out, relabel, mesh)
+    with trace.span("gcn.forward", feats):
+        _check_partition_knob(cfg, relabel)
+        impl_r = impl or cfg.impl
+        use_sched = cgtrans._resolve_scheduled(cfg.scheduled, impl_r)
+        sharded = cgtrans.is_sharded(mesh)
+        sched, applied = None, False
+        if use_sched and (cfg.dataflow == "cgtrans" or not sharded):
+            sched = cgtrans.build_edge_schedule(
+                dst_global, mask, feats.shape[0] * feats.shape[1] *
+                (mesh.size if sharded else 1), mesh=mesh)
+            if sharded:
+                src_local, dst_global, weights, mask = \
+                    cgtrans.apply_edge_schedule(sched, src_local, dst_global,
+                                                weights, mask)
+                applied = True
+        h = feats
+        for i in range(cfg.n_layers):
+            agg = cgtrans.aggregate_edges(
+                h, src_local, dst_global, weights, mask, mesh=mesh,
+                dataflow=cfg.dataflow, op=cfg.aggregate, impl=impl_r,
+                scheduled=use_sched, schedule=sched, schedule_applied=applied,
+                wire=cfg.wire,
+                # sparse only where the gather reads the raw table: deeper
+                # layers' activations would measure a capacity of F anyway
+                features=cfg.features if i == 0 else "dense",
+                sparse_capacity=cfg.sparse_capacity if i == 0 else None)
+            if cfg.aggregate in ("max", "min"):
+                agg = torch.where(torch.isfinite(agg), agg, torch.zeros((),
+                                  dtype=agg.dtype, device=agg.device))
+            h = torch.cat([h, agg], dim=-1)
+            h = torch.relu(torch.einsum("pvf,fh->pvh", h, params[f"w{i}"])
+                           + params[f"b{i}"])
+        out = torch.einsum("pvh,hc->pvc", h, params["w_out"]) + params["b_out"]
+        return out if relabel is None else _unpermute(out, relabel, mesh)
 
 
 def lookup_rows(feats, ids, *, mesh=None, dataflow="cgtrans", impl="ref",

@@ -28,6 +28,7 @@ import torch
 from repro_torch.kernels import entries
 from repro_torch.kernels.gas_scatter import kernel as K
 from repro_torch.kernels.gas_scatter.ref import gas_scatter_ref
+from repro_torch.runtime import trace
 
 ROW_BLOCK = K.ROW_BLOCK
 EDGE_TILE = K.EDGE_TILE
@@ -96,6 +97,24 @@ def _pad_to(x: torch.Tensor, mult: int, axis: int, fill) -> torch.Tensor:
     shape[axis] = pad
     return torch.cat([x, torch.full(shape, fill, dtype=x.dtype,
                                     device=x.device)], dim=axis)
+
+
+def _padded_values(values: torch.Tensor) -> torch.Tensor:
+    """The (E, F) value stream as the kernels consume it: edges padded to
+    a multiple of ``EDGE_TILE``, features to ``FEAT_BLOCK``, contiguous.
+    Each copy made counts the bytes it reads plus writes into
+    ``gas.pad.bytes`` (0 where the values are used as they are)."""
+    out, moved = values, 0
+    for mult, axis in ((EDGE_TILE, 0), (FEAT_BLOCK, 1)):
+        padded = _pad_to(out, mult, axis, 0.0)
+        if padded is not out:
+            moved += (out.numel() + padded.numel()) * out.element_size()
+        out = padded
+    if not out.is_contiguous():
+        moved += 2 * out.numel() * out.element_size()
+        out = out.contiguous()
+    trace.add("gas.pad.bytes", moved)
+    return out
 
 
 def _padded_rows(n_rows: int) -> int:
@@ -282,7 +301,8 @@ class KernelCall(NamedTuple):
     kwargs: dict
 
     def run(self) -> torch.Tensor:
-        return getattr(K, self.kernel)(*self.args, **self.kwargs)
+        with trace.span("gas.kernel", self.args[0]):
+            return getattr(K, self.kernel)(*self.args, **self.kwargs)
 
     def run_plain(self) -> torch.Tensor:
         return getattr(K, self.kernel + "_plain")(*self.args, **self.kwargs)
@@ -295,9 +315,10 @@ def gas_scatter(dst: torch.Tensor, values: torch.Tensor, n_rows: int, *,
     ``ref.gas_scatter_ref`` exactly (out-of-range dst ignored). One public
     call = one kernel dispatch, ticked into ``count_dispatches``."""
     entries.refuse_fake("gas_scatter", values, dst)
-    _tick("kernel_scatter")
-    entries.note("kernel_scatter", values)
-    return _gas_scatter(dst, values, n_rows, op=op)
+    with trace.span("gas.scatter", values):
+        _tick("kernel_scatter")
+        entries.note("kernel_scatter", values)
+        return _gas_scatter(dst, values, n_rows, op=op)
 
 
 def _gas_scatter(dst, values, n_rows: int, *, op: str):
@@ -325,13 +346,14 @@ def fused_call(dst: torch.Tensor, values: torch.Tensor,
     E, F = values.shape
     R = _padded_rows(n_rows)
     n_blocks = R // ROW_BLOCK
-    _, routed = _dead_routed(dst, mask, n_rows, R)
-    dstp = _pad_to(routed, EDGE_TILE, 0, R)
-    valp = _pad_to(_pad_to(values, EDGE_TILE, 0, 0.0), FEAT_BLOCK, 1,
-                   0.0).contiguous()
-    wp = None
-    if op == "add" and weights is not None:
-        wp = _pad_to(weights.to(torch.float32), EDGE_TILE, 0, 0.0).contiguous()
+    with trace.span("gas.pad", values):
+        _, routed = _dead_routed(dst, mask, n_rows, R)
+        dstp = _pad_to(routed, EDGE_TILE, 0, R)
+        valp = _padded_values(values)
+        wp = None
+        if op == "add" and weights is not None:
+            wp = _pad_to(weights.to(torch.float32), EDGE_TILE, 0,
+                         0.0).contiguous()
     if schedule is None:
         occ = occupancy_map(dstp, n_blocks)
         return KernelCall("gas_scatter_dense", (dstp, valp, occ, R),
@@ -350,8 +372,10 @@ def fused_call(dst: torch.Tensor, values: torch.Tensor,
     if op == "add":
         # feature-block liveness rides the work list: the kernel skips
         # all-zero feature blocks exactly like idle tiles (exact for add)
-        work = torch.cat([work, _feat_liveness(valp, work[:, 1], EDGE_TILE)],
-                         dim=1)
+        with trace.span("gas.liveness", valp):
+            trace.add("gas.liveness.bytes", valp.numel() * valp.element_size())
+            work = torch.cat([work, _feat_liveness(valp, work[:, 1],
+                                                   EDGE_TILE)], dim=1)
     return KernelCall("gas_scatter_banded", (work.contiguous(), dstp, valp, R),
                       {"op": op, "weights": wp})
 
@@ -371,15 +395,16 @@ def gas_scatter_fused(dst: torch.Tensor, values: torch.Tensor,
     public call = one kernel dispatch, ticked into ``count_dispatches``.
     """
     entries.refuse_fake("gas_scatter_fused", values, dst)
-    _tick("kernel_scatter")
-    entries.note("kernel_scatter", values, weights)
-    if values.dim() == 1:
-        call = fused_call(dst, values[:, None], weights, mask, n_rows, op=op,
+    with trace.span("gas.scatter", values):
+        _tick("kernel_scatter")
+        entries.note("kernel_scatter", values, weights)
+        if values.dim() == 1:
+            call = fused_call(dst, values[:, None], weights, mask, n_rows,
+                              op=op, schedule=schedule)
+            return call.run()[:n_rows, 0]
+        call = fused_call(dst, values, weights, mask, n_rows, op=op,
                           schedule=schedule)
-        return call.run()[:n_rows, 0]
-    call = fused_call(dst, values, weights, mask, n_rows, op=op,
-                      schedule=schedule)
-    return call.run()[:n_rows, :values.shape[1]]
+        return call.run()[:n_rows, :values.shape[1]]
 
 
 __all__ = ["EdgeSchedule", "KernelCall", "count_dispatches",

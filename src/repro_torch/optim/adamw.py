@@ -31,6 +31,7 @@ from repro_torch.common.config import TrainConfig
 from repro_torch.common.logical import replication, spec_leaves
 from repro_torch.common.schema import ParamDef, tree_map_defs
 from repro_torch.common.tree import leaves, tree_map, unflatten
+from repro_torch.runtime import trace
 
 
 def cosine_lr(step: torch.Tensor, tc: TrainConfig) -> torch.Tensor:
@@ -118,37 +119,38 @@ def adamw_update(params, grads, opt_state, tc: TrainConfig, *, mesh=None,
     the JAX step's donated state is, and no second copy of it is ever
     live. A caller that reads the old values after the update clones them
     first. On a mesh, ``specs`` are the parameters' physical specs."""
-    metrics = {}
-    if tc.grad_compression == "int8_ef":
-        grads, new_res = compress_grads(grads, opt_state["ef_residual"],
-                                        mesh)
-        metrics["ef_residual_norm"] = global_norm(new_res, mesh, specs)
-        for r, n in zip(leaves(opt_state["ef_residual"]), leaves(new_res)):
-            r.copy_(n)
+    with trace.span("adamw.update", opt_state["count"]):
+        metrics = {}
+        if tc.grad_compression == "int8_ef":
+            grads, new_res = compress_grads(grads, opt_state["ef_residual"],
+                                            mesh)
+            metrics["ef_residual_norm"] = global_norm(new_res, mesh, specs)
+            for r, n in zip(leaves(opt_state["ef_residual"]), leaves(new_res)):
+                r.copy_(n)
 
-    grads, gnorm = clip_by_global_norm(grads, tc.grad_clip, mesh, specs)
-    metrics["grad_norm"] = gnorm
+        grads, gnorm = clip_by_global_norm(grads, tc.grad_clip, mesh, specs)
+        metrics["grad_norm"] = gnorm
 
-    count = opt_state["count"].add_(1)
-    lr = cosine_lr(count, tc)
-    metrics["lr"] = lr
-    b1, b2 = tc.beta1, tc.beta2
-    bc1 = 1 - b1 ** count.to(torch.float32)
-    bc2 = 1 - b2 ** count.to(torch.float32)
+        count = opt_state["count"].add_(1)
+        lr = cosine_lr(count, tc)
+        metrics["lr"] = lr
+        b1, b2 = tc.beta1, tc.beta2
+        bc1 = 1 - b1 ** count.to(torch.float32)
+        bc2 = 1 - b2 ** count.to(torch.float32)
 
-    # leaf by leaf, the out-of-place arithmetic copied into the old
-    # storage: the same roundings as building new tensors, and at most one
-    # leaf's temporaries live at a time
-    for p, g, m, v in zip(leaves(params), leaves(grads),
-                          leaves(opt_state["m"]), leaves(opt_state["v"])):
-        g32 = g.to(torch.float32)
-        m.copy_(b1 * m + (1 - b1) * g32)
-        v.copy_(b2 * v + (1 - b2) * torch.square(g32))
-        step = (m / bc1) / (torch.sqrt(v / bc2) + tc.eps)
-        p32 = p.to(torch.float32)
-        p.copy_((p32 - lr * (step + tc.weight_decay * p32)).to(p.dtype))
-        del g32, step, p32
-    return params, opt_state, metrics
+        # leaf by leaf, the out-of-place arithmetic copied into the old
+        # storage: the same roundings as building new tensors, and at most one
+        # leaf's temporaries live at a time
+        for p, g, m, v in zip(leaves(params), leaves(grads),
+                              leaves(opt_state["m"]), leaves(opt_state["v"])):
+            g32 = g.to(torch.float32)
+            m.copy_(b1 * m + (1 - b1) * g32)
+            v.copy_(b2 * v + (1 - b2) * torch.square(g32))
+            step = (m / bc1) / (torch.sqrt(v / bc2) + tc.eps)
+            p32 = p.to(torch.float32)
+            p.copy_((p32 - lr * (step + tc.weight_decay * p32)).to(p.dtype))
+            del g32, step, p32
+        return params, opt_state, metrics
 
 
 def opt_state_schema(param_schema, tc: TrainConfig):
