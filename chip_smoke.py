@@ -27,7 +27,12 @@ Phases, each failing hard (exit status 1, no result line):
    2·(γ(3c+2, u) + 2γ(128, 2^-24))·Σ|w·v| per cell that the kernel's
    cluster split and the plain version's per-tile rounding leave, c the
    32-edge chunks holding the cell's row), each op timed as above at
-   one inference chunk and at one serving segment;
+   one inference chunk and at one serving segment. Last, the banded add's
+   skip of all-zero feature blocks, which the kernel decides from the rows
+   it stages: f32, bf16 and f16 at one inference chunk and over 1024 rows
+   and 520 edge tiles, on integer data with all-zero, -0.0 and NaN blocks
+   and inf weights, bit for bit with the plain version on every cell that
+   is not NaN and NaN on the same cells (``check_skip_inputs``);
 3. serving: the GraphSAGE serving engine over a uniform graph of 2^20
    vertices, 16 edges per vertex and Reddit's 602 features, 64 zipf-skewed
    requests of 1–3 seeds from 4 tenants, fan-out 50, ``max_batch=8``, a
@@ -144,8 +149,7 @@ Phases, each failing hard (exit status 1, no result line):
    contract's waivers, and bytes equal to ``budgets.edges_bytes``. Times:
    warm forwards (kernel and ref), one profiled forward, and the layer-0
    banded launch and the layer-1 gather-backward dense launch (events,
-   device, bound, ``torch.sparse.mm``; the banded one's pad copy and
-   feature-liveness pass).
+   device, bound, ``torch.sparse.mm``; the banded one's pad copy).
 
 a. islandized partitioning (``partition="island"``), the graph algorithms
    and the cost model. On a community graph with shuffled ids
@@ -990,6 +994,94 @@ def phase_kernels_narrow(torch, ops, K, table, shapes, smi):
             K.reset_launch_counts()
             out[entry_name] = entry
     return out
+
+
+def plant_skip_blocks(torch, rows, weights, live):
+    """In every other 128-edge tile of ``rows`` (E, F): features 32-63
+    all zero, 64-95 all -0.0 (both skipped by a banded add), 96-127 zero
+    but for one NaN (applied), on the tile's first live edge, which also
+    takes weight inf. Returns the planted rows and weights and those
+    edges."""
+    rows, weights = rows.clone(), weights.clone()
+    edges = []
+    for t0 in range(0, rows.shape[0], 2 * 128):
+        sl = slice(t0, t0 + 128)
+        rows[sl, 32:64] = 0.0
+        rows[sl, 64:96] = -0.0
+        rows[sl, 96:128] = 0.0
+        own = torch.nonzero(live[sl])[:, 0]
+        if own.numel():
+            e = t0 + int(own[0])
+            rows[e, 100] = float("nan")
+            weights[e] = float("inf")
+            edges.append(e)
+    return rows, weights, edges
+
+
+def check_skip_inputs(torch, ops, table, chunk):
+    """Hold the banded walk's skip of all-zero feature blocks against its
+    plain version for f32, bf16 and f16, on one inference chunk and on a
+    scheduled call over MULTI_ROWS rows and MULTI_TILES edge tiles (sorted
+    dst: a work list past one window): integer values (``_call_values``)
+    and weights with ``plant_skip_blocks``' blocks. Bit for bit on every
+    cell the plain version leaves a number, NaN on the same cells, and a
+    repeat launch bit-identical; the row of each inf edge finite in the
+    skipped blocks and NaN at its NaN."""
+    import numpy as np
+
+    nbrs, mask = chunk
+    R, K_ = nbrs.shape
+    own = (mask & (nbrs >= 0) & (nbrs < table.shape[0])).reshape(-1)
+    rng = np.random.default_rng(5)
+    E = MULTI_TILES * 128
+    multi_dst = torch.from_numpy(np.sort(rng.integers(
+        0, MULTI_ROWS, E)).astype(np.int32)).to(table.device)
+    inputs = {
+        "inference chunk": (
+            torch.arange(R, dtype=torch.int32,
+                         device=table.device).repeat_interleave(K_),
+            own, table[nbrs.clamp(0, table.shape[0] - 1).reshape(-1).long()],
+            R),
+        f"rows {MULTI_ROWS} tiles {MULTI_TILES}": (
+            multi_dst, torch.from_numpy(rng.random(E) < 0.9).to(table.device),
+            table[torch.from_numpy(rng.integers(0, table.shape[0], E)).to(
+                table.device)], MULTI_ROWS)}
+    for name, (dst, live, rows, n_rows) in inputs.items():
+        sched = ops.schedule_edges(dst, live, n_rows)
+        p = sched.perm.long()
+        dst, live, rows = dst[p], live[p], rows[p]
+        for sfx, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16),
+                           ("f16", torch.float16)):
+            vals, w, edges = plant_skip_blocks(
+                torch, _call_values(torch, rows, "int", False, dtype),
+                _call_weights(torch, "add", "int", dst.numel(), dst.device),
+                live)
+            call = ops.fused_call(dst, vals, w, live, n_rows, op="add",
+                                  schedule=sched)
+            label = f"gas_scatter_banded_{sfx} skip input, {name}"
+            check(call.kernel == "gas_scatter_banded" and
+                  tuple(call.args[0].shape) == (sched.work.shape[0], 4),
+                  f"{label}: not the schedule's (W, 4) work list")
+            bits = torch.int32 if sfx == "f32" else torch.int16
+            got = call.run()
+            again = call.run()
+            want = plain_in_order(torch, call)
+            torch.cuda.synchronize()
+            check(torch.equal(got.view(bits), again.view(bits)),
+                  f"{label}: two launches on the same inputs differ")
+            nan = torch.isnan(want)
+            check(torch.equal(torch.isnan(got), nan),
+                  f"{label}: NaN cells differ")
+            check(torch.equal(got.view(bits)[~nan], want.view(bits)[~nan]),
+                  f"{label}: not bit for bit")
+            rows_hit = dst[edges].long()
+            check(len(edges) > 0 and
+                  bool(torch.isfinite(got[rows_hit, 32:96]).all()) and
+                  bool(torch.isnan(got[rows_hit, 100]).all()),
+                  f"{label}: a skipped block is not finite at an inf "
+                  f"weight, or the NaN block was skipped")
+            log(f"  {label}: {len(edges)} inf edges, {int(nan.sum())} NaN "
+                f"cells; bit for bit, repeat launch bit-identical ok")
 
 
 # ---------------------------------------------------------------------------
@@ -1874,6 +1966,7 @@ def graph_phases(torch, phases, dev, measured, launches, smi):
                                         smi))
         measured.update(phase_kernels_narrow(torch, ops, K, table, shapes,
                                              smi))
+        check_skip_inputs(torch, ops, table, shapes["gas_scatter_banded"])
         del table
         torch.cuda.empty_cache()
 
@@ -2830,8 +2923,8 @@ def captured_calls(ops, fn, scheduled):
 def time_call(torch, ops, K, args, kwargs, label, smi, iters, plain=True):
     """Time one captured kernel call: CUDA events, the profiler's device
     ms, the bound, ``torch.sparse.mm`` on the same function, and, for the
-    banded walk, the wrapper's pad copy and feature-liveness pass and
-    (with ``plain``) one walk of the plain version."""
+    banded walk, the wrapper's pad copy and (with ``plain``) one walk of
+    the plain version."""
     values = args[1]
     call = ops.fused_call(*args, **kwargs)
     name = call.kernel
@@ -2851,8 +2944,6 @@ def time_call(torch, ops, K, args, kwargs, label, smi, iters, plain=True):
         t["pad_ms"] = event_ms(torch, lambda: ops._pad_to(ops._pad_to(
             values, ops.EDGE_TILE, 0, 0.0), ops.FEAT_BLOCK, 1, 0.0), iters,
             warm=1)
-        t["liveness_ms"] = event_ms(torch, lambda: ops._feat_liveness(
-            vals, work[:, 1], ops.EDGE_TILE), iters, warm=1)
         t["work"] = list(work.shape)
     else:
         t["occupied"] = int((call.args[2] > 0).sum())

@@ -89,13 +89,23 @@
 // exact either way, and max and min are exact on any data.
 //
 // Only the source of the rounds differs:
-//   * banded_cluster_kernel: the work list (W, 4 [+ F/32]) int32 holds rows
-//     [row_block, tile, live, init, feature-block live...] ordered by row
-//     block; each row block's rows form one contiguous run, found by
-//     counting probes of column 0. Rank r takes the r-th share of the run's
-//     rows, and a live row (for add with liveness columns, in a live
-//     feature block: zero is add's identity, so the skip is exact) is one
-//     round of all four chunks of its tile.
+//   * banded_cluster_kernel: the work list (W, 4) int32 holds rows
+//     [row_block, tile, live, init] ordered by row block; each row block's
+//     rows form one contiguous run, found by counting probes of column 0.
+//     Rank r takes the r-th share of the run's rows, and a live row is one
+//     round of all four chunks of its tile. An add round whose 128 x 32
+//     value rows are all zero is skipped (zero is add's identity, so the
+//     skip is exact; it also keeps an all-zero block finite under a
+//     non-finite weight). The CTA decides it from the rows it has staged
+//     for the round: after cp.async.wait_group 0 each thread tests the
+//     16-byte pieces its own copies wrote, a value being zero exactly where
+//     v != 0 is false (its bits other than the sign are 0: -0.0 is zero,
+//     NaN is not), and the round's barrier is __syncthreads_or of the
+//     threads' answers. No byte is read for it beyond the staged rows,
+//     and no barrier is added. A skipped round's apply matches no edge
+//     (the answer joins the owner warps' ballot): on an H100, where no
+//     block was all zero, a branch around the apply cost ~10 % of the
+//     kernel and the predicate nothing measurable. Max and min never skip.
 //   * dense_cluster_kernel: the row block's row of the (R/128, T) occupancy
 //     map. Its occupied tiles hold 4 * n 32-edge chunks in stream order;
 //     rank r takes the r-th share of those chunks, so a row block with two
@@ -128,6 +138,7 @@ constexpr int kThreads = kWarps * 32;
 constexpr int kWindow = kThreads;  // round candidates compacted per pass
 constexpr int kMaxCluster = 8;
 constexpr int kTileBits = 24;      // a round packs its tile below bit 24
+constexpr int kWorkCols = 4;       // [row_block, tile, live, init]
 
 enum Op { kAdd = 0, kMax = 1, kMin = 2 };
 
@@ -299,9 +310,11 @@ __device__ __forceinline__ void stage(Walk& s, const Stream<T>& in, int round, i
 // Warp `warp` applies its own edges of the round in buffer buf, four at a
 // time: the four edges' loads are in flight before the first is used. A
 // narrow type's add sums into the round's sums, every other into the
-// partial.
+// partial. A round that is not `live` finds no edge of its own, so it
+// changes nothing.
 template <bool kWhole, typename T>
-__device__ __forceinline__ void apply(Walk& s, const Stream<T>& in, int round, int buf) {
+__device__ __forceinline__ void apply(Walk& s, const Stream<T>& in, int round, int buf,
+                                      bool live) {
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int* ids = s.ids[buf];
   const float* wt = s.w[buf];
@@ -315,7 +328,7 @@ __device__ __forceinline__ void apply(Walk& s, const Stream<T>& in, int round, i
   for (int c = round_first<kWhole>(round); c < round_end<kWhole>(round); c += kChunk) {
     const int r = ids[c + lane] - in.row0;
     unsigned mine = __ballot_sync(0xffffffffu,
-                                  r >= 0 && r < kRowBlock && (r % kWarps) == warp);
+                                  live && r >= 0 && r < kRowBlock && (r % kWarps) == warp);
     while (mine) {
       int e[4], re[4];
       float v[4], w[4];
@@ -358,19 +371,45 @@ __device__ __forceinline__ void fold_round(Walk& s) {
   }
 }
 
+// Whether a value this thread staged into buffer buf for a whole tile is
+// nonzero (v != 0: any bit but the sign set). stage writes the buffer's
+// 16-byte piece q from thread q % kThreads, so the thread reads only its
+// own copies, which cp.async.wait_group 0 has made visible to it.
+template <typename T>
+__device__ __forceinline__ bool staged_nonzero(Walk& s, int buf) {
+  const uint4* pieces = reinterpret_cast<const uint4*>(value_rows<T>(s, buf));
+  constexpr unsigned kMagnitude = sizeof(T) == 4 ? 0x7fffffffu : 0x7fff7fffu;
+  constexpr int kPieces = kEdgeTile * kFeatBlock * static_cast<int>(sizeof(T)) / 16;
+  static_assert(kPieces % kThreads == 0, "every thread copies as many pieces");
+  unsigned bits = 0;
+#pragma unroll
+  for (int k = 0; k < kPieces / kThreads; ++k) {
+    const uint4 p = pieces[threadIdx.x + k * kThreads];
+    bits |= p.x | p.y | p.z | p.w;
+  }
+  return (bits & kMagnitude) != 0;
+}
+
 // Apply the window's `total` rounds of s.rounds in order, the next one
 // loading while this one is applied. The caller's barrier after the
 // compaction makes s.rounds visible and the previous window's buffers free.
+// A banded add skips a round whose staged value rows are all zero.
 template <bool kWhole, typename T>
 __device__ __forceinline__ void walk(Walk& s, const Stream<T>& in, int total) {
   if (total > 0) stage<kWhole>(s, in, s.rounds[0], 0);
   for (int t = 0; t < total; ++t) {
     cp_async_wait_all();
-    __syncthreads();  // round t has landed; round t - 1's buffer is free
+    // round t has landed; round t - 1's buffer is free
+    bool live = true;
+    if (kWhole && in.op == kAdd) {
+      live = __syncthreads_or(staged_nonzero<T>(s, t & 1));
+    } else {
+      __syncthreads();
+    }
     if (t + 1 < total) stage<kWhole>(s, in, s.rounds[t + 1], (t + 1) & 1);
-    apply<kWhole>(s, in, s.rounds[t], t & 1);
+    apply<kWhole>(s, in, s.rounds[t], t & 1, live);
     if constexpr (kNarrow<T>) {
-      if (in.op == kAdd) fold_round<T>(s);
+      if (in.op == kAdd && live) fold_round<T>(s);
     }
   }
 }
@@ -404,11 +443,10 @@ __device__ __forceinline__ void combine_store(cg::cluster_group& cluster, Walk& 
 
 // First work row in [a, b) whose row block is >= rb (column 0 ascends); b if
 // there is none.
-__device__ __forceinline__ int lower_bound_rows(const int* work, int a, int b,
-                                                int ncols, int rb) {
+__device__ __forceinline__ int lower_bound_rows(const int* work, int a, int b, int rb) {
   while (a < b) {
     const int mid = (a + b) / 2;
-    if (work[(long long)mid * ncols] < rb) {
+    if (work[(long long)mid * kWorkCols] < rb) {
       a = mid + 1;
     } else {
       b = mid;
@@ -424,7 +462,7 @@ __device__ __forceinline__ int probe_row(int q, int W) {
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
-banded_cluster_kernel(const int* __restrict__ work, int W, int ncols,
+banded_cluster_kernel(const int* __restrict__ work, int W,
                       const int* __restrict__ dst, const float* __restrict__ weights,
                       const T* __restrict__ values, T* __restrict__ out,
                       long long F, int op, int C) {
@@ -435,14 +473,13 @@ banded_cluster_kernel(const int* __restrict__ work, int W, int ncols,
   const int rb = blockIdx.x / C;
   const int fb = blockIdx.y;
   const Stream<T> in{dst, weights, values, F, fb * kFeatBlock, rb * kRowBlock, op};
-  const bool feat_skip = ncols > 4;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
 
   // The run [lo, hi) of row block rb, found by one round of kThreads
   // parallel probes of column 0: n probes lie below rb, so the run starts
   // after probe n - 1 and at or before probe n. With W <= kThreads the
   // probes are the rows themselves, and each thread keeps its row's tile
-  // and liveness for the compaction below: all of the CTA's metadata costs
+  // and live flag for the compaction below: all of the CTA's metadata costs
   // one memory latency. A longer list ends with a binary search between two
   // probes.
   const bool small = W <= kThreads;
@@ -450,11 +487,11 @@ banded_cluster_kernel(const int* __restrict__ work, int W, int ncols,
   int blk = INT_MAX, tile = 0;
   bool row_live = false;
   if (probe < W) {
-    const int* row = work + static_cast<long long>(probe) * ncols;
+    const int* row = work + static_cast<long long>(probe) * kWorkCols;
     blk = row[0];
     if (small) {
       tile = row[1];
-      row_live = row[2] == 1 && (!feat_skip || row[4 + fb] == 1);
+      row_live = row[2] == 1;
     }
   }
   const unsigned below_lo = __ballot_sync(0xffffffffu, blk < rb);
@@ -472,9 +509,9 @@ banded_cluster_kernel(const int* __restrict__ work, int W, int ncols,
   }
   if (!small) {
     lo = lower_bound_rows(work, lo ? probe_row(lo - 1, W) + 1 : 0,
-                          lo < kThreads ? probe_row(lo, W) : W, ncols, rb);
+                          lo < kThreads ? probe_row(lo, W) : W, rb);
     hi = lower_bound_rows(work, hi ? probe_row(hi - 1, W) + 1 : 0,
-                          hi < kThreads ? probe_row(hi, W) : W, ncols, rb + 1);
+                          hi < kThreads ? probe_row(hi, W) : W, rb + 1);
   }
   // this rank's contiguous share [s0, s1) of the run
   const long long n = hi - lo;
@@ -490,9 +527,9 @@ banded_cluster_kernel(const int* __restrict__ work, int W, int ncols,
       tile = 0;
       row_live = false;
       if (i < s1) {
-        const int* row = work + static_cast<long long>(i) * ncols;
+        const int* row = work + static_cast<long long>(i) * kWorkCols;
         tile = row[1];
-        row_live = row[2] == 1 && (!feat_skip || row[4 + fb] == 1);
+        row_live = row[2] == 1;
       }
     }
     const bool live = row_live && i >= s0 && i < s1;
@@ -606,9 +643,9 @@ int launch_cluster(Kernel kernel, int cluster, int n_rows, int F, void* stream,
 
 // The launch descriptor the wrappers build once per call signature (shapes,
 // dtypes, op) and pass by address: n_meta is W for the banded walk and T
-// for the dense grid; ncols is the work list's column count (banded only).
+// for the dense grid.
 struct GasLaunch {
-  int n_meta, ncols, n_rows, F, op, cluster, smem;
+  int n_meta, n_rows, F, op, cluster, smem;
 };
 
 namespace {
@@ -622,7 +659,7 @@ int banded_entry(const GasLaunch* p, const int* work, const int* dst, const floa
   static const cudaError_t attr = allow_walk_smem(banded_cluster_kernel<T>);
   if (attr != cudaSuccess) return static_cast<int>(attr);
   return launch_cluster(banded_cluster_kernel<T>, p->cluster, p->n_rows, p->F, stream, work,
-                        p->n_meta, p->ncols, dst, weights, values, out,
+                        p->n_meta, dst, weights, values, out,
                         static_cast<long long>(p->F), p->op, p->cluster);
 }
 
@@ -644,7 +681,7 @@ int dense_entry(const GasLaunch* p, const int* occ, const int* dst, const float*
 }  // namespace
 
 // Plain C entry points, loaded with ctypes, one pair per value type (f32,
-// bf16, f16). Shapes: meta is the work list (W, ncols) or the occupancy map
+// bf16, f16). Shapes: meta is the work list (W, 4) or the occupancy map
 // (n_rows / 128, T); dst (E,), weights (E,) f32 or null, values (E, F) of
 // the value type, 16-byte aligned, out (n_rows, F) of the value type;
 // E % 128 == 0, F % 32 == 0, n_rows % 128 == 0, E < 2^31. Each refuses a

@@ -28,7 +28,9 @@ the kernels' cluster split regroups that accumulation.
 
 Tile constants: 128 output rows and 128 edges per round, as on the TPU;
 the feature block is 32 (one warp's width) where the TPU used 128 lanes, so
-feature-block liveness columns of a work list are per 32 features.
+the banded walk's add skips an all-zero block of 128 edges × 32 features
+(``tile_feature_liveness``), which the kernel decides from the value rows
+it stages for the round and the plain version from the same values.
 
 Both kernels run one thread-block cluster per (row block × feature
 block); ``banded_plan`` and ``dense_plan`` pick its size from the shapes
@@ -89,10 +91,9 @@ _entries: Optional[tuple] = None
 
 class _Launch(ctypes.Structure):
     """The C entries' launch descriptor (``GasLaunch`` in the source),
-    built once per call signature: ``n_meta`` is W (banded) or T (dense),
-    ``ncols`` the work list's columns."""
+    built once per call signature: ``n_meta`` is W (banded) or T (dense)."""
     _fields_ = [(name, ctypes.c_int) for name in
-                ("n_meta", "ncols", "n_rows", "F", "op", "cluster", "smem")]
+                ("n_meta", "n_rows", "F", "op", "cluster", "smem")]
 
 
 def build() -> Path:
@@ -177,9 +178,9 @@ def _signature(kernel, meta, dst, values, n_rows, op, weights):
             n_rows, op)
 
 
-def _remember(key, plan: "ClusterPlan", n_meta: int, ncols: int,
-              n_rows: int, F: int, op: str, dtype: torch.dtype) -> _Checked:
-    launch = _Launch(n_meta, ncols, n_rows, F, OPS[op], plan.cluster,
+def _remember(key, plan: "ClusterPlan", n_meta: int, n_rows: int, F: int,
+              op: str, dtype: torch.dtype) -> _Checked:
+    launch = _Launch(n_meta, n_rows, F, OPS[op], plan.cluster,
                      plan.smem_bytes)
     checked = _Checked(plan, launch, ctypes.addressof(launch), (n_rows, F),
                        n_rows == 0 or F == 0, VALUE_DTYPES[dtype])
@@ -251,8 +252,8 @@ def _round_plain(acc, dst, values, weights, op: str, tile: int, row0: int,
         w = weights[sl, None]
         contrib = contrib * (w.to(values.dtype).float() if narrow_add else w)
     if feat_live is not None:
-        # a feature block flagged dead contributes nothing this round
-        cols = feat_live.repeat_interleave(FEAT_BLOCK).bool()
+        # an all-zero feature block contributes nothing this round
+        cols = feat_live.repeat_interleave(FEAT_BLOCK)
         contrib = torch.where(cols[None, :], contrib,
                               torch.zeros((), dtype=contrib.dtype,
                                           device=contrib.device))
@@ -268,25 +269,34 @@ def _round_plain(acc, dst, values, weights, op: str, tile: int, row0: int,
 # the banded (scheduled) walk
 # ---------------------------------------------------------------------------
 
+def tile_feature_liveness(values) -> torch.Tensor:
+    """(E/128, F/32) bool: does each 128-edge tile of ``values`` (E, F)
+    hold a nonzero value in each 32-feature block? Zero is where ``v != 0``
+    is false, so -0.0 is zero and NaN is not. A banded add skips the round
+    of a block without one, as the kernel decides from the rows it
+    stages."""
+    E, F = values.shape
+    return (values.reshape(E // EDGE_TILE, EDGE_TILE, F // FEAT_BLOCK,
+                           FEAT_BLOCK) != 0).any(3).any(1)
+
+
 def gas_scatter_banded_plain(work, dst, values, n_rows: int, *,
                              op: str = "add", weights=None):
     """Plain PyTorch version of the banded kernel: walks the work list row
     by row — an init row resets its row block to the identity, a live row
-    reduces its edge tile into the block (gated per feature block when the
-    list carries liveness columns)."""
+    reduces its edge tile into the block (for add, only the feature blocks
+    ``tile_feature_liveness`` finds live)."""
     E, F = _check_common(dst, values, n_rows, op, weights)
     out = torch.empty((n_rows, F), dtype=values.dtype, device=values.device)
-    feat_skip = work.shape[1] > 4
-    for row in work.tolist():
-        rb, tile, live, init = row[:4]
+    feat = tile_feature_liveness(values) if op == "add" else None
+    for rb, tile, live, init in work.tolist():
         acc = out[rb * ROW_BLOCK:(rb + 1) * ROW_BLOCK]
         if init == 1:
             acc.fill_(_identity(op))
         if live != 1:
             continue
-        fl = (torch.tensor(row[4:], device=values.device) if feat_skip
-              else None)
-        _round_plain(acc, dst, values, weights, op, tile, rb * ROW_BLOCK, fl)
+        _round_plain(acc, dst, values, weights, op, tile, rb * ROW_BLOCK,
+                     None if feat is None else feat[tile])
     return out
 
 
@@ -324,25 +334,24 @@ def cluster_share(lo: int, hi: int, rank: int, cluster: int):
 
 def _banded_checked(key, work, dst, values, n_rows, op, weights) -> _Checked:
     E, F = _check_common(dst, values, n_rows, op, weights)
-    if work.dtype != torch.int32 or work.dim() != 2 or \
-            work.shape[1] not in (4, 4 + F // FEAT_BLOCK):
-        raise ValueError(f"work must be int32 (W, 4) or (W, {4 + F // FEAT_BLOCK}),"
-                         f" got {work.dtype} {tuple(work.shape)}")
-    if work.shape[1] > 4 and op != "add":
-        raise ValueError("feature-block liveness gates add rounds only")
-    W, ncols = work.shape
-    return _remember(key, banded_plan(W, n_rows, F), W, ncols, n_rows, F, op,
+    if work.dtype != torch.int32 or work.dim() != 2 or work.shape[1] != 4:
+        raise ValueError(f"work must be int32 (W, 4), got {work.dtype} "
+                         f"{tuple(work.shape)}")
+    W = work.shape[0]
+    return _remember(key, banded_plan(W, n_rows, F), W, n_rows, F, op,
                      values.dtype)
 
 
 def gas_scatter_banded(work, dst, values, n_rows: int, *, op: str = "add",
                        weights=None):
     """Scheduled FAST-GAS scatter-reduce: walks each row block's own run of
-    the work list (``ops.schedule_edges``). ``work``: (W, 4 [+ F/32]) int32
-    rows [row_block, tile, live, init, feature-block live…] ordered by row
-    block; dst (E,) int32 with dead edges at ``n_rows``; values (E, F)
-    float32, bfloat16 or float16; weights (E,) float32 or None (add only).
-    Returns (n_rows, F) in the values' type.
+    the work list (``ops.schedule_edges``). ``work``: (W, 4) int32 rows
+    [row_block, tile, live, init] ordered by row block; dst (E,) int32 with
+    dead edges at ``n_rows``; values (E, F) float32, bfloat16 or float16;
+    weights (E,) float32 or None (add only). An add skips a live row's
+    all-zero feature blocks (``tile_feature_liveness``), which the kernel
+    finds in the value rows it stages. Returns (n_rows, F) in the values'
+    type.
     """
     entries.refuse_fake("gas_scatter_banded", values, dst)
     key = _signature("banded", work, dst, values, n_rows, op, weights)
@@ -408,7 +417,7 @@ def _dense_checked(key, dst, values, occupancy, n_rows, op,
         raise ValueError(f"occupancy must be int32 ({n_rows // ROW_BLOCK}, "
                          f"{T}), got {occupancy.dtype} "
                          f"{tuple(occupancy.shape)}")
-    return _remember(key, dense_plan(T, n_rows, F), T, 0, n_rows, F, op,
+    return _remember(key, dense_plan(T, n_rows, F), T, n_rows, F, op,
                      values.dtype)
 
 

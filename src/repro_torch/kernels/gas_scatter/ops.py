@@ -258,9 +258,9 @@ def feat_skip_stats(schedule: EdgeSchedule, values: torch.Tensor):
     block over the whole width: the counts equal the JAX package's where
     F ≤ 32 and follow the port's 32-feature blocks at wider F."""
     valp = _pad_to(_pad_to(values, EDGE_TILE, 0, 0), FEAT_BLOCK, 1, 0)
-    feat = _feat_liveness(valp, schedule.work[:, 1], EDGE_TILE)
+    feat = K.tile_feature_liveness(valp)[schedule.work[:, 1].long()]
     live = schedule.work[:, 2] == 1
-    return (int((feat * live[:, None]).sum()),
+    return (int((feat & live[:, None]).sum()),
             int(live.sum()) * feat.shape[1])
 
 
@@ -276,17 +276,6 @@ def occupancy_map(dst: torch.Tensor, n_row_blocks: int) -> torch.Tensor:
     counts = torch.bincount(flat, minlength=(n_row_blocks + 1) * T)
     return (counts[: n_row_blocks * T].reshape(n_row_blocks, T) > 0
             ).to(torch.int32)
-
-
-def _feat_liveness(valp: torch.Tensor, tiles: torch.Tensor,
-                   et: int) -> torch.Tensor:
-    """(W, F//FEAT_BLOCK) int32: does work row w's edge tile have any
-    nonzero value in feature block f? ``valp`` is the padded value stream
-    the kernel consumes."""
-    T, Fp = valp.shape[0] // et, valp.shape[1]
-    tile_live = (valp.reshape(T, et, Fp // FEAT_BLOCK, FEAT_BLOCK) != 0
-                 ).any(dim=3).any(dim=1)
-    return tile_live.to(torch.int32)[tiles.long()]
 
 
 # ---------------------------------------------------------------------------
@@ -368,15 +357,12 @@ def fused_call(dst: torch.Tensor, values: torch.Tensor,
         raise ValueError(
             f"schedule work list sized for a different row space: "
             f"{schedule.work.shape[0]} != {T} + 2·{n_blocks}")
-    work = schedule.work
     if op == "add":
-        # feature-block liveness rides the work list: the kernel skips
-        # all-zero feature blocks exactly like idle tiles (exact for add)
-        with trace.span("gas.liveness", valp):
-            trace.add("gas.liveness.bytes", valp.numel() * valp.element_size())
-            work = torch.cat([work, _feat_liveness(valp, work[:, 1],
-                                                   EDGE_TILE)], dim=1)
-    return KernelCall("gas_scatter_banded", (work.contiguous(), dstp, valp, R),
+        # the kernel skips all-zero feature blocks, deciding from the value
+        # rows it stages: no value byte is read for it out here
+        trace.add("gas.liveness.bytes", 0)
+    return KernelCall("gas_scatter_banded",
+                      (schedule.work.contiguous(), dstp, valp, R),
                       {"op": op, "weights": wp})
 
 

@@ -229,43 +229,98 @@ def test_ref_oracle_equals_reference(op):
 # ---------------------------------------------------------------------------
 
 def test_fused_call_shapes_and_feature_liveness():
+    """Every op launches the schedule's own (W, 4) work list: the banded
+    kernel decides feature-block liveness from the value rows it stages,
+    so the call carries no liveness columns."""
     rng = np.random.default_rng(2)
     E, n_rows, F = 300, 130, 70           # F pads to 96: three 32-blocks
     dst, mask = _edges(rng, E, n_rows)
     vals = rng.integers(1, 5, (E, F)).astype(np.float32)
     vals[:, 32:64] = 0.0                  # the middle block is all zero
     sched = ops.schedule_edges(_t(dst), _t(mask), n_rows)
-    call = ops.fused_call(_t(dst), _t(vals), None, _t(mask), n_rows,
-                          op="add", schedule=sched)
-    assert call.kernel == "gas_scatter_banded"
-    work, dstp, valp, R = call.args
-    assert R == 256 and tuple(valp.shape) == (384, 96)
-    assert tuple(work.shape) == (sched.work.shape[0], 4 + 3)
-    assert (work[:, 5] == 0).all() and (work[:, 4] == 1).all()
-    assert ((dstp == R) | (dstp < n_rows)).all()     # dead rows target R
+    for op in ("add", "max", "min"):
+        call = ops.fused_call(_t(dst), _t(vals), None, _t(mask), n_rows,
+                              op=op, schedule=sched)
+        assert call.kernel == "gas_scatter_banded"
+        work, dstp, valp, R = call.args
+        assert R == 256 and tuple(valp.shape) == (384, 96)
+        assert work.dtype == torch.int32 and torch.equal(work, sched.work)
+        assert tuple(work.shape) == (sched.work.shape[0], 4)
+        assert ((dstp == R) | (dstp < n_rows)).all()  # dead rows target R
+    live = K.tile_feature_liveness(valp)
+    assert tuple(live.shape) == (3, 3)
+    assert live[:, 0].all() and not live[:, 1].any() and live[:, 2].all()
     dense = ops.fused_call(_t(dst), _t(vals), None, _t(mask), n_rows,
                            op="max")
     assert dense.kernel == "gas_scatter_dense"
     assert tuple(dense.args[2].shape) == (2, 3)
 
 
-def test_plain_version_honours_feature_liveness():
-    """A live block wrongly flagged dead changes the result: the plain
-    version really gates rounds on the liveness columns."""
+def _liveness_columns(valp, tiles):
+    """(W, F/32): per work row, does its edge tile hold a value != 0 in
+    each 32-feature block? The skip rule as per-row columns, computed apart
+    from ``K.tile_feature_liveness``."""
+    T, F = valp.shape[0] // 128, valp.shape[1]
+    return (valp.reshape(T, 128, F // 32, 32) != 0).any(3).any(1)[tiles.long()]
+
+
+def _walk_with_columns(call, feat):
+    """The banded walk gated by per-work-row liveness columns ``feat`` (W,
+    F/32), or by none."""
+    work, dstp, valp, R = call.args
+    out = torch.empty((R, valp.shape[1]), dtype=valp.dtype)
+    for i, (rb, tile, live, init) in enumerate(work.tolist()):
+        acc = out[rb * 128:(rb + 1) * 128]
+        if init == 1:
+            acc.zero_()
+        if live == 1:
+            K._round_plain(acc, dstp, valp, call.kwargs["weights"], "add",
+                           tile, rb * 128,
+                           None if feat is None else feat[i])
+    return out
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+def test_plain_version_honours_feature_liveness(dtype):
+    """The plain walk skips exactly the all-zero (edge tile × 32-feature)
+    blocks of an add: an all-zero block and a -0.0 block are skipped, a
+    block whose one nonzero value is NaN is applied. An inf weight on a
+    live edge leaves the skipped blocks finite, equal to the walk gated by
+    per-row liveness columns, where an unskipped walk makes them NaN."""
     rng = np.random.default_rng(4)
-    E, n_rows, F = 256, 128, 64
-    dst, _ = _edges(rng, E, n_rows, masked=False, out_of_range=False)
-    vals = rng.integers(1, 5, (E, F)).astype(np.float32)
-    sched = ops.schedule_edges(_t(dst), None, n_rows)
-    perm = sched.perm.long()
-    call = ops.fused_call(_t(dst)[perm], _t(vals)[perm], None, None, n_rows,
-                          op="add", schedule=sched)
-    good = call.run()
-    work = call.args[0].clone()
-    work[:, 5] = 0
-    bad = _run_banded_plain(work, *call.args[1:], **call.kwargs)
-    assert torch.equal(bad[:, :32], good[:, :32])
-    assert (bad[:, 32:] == 0).all() and (good[:, 32:] != 0).any()
+    E, n_rows, F = 256, 128, 128
+    dst = _t(rng.integers(0, n_rows, E).astype(np.int32))
+    vals = torch.from_numpy(rng.integers(1, 3, (E, F)).astype(np.float32))
+    vals[:128, 32:64] = 0.0               # tile 0, block 1: all zero
+    vals[:128, 64:96] = -0.0              # block 2: all -0.0
+    vals[:128, 96:] = 0.0                 # block 3: one NaN
+    vals[5, 100] = float("nan")
+    w = torch.from_numpy(rng.integers(-1, 2, E).astype(np.float32))
+    w[9] = float("inf")                   # a live edge of tile 0
+    vals = vals.to(dtype)
+    assert torch.signbit(vals[:128, 64:96]).all()
+    sched = ops.schedule_edges(dst, None, n_rows, assume_sorted=True)
+    call = ops.fused_call(dst, vals, w, None, n_rows, op="add",
+                          schedule=sched)
+    work, dstp, valp, R = call.args
+    assert tuple(work.shape) == (sched.work.shape[0], 4)
+    live = K.tile_feature_liveness(valp)
+    assert torch.equal(live[0], torch.tensor([True, False, False, True]))
+    assert live[1].all()
+    got = call.run()
+    assert got.dtype == dtype
+    row = int(dst[9])
+    assert torch.isfinite(got[row, 32:96]).all()
+    assert torch.isnan(got[int(dst[5]), 100])
+    feat = _liveness_columns(valp, work[:, 1])
+    assert torch.equal(feat, live[work[:, 1].long()])
+    torch.testing.assert_close(got, _walk_with_columns(call, feat),
+                               rtol=0, atol=0, equal_nan=True)
+    unskipped = _walk_with_columns(call, None)
+    assert torch.isnan(unskipped[row, 32:96]).all()
+    torch.testing.assert_close(got[:, :32], unskipped[:, :32], rtol=0,
+                               atol=0, equal_nan=True)
 
 
 def _run_banded_plain(*args, **kwargs):
@@ -350,8 +405,8 @@ def test_wrappers_check_their_arguments_after_a_warm_call(kernel_name):
     with pytest.raises(ValueError):                     # work / occupancy shape
         call(m=torch.zeros((4, 5) if banded else (1, 3), dtype=torch.int32))
     if banded:
-        with pytest.raises(ValueError):                 # liveness gates add only
-            call(m=torch.zeros((4, 6), dtype=torch.int32), op="max")
+        with pytest.raises(ValueError):                 # no liveness columns
+            call(m=torch.zeros((4, 6), dtype=torch.int32), op="add")
     with pytest.raises(ValueError):
         call(v=vals.to("meta"))                         # no kernel, no fallback
     assert call(op="add").shape == (128, 64)

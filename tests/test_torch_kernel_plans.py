@@ -321,13 +321,14 @@ def _cluster_walk(work, dst, values, n_rows, op, weights):
     """The kernel's partition of the walk, in PyTorch: per row block, each
     rank of ``banded_plan``'s cluster reduces its ``cluster_share`` of the
     run's live rows into a partial from the identity; the partials combine
-    in rank order."""
+    in rank order. An add round skips each 32-feature block whose staged
+    128 value rows are all zero (``!= 0`` false), as each CTA decides from
+    the rows it stages."""
     E, F = values.shape
     plan = K.banded_plan(work.shape[0], n_rows, F)
     rows = work.tolist()
     blocks = work[:, 0].contiguous()
     out = torch.empty((n_rows, F))
-    feat_skip = work.shape[1] > 4
     for rb in range(n_rows // 128):
         lo = int(torch.searchsorted(blocks, rb))
         hi = int(torch.searchsorted(blocks, rb + 1))
@@ -338,7 +339,9 @@ def _cluster_walk(work, dst, values, n_rows, op, weights):
             for i in range(s0, s1):
                 if rows[i][2] != 1:
                     continue
-                fl = torch.tensor(rows[i][4:]) if feat_skip else None
+                tile = values[rows[i][1] * 128:(rows[i][1] + 1) * 128]
+                fl = ((tile.reshape(128, F // 32, 32) != 0).any(2).any(0)
+                      if op == "add" else None)
                 K._round_plain(acc, dst, values, weights, op, rows[i][1],
                                rb * 128, fl)
             parts.append(acc)
@@ -374,8 +377,9 @@ def test_cluster_walk_equals_the_plain_walk(op, seeds, fanout, n_rows):
     sched = ops.schedule_edges(dst, mask, n_rows, assume_sorted=True)
     call = ops.fused_call(dst, vals, w, mask, n_rows, op=op, schedule=sched)
     work, dstp, valp, R = call.args
+    assert tuple(work.shape) == (sched.work.shape[0], 4)
     if op == "add":
-        assert work.shape[1] == 4 + 2 and not work[:, 5].any()
+        assert not valp[:, 32:].any()
     want = _run_banded_plain(*call.args, **call.kwargs)
     got = _cluster_walk(work, dstp, valp, R, op, call.kwargs["weights"])
     assert torch.equal(got, want)

@@ -79,7 +79,7 @@ def test_off_a_span_is_the_shared_no_op_and_nothing_records():
 # layer 1's gather backward, in the backward's own call of the same id
 FORWARD = [("cgtrans.schedule", "gcn.forward")] + [
     ("gas.find", "cgtrans.aggregate"), ("gas.pad", "gas.scatter"),
-    ("gas.liveness", "gas.scatter"), ("gas.kernel", "gas.scatter"),
+    ("gas.kernel", "gas.scatter"),
     ("gas.scatter", "cgtrans.aggregate"),
     ("cgtrans.aggregate", "gcn.forward")] * 2 + [("gcn.forward", None)]
 BACKWARD = [("gas.pad", "gas.scatter"), ("gas.kernel", "gas.scatter"),
@@ -113,15 +113,13 @@ def test_spans_nest_under_their_parents_with_their_root_call_id():
 
 
 def _bytes(E_, widths):
-    """Pad bytes (each (E, f) f32 value stream padded to 32 features: a
-    read of E·f plus a write of E·fp, none at a multiple of 32) and the
-    liveness pass's read of E·fp."""
-    pad = live = 0
+    """Pad bytes: each (E, f) f32 value stream padded to 32 features, a
+    read of E·f plus a write of E·fp, none at a multiple of 32."""
+    pad = 0
     for f in widths:
         fp = -(-f // 32) * 32
         pad += 4 * E_ * (f + fp) if fp != f else 0
-        live += 4 * E_ * fp
-    return pad, live
+    return pad
 
 
 @pytest.mark.parametrize("F,H", [(40, 16), (32, 32), (602, 64)])
@@ -130,12 +128,12 @@ def test_wrapper_byte_counters_equal_hand_counts(F, H):
     with trace.recording():
         _step(*world)
     got = trace.summary()["counters"]
-    pad, live = _bytes(E, [F, H])
-    # the gather backward pads the (E, H) cotangent; the dense kernel
-    # takes no liveness
-    pad += _bytes(E, [H])[0]
+    # the gather backward pads the (E, H) cotangent too
+    pad = _bytes(E, [F, H]) + _bytes(E, [H])
     assert got["gas.pad.bytes"] == pad
-    assert got["gas.liveness.bytes"] == live
+    # the banded kernel decides feature-block liveness from the rows it
+    # stages: no pass outside it reads a value byte for it
+    assert got["gas.liveness.bytes"] == 0
     if F % 32 == 0 and H % 32 == 0:
         assert got["gas.pad.bytes"] == 0
     assert set(got) == {"gas.pad.bytes", "gas.liveness.bytes"}
@@ -274,4 +272,5 @@ def test_a_profiler_session_turns_recording_on():
     assert trace.span("a") is trace.span("b")
     assert trace.summary()["spans"]["gcn.forward"]["calls"] == 1
     names = {e.name for e in prof.events()}
-    assert {"gcn.forward", "gas.liveness", "gas.kernel"} <= names
+    assert {"gcn.forward", "gas.pad", "gas.kernel"} <= names
+    assert "gas.liveness" not in names
