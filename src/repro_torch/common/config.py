@@ -1,7 +1,10 @@
 """Model configuration dataclass, a copy of the JAX package's.
 
 One ``ModelConfig`` covers every architecture family; per-arch files in
-``repro_torch.configs`` instantiate it with the published numbers.
+``repro_torch.configs`` instantiate it with the published numbers. The
+fields under "port only" have no counterpart in the JAX package: at their
+defaults a configuration means what the JAX package's means, field for
+field.
 ``ShapeConfig`` and ``SHAPES`` are the JAX module's (train, prefill,
 decode) shape presets and ``TrainConfig`` is the optimiser's, field for
 field.
@@ -86,10 +89,26 @@ class ModelConfig:
     # --- CGTrans integration (the paper's technique; see DESIGN §5) ---
     cgtrans_embedding: bool = False  # owner-aggregated embedding-grad scatter
     cgtrans_moe: bool = False        # combine-at-expert compressed all-to-all
+    # --- port only (DeepSeek-V3 block: MLA, biased sigmoid router, share) ---
+    kv_lora_rank: int = 0            # >0: multi-head latent attention (MLA);
+                                     # head_dim is then the q/k "nope" width
+    qk_rope_dim: int = 0             # MLA: the rotary q/k width per head
+    v_head_dim: int = 0              # MLA: the value width per head
+    held_experts: int = 0            # >0: DeepSeek-V3 MoE (noaux_tc sigmoid
+    held_first: int = 0              # router + selection bias, sequence-wise
+                                     # aux), dropless over the held experts
+                                     # [held_first, held_first+held_experts)
+    routed_scale: float = 1.0        # held_experts: the weights x this
 
     @property
     def hd(self) -> int:
         return self.head_dim or self.d_model // self.n_heads
+
+    @property
+    def rope_dim(self) -> int:
+        """The width the rotary tables cover: MLA's rotary part of a
+        head, else the whole head."""
+        return self.qk_rope_dim if self.kv_lora_rank else self.hd
 
     @property
     def vocab_padded(self) -> int:
@@ -120,6 +139,11 @@ class ModelConfig:
             assert self.window > 0
         if self.is_encoder_decoder:
             assert self.n_enc_layers > 0
+        if self.kv_lora_rank:
+            assert self.qk_rope_dim > 0 and self.v_head_dim > 0
+        if self.held_experts:
+            assert 0 <= self.held_first and \
+                self.held_first + self.held_experts <= self.n_experts
 
 
 @dataclasses.dataclass(frozen=True)

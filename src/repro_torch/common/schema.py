@@ -6,7 +6,10 @@ with numpy from a seed (or, with ``draw="device"``, with a
 ``torch.Generator`` on the device: a billion-parameter LM's draw takes
 seconds there against minutes in numpy), ``stack`` prepends a layers axis
 to every leaf (the stacked blocks of a layer stack), and
-``tree_map_defs`` maps every leaf (the optimiser state's schema). The JAX
+``tree_map_defs`` maps every leaf (the optimiser state's schema). A leaf
+declared ``trainable=False`` is a buffer: the model reads it, the train
+step takes no gradient of it and the optimiser keeps no state for it
+(``frozen_paths``; the sigmoid router's selection bias). The JAX
 package draws with ``jax.random``, so the two give different numbers from
 one seed: to compare them, carry the JAX parameters across
 (``repro_torch.core.gcn.params_from_jax``,
@@ -33,6 +36,7 @@ class ParamDef:
     dtype: torch.dtype = torch.float32
     scale: Optional[float] = None        # stddev override for "normal"
     custom: Optional[str] = None         # the "custom" init's tag
+    trainable: bool = True               # False: a buffer, no gradient
 
     def __post_init__(self):
         if len(self.shape) != len(self.logical):
@@ -56,12 +60,15 @@ def leaves(schema: Schema, prefix: Tuple[str, ...] = ()
 
 
 def _fan_in(d: ParamDef) -> int:
-    """The input width of one layer's matrix: its first axis, after the
-    stacked layers axis where ``stack`` prepended one. (The JAX package
-    takes ``shape[0]`` even of a stacked leaf, so its stacked matrices are
-    drawn with the layer count as fan-in.)"""
-    shape = d.shape[1:] if d.logical[:1] == ("layers",) else d.shape
-    return max(shape[0], 1) if shape else 1
+    """The input width of one matrix: its first axis after the stacked
+    layers axis where ``stack`` prepended one and after the experts axis
+    of an MoE leaf. (The JAX package takes ``shape[0]`` even of a stacked
+    or expert leaf, so its stacked matrices are drawn with the layer count
+    as fan-in, and its experts with the expert count.)"""
+    axes = list(zip(d.shape, d.logical))
+    while axes and axes[0][1] in ("layers", "experts"):
+        axes.pop(0)
+    return max(axes[0][0], 1) if axes else 1
 
 
 def _custom(tag: Optional[str], u: torch.Tensor) -> torch.Tensor:
@@ -151,6 +158,11 @@ def init_params(schema: Schema, seed: int = 0, *,
         leaf = make(d)
         node[path[-1]] = leaf if mesh is None else _block(leaf, d, mesh)
     return out
+
+
+def frozen_paths(schema: Schema) -> frozenset:
+    """The key paths of the schema's buffers (``trainable=False``)."""
+    return frozenset(p for p, d in leaves(schema) if not d.trainable)
 
 
 def param_logical_specs(schema: Schema):

@@ -34,6 +34,29 @@ def tree_map(fn: Callable, tree, *rest):
     return fn(tree, *rest)
 
 
+def prune(tree, paths):
+    """``tree`` (nested dicts) without the leaves at ``paths`` (key
+    paths) and without the dicts that leaves nothing in; ``tree`` itself
+    where ``paths`` is empty."""
+    if not paths:
+        return tree
+    return _prune(tree, (), frozenset(paths))
+
+
+def _prune(node, prefix, paths):
+    out = {}
+    for k, v in node.items():
+        path = (*prefix, k)
+        if path in paths:
+            continue
+        if isinstance(v, dict):
+            v = _prune(v, path, paths)
+            if not v:
+                continue
+        out[k] = v
+    return out
+
+
 def unflatten(template, values: List[Any]):
     """``template``'s structure with its leaves replaced, in
     ``leaves_with_paths`` order, by ``values``."""

@@ -2,6 +2,11 @@
 
 [hf:moonshotai/Moonlight-16B-A3B; hf]. First layer dense (width 8·d_ff,
 derived — the assignment pins the expert width 1408).
+
+This mirrors the JAX registry's entry value for value, and is not
+Moonlight's published config: that has 27 layers, latent attention (MLA)
+and sigmoid routing with a selection bias, and lives in
+``configs/moonlight_16b_a3b.py``.
 """
 
 from repro_torch.common.config import ModelConfig

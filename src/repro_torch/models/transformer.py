@@ -12,8 +12,11 @@ gradient once instead of zero-filling a whole stacked leaf per block.
 
 Three entry points, as in the JAX package: ``loss_fn`` (train; with
 ``cfg.remat == "block"`` each block of the loop is checkpointed, as
-``jax.checkpoint`` wraps the scan body), ``prefill`` (last-token logits +
-populated cache) and ``decode_step`` (one token against the cache).
+``jax.checkpoint`` wraps the scan body; one ``lm.loss`` span), ``prefill``
+(last-token logits + populated cache) and ``decode_step`` (one token
+against the cache). A model with latent attention (``cfg.kv_lora_rank``,
+``models/mla.py``) takes it in every self-attention layer in place of
+multi-head attention, and trains only: its prefill and decode raise.
 
 Each takes ``mesh=`` (a ``launch.mesh.Mesh``): then the parameters are
 this rank's blocks (``common.schema.shard_params``), the batch is this
@@ -48,12 +51,13 @@ from repro_torch.common.logical import batch_axes, dp_size
 from repro_torch.common.schema import ParamDef, stack as stack_schema
 from repro_torch.core import collectives
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.models import griffin, layers, moe, ssm
+from repro_torch.models import griffin, layers, mla, moe, ssm
 from repro_torch.launch.mesh import check_named_mesh
 from repro_torch.models.embedding import (chunked_softmax_xent, embed_lookup,
                                           vocab_logits)
 from repro_torch.models.layers import (LayerCtx, apply_norm, compute_dtype,
                                        norm_schema, ready_leaf, rope_tables)
+from repro_torch.runtime import trace
 
 
 def _cdt(cfg: ModelConfig) -> torch.dtype:
@@ -63,6 +67,16 @@ def _cdt(cfg: ModelConfig) -> torch.dtype:
 # ---------------------------------------------------------------------------
 # per-layer schema / apply / prefill / decode, dispatched on kind
 # ---------------------------------------------------------------------------
+
+def _self_attn_schema(cfg: ModelConfig) -> Dict[str, Any]:
+    return mla.mla_schema(cfg) if cfg.kv_lora_rank else layers.attn_schema(cfg)
+
+
+def _self_attn(cfg: ModelConfig, p, h, ctx: LayerCtx, kind: str):
+    if cfg.kv_lora_rank:
+        return mla.mla_apply(p, h, ctx)
+    return layers.attn_apply(p, h, ctx, kind=kind)
+
 
 def layer_schema(cfg: ModelConfig, kind: str) -> Dict[str, Any]:
     n = lambda: norm_schema(cfg, cfg.d_model)
@@ -74,7 +88,7 @@ def layer_schema(cfg: ModelConfig, kind: str) -> Dict[str, Any]:
     if kind in ("attn", "local", "enc"):
         dff = cfg.d_ff_dense or cfg.d_ff
         is_prefix_dense = kind == "attn" and cfg.first_k_dense > 0
-        s = {"norm": n(), "attn": layers.attn_schema(cfg), "norm2": n(),
+        s = {"norm": n(), "attn": _self_attn_schema(cfg), "norm2": n(),
              "mlp": layers.mlp_schema(cfg, dff if is_prefix_dense
                                       else cfg.d_ff)}
         if cfg.post_norms:
@@ -82,7 +96,7 @@ def layer_schema(cfg: ModelConfig, kind: str) -> Dict[str, Any]:
             s["post_mlp_norm"] = n()
         return s
     if kind == "moe":
-        return {"norm": n(), "attn": layers.attn_schema(cfg),
+        return {"norm": n(), "attn": _self_attn_schema(cfg),
                 "norm2": n(), "moe": moe.moe_schema(cfg)}
     if kind == "cross":
         return {"norm": n(),
@@ -162,12 +176,12 @@ def layer_apply(cfg: ModelConfig, kind: str, p, x, ctx: LayerCtx):
         return x + layers.mlp_apply(p["mlp"], h, cfg, m), aux
     if kind in ("attn", "local", "enc"):
         h = apply_norm(p["norm"], x, cfg)
-        x = _residual(x, layers.attn_apply(p["attn"], h, ctx, kind=kind),
+        x = _residual(x, _self_attn(cfg, p["attn"], h, ctx, kind),
                       p, cfg, "post_attn_norm")
         return _mlp_block(cfg, p, x, m), aux
     if kind == "moe":
         h = apply_norm(p["norm"], x, cfg)
-        x = x + layers.attn_apply(p["attn"], h, ctx, kind="attn")
+        x = x + _self_attn(cfg, p["attn"], h, ctx, "attn")
         h = apply_norm(p["norm2"], x, cfg)
         out, aux = moe.moe_apply(p["moe"], h, cfg, mesh=m, rules=ctx.rules)
         return x + out, aux
@@ -502,7 +516,7 @@ def _sincos_pos(S: int, D: int, dtype, device) -> torch.Tensor:
 def _make_ctx(cfg: ModelConfig, positions: torch.Tensor, memory=None,
               pos: Optional[int] = None, use_flash: bool = False,
               mesh=None, rules=None, cache_layout: str = "seq") -> LayerCtx:
-    hd = cfg.hd
+    hd = cfg.rope_dim
     rope_l = rope_tables(positions, hd, cfg.rope_theta)
     rope_g = (rope_tables(positions, hd, cfg.rope_theta_global)
               if cfg.rope_theta_global else rope_l)
@@ -569,6 +583,13 @@ def _valid_mesh(mesh):
     return mesh
 
 
+def _no_latent_cache(cfg: ModelConfig):
+    if cfg.kv_lora_rank:
+        raise NotImplementedError(
+            f"{cfg.name}: latent attention (MLA) has no KV cache in the port "
+            "yet, so it has no prefill or decode; train it with loss_fn")
+
+
 # ---------------------------------------------------------------------------
 # entry points
 # ---------------------------------------------------------------------------
@@ -589,6 +610,12 @@ def loss_fn(params, batch: Mapping[str, Any], cfg: ModelConfig, *,
     """
     mesh = _valid_mesh(mesh)
     dev = params["embed"]["table"].device
+    with trace.span("lm.loss", params["embed"]["table"]):
+        return _loss(params, batch, cfg, mesh, use_flash, impl, rules, dev)
+
+
+def _loss(params, batch, cfg: ModelConfig, mesh, use_flash: bool, impl: str,
+          rules, dev):
     tokens = _on(batch["tokens"], dev)
     B, S = tokens.shape
     emb, out_table = _tables(cfg, params, mesh)
@@ -627,6 +654,7 @@ def prefill(params, batch: Mapping[str, Any], cfg: ModelConfig, *,
     rows of both (its rows under ``rules``, every vocab column of the
     logits), the caches in ``cache_layout``.
     """
+    _no_latent_cache(cfg)
     mesh = _valid_mesh(mesh)
     dev = params["embed"]["table"].device
     tokens = _on(batch["tokens"], dev)
@@ -658,6 +686,7 @@ def decode_step(params, token, caches, pos: int, cfg: ModelConfig, *,
 
     Returns (logits (B,V) f32, caches).
     """
+    _no_latent_cache(cfg)
     mesh = _valid_mesh(mesh)
     dev = params["embed"]["table"].device
     pos = int(pos)

@@ -16,6 +16,11 @@ block: summed over ``data`` already where the leaf is sharded over it
 where it is replicated over ``model`` (``models/layers.py``); the step
 sums it over each batch axis the leaf is replicated on (one counted
 ``grad_all_reduce`` per set of such axes).
+
+A buffer of the schema (``ParamDef(trainable=False)``, the sigmoid
+router's selection bias) rides in ``params`` for the model to read; the
+step takes no gradient of it and AdamW keeps no state for it and leaves
+it as it is.
 """
 
 from __future__ import annotations
@@ -29,10 +34,11 @@ from repro_torch.common.logical import (DEFAULT_RULES, batch_axes, dp_size,
                                         local_block, local_shape, spec_axes,
                                         spec_leaves, to_physical,
                                         tree_to_physical)
-from repro_torch.common.schema import (ParamDef, init_params,
+from repro_torch.common.schema import (ParamDef, frozen_paths, init_params,
                                        leaves as schema_leaves,
                                        param_logical_specs, param_structs)
-from repro_torch.common.tree import leaves_with_paths, tree_map, unflatten
+from repro_torch.common.tree import (leaves_with_paths, prune, tree_map,
+                                     unflatten)
 from repro_torch.core import collectives
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels.flash_attention.ops import NO_GRADIENT
@@ -49,7 +55,7 @@ def state_schema(cfg: ModelConfig, tc: TrainConfig, *, max_seq: int = 0):
     ps = T.model_schema(cfg, max_seq=max_seq)
     return {
         "params": ps,
-        "opt": opt_state_schema(ps, tc),
+        "opt": opt_state_schema(prune(ps, frozen_paths(ps)), tc),
         "step": ParamDef((), (), init="zeros", dtype=torch.int32),
     }
 
@@ -118,10 +124,11 @@ def init_state(cfg: ModelConfig, tc: TrainConfig, seed: int = 0, *,
     blocks of the unsharded run's parameters, on the mesh's device."""
     if mesh is not None:
         device = mesh.device
-    params = init_params(T.model_schema(cfg, max_seq=max_seq), seed,
-                         device=device, draw=draw, mesh=mesh)
+    schema = T.model_schema(cfg, max_seq=max_seq)
+    params = init_params(schema, seed, device=device, draw=draw, mesh=mesh)
     dev = resolve_device(device)
-    return {"params": params, "opt": adamw_init(params, tc),
+    return {"params": params,
+            "opt": adamw_init(prune(params, frozen_paths(schema)), tc),
             "step": torch.zeros((), dtype=torch.int32, device=dev)}
 
 
@@ -224,24 +231,29 @@ def make_train_step(cfg: ModelConfig, tc: TrainConfig, *, mesh=None,
         raise NotImplementedError(
             f"make_train_step(use_flash=True): {NO_GRADIENT}")
     checked = {}
+    # the buffers: read by the model, no gradient, no optimiser state
+    frozen = frozen_paths(T.model_schema(cfg))
 
     def value_and_grad(params, batch):
         paths = leaves_with_paths(params)
-        live = [p.detach().requires_grad_(True) for _, p in paths]
+        live = [p if path in frozen else p.detach().requires_grad_(True)
+                for path, p in paths]
         total, metrics = T.loss_fn(unflatten(params, live),
                                    _rows(batch, cfg, mesh), cfg, mesh=mesh,
                                    impl=impl)
-        grads = torch.autograd.grad(total, live, materialize_grads=True)
+        grads = torch.autograd.grad(
+            total, [x for (path, _), x in zip(paths, live)
+                    if path not in frozen], materialize_grads=True)
         return (total.detach(), tree_map(torch.Tensor.detach, metrics),
-                unflatten(params, list(grads)))
+                unflatten(prune(params, frozen), list(grads)))
 
     def train_step(state, batch):
-        params = state["params"]
         if mesh is not None and "specs" not in checked:
-            checked["specs"] = _check_placement(cfg, params, mesh,
+            checked["specs"] = _check_placement(cfg, state["params"], mesh,
                                                 param_shardings)
-        dev = params["embed"]["table"].device
+        dev = state["params"]["embed"]["table"].device
         batch = {k: T._on(v, dev) for k, v in batch.items()}
+        params = prune(state["params"], frozen)
         mb = tc.microbatches
         if mb > 1:
             g_acc = tree_map(lambda p: torch.zeros(p.shape,
@@ -251,21 +263,23 @@ def make_train_step(cfg: ModelConfig, tc: TrainConfig, *, mesh=None,
             for i in range(mb):
                 part = {k: v.reshape(mb, v.shape[0] // mb, *v.shape[1:])[i]
                         for k, v in batch.items()}
-                l, metrics, g = value_and_grad(params, part)
+                l, metrics, g = value_and_grad(state["params"], part)
                 g_acc = tree_map(lambda a, b: a + b.to(a.dtype), g_acc, g)
                 l_acc = l_acc + l
             grads = tree_map(lambda g: g / mb, g_acc)
             loss_val = l_acc / mb
         else:
-            loss_val, metrics, grads = value_and_grad(params, batch)
+            loss_val, metrics, grads = value_and_grad(state["params"], batch)
+        specs = checked.get("specs")
         if mesh is not None:
-            grads = _sync_grads(grads, checked["specs"], mesh)
-        new_params, new_opt, opt_metrics = adamw_update(
-            params, grads, state["opt"], tc, mesh=mesh,
-            specs=checked.get("specs"))
+            specs = prune(specs, frozen)
+            grads = _sync_grads(grads, specs, mesh)
+        # in place: the pruned tree holds the state's own tensors
+        _, new_opt, opt_metrics = adamw_update(params, grads, state["opt"],
+                                               tc, mesh=mesh, specs=specs)
         with torch.no_grad():
             state["step"].add_(1)
-        new_state = {"params": new_params, "opt": new_opt,
+        new_state = {"params": state["params"], "opt": new_opt,
                      "step": state["step"]}
         return new_state, {**metrics, **opt_metrics, "total_loss": loss_val}
 

@@ -3,6 +3,8 @@
 carried across, JAX and port training states built from them, and tree
 comparisons."""
 
+import dataclasses
+
 import numpy as np
 import torch
 
@@ -26,6 +28,19 @@ from repro_torch.optim import adamw_init
 # parameters can be held to 1e-5; the gradients themselves are held at
 # the default eps's step through ``loss_fn`` directly.
 TRAIN_KW = dict(learning_rate=1e-2, warmup_steps=1, total_steps=5, eps=1e-3)
+
+
+def config_fields(tcfg, jcfg):
+    """(the port's config fields that the JAX config has, the JAX
+    config's), as dicts, after checking that every field the port adds
+    (``common/config.py``'s "port only") sits at its default, which means
+    what the JAX package does."""
+    t, j = dataclasses.asdict(tcfg), dataclasses.asdict(jcfg)
+    assert set(j) <= set(t)
+    own = {f.name: f.default for f in dataclasses.fields(tcfg)
+           if f.name not in j}
+    assert {k: t[k] for k in own} == own
+    return {k: v for k, v in t.items() if k in j}, j
 
 
 def jax_draw(schema, seed=0):

@@ -21,8 +21,6 @@ second test keeps the JAX init as it is and holds whisper-base's logits
 within 1e-3 of their largest magnitude.
 """
 
-import dataclasses
-
 import numpy as np
 import pytest
 import torch
@@ -30,6 +28,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
+from _lm_parity import config_fields
 from repro import configs as jconfigs
 from repro.common.schema import ParamDef as JParamDef
 from repro.common.schema import init_params as j_init_params
@@ -168,7 +167,8 @@ def _shapes(tree, path=()):
 @pytest.mark.parametrize("arch", ARCHS)
 def test_schemas_match_jax(arch):
     jcfg, tcfg = jconfigs.get_config(arch), configs.get_config(arch)
-    assert dataclasses.asdict(jcfg) == dataclasses.asdict(tcfg)
+    mine, theirs = config_fields(tcfg, jcfg)
+    assert mine == theirs
     js = JT.model_schema(jcfg, max_seq=64)
     ts = TT.model_schema(tcfg, max_seq=64)
     assert _shapes(ts) == _shapes(js)

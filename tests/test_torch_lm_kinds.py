@@ -22,8 +22,8 @@ import torch
 import jax
 import jax.numpy as jnp
 
-from _lm_parity import (TRAIN_KW, assert_trees, jax_draw, jax_params, shapes,
-                        states)
+from _lm_parity import (TRAIN_KW, assert_trees, config_fields, jax_draw,
+                        jax_params, shapes, states)
 from repro import configs as jconfigs
 from repro.common.schema import count_params as j_count_params
 from repro.common.schema import init_params as j_init_params
@@ -289,9 +289,11 @@ def test_cross_layer_matches(rng):
 @pytest.mark.parametrize("arch", jconfigs.ARCHS)
 def test_configs_and_full_width_counts_match(arch):
     jcfg, tcfg = jconfigs.get_config(arch), configs.get_config(arch)
-    assert dataclasses.asdict(tcfg) == dataclasses.asdict(jcfg)
-    assert dataclasses.asdict(configs.smoke_config(arch)) == \
-        dataclasses.asdict(jconfigs.smoke_config(arch))
+    mine, theirs = config_fields(tcfg, jcfg)
+    assert mine == theirs
+    mine, theirs = config_fields(configs.smoke_config(arch),
+                                 jconfigs.smoke_config(arch))
+    assert mine == theirs
     js, ts = JT.model_schema(jcfg), TT.model_schema(tcfg)
     assert count_params(ts) == j_count_params(js)
     assert shapes(ts) == shapes(js)

@@ -274,3 +274,36 @@ def test_a_profiler_session_turns_recording_on():
     names = {e.name for e in prof.events()}
     assert {"gcn.forward", "gas.pad", "gas.kernel"} <= names
     assert "gas.liveness" not in names
+
+
+def test_an_lm_step_records_the_moe_and_latent_attention_spans():
+    """One training step of a reduced Moonlight (1 dense + 2 checkpointed
+    MoE layers): ``lm.loss`` once, the root of the forward's spans; each
+    layer's ``mla.attention`` and each MoE layer's three spans in the
+    forward and again in the blocks' recomputation; the dispatch counter
+    from the shapes, every slot's row once per routed pass."""
+    import dataclasses
+
+    from repro_torch.configs import moonlight_16b_a3b as moonlight
+    from repro_torch.train import init_state, make_train_step
+
+    cfg = moonlight.share(dataclasses.replace(
+        moonlight.CONFIG, n_layers=3, d_model=64, n_heads=4, head_dim=16,
+        qk_rope_dim=8, v_head_dim=16, kv_lora_rank=32, d_ff=32,
+        d_ff_dense=96, n_experts=16, top_k=4, vocab=256,
+        compute_dtype="float32"), ep=8, vocab=256)
+    tc = TrainConfig()
+    state = init_state(cfg, tc, device="cpu")
+    tokens = torch.randint(0, 256, (2, 16))
+    with trace.recording():
+        make_train_step(cfg, tc)(state, {"tokens": tokens,
+                                         "labels": tokens})
+    s = trace.summary()
+    calls = {k: v["calls"] for k, v in s["spans"].items()}
+    assert calls == {"lm.loss": 1, "mla.attention": 3 + 2,
+                     "moe.route": 2 + 2, "moe.experts": 2 + 2,
+                     "moe.combine": 2 + 2, "adamw.update": 1}
+    assert s["counters"] == {"moe.dispatch.bytes": 4 * (2 * 16 * 4 * 64 * 4)}
+    forward = trace.calls()[0]["spans"]
+    assert forward[-1] == {**forward[-1], "name": "lm.loss", "parent": None}
+    assert {r["parent"] for r in forward[:-1]} == {"lm.loss"}
