@@ -425,8 +425,9 @@ def wrapper_host_us(torch, K, call):
     banded = call.kernel == "gas_scatter_banded"
     if banded:
         meta, dst, vals, R = call.args
+        order = None
     else:
-        dst, vals, meta, R = call.args
+        dst, order, meta, vals, R = call.args
     w = call.kwargs.get("weights")
     shape, dev, index = (R, vals.shape[1]), vals.device, vals.get_device()
     # the C entry alone, timed; these launches count nowhere
@@ -435,9 +436,11 @@ def wrapper_host_us(torch, K, call):
     call.run()  # the signature is checked and cached
     checked = K._SIGNATURES[K._signature("banded" if banded else "dense",
                                          meta, dst, vals, R,
-                                         call.kwargs["op"], w)]
+                                         call.kwargs["op"], w, order)]
     out = vals.new_empty(shape)
-    args = (checked.address, meta.data_ptr(), dst.data_ptr(),
+    pointers = ((meta.data_ptr(), dst.data_ptr()) if banded else
+                (dst.data_ptr(), order.data_ptr(), meta.data_ptr()))
+    args = (checked.address, *pointers,
             None if w is None else w.data_ptr(), vals.data_ptr(),
             out.data_ptr(), stream(index))
     t = {"call": host_us(torch, call.run),
@@ -518,30 +521,32 @@ def device_launches(torch, fn):
 
 def bound(call):
     """(bound_ms, bound_by) of a kernel call: the bytes this call's data
-    needs (ids and weights of every visited tile, the value rows of its
-    live edges in its live feature blocks, the work list or occupancy map,
-    the output once; values and output in their own type's bytes) over
-    HBM bandwidth, against its f32 operations over the f32 peak; the
-    larger wins."""
+    needs (the banded walk: ids and weights of every visited tile, the
+    value rows of its live edges in its live feature blocks, the work list;
+    the dense grid: the sorted ids, order and weights of its live edges,
+    their value rows, ``starts``; the output once; values and output in
+    their own type's bytes) over HBM bandwidth, against its f32 operations
+    over the f32 peak; the larger wins."""
     import torch
 
-    if call.kernel == "gas_scatter_banded":
-        work, dst, vals, R = call.args
-        rows = work[work[:, 2] == 1]
-        rb, tiles = rows[:, 0].long(), rows[:, 1].long()
-        if work.shape[1] > 4:
-            fl = rows[:, 4:]
-        else:
-            fl = torch.ones((rows.shape[0], vals.shape[1] // 32),
-                            dtype=torch.int32, device=vals.device)
-        meta = work.numel() * 4
+    if call.kernel == "gas_scatter_dense":
+        ids, order, starts, vals, R = call.args
+        live = int(starts[-1])
+        Fp, isz = vals.shape[1], vals.element_size()
+        w_bytes = 4 if call.kwargs.get("weights") is not None else 0
+        nbytes = (starts.numel() * 4 + live * (8 + w_bytes)
+                  + live * Fp * isz + R * Fp * isz)
+        return roofline(nbytes, live * Fp * (
+            2 if call.kwargs.get("op") == "add" else 1))
+    work, dst, vals, R = call.args
+    rows = work[work[:, 2] == 1]
+    rb, tiles = rows[:, 0].long(), rows[:, 1].long()
+    if work.shape[1] > 4:
+        fl = rows[:, 4:]
     else:
-        dst, vals, occ, R = call.args
-        pairs = torch.nonzero(occ > 0)
-        rb, tiles = pairs[:, 0], pairs[:, 1]
-        fl = torch.ones((pairs.shape[0], vals.shape[1] // 32),
+        fl = torch.ones((rows.shape[0], vals.shape[1] // 32),
                         dtype=torch.int32, device=vals.device)
-        meta = occ.numel() * 4
+    meta = work.numel() * 4
     E, Fp = vals.shape
     blocks = torch.div(dst.reshape(-1, 128)[tiles], 128, rounding_mode="floor")
     live_edges = (blocks == rb[:, None]).sum(1)     # edges each round reads
@@ -564,10 +569,7 @@ def library_fn(torch, call):
     ``index_add_`` in the values' type for a narrow add (the timed calls
     have unit weights), a ``scatter_reduce_`` for max/min. Built once;
     only the call is timed."""
-    dst, vals = ((call.args[1], call.args[2])
-                 if call.kernel == "gas_scatter_banded"
-                 else (call.args[0], call.args[1]))
-    R = call.args[3]
+    dst, vals, R = _call_parts(call)
     op, w = call.kwargs["op"], call.kwargs.get("weights")
     if op == "add" and vals.dtype != torch.float32:
         check(w is None or bool((w[dst < R] == 1).all()),
@@ -745,10 +747,14 @@ UNIT_ROUNDOFF = {"bf16": 2.0 ** -8, "f16": 2.0 ** -11}
 
 
 def _call_parts(call):
-    """(dst, values, n_rows) of a GAS kernel call."""
+    """(dst in stream order, values, n_rows) of a GAS kernel call (the
+    dense grid's from its sorted ids and their order)."""
     if call.kernel == "gas_scatter_banded":
         return call.args[1], call.args[2], call.args[3]
-    return call.args[0], call.args[1], call.args[3]
+    ids, order, _, vals, R = call.args
+    dst = ids.new_empty(ids.shape)
+    dst[order.long()] = ids
+    return dst, vals, R
 
 
 def abs_sums(torch, call):
@@ -757,8 +763,7 @@ def abs_sums(torch, call):
     them)."""
     dst, vals, R = _call_parts(call)
     args = list(call.args)
-    args[2 if call.kernel == "gas_scatter_banded" else 1] = \
-        vals.float().abs().contiguous()
+    args[-2] = vals.float().abs().contiguous()
     kw = dict(call.kwargs)
     if kw.get("weights") is not None:
         kw["weights"] = kw["weights"].to(vals.dtype).float().abs()
@@ -844,8 +849,8 @@ def check_call_narrow(torch, call, label, data, name):
 
 def log_plan(name, plan, call, what):
     ctas = plan.grid[0] * plan.grid[1]
-    log(f"  {name} launch at values {tuple(call.args[2 if name == 'gas_scatter_banded' else 1].shape)}"
-        f" rows {call.args[3]} {what}: grid {plan.grid}, cluster "
+    log(f"  {name} launch at values {tuple(call.args[-2].shape)}"
+        f" rows {call.args[-1]} {what}: grid {plan.grid}, cluster "
         f"({plan.cluster}, 1, 1), {ctas} CTAs of {plan.threads} threads, "
         f"{plan.smem_bytes} B shared")
     return ctas
@@ -873,9 +878,10 @@ def phase_kernels(torch, ops, K, table, shapes, smi):
             ctas = log_plan(name, plan, call, f"work {tuple(work.shape)}")
             check(ctas >= 132, f"{name}: only {ctas} CTAs on one chunk")
         else:
-            dst, vals, occ, R = call.args
-            plan = K.dense_plan(occ.shape[1], R, vals.shape[1])
-            ctas = log_plan(name, plan, call, f"occupancy {tuple(occ.shape)}")
+            ids, _, starts, vals, R = call.args
+            plan = K.dense_plan(ids.shape[0], R, vals.shape[1])
+            ctas = log_plan(name, plan, call,
+                            f"{int(starts[-1])} live edges")
             check(ctas >= 132, f"{name}: only {ctas} CTAs on one segment")
             # the second shape: many row blocks and edge tiles
             for order in ("sorted", "shuffled"):
@@ -889,7 +895,8 @@ def phase_kernels(torch, ops, K, table, shapes, smi):
                         f"feature_skip={zero_blocks} weights={weights}", data)
                     if data == "normal":
                         max_err = max(max_err, err)
-                plan = K.dense_plan(MULTI_TILES, MULTI_ROWS, c.args[1].shape[1])
+                plan = K.dense_plan(MULTI_TILES * 128, MULTI_ROWS,
+                                    c.args[-2].shape[1])
                 log_plan(name, plan, c, f"dst {order}")
                 t = {"ms": event_ms(torch, c.run, 50),
                      "device_ms": device_ms(torch, c.run, KERNEL_SYMBOL[name],
@@ -918,8 +925,8 @@ def phase_kernels(torch, ops, K, table, shapes, smi):
                 f"bound {t['bound_ms']:.5f} ms; {json.dumps(t)}")
         entry = {"max_abs_err": max_err, **per_op["add"], "ops": per_op}
         work_shape = tuple(call.args[0].shape) if scheduled else None
-        log(f"  {name} add+w at values {tuple(call.args[2 if scheduled else 1].shape)}"
-            f" rows {call.args[3]} work {work_shape}: {json.dumps(entry)}")
+        log(f"  {name} add+w at values {tuple(call.args[-2].shape)}"
+            f" rows {call.args[-1]} work {work_shape}: {json.dumps(entry)}")
         K.reset_launch_counts()
         out[name] = entry
     return out
@@ -2311,16 +2318,15 @@ def phase_train(torch, K, g, stream, dev, launches, smi):
     args, kwargs = seen[0]
     call = ops.fused_call(*args, **kwargs)
     check(call.kernel == "gas_scatter_dense", f"backward took {call.kernel}")
-    dst, vals, occ, R = call.args
-    plan = K.dense_plan(occ.shape[1], R, vals.shape[1])
+    ids, _, starts, vals, R = call.args
+    plan = K.dense_plan(ids.shape[0], R, vals.shape[1])
     log_plan("gas_scatter_dense", plan, call,
-             f"occupancy {tuple(occ.shape)} (gather backward)")
+             f"{int(starts[-1])} live edges (gather backward)")
     t = {"values": list(vals.shape), "rows": R,
-         "occupied": int(occ.sum()), "ms": event_ms(torch, call.run, 5),
+         "live_edges": int(starts[-1]), "ms": event_ms(torch, call.run, 5),
          "device_ms": device_ms(torch, call.run,
                                 KERNEL_SYMBOL["gas_scatter_dense"], 5),
          "library_ms": event_ms(torch, library_fn(torch, call), 5),
-         # one plain walk: a Python loop over the occupied pairs
          "plain_ms": event_ms(torch, call.run_plain, 1, warm=0)}
     t["bound_ms"], t["bound_by"] = bound(call)
     log(f"  gas_scatter_dense at the gather backward [{smi}]: "
@@ -2928,8 +2934,8 @@ def time_call(torch, ops, K, args, kwargs, label, smi, iters, plain=True):
     values = args[1]
     call = ops.fused_call(*args, **kwargs)
     name = call.kernel
-    vals = call.args[2 if name == "gas_scatter_banded" else 1]
-    t = {"values": list(vals.shape), "rows": call.args[3],
+    vals = call.args[-2]
+    t = {"values": list(vals.shape), "rows": call.args[-1],
          "ms": event_ms(torch, call.run, iters, warm=1),
          "device_ms": device_ms(torch, call.run, KERNEL_SYMBOL[name], iters)}
     t["bound_ms"], t["bound_by"] = bound(call)
@@ -2946,7 +2952,7 @@ def time_call(torch, ops, K, args, kwargs, label, smi, iters, plain=True):
             warm=1)
         t["work"] = list(work.shape)
     else:
-        t["occupied"] = int((call.args[2] > 0).sum())
+        t["live_edges"] = int(call.args[2][-1])
     log(f"  {name} at {label} [{smi}]: {json.dumps(t)}")
     del call, vals
     torch.cuda.empty_cache()
@@ -3733,8 +3739,7 @@ def time_round(torch, ops, D, values, V_, op, iters, smi, label):
          "ms": event_ms(torch, call.run, iters, warm=1),
          "device_ms": device_ms(torch, call.run, "dense_cluster_kernel",
                                 iters),
-         "occupied": int((call.args[2] > 0).sum()),
-         "grid": int(call.args[2].numel())}
+         "live_edges": int(call.args[2][-1])}
     nbytes = E_ * 4 + E_ * Fv * 4 + V_ * Fv * 4
     ops_n = E_ * Fv * (2 if op == "add" else 1)
     t["bound_ms"], t["bound_by"] = roofline(nbytes, ops_n)
@@ -4754,7 +4759,7 @@ def _embed_dense_timing(torch, K, smi, arch=LM_TRAIN_ARCH, batch=EMBED_B,
          "plain_ms": event_ms(torch, call.run_plain, 10, warm=1),
          "library_ms": event_ms(
              torch, lambda: torch.index_add(zeros, 0, lid, lg), 50, warm=3),
-         "occupied": int((call.args[2] > 0).sum()),
+         "live_edges": int(call.args[2][-1]),
          "max_abs_err": d}
     t["bound_ms"], t["bound_by"] = bound(call)
     log(f"  gas_scatter_dense at the lookup's gradient ({arch} width, one "

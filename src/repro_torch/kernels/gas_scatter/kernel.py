@@ -6,13 +6,15 @@ it). They are compiled with ``nvcc`` into a shared library with a plain C
 interface the first time a wrapper launches on a CUDA tensor, and loaded
 with ``ctypes``. Nothing is built when this module is imported.
 
-Each wrapper takes the same arguments as the Pallas entry it replaces and
-dispatches on where its tensors lie:
+The banded wrapper takes the same arguments as the Pallas entry it
+replaces; the dense one takes a row-sorted index of the edges (sorted ids,
+their order, each row block's start) where the Pallas entry takes an
+occupancy map. Each dispatches on where its tensors lie:
 
 * CUDA tensors launch the kernel on PyTorch's current stream (and add one
   to the wrapper's ``launches`` count); a refused launch raises;
 * CPU tensors run the plain PyTorch version in this module, which walks the
-  same work list or occupancy map, one vectorised step per work row;
+  same work list (one vectorised step per work row) or row-sorted index;
 * anything else raises, a fake tensor first of all
   (``entries.refuse_fake``). There is no fallback from the kernel to the
   plain version on a CUDA tensor.
@@ -34,10 +36,10 @@ it stages for the round and the plain version from the same values.
 
 Both kernels run one thread-block cluster per (row block × feature
 block); ``banded_plan`` and ``dense_plan`` pick its size from the shapes
-alone (no read of the work list or the occupancy map, so no device-to-host
-sync), and ``cluster_share`` is the split of a row block's rounds over the
+alone (no read of the work list or the index, so no device-to-host sync),
+and ``cluster_share`` is the split of a row block's rounds over the
 cluster's CTAs that the kernels make: work rows for the banded walk,
-32-edge chunks of the occupied tiles for the dense grid.
+32-edge chunks of the row block's sorted run for the dense grid.
 
 The binding is lean, so that a call costs little next to the kernel: the
 shape, dtype and op checks and the launch plan are cached per call
@@ -91,7 +93,7 @@ _entries: Optional[tuple] = None
 
 class _Launch(ctypes.Structure):
     """The C entries' launch descriptor (``GasLaunch`` in the source),
-    built once per call signature: ``n_meta`` is W (banded) or T (dense)."""
+    built once per call signature: ``n_meta`` is W (banded) or E (dense)."""
     _fields_ = [(name, ctypes.c_int) for name in
                 ("n_meta", "n_rows", "F", "op", "cluster", "smem")]
 
@@ -113,9 +115,12 @@ def _load() -> tuple:
                 {sfx: getattr(lib, f"gas_scatter_{kind}_{sfx}")
                  for sfx in VALUE_DTYPES.values()}
                 for kind in ("banded", "dense"))
-            for fn in (f for table in fns for f in table.values()):
-                fn.argtypes = [ctypes.c_void_p] * 7
-                fn.restype = ctypes.c_int
+            # the descriptor, the index tensors (banded: work, dst; dense:
+            # ids, order, starts), weights, values, out and the stream
+            for table, n_index in zip(fns, (2, 3)):
+                for fn in table.values():
+                    fn.argtypes = [ctypes.c_void_p] * (n_index + 5)
+                    fn.restype = ctypes.c_int
             # the raw handle of PyTorch's current stream on a device index,
             # far cheaper than torch.cuda.current_stream() (chip_smoke.py
             # phase 2 times both)
@@ -171,10 +176,12 @@ class _Checked(NamedTuple):
     suffix: str         # the values' C entry suffix (``VALUE_DTYPES``)
 
 
-def _signature(kernel, meta, dst, values, n_rows, op, weights):
+def _signature(kernel, meta, dst, values, n_rows, op, weights, order=None):
+    """``meta``: the work list or ``starts``; ``order``: the dense grid's."""
     return (kernel, meta.shape, dst.shape, values.shape, meta.dtype,
             dst.dtype, values.dtype,
             None if weights is None else (weights.shape, weights.dtype),
+            None if order is None else (order.shape, order.dtype),
             n_rows, op)
 
 
@@ -191,20 +198,24 @@ def _remember(key, plan: "ClusterPlan", n_meta: int, n_rows: int, F: int,
 
 
 def _launch(which: int, name: str, checked: _Checked, meta, dst, values,
-            weights):
-    """Launch entry ``which`` (0 banded, 1 dense) for the values' type after
-    the per-call checks:
+            weights, order=None):
+    """Launch entry ``which`` (0 banded: work ``meta``, ``dst``; 1 dense:
+    ids ``dst``, ``order``, starts ``meta``) for the values' type after the
+    per-call checks:
     every tensor on ``values``' CUDA device and contiguous, ``values``
     16-byte aligned. Returns the output; a refused launch raises."""
     index = values.get_device()
     if meta.get_device() != index or dst.get_device() != index or (
-            weights is not None and weights.get_device() != index):
+            weights is not None and weights.get_device() != index) or (
+            order is not None and order.get_device() != index):
         raise ValueError(f"tensors on different devices: {meta.device}, "
                          f"{dst.device}, {values.device}, "
-                         f"{None if weights is None else weights.device}")
+                         f"{None if weights is None else weights.device}, "
+                         f"{None if order is None else order.device}")
     if not (meta.is_contiguous() and dst.is_contiguous()
             and values.is_contiguous()
-            and (weights is None or weights.is_contiguous())):
+            and (weights is None or weights.is_contiguous())
+            and (order is None or order.is_contiguous())):
         raise ValueError("kernel inputs must be contiguous")
     vp = values.data_ptr()
     if vp % 16:
@@ -214,9 +225,14 @@ def _launch(which: int, name: str, checked: _Checked, meta, dst, values,
         return out
     entries = _entries or _load()
     entry = entries[which][checked.suffix]
-    rc = entry(checked.address, meta.data_ptr(), dst.data_ptr(),
-               None if weights is None else weights.data_ptr(), vp,
-               out.data_ptr(), entries[2](index))
+    wp = None if weights is None else weights.data_ptr()
+    stream = entries[2](index)
+    if order is None:
+        rc = entry(checked.address, meta.data_ptr(), dst.data_ptr(), wp, vp,
+                   out.data_ptr(), stream)
+    else:
+        rc = entry(checked.address, dst.data_ptr(), order.data_ptr(),
+                   meta.data_ptr(), wp, vp, out.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"{name} launch failed ({checked.plan}): CUDA "
                            f"error {rc}")
@@ -301,8 +317,9 @@ def gas_scatter_banded_plain(work, dst, values, n_rows: int, *,
 
 
 class ClusterPlan(NamedTuple):
-    """A kernel's launch: CTAs per cluster, the grid (row blocks × cluster,
-    feature blocks), threads per CTA and dynamic shared bytes."""
+    """A kernel's launch: CTAs per cluster, the grid (banded: row blocks ×
+    cluster, feature blocks; dense: row blocks × feature blocks × cluster,
+    1), threads per CTA and dynamic shared bytes."""
     cluster: int
     grid: tuple
     threads: int
@@ -326,8 +343,8 @@ def cluster_share(lo: int, hi: int, rank: int, cluster: int):
     row block's rounds [lo, hi): the rank-th of ``cluster`` contiguous
     shares, as the kernels split them (empty when there are fewer rounds
     than CTAs). The banded walk splits work rows; the dense grid splits the
-    32-edge chunks of the occupied tiles. The partials combine in rank
-    order, which is stream order."""
+    32-edge chunks of its row block's run of the sorted stream. The
+    partials combine in rank order, which is stream order."""
     n = hi - lo
     return lo + n * rank // cluster, lo + n * (rank + 1) // cluster
 
@@ -376,73 +393,119 @@ gas_scatter_banded.launches_by_dtype = dict.fromkeys(VALUE_DTYPES.values(), 0)
 
 
 # ---------------------------------------------------------------------------
-# the dense grid, gated by the occupancy bitmap
+# the dense grid over a row-sorted index
 # ---------------------------------------------------------------------------
 
-def gas_scatter_dense_plain(dst, values, occupancy, n_rows: int, *,
+def gas_scatter_dense_plain(ids, order, starts, values, n_rows: int, *,
                             op: str = "add", weights=None):
-    """Plain PyTorch version of the dense-grid kernel: every row block
-    starts at the identity and reduces each edge tile its occupancy bit
-    marks."""
-    E, F = _check_common(dst, values, n_rows, op, weights)
+    """Plain PyTorch version of the dense-grid kernel: walks the row-sorted
+    index (sorted position p carries edge ``order[p]`` into row ``ids[p]``;
+    positions from ``starts[-1]`` on are dead), each row's edges in stream
+    order from the identity, in one vectorised step. A bfloat16 or float16
+    add keeps the reference's rounding points, one per (row block × edge
+    tile) round: a row's products of one source tile summed in float32 (one
+    step over every such run), rounded once and added into the row in the
+    value type, tile after tile (one step per run rank within a row)."""
+    E, F = _check_dense(ids, order, starts, values, n_rows, op, weights)
     out = torch.full((n_rows, F), _identity(op), dtype=values.dtype,
                      device=values.device)
-    for rb, tile in torch.nonzero(occupancy > 0).tolist():
-        _round_plain(out[rb * ROW_BLOCK:(rb + 1) * ROW_BLOCK], dst, values,
-                     weights, op, tile, rb * ROW_BLOCK)
+    live = int(starts[-1])
+    rows, edges = ids[:live].long(), order[:live].long()
+    narrow_add = op == "add" and values.dtype != torch.float32
+    contrib = values[edges].float() if narrow_add else values[edges]
+    if weights is not None:
+        w = weights[edges, None]
+        contrib = contrib * (w.to(values.dtype).float() if narrow_add else w)
+    if not narrow_add:
+        _reduce_rows(out, rows, contrib, op)
+        return out
+    if live == 0:
+        return out
+    # a run: consecutive positions of one row and one source tile
+    tiles = edges // EDGE_TILE
+    new = torch.ones(live, dtype=torch.bool, device=values.device)
+    new[1:] = (rows[1:] != rows[:-1]) | (tiles[1:] != tiles[:-1])
+    run = torch.cumsum(new, 0) - 1
+    sums = torch.zeros((int(run[-1]) + 1, F), dtype=torch.float32,
+                       device=values.device).index_add_(0, run, contrib)
+    run_rows = rows[new]
+    # each run's place among its row's runs (a row's runs are consecutive)
+    at = torch.arange(run_rows.shape[0], device=values.device)
+    first = torch.ones_like(at, dtype=torch.bool)
+    first[1:] = run_rows[1:] != run_rows[:-1]
+    place = at - torch.cummax(torch.where(first, at, torch.zeros_like(at)),
+                              0).values
+    for k in range(int(place.max()) + 1):
+        sel = place == k
+        r = run_rows[sel]
+        out[r] = (out[r].float() + sums[sel].to(values.dtype).float()
+                  ).to(values.dtype)
     return out
 
 
-def dense_plan(T: int, n_rows: int, F: int) -> ClusterPlan:
+def dense_plan(E: int, n_rows: int, F: int) -> ClusterPlan:
     """One cluster per (row block × feature block), one CTA per 32-edge
-    chunk of a row block's mean share of the ``T`` edge tiles
-    (``4 · ceil(T / row_blocks)``), between 1 and ``CLUSTER_MAX``. The
-    occupancy map is never read on the host: a row block that occupies fewer
-    tiles leaves some CTAs of its cluster without a chunk. One 3-seed
-    serving segment (T = 2, one row block, F = 608) gets 8 × 19 = 152 CTAs.
-    The C entry builds this plan only."""
+    chunk of a row block's mean share of the ``E`` edges
+    (``ceil(E / (32 · row_blocks))``), between 1 and ``CLUSTER_MAX``. The
+    index is never read on the host: a row block with fewer edges leaves
+    some CTAs of its cluster without a chunk. One 3-seed serving segment
+    (E = 256, one row block, F = 608) gets 8 × 19 = 152 CTAs. The C entry
+    builds this plan only."""
     n_blocks = n_rows // ROW_BLOCK
-    chunks = EDGE_TILE // CHUNK * -(-T // n_blocks) if n_blocks else 0
+    chunks = -(-E // (CHUNK * n_blocks)) if n_blocks else 0
     cluster = max(1, min(CLUSTER_MAX, chunks))
-    return ClusterPlan(cluster, (n_blocks * cluster, F // FEAT_BLOCK),
+    # one-dimensional: a row block's feature blocks are launched together
+    return ClusterPlan(cluster, (n_blocks * (F // FEAT_BLOCK) * cluster, 1),
                        BANDED_THREADS, BANDED_SMEM)
 
 
-def _dense_checked(key, dst, values, occupancy, n_rows, op,
+def _check_dense(ids, order, starts, values, n_rows, op, weights):
+    E, F = _check_common(ids, values, n_rows, op, weights)
+    if order.dtype != torch.int32 or tuple(order.shape) != (E,):
+        raise TypeError(f"order must be int32 of shape ({E},), got "
+                        f"{order.dtype} {tuple(order.shape)}")
+    n_starts = n_rows // ROW_BLOCK + 1
+    if starts.dtype != torch.int32 or tuple(starts.shape) != (n_starts,):
+        raise ValueError(f"starts must be int32 ({n_starts},), got "
+                         f"{starts.dtype} {tuple(starts.shape)}")
+    return E, F
+
+
+def _dense_checked(key, ids, order, starts, values, n_rows, op,
                    weights) -> _Checked:
-    E, F = _check_common(dst, values, n_rows, op, weights)
-    T = E // EDGE_TILE
-    if occupancy.dtype != torch.int32 or \
-            tuple(occupancy.shape) != (n_rows // ROW_BLOCK, T):
-        raise ValueError(f"occupancy must be int32 ({n_rows // ROW_BLOCK}, "
-                         f"{T}), got {occupancy.dtype} "
-                         f"{tuple(occupancy.shape)}")
-    return _remember(key, dense_plan(T, n_rows, F), T, n_rows, F, op,
+    E, F = _check_dense(ids, order, starts, values, n_rows, op, weights)
+    return _remember(key, dense_plan(E, n_rows, F), E, n_rows, F, op,
                      values.dtype)
 
 
-def gas_scatter_dense(dst, values, occupancy, n_rows: int, *,
+def gas_scatter_dense(ids, order, starts, values, n_rows: int, *,
                       op: str = "add", weights=None):
     """Unscheduled FAST-GAS scatter-reduce over the (n_rows/128, F/32) grid
-    of output tiles: each cluster walks the edge tiles whose occupancy bit
-    ``occupancy[row_block, tile]`` is set (``ops.occupancy_map``), its CTAs
-    on contiguous shares of their 32-edge chunks. Arguments as in
-    ``gas_scatter_banded``."""
-    entries.refuse_fake("gas_scatter_dense", values, dst)
-    key = _signature("dense", occupancy, dst, values, n_rows, op, weights)
+    of output tiles, walking a row-sorted index (``ops.row_sorted_index``):
+    ``ids`` (E,) int32 the routed rows sorted stably (dead edges at
+    ``n_rows``, last), ``order`` (E,) int32 the edge at each sorted
+    position, ``starts`` (n_rows/128 + 1,) int32 each row block's first
+    position. Each cluster walks its row block's run, its CTAs on
+    contiguous shares of the run's 32-edge chunks; weights and values are
+    read through ``order``. values (E, F) float32, bfloat16 or float16 and
+    weights (E,) float32 or None (add only), both in stream order. Returns
+    (n_rows, F) in the values' type."""
+    entries.refuse_fake("gas_scatter_dense", values, ids, order, starts)
+    key = _signature("dense", starts, ids, values, n_rows, op, weights,
+                     order)
     checked = _SIGNATURES.get(key) or _dense_checked(
-        key, dst, values, occupancy, n_rows, op, weights)
+        key, ids, order, starts, values, n_rows, op, weights)
     if values.is_cuda:
-        out = _launch(1, "gas_scatter_dense", checked, occupancy, dst, values,
-                      weights)
+        out = _launch(1, "gas_scatter_dense", checked, starts, ids, values,
+                      weights, order)
         if not checked.empty:
             gas_scatter_dense.launches += 1
             gas_scatter_dense.launches_by_dtype[checked.suffix] += 1
         return out
     if values.device.type == "cpu":
         with torch.no_grad():     # forward-only, as the kernel is
-            return gas_scatter_dense_plain(dst, values, occupancy, n_rows,
-                                           op=op, weights=weights)
+            return gas_scatter_dense_plain(ids, order, starts, values,
+                                           n_rows, op=op, weights=weights)
     raise ValueError(f"no kernel for device {values.device}")
 
 

@@ -5,8 +5,10 @@ Three layers, as in the JAX package's module of the same name:
 * ``schedule_edges`` — the locality pass (paper Fig 11(c)): a stable sort
   of the edge stream by destination row block, compiled into the banded
   kernel's work list, so each row block visits only its own edge tiles.
-* ``occupancy_map`` — the unscheduled fallback's exact (row block × edge
-  tile) bitmap, one bincount over (block, tile) pairs.
+* ``row_sorted_index`` — the unscheduled dense grid's index: a stable
+  sort of the edge stream by row, each row block's start found on the
+  device. (``occupancy_map``, the JAX package's exact (row block × edge
+  tile) bitmap, stays for accounting: ``dense_skip_stats``.)
 * ``gas_scatter`` / ``gas_scatter_fused`` — padding + dispatch. The fused
   entry takes mask and edge weights into the kernel (mask via the dead-row
   convention: a dead edge's dst is the padded row count, so it matches no
@@ -241,8 +243,11 @@ def schedule_skip_stats(sched: EdgeSchedule):
 
 def dense_skip_stats(dst: torch.Tensor, mask: Optional[torch.Tensor],
                      n_rows: int):
-    """(live_rounds, total_rounds) of the unscheduled dense grid for the
-    same edge stream, as ``gas_scatter_fused`` dispatches it."""
+    """(live_rounds, total_rounds) of the unscheduled occupancy grid for
+    the same edge stream, as the JAX package's ``gas_scatter_fused``
+    dispatches it: the (row block × edge tile) pairs its occupancy map
+    sets, of all of them. Accounting only: the port's dense kernel walks a
+    row-sorted index (``row_sorted_index``) and visits each edge once."""
     R = _padded_rows(n_rows)
     _, routed = _dead_routed(dst, mask, n_rows, R)
     occ = occupancy_map(_pad_to(routed, EDGE_TILE, 0, R), R // ROW_BLOCK)
@@ -262,6 +267,30 @@ def feat_skip_stats(schedule: EdgeSchedule, values: torch.Tensor):
     live = schedule.work[:, 2] == 1
     return (int((feat & live[:, None]).sum()),
             int(live.sum()) * feat.shape[1])
+
+
+def row_sorted_index(dst: torch.Tensor, n_row_blocks: int):
+    """(ids, order, starts): the dense kernel's index of a routed,
+    tile-padded edge stream ``dst`` (E,) int32, dead edges at the padded
+    row count R = 128 · ``n_row_blocks``. ``ids`` is ``dst`` sorted by a
+    stable sort (each row keeps its edges in stream order; dead edges sort
+    last), ``order`` (E,) int32 the edge at each sorted position, and
+    ``starts`` (n_row_blocks + 1,) int32 each row block's first position
+    (``starts[-1]``: the live edges). Built on the device from shapes
+    alone; nothing is read back to the host.
+
+    Counts into ``gas.dense.index.bytes`` the bytes its steps read and
+    write, each input read once and each output written once: the sort
+    (E int32 keys in; E keys and E int64 positions out), the positions'
+    cast to int32, the row blocks' bounds (written, then read) and
+    ``starts``: 28·E + 12·(n_row_blocks + 1)."""
+    E = dst.shape[0]
+    ids, order = torch.sort(dst, stable=True)
+    bounds = torch.arange(0, (n_row_blocks + 1) * ROW_BLOCK, ROW_BLOCK,
+                          dtype=torch.int32, device=dst.device)
+    starts = torch.searchsorted(ids, bounds, out_int32=True)
+    trace.add("gas.dense.index.bytes", 28 * E + 12 * (n_row_blocks + 1))
+    return ids, order.to(torch.int32), starts
 
 
 def occupancy_map(dst: torch.Tensor, n_row_blocks: int) -> torch.Tensor:
@@ -329,7 +358,8 @@ def fused_call(dst: torch.Tensor, values: torch.Tensor,
     """The kernel call ``gas_scatter_fused`` makes for 2-D ``values``: the
     padded edge stream (dead edges at the padded row count R, tiles of 128
     edges, features a multiple of 32) and either the work list (scheduled)
-    or the occupancy map (unscheduled). Its result is (R, F padded)."""
+    or the row-sorted index (unscheduled, ``row_sorted_index``). Its
+    result is (R, F padded)."""
     if op not in ("add", "max", "min"):
         raise ValueError(op)
     E, F = values.shape
@@ -344,8 +374,8 @@ def fused_call(dst: torch.Tensor, values: torch.Tensor,
             wp = _pad_to(weights.to(torch.float32), EDGE_TILE, 0,
                          0.0).contiguous()
     if schedule is None:
-        occ = occupancy_map(dstp, n_blocks)
-        return KernelCall("gas_scatter_dense", (dstp, valp, occ, R),
+        return KernelCall("gas_scatter_dense",
+                          (*row_sorted_index(dstp, n_blocks), valp, R),
                           {"op": op, "weights": wp})
     T = dstp.shape[0] // EDGE_TILE
     if schedule.blk_min.shape[0] != T:
@@ -396,5 +426,5 @@ def gas_scatter_fused(dst: torch.Tensor, values: torch.Tensor,
 __all__ = ["EdgeSchedule", "KernelCall", "count_dispatches",
            "counting_suspended", "dense_skip_stats", "feat_skip_stats",
            "fused_call", "gas_scatter", "gas_scatter_fused",
-           "gas_scatter_ref", "occupancy_map", "schedule_edges",
-           "schedule_skip_stats", "suspend_counting"]
+           "gas_scatter_ref", "occupancy_map", "row_sorted_index",
+           "schedule_edges", "schedule_skip_stats", "suspend_counting"]

@@ -205,18 +205,20 @@ def test_wrappers_take_the_narrow_types_and_never_fall_back():
     taken."""
     work = torch.tensor([[0, 0, 1, 1]], dtype=torch.int32)
     dst = torch.zeros(128, dtype=torch.int32)
-    occ = torch.ones((1, 1), dtype=torch.int32)
+    index = (dst, torch.arange(128, dtype=torch.int32),
+             torch.tensor([0, 128], dtype=torch.int32))
     for dtype in (torch.bfloat16, torch.float16):
         vals = torch.ones((128, 32), dtype=dtype)
         out = _run("gas_scatter_banded", work, dst, vals, 128)
         assert out.dtype == dtype and float(out[0, 0]) == 128.0
-        assert _run("gas_scatter_dense", dst, vals, occ, 128).dtype == dtype
+        out = _run("gas_scatter_dense", *index, vals, 128)
+        assert out.dtype == dtype and float(out[0, 0]) == 128.0
         with pytest.raises(ValueError, match="no kernel for device meta"):
             _run("gas_scatter_banded", work.to("meta"), dst.to("meta"),
                  vals.to("meta"), 128)
     with pytest.raises(TypeError, match="float32, bfloat16 or float16"):
-        _run("gas_scatter_dense", dst,
-             torch.ones((128, 32), dtype=torch.float64), occ, 128)
+        _run("gas_scatter_dense", *index,
+             torch.ones((128, 32), dtype=torch.float64), 128)
     assert set(K.VALUE_DTYPES.values()) == {"f32", "bf16", "f16"}
     assert K.dtype_launch_counts() == {
         name: {"f32": 0, "bf16": 0, "f16": 0}

@@ -530,4 +530,4 @@ def _raw_kernels_refuse_fake_tensors():
             FK.flash_attention_fwd(x, x, x, causal=True, window=0,
                                    softcap=0.0, kv_len=128, n_kv_heads=2)
         with pytest.raises(NotImplementedError, match="fake tensor"):
-            K.gas_scatter_dense(x, x, x, 128)
+            K.gas_scatter_dense(x, x, x, x, 128)

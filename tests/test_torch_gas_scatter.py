@@ -253,7 +253,23 @@ def test_fused_call_shapes_and_feature_liveness():
     dense = ops.fused_call(_t(dst), _t(vals), None, _t(mask), n_rows,
                            op="max")
     assert dense.kernel == "gas_scatter_dense"
-    assert tuple(dense.args[2].shape) == (2, 3)
+    ids, order, starts, valp, R = dense.args
+    assert R == 256 and tuple(valp.shape) == (384, 96)
+    assert ids.dtype == order.dtype == starts.dtype == torch.int32
+    # the routed stream sorted by row, stably: dead edges last, each row's
+    # edges in stream order; starts bound each of the 2 row blocks' runs
+    assert tuple(starts.shape) == (3,)
+    dstp = torch.where(_t(mask) & (_t(dst) >= 0) & (_t(dst) < n_rows),
+                       _t(dst), torch.full_like(_t(dst), R))
+    dstp = torch.cat([dstp, torch.full((84,), R, dtype=torch.int32)])
+    assert torch.equal(ids, dstp[order.long()])
+    assert torch.equal(order.sort().values, torch.arange(384,
+                                                         dtype=torch.int32))
+    assert (ids[1:] >= ids[:-1]).all()
+    same = ids[1:] == ids[:-1]
+    assert (order[1:][same] > order[:-1][same]).all()
+    assert starts.tolist() == [0, int((dstp < 128).sum()),
+                               int((dstp < R).sum())]
 
 
 def _liveness_columns(valp, tiles):
@@ -336,13 +352,13 @@ def _launch(kernel_name, *args, **kwargs):
 def test_wrappers_check_their_arguments(kernel_name):
     dst = torch.zeros(128, dtype=torch.int32)
     vals = torch.zeros(128, 32)
-    extra = (torch.zeros((1, 4), dtype=torch.int32)
-             if kernel_name == "gas_scatter_banded"
-             else torch.zeros((1, 1), dtype=torch.int32))
+    order = torch.arange(128, dtype=torch.int32)
+    starts = torch.tensor([0, 128], dtype=torch.int32)
 
     def call(d=dst, v=vals, n=128, **kw):
-        a = (extra, d, v, n) if kernel_name == "gas_scatter_banded" else \
-            (d, v, extra, n)
+        a = ((torch.zeros((1, 4), dtype=torch.int32), d, v, n)
+             if kernel_name == "gas_scatter_banded"
+             else (d, order, starts, v, n))
         return _launch(kernel_name, *a, **kw)
 
     assert call().shape == (128, 32)                # CPU: the plain version
@@ -371,11 +387,12 @@ def test_wrappers_check_their_arguments_after_a_warm_call(kernel_name):
     banded = kernel_name == "gas_scatter_banded"
     dst = torch.zeros(256, dtype=torch.int32)
     vals = torch.zeros(256, 64)
+    order = torch.arange(256, dtype=torch.int32)
     meta = (torch.zeros((4, 4), dtype=torch.int32) if banded
-            else torch.ones((1, 2), dtype=torch.int32))
+            else torch.tensor([0, 256], dtype=torch.int32))
 
-    def call(d=dst, v=vals, m=meta, n=128, **kw):
-        a = (m, d, v, n) if banded else (d, v, m, n)
+    def call(d=dst, v=vals, m=meta, n=128, o=order, **kw):
+        a = (m, d, v, n) if banded else (d, o, m, v, n)
         return _launch(kernel_name, *a, **kw)
 
     for op in ("add", "max"):
@@ -401,14 +418,96 @@ def test_wrappers_check_their_arguments_after_a_warm_call(kernel_name):
     with pytest.raises(ValueError):
         call(n=100)                                     # rows not a 128-multiple
     with pytest.raises(ValueError):
-        call(m=meta.long())                             # work / occupancy dtype
-    with pytest.raises(ValueError):                     # work / occupancy shape
-        call(m=torch.zeros((4, 5) if banded else (1, 3), dtype=torch.int32))
+        call(m=meta.long())                             # work / starts dtype
+    with pytest.raises(ValueError):                     # work / starts shape
+        call(m=torch.zeros((4, 5) if banded else (3,), dtype=torch.int32))
     if banded:
         with pytest.raises(ValueError):                 # no liveness columns
             call(m=torch.zeros((4, 6), dtype=torch.int32), op="add")
+    else:
+        with pytest.raises(TypeError):
+            call(o=order.long())                        # order dtype
+        with pytest.raises(TypeError):
+            call(o=order[:128])                         # order shape
     with pytest.raises(ValueError):
         call(v=vals.to("meta"))                         # no kernel, no fallback
     assert call(op="add").shape == (128, 64)
     assert K.launch_counts() == {"gas_scatter_banded": 0,
                                  "gas_scatter_dense": 0}
+
+
+# ---------------------------------------------------------------------------
+# the unscheduled dispatch's row-sorted index
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("op", ["add", "max", "min"])
+@pytest.mark.parametrize("data", ["int", "normal"])
+def test_unscheduled_dispatch_over_hub_rows_equals_the_reference(op, data):
+    """An R-MAT stream with no vertex permutation, scattered by source:
+    row 0 takes ~0.76^10 of the edges and row block 0 a larger share, so
+    the row-sorted walk meets long runs of one row. Dead (masked) and
+    out-of-range edges, weights for add. Bit for bit with
+    ``gas_scatter_ref`` on integer-valued data, within rtol = atol = 1e-5
+    on normal data."""
+    from repro_torch.graph.synthetic import rmat
+
+    g = rmat(10, 16, seed=len(op) + len(data))
+    rng = np.random.default_rng([len(op), len(data)])
+    n_rows, E, F = g.n_vertices, g.src.shape[0], 40
+    dst = g.src.copy()
+    dst[rng.random(E) < 0.02] = -7                    # out of range
+    dst[rng.random(E) < 0.02] = n_rows + 3
+    mask = rng.random(E) < 0.9
+    hub = np.bincount(dst[mask & (dst >= 0) & (dst < n_rows)])
+    assert hub[0] > 0.02 * E and hub[:128].sum() > 0.1 * E
+    vals = _values(rng, E, F, data, zero_blocks=False)
+    if op != "add":
+        vals[rng.random((E, F)) < 0.001] = np.nan
+    w = rng.integers(-3, 4, E).astype(np.float32) if op == "add" else None
+    if op == "add" and data == "normal":
+        w = rng.random(E).astype(np.float32)
+    with ops.count_dispatches() as c:
+        got = ops.gas_scatter_fused(_t(dst), _t(vals), _t(w), _t(mask),
+                                    n_rows, op=op)
+    assert dict(c) == {"kernel_scatter": 1}
+    contrib = _t(vals) * (_t(w)[:, None] if w is not None else 1.0)
+    want = ref.gas_scatter_ref(
+        torch.where(_t(mask), _t(dst), torch.full_like(_t(dst), -1)),
+        contrib, n_rows, op=op)
+    if data == "int":
+        torch.testing.assert_close(got, want, rtol=0, atol=0, equal_nan=True)
+    else:
+        assert torch.equal(torch.isnan(got), torch.isnan(want))
+        assert torch.equal(torch.isinf(got), torch.isinf(want))
+        fin = torch.isfinite(want)
+        torch.testing.assert_close(got[fin], want[fin], **TOL)
+
+
+def test_gather_backward_sorts_its_index_and_counts_its_bytes(monkeypatch):
+    """One gather backward is one kernel scatter on the dense grid, whose
+    index is a sort of the edges by row: ``gas.dense.index.bytes`` counts
+    28 bytes an edge of the tile-padded stream and 12 a row-block bound,
+    and the occupancy map is never built on the way."""
+    from repro_torch.core import gas
+    from repro_torch.runtime import trace
+
+    def refused(*a, **k):
+        raise AssertionError("occupancy_map on the dispatch path")
+
+    monkeypatch.setattr(ops, "occupancy_map", refused)
+    rng = np.random.default_rng(6)
+    n_rows, F = 300, 40
+    table = torch.from_numpy(rng.integers(-3, 4, (n_rows, F)).astype(
+        np.float32)).requires_grad_(True)
+    ids = torch.from_numpy(rng.integers(0, n_rows, (70, 5)).astype(np.int32))
+    trace.reset()
+    with trace.recording(), ops.count_dispatches() as c:
+        gas.gas_gather(table, ids, impl="kernel").sum().backward()
+    # the forward's find; the backward's reduce and its one kernel scatter
+    assert dict(c) == {"find": 1, "reduce": 1, "kernel_scatter": 1}
+    E_pad, n_blocks = 384, 3                    # 350 edges; 300 rows
+    assert trace.summary()["counters"]["gas.dense.index.bytes"] == \
+        28 * E_pad + 12 * (n_blocks + 1)
+    want = torch.bincount(ids.reshape(-1).long(), minlength=n_rows)
+    assert torch.equal(table.grad, want[:, None].float().expand(-1, F))
+    trace.reset()

@@ -12,9 +12,11 @@ what its wrapper decides on the host is checked here, on the CPU:
   the identity, the partials combine in rank order — equals the plain
   version bit for bit on integer data, so the kernel's partition computes
   the same function as the sequential walk;
-* the dense GAS grid: the cluster size from ``T`` and ``n_rows`` alone,
-  and a Python model of the kernel's integer logic — the occupied tiles
-  compacted in windows of 256, each rank's share of their 32-edge chunks,
+* the dense GAS grid: the cluster size from ``E`` and ``n_rows`` alone,
+  and a Python model of the kernel's integer logic — each rank's share of
+  the 32-edge chunks of its row block's run of the row-sorted stream,
+  walked in rounds of 128 positions through ``order``, each round's
+  16-position warp slices and their leading pieces folded in warp order,
   the rank-order combine — equal to the plain version bit for bit on
   integer data (NaN cells in place for max and min).
 """
@@ -294,7 +296,7 @@ def test_banded_plan_cluster_size(W, n_rows, F, cluster):
 
 @pytest.mark.parametrize("lo,hi,cluster", [(0, 9, 8), (3, 5, 8), (0, 42, 8),
                                            (7, 7, 4), (2, 30, 3),
-                                           # dense: chunks of 2 tiles, 1 tile
+                                           # dense: 8 chunks, 4 chunks
                                            (0, 8, 8), (0, 4, 8)])
 def test_cluster_shares_split_the_run_in_order(lo, hi, cluster):
     shares = [K.cluster_share(lo, hi, r, cluster) for r in range(cluster)]
@@ -389,91 +391,103 @@ def test_cluster_walk_equals_the_plain_walk(op, seeds, fanout, n_rows):
 # the dense GAS grid
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("T,n_rows,F,cluster", [
-    (2, 128, 608, 8),      # one 3-seed serving segment: 8 x 19 = 152 CTAs
-    (7, 128, 608, 8),      # one inference chunk's segment: 28 chunks
-    (520, 1024, 608, 8),   # large T over eight row blocks
-    (1, 128 * 64, 32, 4),  # one tile over 64 row blocks: its 4 chunks
-    (0, 128, 32, 1),       # no edge tile: a cluster of one
-    (0, 0, 32, 1),         # no row block at all
+@pytest.mark.parametrize("E,n_rows,F,cluster", [
+    (256, 128, 608, 8),         # one 3-seed serving segment: 8 x 19 = 152 CTAs
+    (896, 128, 608, 8),         # one inference chunk's segment: 28 chunks
+    (520 * 128, 1024, 608, 8),  # a large stream over eight row blocks
+    (128, 128 * 64, 32, 1),     # 4 chunks over 64 row blocks: under one each
+    (384, 512, 64, 3),          # 12 chunks over four row blocks
+    (0, 128, 32, 1),            # no edge: a cluster of one
+    (0, 0, 32, 1),              # no row block at all
 ])
-def test_dense_plan_cluster_size(T, n_rows, F, cluster):
-    plan = K.dense_plan(T, n_rows, F)
+def test_dense_plan_cluster_size(E, n_rows, F, cluster):
+    plan = K.dense_plan(E, n_rows, F)
     assert plan.cluster == cluster
-    assert plan.grid == (n_rows // 128 * cluster, F // 32)
+    assert plan.grid == (n_rows // 128 * (F // 32) * cluster, 1)
     assert plan.threads == 256
     assert plan.smem_bytes == K.BANDED_SMEM <= SMEM_LIMIT
-    if (T, n_rows, F) == (2, 128, 608):
+    if (E, n_rows, F) == (256, 128, 608):
         assert plan.grid[0] * plan.grid[1] >= 132
 
 
-def _chunk_round(acc, dst, values, weights, op, tile, lo, hi, row0):
-    """Chunks [lo, hi) of one edge tile, reduced into a row block's
-    partial, as the owner warps apply them."""
-    sl = slice(tile * 128 + lo * K.CHUNK, tile * 128 + hi * K.CHUNK)
-    rel = dst[sl].long() - row0
-    hit = (rel >= 0) & (rel < 128)
-    contrib = values[sl]
-    if weights is not None:
-        contrib = contrib * weights[sl, None]
-    K._reduce_rows(acc, rel[hit], contrib[hit], op)
+WARPS = K.BANDED_THREADS // 32
+SLICE = K.EDGE_TILE // WARPS    # positions per warp in the sliced apply
 
 
-def _dense_rounds(row, T, c0, c1):
-    """The rounds (tile, first chunk, end chunk) of chunks [c0, c1) of a
-    row block's occupied tiles, compacted as the kernel does: windows of
-    256 tiles, each occupied tile's index k from a prefix over the window,
-    ``base`` occupied tiles before it."""
-    chunks = K.EDGE_TILE // K.CHUNK
-    k0 = c0 // chunks
-    k1 = -(-c1 // chunks) if c1 > c0 else k0
-    window = K.BANDED_WINDOW
-    rounds, base = [], 0
-    for t0 in range(0, T, window):
-        if base >= k1:
-            break
-        flags = [t < T and row[t] > 0 for t in range(t0, t0 + window)]
-        listed = [None] * window
-        k = base
-        for j, occupied in enumerate(flags):
-            if occupied and k0 <= k < k1:
-                c = chunks * k
-                listed[k - max(k0, base)] = (t0 + j, max(c0 - c, 0),
-                                             min(c1 - c, chunks))
-            k += occupied
-        cnt = sum(flags)
-        total = max(min(base + cnt, k1) - max(base, k0), 0)
-        assert None not in listed[:total]
-        rounds += listed[:total]
-        base += cnt
-    return rounds
+def _sliced_round(acc, rel, contrib, op):
+    """One round of the dense kernel's sliced apply (every op but a narrow
+    add), warp by warp: warp w reduces positions [16w, 16w + 16) run by
+    run; a run inside its slice goes into ``acc`` at once, a first run
+    that continues the slice before is left as the slice's leading piece,
+    and after the barrier the warp holding a row's first piece folds the
+    leading pieces that continue it, in warp order, and writes the row."""
+    n = rel.shape[0]
+    rows = rel.tolist()
+    lead, tails = {}, {}
+    for w in range(WARPS):
+        a, b = SLICE * w, min(SLICE * w + SLICE, n)
+        if a >= b:
+            continue
+        leading = a > 0 and rows[a] == rows[a - 1]
+        row, reg = None, None
+        for e in range(a, b):
+            if rows[e] != row:
+                if row is not None and leading:
+                    lead[w], leading = reg, False
+                elif row is not None:
+                    acc[row] = _combine(op, acc[row], reg)
+                row, reg = rows[e], contrib[e]
+            else:
+                reg = _combine(op, reg, contrib[e])
+        if leading:
+            lead[w], row = reg, None
+        tails[w] = (row, reg)
+    for w, (row, reg) in tails.items():
+        if row is None:
+            continue
+        u = w + 1
+        while u < WARPS and SLICE * u < n and rows[SLICE * u] == row:
+            reg = _combine(op, reg, lead.pop(u))
+            if rows[min(SLICE * u + SLICE, n) - 1] != row:
+                break
+            u += 1
+        acc[row] = _combine(op, acc[row], reg)
+    assert not lead                 # every leading piece folded once
 
 
-def _dense_cluster_walk(dst, values, occ, n_rows, op, weights):
+def _dense_cluster_walk(ids, order, starts, values, n_rows, op, weights):
     """The dense kernel's partition, in PyTorch: per row block, rank r of
-    ``dense_plan``'s cluster reduces its ``cluster_share`` of the occupied
-    tiles' 32-edge chunks into a partial from the identity; the partials
-    combine in rank order."""
+    ``dense_plan``'s cluster takes its ``cluster_share`` of the 32-edge
+    chunks of the block's run [starts[rb], starts[rb+1]) of the row-sorted
+    stream and reduces them, in rounds of up to 128 positions
+    (``_sliced_round``), into a partial from the identity, each edge's
+    weight and value row read through ``order``; the partials combine in
+    rank order."""
     E, F = values.shape
-    T = E // 128
-    plan = K.dense_plan(T, n_rows, F)
+    plan = K.dense_plan(E, n_rows, F)
     out = torch.empty((n_rows, F))
+    bounds = starts.tolist()
     for rb in range(n_rows // 128):
-        row = occ[rb].tolist()
-        n_chunks = K.EDGE_TILE // K.CHUNK * sum(o > 0 for o in row)
+        lo, hi = bounds[rb], bounds[rb + 1]
+        n_chunks = -(-(hi - lo) // K.CHUNK)
         parts, seen = [], []
         for rank in range(plan.cluster):
             c0, c1 = K.cluster_share(0, n_chunks, rank, plan.cluster)
+            p0, p1 = lo + K.CHUNK * c0, min(hi, lo + K.CHUNK * c1)
             acc = torch.full((128, F), _identity(op))
-            for tile, lo, hi in _dense_rounds(row, T, c0, c1):
-                assert 0 <= lo < hi <= 4
-                seen += [(tile, c) for c in range(lo, hi)]
-                _chunk_round(acc, dst, values, weights, op, tile, lo, hi,
-                             rb * 128)
+            for p in range(p0, p1, K.EDGE_TILE):
+                pos = torch.arange(p, min(p + K.EDGE_TILE, p1))
+                seen += pos.tolist()
+                rel = ids[pos].long() - rb * 128
+                assert ((rel >= 0) & (rel < 128)).all()
+                edges = order[pos].long()
+                contrib = values[edges]
+                if weights is not None:
+                    contrib = contrib * weights[edges, None]
+                _sliced_round(acc, rel, contrib, op)
             parts.append(acc)
-        # every chunk of every occupied tile once, in stream order
-        assert seen == [(t, c) for t in range(T) if row[t] > 0
-                        for c in range(4)]
+        # every position of the run once, in order
+        assert seen == list(range(lo, hi))
         acc = parts[0]
         for p in parts[1:]:
             acc = _combine(op, acc, p)
@@ -490,8 +504,8 @@ def _run_dense_plain(*args, **kwargs):
 @pytest.mark.parametrize("case", [
     "skewed",          # one 3-seed serving segment: every edge on 3 rows
     "empty_blocks",    # five row blocks, four of them empty
-    "large_sorted",    # T = 520 over eight row blocks, dst ascending
-    "large_shuffled",  # the same, dst in no order: every tile occupied
+    "large_sorted",    # 520 edge tiles over eight row blocks, dst ascending
+    "large_shuffled",  # the same, dst in no order: every tile in every block
 ])
 def test_dense_cluster_walk_equals_the_plain_walk(op, weights, case):
     rng = np.random.default_rng(zlib.crc32(f"{op} {weights} {case}".encode()))
@@ -517,11 +531,12 @@ def test_dense_cluster_walk_equals_the_plain_walk(op, weights, case):
     call = ops.fused_call(torch.from_numpy(dst.astype(np.int32)),
                           torch.from_numpy(vals), w, mask, n_rows, op=op)
     assert call.kernel == "gas_scatter_dense"
-    dstp, valp, occ, R = call.args
+    ids, order, starts, valp, R = call.args
     if case.startswith("large"):
         assert valp.shape[0] // 128 >= 512 and R // 128 >= 8
     want = _run_dense_plain(*call.args, **call.kwargs)
-    got = _dense_cluster_walk(dstp, valp, occ, R, op, call.kwargs["weights"])
+    got = _dense_cluster_walk(ids, order, starts, valp, R, op,
+                              call.kwargs["weights"])
     if op != "add":
         assert torch.isnan(want).any()
     torch.testing.assert_close(got, want, rtol=0, atol=0, equal_nan=True)

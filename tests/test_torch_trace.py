@@ -136,7 +136,12 @@ def test_wrapper_byte_counters_equal_hand_counts(F, H):
     assert got["gas.liveness.bytes"] == 0
     if F % 32 == 0 and H % 32 == 0:
         assert got["gas.pad.bytes"] == 0
-    assert set(got) == {"gas.pad.bytes", "gas.liveness.bytes"}
+    # the gather backward's dense grid sorts its E tile-padded edges by
+    # row: 28 bytes an edge and 12 a row-block bound
+    E_pad, n_blocks = -(-E // 128) * 128, -(-V // 128)
+    assert got["gas.dense.index.bytes"] == 28 * E_pad + 12 * (n_blocks + 1)
+    assert set(got) == {"gas.pad.bytes", "gas.liveness.bytes",
+                        "gas.dense.index.bytes"}
 
 
 def test_an_edge_pad_counts_both_copies():
