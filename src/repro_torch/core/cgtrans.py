@@ -17,10 +17,11 @@ math:
 ``all_to_all`` plus a local sum on a narrow wire, and an ``all_to_all``
 plus a local extremum for max / min / or; the baseline all-gathers the raw
 weighted and masked payload, its destinations and its mask, and scatters
-the owned interval on the destination side. ``build_edge_schedule`` bins
-the edge stream by destination row block once per (partition, batch) for
-every layer and the backward; ``apply_edge_schedule`` pays the permutation
-once on a mesh.
+the owned interval on the destination side. ``edge_stream`` owns the
+edge stream: it flattens the partitions (or takes the rank's slice), bins
+the stream by destination row block and applies the permutation, once per
+forward on every path; ``aggregate_stream`` is one layer's aggregation over
+it, and ``aggregate_edges`` the two in one call.
 
 **Sampled (GraphSAGE).** ``aggregate_multi`` fuses several request segments
 of different fan-out (e.g. ``sage_forward``'s K=1 self-row lookup and its
@@ -277,11 +278,11 @@ def _permuted(sched: gas_ops.EdgeSchedule, *arrays: torch.Tensor):
 
 def build_edge_schedule(dst_global: torch.Tensor, mask: torch.Tensor,
                         n_vertices: int, *, mesh=None) -> gas_ops.EdgeSchedule:
-    """Destination-binned edge schedule for (P, E) edge arrays, computed
-    once per (partition, batch) and reused across layers and the backward
-    (``aggregate_edges(schedule=...)``). Unsharded it is one schedule over
-    the flattened edge list; on a sharded mesh each rank builds its own
-    shard's schedule from its ``(1, E)`` slice."""
+    """Destination-binned edge schedule over the caller's original-order
+    (P, E) edge arrays, as in JAX: one schedule over the flattened edge
+    list unsharded, this rank's own from its ``(1, E)`` slice on a sharded
+    mesh. ``aggregate_edges(schedule=...)`` and ``edge_stream(schedule=...)``
+    take it and apply its permutation once."""
     if not is_sharded(mesh):
         return _schedule(dst_global.reshape(-1), mask.reshape(-1),
                          n_vertices)
@@ -296,43 +297,83 @@ def _schedule(dst: torch.Tensor, mask: torch.Tensor,
         return gas.schedule_edges(dst, mask, n_rows)
 
 
-def apply_edge_schedule(schedule: gas_ops.EdgeSchedule,
-                        *edge_arrays: torch.Tensor):
-    """Reorder this rank's ``(1, E)`` edge arrays into schedule order, once
-    (then pass ``schedule_applied=True``); a sharded-mesh layout."""
-    return tuple(a[:, schedule.perm.long()] for a in edge_arrays)
-
-
 # ---------------------------------------------------------------------------
 # full-graph edge aggregation (GCN):  out[v] = ⊕_{(u,v,w)∈E} w · feats[u]
 # ---------------------------------------------------------------------------
 
-def _agg_local(feats, src_local, dst_global, w, mask, n_vertices: int,
-               op: gas.Op, impl: str, schedule=None,
+class EdgeStream(NamedTuple):
+    """One rank's full-graph edge stream (``edge_stream``): per-edge table
+    rows, destination rows in the ``n_rows`` = V space, weights and mask,
+    in ``schedule`` order where one is set. ``scheduled`` is the resolved
+    locality policy; the sharded baseline has no schedule here and bins
+    after assembly when it is set."""
+    src: torch.Tensor
+    dst: torch.Tensor
+    weights: torch.Tensor
+    mask: torch.Tensor
+    n_rows: int
+    schedule: Optional[gas_ops.EdgeSchedule]
+    scheduled: bool
+    mesh: object
+    dataflow: str
+
+
+def edge_stream(src_local, dst_global, weights, mask,
+                table_shape: Tuple[int, int], *, mesh=None,
+                dataflow: str = "cgtrans", impl: str = "ref",
+                scheduled: Optional[bool] = None,   # None → impl="kernel"
+                schedule: Optional[gas_ops.EdgeSchedule] = None
+                ) -> EdgeStream:
+    """The (P, E) edge arrays as ``partition_by_src`` lays them out, and
+    the feature table's (P, part) → the stream every ``aggregate_stream``
+    over them reads, built once per forward.
+
+    Unsharded the partitions flatten into one V = P·part row space; on a
+    sharded ``mesh`` the arrays are this rank's ``[rank:rank + 1]`` slices.
+    Where ``scheduled`` resolves on, or ``schedule`` (``build_edge_schedule``
+    over these arrays) is given, the stream is binned at the owner: the
+    schedule built here unless given, its permutation applied here, once.
+    The sharded baseline's row space exists only after assembly, so it
+    bins there instead."""
+    if dataflow not in ("cgtrans", "baseline"):
+        raise ValueError(dataflow)
+    check_impl(impl)
+    Pn, part = table_shape
+    use_sched = _resolve_scheduled(scheduled, impl) or schedule is not None
+    sharded = is_sharded(mesh)
+    if sharded and Pn != 1:
+        raise ValueError(f"on a mesh feats is this rank's (1, part, F) "
+                         f"slice, got (P, part) = {(Pn, part)}")
+    V = (mesh.size if sharded else Pn) * part
+    if not sharded:     # one row space: offset each partition's sources
+        src_local = src_local + torch.arange(
+            Pn, dtype=src_local.dtype, device=src_local.device)[:, None] * part
+    s, d, w, m = (x.reshape(-1) for x in (src_local, dst_global, weights,
+                                          mask))
+    sched = None
+    if use_sched and not (sharded and dataflow == "baseline"):
+        sched = schedule if schedule is not None else _schedule(d, m, V)
+        s, d, w, m = _permuted(sched, s, d, w, m)
+    return EdgeStream(s, d, w, m, V, sched, use_sched, mesh, dataflow)
+
+
+def _agg_local(table, stream: EdgeStream, op: gas.Op, impl: str,
                sparse_cap: Optional[int] = None) -> torch.Tensor:
-    """In-SSD step: local gather + segment-reduce into global dst bins.
-    ``schedule`` is the banded walk for edge arrays already in its order;
-    ``sparse_cap`` reads the table packed."""
-    gathered = _find(feats, src_local, impl=impl, sparse_cap=sparse_cap)
-    return gas.gas_scatter_weighted(dst_global, gathered, w, mask,
-                                    n_vertices, op=op, impl=impl,
-                                    schedule=schedule)
+    """In-SSD step: local gather + segment-reduce into global dst bins, on
+    the banded walk where the stream has a schedule; ``sparse_cap`` reads
+    the table packed."""
+    gathered = _find(table, stream.src, impl=impl, sparse_cap=sparse_cap)
+    return gas.gas_scatter_weighted(stream.dst, gathered, stream.weights,
+                                    stream.mask, stream.n_rows, op=op,
+                                    impl=impl, schedule=stream.schedule)
 
 
-def _edges_cgtrans(f, s, d, w, m, mesh, op, impl, use_sched, schedule,
-                   schedule_applied, wire, sparse_cap):
+def _edges_cgtrans(f, stream: EdgeStream, op, impl, wire, sparse_cap):
     """One rank's cgtrans body: aggregate at the owner, then ship each
     owner its interval's partials."""
-    n, part, F = mesh.size, f.shape[0], f.shape[1]
-    V = n * part
-    sched = None
-    if use_sched:
-        sched = schedule if schedule is not None else _schedule(d, m, V)
-        if not schedule_applied:
-            s, d, w, m = _permuted(sched, s, d, w, m)
-    partial = _agg_local(f, s, d, w, m, V, op, impl, schedule=sched,
-                         sparse_cap=sparse_cap)
-    block = partial.reshape(n, part, F)
+    mesh = stream.mesh
+    block = _agg_local(f, stream, op, impl, sparse_cap).reshape(
+        mesh.size, *f.shape)
     if op == "add" and wire == "f32":
         return collectives.reduce_scatter(block, mesh)
     if op == "add":
@@ -347,27 +388,28 @@ def _edges_cgtrans(f, s, d, w, m, mesh, op, impl, use_sched, schedule,
     return torch.amin(parts, 0) if op == "min" else torch.amax(parts, 0)
 
 
-def _edges_baseline(f, s, d, w, m, mesh, op, impl, use_sched, sparse_cap):
+def _edges_baseline(f, stream: EdgeStream, op, impl, sparse_cap):
     """One rank's baseline body: gather locally, all-gather the raw edge
     payload, its destinations and its mask, scatter the owned interval."""
+    mesh = stream.mesh
     part, F = f.shape
-    raw = _find(f, s, impl=impl, sparse_cap=sparse_cap)
+    raw = _find(f, stream.src, impl=impl, sparse_cap=sparse_cap)
     # weights scale contributions under add only; max / min take the raw
     # feature and or ignores weights, as gas_scatter_weighted does
     if op == "add":
-        raw = raw * w[:, None].to(raw.dtype)
-    raw = torch.where(m[:, None], raw, torch.zeros((), dtype=raw.dtype,
-                                                   device=raw.device))
+        raw = raw * stream.weights[:, None].to(raw.dtype)
+    raw = torch.where(stream.mask[:, None], raw,
+                      torch.zeros((), dtype=raw.dtype, device=raw.device))
     all_raw = collectives.all_gather(raw, mesh)            # (n, E, F)
-    all_dst = collectives.all_gather(d, mesh)
-    all_m = collectives.all_gather(m, mesh)
+    all_dst = collectives.all_gather(stream.dst, mesh)
+    all_m = collectives.all_gather(stream.mask, mesh)
     # the destination side keeps its owned interval; the clip and the mask
     # come before the schedule, as in the reference
     rel = all_dst.reshape(-1) - mesh.rank * part
     ok = all_m.reshape(-1) & (rel >= 0) & (rel < part)
     vals = all_raw.reshape(-1, F)
     sched = None
-    if use_sched:
+    if stream.scheduled:
         # binned after assembly: the scatter's row space is this owner's
         # interval, which exists only after the all_gather
         sched = _schedule(rel, ok, part)
@@ -378,83 +420,53 @@ def _edges_baseline(f, s, d, w, m, mesh, op, impl, use_sched, sparse_cap):
         part, op=op, impl=impl, schedule=sched)
 
 
-def aggregate_edges(
-    feats: torch.Tensor,       # (P, part, F) owner-sharded vertex features
-    src_local: torch.Tensor,   # (P, E) local src ids
-    dst_global: torch.Tensor,  # (P, E) global dst ids
-    weights: torch.Tensor,     # (P, E)
-    mask: torch.Tensor,        # (P, E)
-    *,
-    mesh=None,
-    dataflow: str = "cgtrans",
-    op: gas.Op = "add",
-    impl: str = "ref",
-    scheduled: Optional[bool] = None,   # None → on for impl="kernel"
-    schedule: Optional[gas_ops.EdgeSchedule] = None,
-    schedule_applied: bool = False,     # edge arrays already in perm order
-    wire: str = "f32",
-    features: str = "dense",
-    sparse_capacity: Optional[int] = None,
-) -> torch.Tensor:
-    """Returns (P, part, F) aggregated destination features, owner-sharded;
-    rows that no edge reaches hold the op identity (±inf for max / min).
-
-    ``scheduled`` bins the edge stream by destination row block before the
-    reduction; ``schedule`` supplies a precomputed ``build_edge_schedule``
-    result, and ``schedule_applied=True`` declares the edge arrays already
-    in its order (``apply_edge_schedule``; sharded cgtrans only). The
-    baseline bins its destination-side reduction after assembly and
-    ignores ``schedule``. Unsharded, the reference flattens the partitions
-    and permutes itself, and ``wire`` is validated and otherwise a no-op.
-    On a sharded ``mesh`` every argument and the result are this rank's
-    ``[rank:rank + 1]`` slices, and ``schedule`` this rank's.
-    ``features="sparse"`` (with ``sparse_capacity``) reads the table
-    packed; every result is bit for bit the dense path's.
-    """
+def aggregate_stream(feats: torch.Tensor, stream: EdgeStream, *,
+                     op: gas.Op = "add", impl: str = "ref",
+                     wire: str = "f32", features: str = "dense",
+                     sparse_capacity: Optional[int] = None) -> torch.Tensor:
+    """One layer's aggregation over an ``edge_stream``: ``feats`` (P, part,
+    F) owner-sharded, this rank's (1, part, F) on a sharded mesh → the
+    aggregated destination features in the same layout; rows that no edge
+    reaches hold the op identity (±inf for max / min). Unsharded, ``wire``
+    is validated and otherwise a no-op. ``features="sparse"`` (with
+    ``sparse_capacity``) reads the table packed, bit for bit dense."""
     with trace.span("cgtrans.aggregate", feats):
-        if dataflow not in ("cgtrans", "baseline"):
-            raise ValueError(dataflow)
         check_impl(impl)
-        _check_wire(wire, dataflow, features)
+        _check_wire(wire, stream.dataflow, features)
         Pn, part, F = feats.shape
         sparse_cap = _resolve_sparse(features, sparse_capacity, F)
-        use_sched = (_resolve_scheduled(scheduled, impl)
-                     or schedule is not None)
-        if schedule_applied and schedule is None:
-            raise ValueError("schedule_applied requires schedule=")
-
-        if not is_sharded(mesh):
-            if schedule_applied:
-                raise ValueError(
-                    "schedule_applied is a sharded-mesh layout (per-rank "
-                    "perms); the single-shard path flattens partitions and "
-                    "permutes itself")
-            V = Pn * part
-            off = torch.arange(Pn, dtype=src_local.dtype,
-                               device=src_local.device)[:, None] * part
-            s = (src_local + off).reshape(-1)
-            d, w, m = (dst_global.reshape(-1), weights.reshape(-1),
-                       mask.reshape(-1))
-            sched = None
-            if use_sched:
-                sched = schedule if schedule is not None else \
-                    _schedule(d, m, V)
-                s, d, w, m = _permuted(sched, s, d, w, m)
-            out = _agg_local(feats.reshape(V, F), s, d, w, m, V, op, impl,
-                             schedule=sched, sparse_cap=sparse_cap)
+        if not is_sharded(stream.mesh):
+            out = _agg_local(feats.reshape(Pn * part, F), stream, op, impl,
+                             sparse_cap)
             return out.reshape(Pn, part, F)
-
-        if Pn != 1:
-            raise ValueError(f"on a mesh feats is this rank's (1, part, F) "
-                             f"slice, got {tuple(feats.shape)}")
-        args = (feats[0], src_local[0], dst_global[0], weights[0], mask[0],
-                mesh, op, impl, use_sched)
-        if dataflow == "cgtrans":
-            out = _edges_cgtrans(*args, schedule, schedule_applied, wire,
-                                 sparse_cap)
+        if stream.dataflow == "cgtrans":
+            out = _edges_cgtrans(feats[0], stream, op, impl, wire, sparse_cap)
         else:
-            out = _edges_baseline(*args, sparse_cap)
+            out = _edges_baseline(feats[0], stream, op, impl, sparse_cap)
         return out[None]
+
+
+def aggregate_edges(feats: torch.Tensor, src_local: torch.Tensor,
+                    dst_global: torch.Tensor, weights: torch.Tensor,
+                    mask: torch.Tensor, *, mesh=None,
+                    dataflow: str = "cgtrans", op: gas.Op = "add",
+                    impl: str = "ref", scheduled: Optional[bool] = None,
+                    schedule: Optional[gas_ops.EdgeSchedule] = None,
+                    wire: str = "f32", features: str = "dense",
+                    sparse_capacity: Optional[int] = None) -> torch.Tensor:
+    """(P, part, F) owner-sharded features and the (P, E) edge arrays of
+    ``edge_stream`` → (P, part, F) aggregated destination features:
+    ``aggregate_stream`` over a fresh stream (a caller that aggregates the
+    same edges again keeps the stream). ``schedule`` is a
+    ``build_edge_schedule`` result over these original-order arrays; the
+    sharded baseline bins after assembly and ignores it. On a sharded
+    ``mesh`` every argument and the result are this rank's slices."""
+    stream = edge_stream(src_local, dst_global, weights, mask,
+                         feats.shape[:2], mesh=mesh, dataflow=dataflow,
+                         impl=impl, scheduled=scheduled, schedule=schedule)
+    return aggregate_stream(feats, stream, op=op, impl=impl, wire=wire,
+                            features=features,
+                            sparse_capacity=sparse_capacity)
 
 
 # ---------------------------------------------------------------------------

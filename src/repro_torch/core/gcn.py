@@ -1,7 +1,7 @@
 """GCN / GraphSAGE on the CGTrans substrate (the paper's workload).
 
 ``gcn_forward_full`` runs full-graph GCN layers: each layer's aggregation
-is the CGTrans edge dataflow (``cgtrans.aggregate_edges``), the combine a
+is the CGTrans edge dataflow (``cgtrans.aggregate_stream``), the combine a
 dense product. ``sage_forward`` / ``sage_loss`` run minibatch GraphSAGE.
 
 Vertex features live owner-sharded on the storage tier, ``(P, part, F)``;
@@ -140,13 +140,12 @@ def gcn_forward_full(params: Mapping[str, torch.Tensor], feats: torch.Tensor,
     (P, part, C) logits. On a sharded ``mesh`` every argument and the
     result are this rank's ``[rank:rank + 1]`` slices.
 
-    ``impl`` overrides ``cfg.impl``. The destination-binned schedule is
-    built once here and reused by every layer's aggregation and by the
-    backward; on a mesh the edge permutation is applied once too (the
-    sharded baseline bins after assembly, in its own row space, and gets
-    none). ``cfg.features="sparse"`` applies to layer 0's gather of the raw
-    table only. After a max / min aggregation the ±inf identity rows of
-    vertices without in-edges read 0.
+    ``impl`` overrides ``cfg.impl``. The edge stream
+    (``cgtrans.edge_stream``: flattened or the rank's slice, binned and
+    permuted where scheduled) is built once here and read by every layer's
+    aggregation and by the backward. ``cfg.features="sparse"`` applies to
+    layer 0's gather of the raw table only. After a max / min aggregation
+    the ±inf identity rows of vertices without in-edges read 0.
 
     With ``cfg.partition="island"`` the inputs live in the islandized id
     space (``partition_graph(..., method="island")``) and ``relabel`` is
@@ -158,25 +157,13 @@ def gcn_forward_full(params: Mapping[str, torch.Tensor], feats: torch.Tensor,
     with trace.span("gcn.forward", feats):
         _check_partition_knob(cfg, relabel)
         impl_r = impl or cfg.impl
-        use_sched = cgtrans._resolve_scheduled(cfg.scheduled, impl_r)
-        sharded = cgtrans.is_sharded(mesh)
-        sched, applied = None, False
-        if use_sched and (cfg.dataflow == "cgtrans" or not sharded):
-            sched = cgtrans.build_edge_schedule(
-                dst_global, mask, feats.shape[0] * feats.shape[1] *
-                (mesh.size if sharded else 1), mesh=mesh)
-            if sharded:
-                src_local, dst_global, weights, mask = \
-                    cgtrans.apply_edge_schedule(sched, src_local, dst_global,
-                                                weights, mask)
-                applied = True
+        stream = cgtrans.edge_stream(
+            src_local, dst_global, weights, mask, feats.shape[:2], mesh=mesh,
+            dataflow=cfg.dataflow, impl=impl_r, scheduled=cfg.scheduled)
         h = feats
         for i in range(cfg.n_layers):
-            agg = cgtrans.aggregate_edges(
-                h, src_local, dst_global, weights, mask, mesh=mesh,
-                dataflow=cfg.dataflow, op=cfg.aggregate, impl=impl_r,
-                scheduled=use_sched, schedule=sched, schedule_applied=applied,
-                wire=cfg.wire,
+            agg = cgtrans.aggregate_stream(
+                h, stream, op=cfg.aggregate, impl=impl_r, wire=cfg.wire,
                 # sparse only where the gather reads the raw table: deeper
                 # layers' activations would measure a capacity of F anyway
                 features=cfg.features if i == 0 else "dense",

@@ -123,12 +123,18 @@ def _padded_rows(n_rows: int) -> int:
     return -(-n_rows // ROW_BLOCK) * ROW_BLOCK
 
 
+def _live(dst: torch.Tensor, mask: Optional[torch.Tensor],
+          n_rows: int) -> torch.Tensor:
+    """The dead-edge rule: an edge is live when unmasked and its
+    destination lies in ``[0, n_rows)``."""
+    ok = (dst >= 0) & (dst < n_rows)
+    return ok if mask is None else ok & mask
+
+
 def _dead_routed(dst: torch.Tensor, mask: Optional[torch.Tensor],
                  n_rows: int, R: int):
     """(ok, dst with every masked / out-of-range edge sent to row R)."""
-    ok = (dst >= 0) & (dst < n_rows)
-    if mask is not None:
-        ok = ok & mask
+    ok = _live(dst, mask, n_rows)
     return ok, torch.where(ok, dst, torch.full_like(dst, R)).to(torch.int32)
 
 
@@ -156,10 +162,8 @@ class EdgeSchedule(NamedTuple):
 def _edge_bins(dst: torch.Tensor, mask: Optional[torch.Tensor], n_rows: int):
     """Row-block bin per edge; dead edges get the one-past-the-end bin."""
     n_blocks = -(-n_rows // ROW_BLOCK)
-    ok = (dst >= 0) & (dst < n_rows)
-    if mask is not None:
-        ok = ok & mask
-    bins = torch.where(ok, torch.div(dst, ROW_BLOCK, rounding_mode="floor"),
+    bins = torch.where(_live(dst, mask, n_rows),
+                       torch.div(dst, ROW_BLOCK, rounding_mode="floor"),
                        torch.full_like(dst, n_blocks))
     return bins.to(torch.int32), n_blocks
 

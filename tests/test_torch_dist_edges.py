@@ -8,8 +8,9 @@ sharded dataflows equal to the unsharded ones bit for bit on integer data,
 so each rank's slice must equal the reference's slice:
 
 * ``aggregate_edges`` for P in {2, 4}: both dataflows × add / max / min /
-  or × ``impl`` ref and kernel, ``schedule_applied``, the feature table's
-  and the edge weights' gradients (add bit for bit; max / min within 1e-5,
+  or × ``impl`` ref and kernel, one ``edge_stream`` read by two
+  aggregations, the feature table's and the edge weights' gradients (add
+  bit for bit; max / min within 1e-5,
   their tie shares being thirds), the bf16 wire bit for bit (values and
   the add gradient), the int8 wire within the bound of the JAX package's
   ``test_mesh_int8_bounded``, sparse features alone and on the bf16 wire;
@@ -389,13 +390,14 @@ def _rank(mesh, world, params, serving):
                     p, floats, src, dst, w_float, mask, cfg,
                     mesh=mesh).detach().numpy()
 
-    # the schedule paid once at partition time, per rank
+    # the schedule paid once at partition time, per rank, and one stream
+    # over it read by two aggregations
     sched = cgtrans.build_edge_schedule(dst, mask, V, mesh=mesh)
-    s2, d2, w2, m2 = cgtrans.apply_edge_schedule(sched, src, dst, w_int, mask)
+    stream = cgtrans.edge_stream(src, dst, w_int, mask, ints.shape[:2],
+                                 mesh=mesh, impl="kernel", schedule=sched)
     for op in ("add", "max"):
-        out[("applied", op)] = cgtrans.aggregate_edges(
-            ints, s2, d2, w2, m2, mesh=mesh, op=op, impl="kernel",
-            schedule=sched, schedule_applied=True).numpy()
+        out[("stream", op)] = cgtrans.aggregate_stream(
+            ints, stream, op=op, impl="kernel").numpy()
 
     # the compressed wire on the full-graph cgtrans combine
     for impl in IMPLS:
@@ -601,10 +603,12 @@ def test_sharded_aggregate_edges_matches_reference(sharded, reference, P,
 
 @pytest.mark.parametrize("P,op", [(P, op) for P in (2, 4)
                                   for op in ("add", "max")])
-def test_schedule_applied_matches_reference(sharded, reference, P, op):
+def test_edge_stream_matches_reference(sharded, reference, P, op):
+    """A stream built once per rank over a prebuilt schedule, read by an
+    add and then a max aggregation: bit for bit the reference."""
     want = reference(P)[("edges", op, "kernel")]
     for r, res in _slices(sharded, P):
-        np.testing.assert_array_equal(res[("applied", op)], want[r:r + 1])
+        np.testing.assert_array_equal(res[("stream", op)], want[r:r + 1])
 
 
 @pytest.mark.parametrize("P,flow,op,impl", [

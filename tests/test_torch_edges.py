@@ -5,10 +5,11 @@
 ``impl="kernel"`` its ``impl="pallas"`` (interpret mode): bit for bit on
 integer-valued data for every op, unscheduled, scheduled and with a
 precomputed schedule; the gradients in the feature table and the edge
-weights; ``gcn_forward_full`` and its parameter gradients within 1e-5;
-the schedule built once per call; and the dispatch counts, forward and
-forward + backward, equal to the JAX counter. JAX is imported only where
-the reference is computed.
+weights; ``gcn_forward_full`` at 2 and 3 layers and its parameter
+gradients within 1e-5; the schedule built and its permutation applied once
+per forward; and the dispatch counts, forward and forward + backward,
+equal to the JAX counter. JAX is imported only where the reference is
+computed.
 """
 
 import numpy as np
@@ -164,16 +165,18 @@ def _cfg(lib_cfg, op, impl, **kw):
 
 @pytest.mark.parametrize("op", ["add", "max"])
 @pytest.mark.parametrize("impl", ["ref", "kernel"])
-def test_gcn_forward_full_matches_reference(op, impl):
+@pytest.mark.parametrize("n_layers", [2, 3])
+def test_gcn_forward_full_matches_reference(op, impl, n_layers, monkeypatch):
     """Logits and the parameters' gradients within 1e-5 (normal data);
-    one schedule built for both layers and the backward."""
+    one schedule built and one permutation applied for every layer and the
+    backward on the kernel route, none on ``ref``."""
     import jax
 
     from repro.common.schema import init_params
     from repro.core import gcn as jgcn
 
     feats, src, dst, w, mask = _world(6, exact=False)
-    jcfg = _cfg(jgcn.GCNConfig, op, JIMPL[impl])
+    jcfg = _cfg(jgcn.GCNConfig, op, JIMPL[impl], n_layers=n_layers)
     jparams = init_params(jgcn.gcn_schema(jcfg), jax.random.PRNGKey(0))
     u = np.random.default_rng(7).standard_normal((P, V // P, 5)).astype(
         np.float32)
@@ -188,19 +191,23 @@ def test_gcn_forward_full_matches_reference(op, impl):
 
     params = {k: v.requires_grad_(True) for k, v in params_from_jax(
         jparams, device="cpu").items()}
-    built, real = [], gas.schedule_edges
+    calls = {"schedule": 0, "permute": 0}
 
-    def counting(*a, **kw):
-        built.append(a[0].shape)
-        return real(*a, **kw)
-    gas.schedule_edges = counting
-    try:
-        logits = gcn_forward_full(params, _t(feats), _t(src), _t(dst), _t(w),
-                                  _t(mask), _cfg(GCNConfig, op, impl))
-        (logits * _t(u)).sum().backward()
-    finally:
-        gas.schedule_edges = real
-    assert len(built) == (1 if impl == "kernel" else 0)
+    def counted(kind, fn):
+        def call(*a, **kw):
+            calls[kind] += 1
+            return fn(*a, **kw)
+        return call
+    monkeypatch.setattr(gas, "schedule_edges",
+                        counted("schedule", gas.schedule_edges))
+    monkeypatch.setattr(cgtrans, "_permuted",
+                        counted("permute", cgtrans._permuted))
+    logits = gcn_forward_full(params, _t(feats), _t(src), _t(dst), _t(w),
+                              _t(mask), _cfg(GCNConfig, op, impl,
+                                             n_layers=n_layers))
+    (logits * _t(u)).sum().backward()
+    once = 1 if impl == "kernel" else 0
+    assert calls == {"schedule": once, "permute": once}
     np.testing.assert_allclose(logits.detach().numpy(), np.asarray(want),
                                **TOL)
     for k, g in jgrads.items():
@@ -273,7 +280,3 @@ def test_gcn_forward_full_knobs():
                              _cfg(GCNConfig, "add", "kernel", **kw))
     with pytest.raises(ValueError, match="requires partition='island'"):
         gcn_forward_full(params, *targs, cfg, relabel=np.arange(V))
-    with pytest.raises(ValueError, match="schedule_applied"):
-        cgtrans.aggregate_edges(*targs, schedule_applied=True,
-                                schedule=cgtrans.build_edge_schedule(
-                                    targs[2], targs[4], V))
