@@ -538,7 +538,12 @@ def bound(call):
                   + live * Fp * isz + R * Fp * isz)
         return roofline(nbytes, live * Fp * (
             2 if call.kwargs.get("op") == "add" else 1))
-    work, dst, vals, R = call.args
+    if call.kernel == "gas_scatter_banded_gathered":
+        # the value rows are the table's, read through src (4 bytes more
+        # an edge)
+        work, dst, _, vals, R = call.args
+    else:
+        work, dst, vals, R = call.args
     rows = work[work[:, 2] == 1]
     rb, tiles = rows[:, 0].long(), rows[:, 1].long()
     if work.shape[1] > 4:
@@ -552,8 +557,9 @@ def bound(call):
     live_edges = (blocks == rb[:, None]).sum(1)     # edges each round reads
     feat_live = fl.sum(1) * 32
     n_tiles = int(tiles.unique().numel())
-    id_bytes = n_tiles * 128 * (4 + (4 if call.kwargs.get("weights")
-                                     is not None else 0))
+    id_bytes = n_tiles * 128 * (
+        4 + (4 if call.kwargs.get("weights") is not None else 0)
+        + (4 if call.kernel == "gas_scatter_banded_gathered" else 0))
     isz = vals.element_size()
     value_bytes = int((live_edges * feat_live).sum()) * isz
     out_bytes = R * Fp * isz
@@ -687,6 +693,7 @@ CASES = ([("add", data, zb, "unit") for data in ("int", "normal")
 
 
 KERNEL_SYMBOL = {"gas_scatter_banded": "banded_cluster_kernel",
+                 "gas_scatter_banded_gathered": "banded_cluster_kernel",
                  "gas_scatter_dense": "dense_cluster_kernel"}
 
 
@@ -751,6 +758,10 @@ def _call_parts(call):
     dense grid's from its sorted ids and their order)."""
     if call.kernel == "gas_scatter_banded":
         return call.args[1], call.args[2], call.args[3]
+    if call.kernel == "gas_scatter_banded_gathered":
+        from repro_torch.kernels.gas_scatter import kernel as K
+        _, dst, src, table, R = call.args
+        return dst, K.gathered_rows(table, src), R
     ids, order, _, vals, R = call.args
     dst = ids.new_empty(ids.shape)
     dst[order.long()] = ids
@@ -2934,22 +2945,22 @@ def time_call(torch, ops, K, args, kwargs, label, smi, iters, plain=True):
     values = args[1]
     call = ops.fused_call(*args, **kwargs)
     name = call.kernel
-    vals = call.args[-2]
-    t = {"values": list(vals.shape), "rows": call.args[-1],
+    vals = call.args[-2]    # the value stream, or the gathered walk's table
+    t = {"values": [call.args[1].shape[0], vals.shape[1]],
+         "rows": call.args[-1],
          "ms": event_ms(torch, call.run, iters, warm=1),
          "device_ms": device_ms(torch, call.run, KERNEL_SYMBOL[name], iters)}
     t["bound_ms"], t["bound_by"] = bound(call)
     lib = library_fn(torch, call)
     t["library_ms"] = event_ms(torch, lib, iters, warm=1)
     del lib
-    if name == "gas_scatter_banded":
+    if name.startswith("gas_scatter_banded"):
         if plain:
             # one plain walk: a Python loop over the work list's rows
             t["plain_ms"] = event_ms(torch, call.run_plain, 1, warm=0)
         work = call.args[0]
-        t["pad_ms"] = event_ms(torch, lambda: ops._pad_to(ops._pad_to(
-            values, ops.EDGE_TILE, 0, 0.0), ops.FEAT_BLOCK, 1, 0.0), iters,
-            warm=1)
+        t["pad_ms"] = event_ms(torch, lambda: ops._padded_values(
+            values, edges=name == "gas_scatter_banded"), iters, warm=1)
         t["work"] = list(work.shape)
     else:
         t["live_edges"] = int(call.args[2][-1])

@@ -19,7 +19,7 @@ source_lint``), over ``src/repro_torch``, ``chip_smoke.py`` and
   ``launch/mesh.py`` (the group and its barrier).
 * ``unticked-dispatch`` — a function outside the kernel modules that
   reaches a raw kernel wrapper (``gas_scatter_banded`` /
-  ``gas_scatter_dense``) is private (reached through a ticking public
+  ``gas_scatter_banded_gathered`` / ``gas_scatter_dense``) is private (reached through a ticking public
   wrapper) or ticks ``count_dispatches`` itself.
 * ``unknown-marker`` — every ``pytest.mark.<x>`` in the tests is
   registered in ``pyproject.toml``.
@@ -71,7 +71,8 @@ _COLLECTIVE_CALLS = frozenset({
 _LIBRARY_HANDLES = ("_load", "_lib", "_entries")
 
 #: raw kernel wrappers — referencing these needs a tick or a private caller
-_RAW_DISPATCHES = ("gas_scatter_banded", "gas_scatter_dense")
+_RAW_DISPATCHES = ("gas_scatter_banded", "gas_scatter_banded_gathered",
+                   "gas_scatter_dense")
 
 #: pytest's built-in marks (never registered in pyproject)
 _BUILTIN_MARKS = frozenset({

@@ -357,11 +357,31 @@ def edge_stream(src_local, dst_global, weights, mask,
     return EdgeStream(s, d, w, m, V, sched, use_sched, mesh, dataflow)
 
 
+def _reads_table(table, stream: EdgeStream, op: gas.Op, impl: str,
+                 sparse_cap: Optional[int]) -> bool:
+    """Whether the kernel itself reads each edge's row from ``table``
+    (``gas.gas_gather_scatter``): a scheduled add over a dense float32
+    table on the kernel backend. Every other case gathers the rows first."""
+    return (impl == "kernel" and op == "add" and sparse_cap is None
+            and stream.schedule is not None and table.dtype == torch.float32)
+
+
 def _agg_local(table, stream: EdgeStream, op: gas.Op, impl: str,
                sparse_cap: Optional[int] = None) -> torch.Tensor:
     """In-SSD step: local gather + segment-reduce into global dst bins, on
     the banded walk where the stream has a schedule; ``sparse_cap`` reads
-    the table packed."""
+    the table packed. A scheduled add of a dense f32 table on the kernel
+    gathers nothing: the walk reads the rows from the table, and the find
+    keeps its span (no device work), its tick and the ``gas.find.fused``
+    count."""
+    if _reads_table(table, stream, op, impl, sparse_cap):
+        with trace.span("gas.find", table):
+            gas._tick("find")
+            entries.note("find", table)
+            trace.add("gas.find.fused", 1)
+        return gas.gas_gather_scatter(table, stream.src, stream.dst,
+                                      stream.weights, stream.mask,
+                                      stream.n_rows, schedule=stream.schedule)
     gathered = _find(table, stream.src, impl=impl, sparse_cap=sparse_cap)
     return gas.gas_scatter_weighted(stream.dst, gathered, stream.weights,
                                     stream.mask, stream.n_rows, op=op,

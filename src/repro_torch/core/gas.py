@@ -7,6 +7,8 @@ primitives:
   gas_scatter(dst, values, n_rows, op)   — scatter-reduce values into rows
   gas_gather(table, ids)                 — row gather (the "find")
   gas_scatter_weighted(...)              — masked, edge-weighted scatter
+  gas_gather_scatter(table, src, ...)    — the two above fused: a weighted
+                                           add of table[src] (kernel only)
 
 ``impl`` selects the backend: ``"ref"`` (``index_add_`` /
 ``scatter_reduce``, the oracle) or ``"kernel"`` (the FAST-GAS kernels in
@@ -26,7 +28,15 @@ as ``jax.ops.segment_max`` does). The kernel wrappers are forward-only, so
 * for ``op="max"/"min"`` the cotangent routes through the equality mask
   against the saved output, split evenly among ties whose count comes from
   one kernel scatter under the forward's mask and schedule;
-* ``op="or"`` is flat, so its gradients are stopped.
+* ``op="or"`` is flat, so its gradients are stopped;
+* ``gas_gather_scatter`` is ``gas_scatter_weighted(dst, gas_gather(table,
+  src), …, op="add")`` in one dispatch: its forward is the banded walk
+  reading each edge's row from the table, so nothing E×F is built or
+  saved; its backward is the composition's, bit for bit: d_table is the
+  dense-grid scatter-add by ``src`` of live · w · g[dst] (the gather's
+  backward, in its ``gas.gather_backward`` span), and d_w = live ·
+  ⟨table[src], g[dst]⟩ only where the weights require a gradient, the rows
+  gathered again for it.
 
 The forward runs under no-grad inside each ``Function``, so on the CPU the
 kernels' plain versions are never differentiated in their place.
@@ -223,6 +233,65 @@ class _ScatterWeightedKernel(torch.autograd.Function):
         d_vals = torch.where(eq, share, zero).to(src_vals.dtype)
         return (None, d_vals, torch.zeros_like(weights), None, None, None,
                 None)
+
+
+class _GatherScatterKernel(torch.autograd.Function):
+    """``gas_gather_scatter``: the fused forward and the composition's
+    backward rules (module docstring)."""
+
+    @staticmethod
+    def forward(ctx, table, src, dst, weights, mask, n_rows, schedule):
+        _tick("reduce")
+        entries.note("reduce", table, weights)
+        out = gas_ops.gas_scatter_fused(dst, table, weights, mask, n_rows,
+                                        schedule=schedule, src=src)
+        ctx.save_for_backward(table if ctx.needs_input_grad[3] else None,
+                              src, dst, weights, mask)
+        ctx.n_rows, ctx.table_rows = n_rows, table.shape[0]
+        ctx.dtype = table.dtype
+        ctx.suspended = gas_ops.counting_suspended()
+        ctx.call = trace.current_call()
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        table, src, dst, weights, mask = ctx.saved_tensors
+        n_rows = ctx.n_rows
+        live = mask & (dst >= 0) & (dst < n_rows)
+        g_rows = g[torch.clamp(dst, 0, n_rows - 1).long()]
+        d_table = d_w = None
+        if ctx.needs_input_grad[0]:
+            d_vals = torch.where(live[:, None],
+                                 g_rows * weights[:, None].to(g.dtype),
+                                 torch.zeros((), dtype=g.dtype,
+                                             device=g.device)).to(ctx.dtype)
+            with trace.span("gas.gather_backward", d_vals, call=ctx.call), \
+                    gas_ops.suspend_counting(ctx.suspended):
+                d_table = _scatter_weighted_impl(
+                    src, d_vals.to(torch.float32), None, None,
+                    ctx.table_rows, "add", "kernel").to(ctx.dtype)
+        if ctx.needs_input_grad[3]:
+            d_w = torch.where(
+                live, (table[src.long()].to(torch.float32)
+                       * g_rows.to(torch.float32)).sum(-1),
+                torch.zeros((), dtype=torch.float32, device=g.device)
+            ).to(weights.dtype)
+        return d_table, None, None, d_w, None, None, None
+
+
+def gas_gather_scatter(table: torch.Tensor, src: torch.Tensor,
+                       dst: torch.Tensor, weights: torch.Tensor,
+                       mask: torch.Tensor, n_rows: int, *,
+                       schedule: gas_ops.EdgeSchedule) -> torch.Tensor:
+    """``gas_scatter_weighted(dst, gas_gather(table, src), weights, mask,
+    n_rows, op="add", impl="kernel", schedule=schedule)`` in one kernel
+    dispatch, bit for bit, forward and backward: the banded walk reads each
+    edge's row ``table[src[e]]`` itself. ``table`` (V, F) float32, the
+    per-edge arrays in ``schedule``'s order. Ticks ``reduce`` and
+    ``kernel_scatter`` as the scatter does; the find's tick is its
+    caller's (``cgtrans._agg_local``)."""
+    return _GatherScatterKernel.apply(table, src, dst, weights, mask, n_rows,
+                                      schedule)
 
 
 def gas_scatter_weighted(dst: torch.Tensor, src_vals: torch.Tensor,

@@ -16,10 +16,24 @@
 // on a matched edge makes its row's max / min NaN, as jnp.maximum / minimum
 // and scatter_reduce's amax / amin do (fmaxf / fminf would drop it).
 //
-// What bounds it: memory. One pass moves the value stream E*F*s bytes (s the
-// value type's size), the ids and weights E*8 bytes (the dense grid's sorted
-// ids and order E*8 bytes more), and writes n_rows*F*s bytes; at 3.35 TB/s
-// that is the floor. The arithmetic is one FMA (or one
+// The banded walk has two row sources, one template parameter apart:
+//   * the values walk reads row e of a value stream (E, F) its caller
+//     built, as the TPU kernel does (the sampled and serving paths' gathered
+//     candidate rows, max / min, bf16 / f16);
+//   * the gathered walk reads row src[e] of the feature table (V, F) itself,
+//     f32 only: the full-graph add, whose caller would otherwise write an
+//     E x F copy of the table's rows and a padded copy of that for the
+//     kernel to read back (at Reddit's layer 0, 20.2 GB and the pad's
+//     40.6 GB moved, for a 0.63 GB table). Every
+//     byte it stages equals the values walk's over the stream table[src]
+//     padded with zero rows, so its skips and its output bits are the same.
+//
+// What bounds it: memory. One pass moves the value rows E*F*s bytes (s the
+// value type's size; the gathered walk reads each edge's 128-byte row
+// segment at random, so a table row is read once per edge that reaches it,
+// not once), the ids and weights E*8 bytes (the dense grid's sorted ids and
+// order E*8 bytes more, the gathered walk's src E*4), and writes n_rows*F*s
+// bytes; at 3.35 TB/s that is the floor. The arithmetic is one FMA (or one
 // compare) per value. At the sizes the serving and inference paths launch
 // (one 128-row block, 2-7 edge tiles) the floor is under a microsecond, so
 // what sets the time is how many SMs work at once and how many memory
@@ -110,7 +124,10 @@
 //     kernel and the predicate nothing measurable. Max and min never skip.
 //     The rounds are compacted on the device, a window of 256 work rows at
 //     a time, with one __ballot_sync per warp and a prefix over the 8 warp
-//     counts.
+//     counts. The gathered walk loads each thread's src entries of the
+//     round after next into registers while a round is applied, as the
+//     dense grid loads order, so the indirection adds no latency of its
+//     own, and stages zeros for a tile-padding edge (src outside the table).
 //   * dense_cluster_kernel: the row-sorted index the wrapper builds on the
 //     device (ops.fused_call): ids (E,) the routed rows sorted by a stable
 //     sort, so each row keeps its edges in stream order and dead edges sort
@@ -267,11 +284,13 @@ template <typename T>
 struct Stream {
   const int* dst;
   const float* weights;  // null: unit weights
-  const T* values;
+  const T* values;       // the value stream (E, F), or the gathered walk's table (V, F)
   long long F;
   int f0;    // the CTA's first feature
   int row0;  // its row block's first row
   int op;
+  const int* src;  // the gathered walk's source rows (E,); null in the values walk
+  int n_src;       // the table's rows V
 };
 
 // The partial at the identity; `sums`: a narrow type's add clears its round
@@ -304,10 +323,36 @@ __device__ __forceinline__ int block_prefix(Walk& s, bool flag, int& total) {
   return off + __popc(m & ((1u << lane) - 1u));
 }
 
-// cp.async one banded round's ids, weights and value rows (its whole edge
-// tile) into buffer buf.
+// The gathered walk's source rows for the value pieces one thread copies
+// in a banded round (stage's pieces q = tid + k * kThreads): -1 where the
+// edge's src lies outside the table (the tile padding's), staged as zeros.
 template <typename T>
-__device__ __forceinline__ void stage(Walk& s, const Stream<T>& in, int tile, int buf) {
+struct Sources {
+  int row[kCopies<T>];
+};
+
+// Load them for the round of edge tile `tile`. Plain loads: their latency
+// passes while the round before is applied, and stage waits for them only
+// when it issues the copies.
+template <typename T>
+__device__ __forceinline__ Sources<T> fetch_sources(const Stream<T>& in, int tile) {
+  Sources<T> f;
+  const long long e0 = static_cast<long long>(tile) * kEdgeTile;
+#pragma unroll
+  for (int k = 0; k < kCopies<T>; ++k) {
+    const int r = in.src[e0 + (threadIdx.x + k * kThreads) / kParts<T>];
+    f.row[k] = r >= 0 && r < in.n_src ? r : -1;
+  }
+  return f;
+}
+
+// cp.async one banded round's ids, weights and value rows (its whole edge
+// tile) into buffer buf: the values walk copies rows e0 + e of the value
+// stream; the gathered walk copies rows f.row of the table, and writes
+// zeros for a piece without one, as the zero-padded stream held.
+template <typename T, bool kGathered>
+__device__ __forceinline__ void stage(Walk& s, const Stream<T>& in, int tile, int buf,
+                                      const Sources<T>& f) {
   const int tid = threadIdx.x;
   const long long e0 = static_cast<long long>(tile) * kEdgeTile;
   if (tid < kEdgeTile) {
@@ -316,11 +361,25 @@ __device__ __forceinline__ void stage(Walk& s, const Stream<T>& in, int tile, in
     const int e = tid - kEdgeTile;
     cp_async4(&s.w[buf][e], in.weights + e0 + e);
   }
-  const T* src = in.values + e0 * in.F + in.f0;
   T* rows = value_rows<T>(s, buf);
-  for (int q = tid; q < kEdgeTile * kParts<T>; q += kThreads) {
-    const int e = q / kParts<T>, part = (q % kParts<T>) * kPer<T>;
-    cp_async16(&rows[e * kFeatBlock + part], src + e * in.F + part);
+  if constexpr (kGathered) {
+#pragma unroll
+    for (int k = 0; k < kCopies<T>; ++k) {
+      const int q = tid + k * kThreads;
+      const int e = q / kParts<T>, part = (q % kParts<T>) * kPer<T>;
+      T* piece = &rows[e * kFeatBlock + part];
+      if (f.row[k] >= 0) {
+        cp_async16(piece, in.values + static_cast<long long>(f.row[k]) * in.F + in.f0 + part);
+      } else {
+        *reinterpret_cast<uint4*>(piece) = make_uint4(0u, 0u, 0u, 0u);
+      }
+    }
+  } else {
+    const T* src = in.values + e0 * in.F + in.f0;
+    for (int q = tid; q < kEdgeTile * kParts<T>; q += kThreads) {
+      const int e = q / kParts<T>, part = (q % kParts<T>) * kPer<T>;
+      cp_async16(&rows[e * kFeatBlock + part], src + e * in.F + part);
+    }
   }
   cp_async_commit();
 }
@@ -408,12 +467,20 @@ __device__ __forceinline__ bool staged_nonzero(Walk& s, int buf) {
 }
 
 // Apply the window's `total` rounds of s.rounds in order, the next one
-// loading while this one is applied. The caller's barrier after the
+// loading while this one is applied; the gathered walk holds the source
+// rows of the round after that in registers. The caller's barrier after the
 // compaction makes s.rounds visible and the previous window's buffers free.
 // An add skips a round whose staged value rows are all zero.
-template <typename T>
+template <typename T, bool kGathered>
 __device__ __forceinline__ void walk(Walk& s, const Stream<T>& in, int total) {
-  if (total > 0) stage(s, in, s.rounds[0], 0);
+  Sources<T> next;
+  if constexpr (kGathered) {
+    if (total > 0) next = fetch_sources(in, s.rounds[0]);
+  }
+  if (total > 0) stage<T, kGathered>(s, in, s.rounds[0], 0, next);
+  if constexpr (kGathered) {
+    if (total > 1) next = fetch_sources(in, s.rounds[1]);
+  }
   for (int t = 0; t < total; ++t) {
     cp_async_wait_all();
     // round t has landed; round t - 1's buffer is free
@@ -423,7 +490,10 @@ __device__ __forceinline__ void walk(Walk& s, const Stream<T>& in, int total) {
     } else {
       __syncthreads();
     }
-    if (t + 1 < total) stage(s, in, s.rounds[t + 1], (t + 1) & 1);
+    if (t + 1 < total) stage<T, kGathered>(s, in, s.rounds[t + 1], (t + 1) & 1, next);
+    if constexpr (kGathered) {
+      if (t + 2 < total) next = fetch_sources(in, s.rounds[t + 2]);
+    }
     apply(s, in, t & 1, live);
     if constexpr (kNarrow<T>) {
       if (in.op == kAdd && live) fold_round<T>(s);
@@ -690,19 +760,22 @@ __device__ __forceinline__ int probe_row(int q, int W) {
   return static_cast<int>(static_cast<long long>(q) * W / kThreads);
 }
 
-template <typename T>
+// kGathered selects the row source: false, the value stream `values` (E,
+// F); true, the table `values` (n_src, F) through `src` (E,).
+template <typename T, bool kGathered>
 __global__ void __launch_bounds__(kThreads)
 banded_cluster_kernel(const int* __restrict__ work, int W,
                       const int* __restrict__ dst, const float* __restrict__ weights,
                       const T* __restrict__ values, T* __restrict__ out,
-                      long long F, int op, int C) {
+                      long long F, int op, int C,
+                      const int* __restrict__ src, int n_src) {
   extern __shared__ float4 dyn[];
   Walk& s = *reinterpret_cast<Walk*>(dyn);
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = static_cast<int>(cluster.block_rank());
   const int rb = blockIdx.x / C;
   const int fb = blockIdx.y;
-  const Stream<T> in{dst, weights, values, F, fb * kFeatBlock, rb * kRowBlock, op};
+  const Stream<T> in{dst, weights, values, F, fb * kFeatBlock, rb * kRowBlock, op, src, n_src};
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
 
   // The run [lo, hi) of row block rb, found by one round of kThreads
@@ -768,7 +841,7 @@ banded_cluster_kernel(const int* __restrict__ work, int W,
     const int pos = block_prefix(s, live, total);
     if (live) s.rounds[pos] = tile;  // a whole tile: no chunk bounds
     __syncthreads();
-    walk(s, in, total);
+    walk<T, kGathered>(s, in, total);
   }
   combine_store(cluster, s, in, out, C);
 }
@@ -787,7 +860,7 @@ dense_cluster_kernel(const int* __restrict__ ids, const int* __restrict__ order,
   // dense_entry)
   const int n_fb = static_cast<int>(F / kFeatBlock);
   const int rb = blockIdx.x / (C * n_fb), fb = (blockIdx.x / C) % n_fb;
-  const Stream<T> in{ids, weights, values, F, fb * kFeatBlock, rb * kRowBlock, op};
+  const Stream<T> in{ids, weights, values, F, fb * kFeatBlock, rb * kRowBlock, op, nullptr, 0};
   // the row block's run [lo, hi) of the sorted stream, and this rank's
   // share of its 32-edge chunks, as positions [p0, p1)
   const int lo = starts[rb], hi = starts[rb + 1];
@@ -839,26 +912,26 @@ int launch_cluster(Kernel kernel, int cluster, dim3 grid, void* stream, Args... 
 
 // The launch descriptor the wrappers build once per call signature (shapes,
 // dtypes, op) and pass by address: n_meta is W for the banded walk and E
-// for the dense grid.
+// for the dense grid; n_src the gathered walk's table rows (0 elsewhere).
 struct GasLaunch {
-  int n_meta, n_rows, F, op, cluster, smem;
+  int n_meta, n_rows, F, op, cluster, smem, n_src;
 };
 
 namespace {
 
-template <typename T>
-int banded_entry(const GasLaunch* p, const int* work, const int* dst, const float* weights,
-                 const T* values, T* out, void* stream) {
+template <typename T, bool kGathered>
+int banded_entry(const GasLaunch* p, const int* work, const int* dst, const int* src,
+                 const float* weights, const T* values, T* out, void* stream) {
   if (p->cluster < 1 || p->cluster > kMaxCluster || p->smem != static_cast<int>(sizeof(Walk))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  static const cudaError_t attr = allow_walk_smem(banded_cluster_kernel<T>);
+  static const cudaError_t attr = allow_walk_smem(banded_cluster_kernel<T, kGathered>);
   if (attr != cudaSuccess) return static_cast<int>(attr);
   // one cluster per (row block x feature block)
   const dim3 grid(p->n_rows / kRowBlock * p->cluster, p->F / kFeatBlock, 1);
-  return launch_cluster(banded_cluster_kernel<T>, p->cluster, grid, stream, work,
+  return launch_cluster(banded_cluster_kernel<T, kGathered>, p->cluster, grid, stream, work,
                         p->n_meta, dst, weights, values, out,
-                        static_cast<long long>(p->F), p->op, p->cluster);
+                        static_cast<long long>(p->F), p->op, p->cluster, src, p->n_src);
 }
 
 template <typename T>
@@ -884,17 +957,19 @@ int dense_entry(const GasLaunch* p, const int* ids, const int* order, const int*
 }  // namespace
 
 // Plain C entry points, loaded with ctypes, one pair per value type (f32,
-// bf16, f16). Shapes: the banded walk's work list (W, 4) and dst (E,); the
-// dense grid's row-sorted ids (E,), order (E,) and starts (n_rows / 128 +
-// 1,); weights (E,) f32 or null, values (E, F) of the value type, 16-byte
-// aligned, out (n_rows, F) of the value type; E % 128 == 0, F % 32 == 0,
-// n_rows % 128 == 0, E < 2^31. Each refuses a plan it does not build
-// (cluster size, shared bytes) and returns the launch's cudaError_t.
+// bf16, f16), and the gathered walk in f32. Shapes: the banded walk's work
+// list (W, 4) and dst (E,); the dense grid's row-sorted ids (E,), order
+// (E,) and starts (n_rows / 128 + 1,); weights (E,) f32 or null, values
+// (E, F) of the value type, 16-byte aligned, out (n_rows, F) of the value
+// type; E % 128 == 0, F % 32 == 0, n_rows % 128 == 0, E < 2^31. The
+// gathered walk takes src (E,) and the table (n_src, F) in place of the
+// values. Each refuses a plan it does not build (cluster size, shared
+// bytes) and returns the launch's cudaError_t.
 #define GAS_SCATTER_ENTRIES(SUFFIX, T)                                                       \
   extern "C" int gas_scatter_banded_##SUFFIX(const GasLaunch* p, const int* work,           \
                                              const int* dst, const float* weights,          \
                                              const T* values, T* out, void* stream) {       \
-    return banded_entry<T>(p, work, dst, weights, values, out, stream);                     \
+    return banded_entry<T, false>(p, work, dst, nullptr, weights, values, out, stream);    \
   }                                                                                         \
   extern "C" int gas_scatter_dense_##SUFFIX(const GasLaunch* p, const int* ids,             \
                                             const int* order, const int* starts,            \
@@ -906,3 +981,10 @@ int dense_entry(const GasLaunch* p, const int* ids, const int* order, const int*
 GAS_SCATTER_ENTRIES(f32, float)
 GAS_SCATTER_ENTRIES(bf16, __nv_bfloat16)
 GAS_SCATTER_ENTRIES(f16, __half)
+
+extern "C" int gas_scatter_banded_gathered_f32(const GasLaunch* p, const int* work,
+                                               const int* dst, const int* src,
+                                               const float* weights, const float* table,
+                                               float* out, void* stream) {
+  return banded_entry<float, true>(p, work, dst, src, weights, table, out, stream);
+}

@@ -7,9 +7,12 @@ interface the first time a wrapper launches on a CUDA tensor, and loaded
 with ``ctypes``. Nothing is built when this module is imported.
 
 The banded wrapper takes the same arguments as the Pallas entry it
-replaces; the dense one takes a row-sorted index of the edges (sorted ids,
-their order, each row block's start) where the Pallas entry takes an
-occupancy map. Each dispatches on where its tensors lie:
+replaces; ``gas_scatter_banded_gathered`` is the same walk reading each
+edge's row from a float32 feature table through its source id, where the
+banded wrapper reads a value stream its caller gathered; the dense one
+takes a row-sorted index of the edges (sorted ids, their order, each row
+block's start) where the Pallas entry takes an occupancy map. Each
+dispatches on where its tensors lie:
 
 * CUDA tensors launch the kernel on PyTorch's current stream (and add one
   to the wrapper's ``launches`` count); a refused launch raises;
@@ -81,21 +84,24 @@ MAX_EDGES = 1 << 31           # the kernels index edges with 32-bit ints
 # the value types with a kernel, and the suffix of each one's C entries
 VALUE_DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16",
                 torch.float16: "f16"}
+# the gathered walk's table types (its C entries' suffixes)
+GATHERED_DTYPES = {torch.float32: "f32"}
 
 _SOURCE = Path(__file__).resolve().parent / "csrc" / "gas_scatter.cu"
 
 _lib: Optional[ctypes.CDLL] = None
 _lib_lock = threading.Lock()
-# ({suffix: banded entry}, {suffix: dense entry}, stream query), resolved at
-# the first launch
+# ({suffix: banded entry}, {suffix: dense entry}, {suffix: gathered
+# entry}, stream query), resolved at the first launch
 _entries: Optional[tuple] = None
 
 
 class _Launch(ctypes.Structure):
     """The C entries' launch descriptor (``GasLaunch`` in the source),
-    built once per call signature: ``n_meta`` is W (banded) or E (dense)."""
+    built once per call signature: ``n_meta`` is W (banded) or E (dense),
+    ``n_src`` the gathered walk's table rows (0 elsewhere)."""
     _fields_ = [(name, ctypes.c_int) for name in
-                ("n_meta", "n_rows", "F", "op", "cluster", "smem")]
+                ("n_meta", "n_rows", "F", "op", "cluster", "smem", "n_src")]
 
 
 def build() -> Path:
@@ -105,19 +111,23 @@ def build() -> Path:
 
 
 def _load() -> tuple:
-    """({suffix: banded entry}, {suffix: dense entry}, stream query), built
-    and bound at first use, keyed by the suffixes of ``VALUE_DTYPES``."""
+    """({suffix: banded entry}, {suffix: dense entry}, {suffix: gathered
+    entry}, stream query), built and bound at first use, keyed by the
+    suffixes of ``VALUE_DTYPES`` (``GATHERED_DTYPES``)."""
     global _lib, _entries
     with _lib_lock:
         if _entries is None:
             lib = ctypes.CDLL(str(build()))
             fns = tuple(
                 {sfx: getattr(lib, f"gas_scatter_{kind}_{sfx}")
-                 for sfx in VALUE_DTYPES.values()}
-                for kind in ("banded", "dense"))
+                 for sfx in dtypes.values()}
+                for kind, dtypes in (("banded", VALUE_DTYPES),
+                                     ("dense", VALUE_DTYPES),
+                                     ("banded_gathered", GATHERED_DTYPES)))
             # the descriptor, the index tensors (banded: work, dst; dense:
-            # ids, order, starts), weights, values, out and the stream
-            for table, n_index in zip(fns, (2, 3)):
+            # ids, order, starts; gathered: work, dst, src), weights,
+            # values (the gathered walk's table), out and the stream
+            for table, n_index in zip(fns, (2, 3, 3)):
                 for fn in table.values():
                     fn.argtypes = [ctypes.c_void_p] * (n_index + 5)
                     fn.restype = ctypes.c_int
@@ -132,7 +142,9 @@ def _load() -> tuple:
 # argument checks shared by both wrappers
 # ---------------------------------------------------------------------------
 
-def _check_common(dst, values, n_rows: int, op: str, weights):
+def _check_common(dst, values, n_rows: int, op: str, weights, src=None):
+    """``src``: the gathered walk's (E,) source ids, ``values`` then its
+    (V, F) table."""
     if op not in OPS:
         raise ValueError(f"unknown op {op!r}")
     if op != "add" and weights is not None:
@@ -140,6 +152,17 @@ def _check_common(dst, values, n_rows: int, op: str, weights):
     if values.dim() != 2:
         raise ValueError(f"values must be (E, F), got {tuple(values.shape)}")
     E, F = values.shape
+    if src is not None:
+        if src.dtype != torch.int32 or src.dim() != 1:
+            raise TypeError(f"src must be int32 (E,), got {src.dtype} "
+                            f"{tuple(src.shape)}")
+        if values.dtype not in GATHERED_DTYPES:
+            raise TypeError(f"the gathered walk reads float32 tables, got "
+                            f"{values.dtype}")
+        if E >= MAX_EDGES:
+            raise ValueError(f"a table of {E} rows: the kernel takes fewer "
+                             f"than 2^31")
+        E = src.shape[0]
     if E % EDGE_TILE or F % FEAT_BLOCK or n_rows % ROW_BLOCK:
         raise ValueError(
             f"shapes must be tile multiples: E={E} % {EDGE_TILE}, "
@@ -177,7 +200,8 @@ class _Checked(NamedTuple):
 
 
 def _signature(kernel, meta, dst, values, n_rows, op, weights, order=None):
-    """``meta``: the work list or ``starts``; ``order``: the dense grid's."""
+    """``meta``: the work list or ``starts``; ``order``: the dense grid's,
+    or the gathered walk's ``src``."""
     return (kernel, meta.shape, dst.shape, values.shape, meta.dtype,
             dst.dtype, values.dtype,
             None if weights is None else (weights.shape, weights.dtype),
@@ -186,9 +210,9 @@ def _signature(kernel, meta, dst, values, n_rows, op, weights, order=None):
 
 
 def _remember(key, plan: "ClusterPlan", n_meta: int, n_rows: int, F: int,
-              op: str, dtype: torch.dtype) -> _Checked:
+              op: str, dtype: torch.dtype, n_src: int = 0) -> _Checked:
     launch = _Launch(n_meta, n_rows, F, OPS[op], plan.cluster,
-                     plan.smem_bytes)
+                     plan.smem_bytes, n_src)
     checked = _Checked(plan, launch, ctypes.addressof(launch), (n_rows, F),
                        n_rows == 0 or F == 0, VALUE_DTYPES[dtype])
     if len(_SIGNATURES) >= _SIGNATURES_MAX:
@@ -200,8 +224,9 @@ def _remember(key, plan: "ClusterPlan", n_meta: int, n_rows: int, F: int,
 def _launch(which: int, name: str, checked: _Checked, meta, dst, values,
             weights, order=None):
     """Launch entry ``which`` (0 banded: work ``meta``, ``dst``; 1 dense:
-    ids ``dst``, ``order``, starts ``meta``) for the values' type after the
-    per-call checks:
+    ids ``dst``, ``order``, starts ``meta``; 2 gathered: work ``meta``,
+    ``dst``, src ``order``, the table ``values``) for the values' type
+    after the per-call checks:
     every tensor on ``values``' CUDA device and contiguous, ``values``
     16-byte aligned. Returns the output; a refused launch raises."""
     index = values.get_device()
@@ -226,13 +251,16 @@ def _launch(which: int, name: str, checked: _Checked, meta, dst, values,
     entries = _entries or _load()
     entry = entries[which][checked.suffix]
     wp = None if weights is None else weights.data_ptr()
-    stream = entries[2](index)
-    if order is None:
+    stream = entries[3](index)
+    if which == 0:
         rc = entry(checked.address, meta.data_ptr(), dst.data_ptr(), wp, vp,
                    out.data_ptr(), stream)
-    else:
+    elif which == 1:
         rc = entry(checked.address, dst.data_ptr(), order.data_ptr(),
                    meta.data_ptr(), wp, vp, out.data_ptr(), stream)
+    else:
+        rc = entry(checked.address, meta.data_ptr(), dst.data_ptr(),
+                   order.data_ptr(), wp, vp, out.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"{name} launch failed ({checked.plan}): CUDA "
                            f"error {rc}")
@@ -349,14 +377,16 @@ def cluster_share(lo: int, hi: int, rank: int, cluster: int):
     return lo + n * rank // cluster, lo + n * (rank + 1) // cluster
 
 
-def _banded_checked(key, work, dst, values, n_rows, op, weights) -> _Checked:
-    E, F = _check_common(dst, values, n_rows, op, weights)
+def _banded_checked(key, work, dst, values, n_rows, op, weights,
+                    src=None) -> _Checked:
+    """``src``: the gathered walk's, ``values`` then its table."""
+    E, F = _check_common(dst, values, n_rows, op, weights, src)
     if work.dtype != torch.int32 or work.dim() != 2 or work.shape[1] != 4:
         raise ValueError(f"work must be int32 (W, 4), got {work.dtype} "
                          f"{tuple(work.shape)}")
     W = work.shape[0]
     return _remember(key, banded_plan(W, n_rows, F), W, n_rows, F, op,
-                     values.dtype)
+                     values.dtype, 0 if src is None else values.shape[0])
 
 
 def gas_scatter_banded(work, dst, values, n_rows: int, *, op: str = "add",
@@ -390,6 +420,52 @@ def gas_scatter_banded(work, dst, values, n_rows: int, *, op: str = "add",
 
 gas_scatter_banded.launches = 0
 gas_scatter_banded.launches_by_dtype = dict.fromkeys(VALUE_DTYPES.values(), 0)
+
+
+def gathered_rows(table, src) -> torch.Tensor:
+    """The (E, F) rows the gathered walk stages: ``table[src[e]]``, and
+    zeros where ``src[e]`` lies outside the table (the tile padding's)."""
+    ok = (src >= 0) & (src < table.shape[0])
+    rows = table[torch.where(ok, src, torch.zeros_like(src)).long()]
+    return torch.where(ok[:, None], rows,
+                       torch.zeros((), dtype=table.dtype, device=table.device))
+
+
+def gas_scatter_banded_gathered_plain(work, dst, src, table, n_rows: int, *,
+                                      op: str = "add", weights=None):
+    """Plain PyTorch version of the gathered walk: the banded walk's
+    (``gas_scatter_banded_plain``) over the rows ``gathered_rows(table,
+    src)``."""
+    _check_common(dst, table, n_rows, op, weights, src)
+    return gas_scatter_banded_plain(work, dst, gathered_rows(table, src),
+                                    n_rows, op=op, weights=weights)
+
+
+def gas_scatter_banded_gathered(work, dst, src, table, n_rows: int, *,
+                                op: str = "add", weights=None):
+    """The banded walk over the rows ``table[src]``, read from the table
+    by the kernel: no (E, F) stream is built. ``src`` (E,) int32 in stream
+    order beside ``dst``; a source id outside ``[0, V)`` (the tile
+    padding's) stages a zero row. ``table`` (V, F) float32, F a multiple
+    of 32; the rest as ``gas_scatter_banded``, whose plain version over
+    those rows this equals bit for bit. Its launches count as the banded
+    wrapper's (one kernel, two row sources)."""
+    entries.refuse_fake("gas_scatter_banded_gathered", table, dst, src)
+    key = _signature("gathered", work, dst, table, n_rows, op, weights, src)
+    checked = _SIGNATURES.get(key) or _banded_checked(
+        key, work, dst, table, n_rows, op, weights, src)
+    if table.is_cuda:
+        out = _launch(2, "gas_scatter_banded_gathered", checked, work, dst,
+                      table, weights, src)
+        if not checked.empty:
+            gas_scatter_banded.launches += 1
+            gas_scatter_banded.launches_by_dtype[checked.suffix] += 1
+        return out
+    if table.device.type == "cpu":
+        with torch.no_grad():     # forward-only, as the kernel is
+            return gas_scatter_banded_gathered_plain(
+                work, dst, src, table, n_rows, op=op, weights=weights)
+    raise ValueError(f"no kernel for device {table.device}")
 
 
 # ---------------------------------------------------------------------------

@@ -13,7 +13,9 @@ Three layers, as in the JAX package's module of the same name:
   entry takes mask and edge weights into the kernel (mask via the dead-row
   convention: a dead edge's dst is the padded row count, so it matches no
   row; weights scale each edge's contribution), so no ``values * weights``
-  or mask-filled E×F stream is staged.
+  or mask-filled E×F stream is staged. With ``src`` a scheduled add takes
+  the feature table itself and the banded walk reads each edge's row from
+  it, so no gathered E×F stream is built either.
 
 ``fused_call`` exposes the exact kernel call a fused dispatch makes, so a
 caller can hold the kernel against its plain version on the same inputs.
@@ -101,13 +103,15 @@ def _pad_to(x: torch.Tensor, mult: int, axis: int, fill) -> torch.Tensor:
                                     device=x.device)], dim=axis)
 
 
-def _padded_values(values: torch.Tensor) -> torch.Tensor:
+def _padded_values(values: torch.Tensor, edges: bool = True) -> torch.Tensor:
     """The (E, F) value stream as the kernels consume it: edges padded to
-    a multiple of ``EDGE_TILE``, features to ``FEAT_BLOCK``, contiguous.
+    a multiple of ``EDGE_TILE`` (a feature table's rows, ``edges=False``,
+    as they are), features to ``FEAT_BLOCK``, contiguous.
     Each copy made counts the bytes it reads plus writes into
     ``gas.pad.bytes`` (0 where the values are used as they are)."""
     out, moved = values, 0
-    for mult, axis in ((EDGE_TILE, 0), (FEAT_BLOCK, 1)):
+    axes = ((EDGE_TILE, 0), (FEAT_BLOCK, 1)) if edges else ((FEAT_BLOCK, 1),)
+    for mult, axis in axes:
         padded = _pad_to(out, mult, axis, 0.0)
         if padded is not out:
             moved += (out.numel() + padded.numel()) * out.element_size()
@@ -358,21 +362,34 @@ def _gas_scatter(dst, values, n_rows: int, *, op: str):
 def fused_call(dst: torch.Tensor, values: torch.Tensor,
                weights: Optional[torch.Tensor], mask: Optional[torch.Tensor],
                n_rows: int, *, op: str = "add",
-               schedule: Optional[EdgeSchedule] = None) -> KernelCall:
+               schedule: Optional[EdgeSchedule] = None,
+               src: Optional[torch.Tensor] = None) -> KernelCall:
     """The kernel call ``gas_scatter_fused`` makes for 2-D ``values``: the
     padded edge stream (dead edges at the padded row count R, tiles of 128
     edges, features a multiple of 32) and either the work list (scheduled)
     or the row-sorted index (unscheduled, ``row_sorted_index``). Its
-    result is (R, F padded)."""
+    result is (R, F padded).
+
+    With ``src`` (E,) the stream's rows are ``values[src]``: ``values`` is
+    the (V, F) float32 table, padded to 32 features once, ``src`` is padded
+    to the edge tile with -1 (a zero row), and the scheduled add launches
+    the banded walk's gathered instantiation over them."""
     if op not in ("add", "max", "min"):
         raise ValueError(op)
-    E, F = values.shape
+    if src is not None and (schedule is None or op != "add"):
+        raise ValueError("a table with src= takes the scheduled add's "
+                         "gathered walk: pass its schedule and op='add'")
     R = _padded_rows(n_rows)
     n_blocks = R // ROW_BLOCK
     with trace.span("gas.pad", values):
         _, routed = _dead_routed(dst, mask, n_rows, R)
         dstp = _pad_to(routed, EDGE_TILE, 0, R)
-        valp = _padded_values(values)
+        if src is None:
+            valp = _padded_values(values)
+        else:
+            valp = _padded_values(values, edges=False)
+            srcp = _pad_to(src.to(torch.int32), EDGE_TILE, 0,
+                           -1).contiguous()
         wp = None
         if op == "add" and weights is not None:
             wp = _pad_to(weights.to(torch.float32), EDGE_TILE, 0,
@@ -395,6 +412,10 @@ def fused_call(dst: torch.Tensor, values: torch.Tensor,
         # the kernel skips all-zero feature blocks, deciding from the value
         # rows it stages: no value byte is read for it out here
         trace.add("gas.liveness.bytes", 0)
+    if src is not None:
+        return KernelCall("gas_scatter_banded_gathered",
+                          (schedule.work.contiguous(), dstp, srcp, valp, R),
+                          {"op": op, "weights": wp})
     return KernelCall("gas_scatter_banded",
                       (schedule.work.contiguous(), dstp, valp, R),
                       {"op": op, "weights": wp})
@@ -404,15 +425,19 @@ def gas_scatter_fused(dst: torch.Tensor, values: torch.Tensor,
                       weights: Optional[torch.Tensor],
                       mask: Optional[torch.Tensor], n_rows: int, *,
                       op: str = "add",
-                      schedule: Optional[EdgeSchedule] = None) -> torch.Tensor:
+                      schedule: Optional[EdgeSchedule] = None,
+                      src: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Masked, weighted scatter-reduce in one kernel dispatch.
 
     The mask folds into the dead-row convention and, for ``op="add"``, the
     weights ride into the kernel; compare ops ignore ``weights``. ``values``
     at masked positions must be finite (they are never matched, not
     replaced). ``schedule`` (an ``EdgeSchedule`` whose ``perm`` order the
-    inputs are already in) swaps the dense grid for the banded walk. One
-    public call = one kernel dispatch, ticked into ``count_dispatches``.
+    inputs are already in) swaps the dense grid for the banded walk.
+    ``src`` (scheduled add only) makes ``values`` the (V, F) float32
+    table whose rows ``values[src]`` are the stream, read by the kernel
+    (``fused_call``). One public call = one kernel dispatch, ticked into
+    ``count_dispatches``.
     """
     entries.refuse_fake("gas_scatter_fused", values, dst)
     with trace.span("gas.scatter", values):
@@ -420,10 +445,10 @@ def gas_scatter_fused(dst: torch.Tensor, values: torch.Tensor,
         entries.note("kernel_scatter", values, weights)
         if values.dim() == 1:
             call = fused_call(dst, values[:, None], weights, mask, n_rows,
-                              op=op, schedule=schedule)
+                              op=op, schedule=schedule, src=src)
             return call.run()[:n_rows, 0]
         call = fused_call(dst, values, weights, mask, n_rows, op=op,
-                          schedule=schedule)
+                          schedule=schedule, src=src)
         return call.run()[:n_rows, :values.shape[1]]
 
 

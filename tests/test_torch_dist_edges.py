@@ -390,6 +390,34 @@ def _rank(mesh, world, params, serving):
                     p, floats, src, dst, w_float, mask, cfg,
                     mesh=mesh).detach().numpy()
 
+    # the fused route (the banded walk reading the table) against the
+    # gather and the scatter called directly, on normal data: the result
+    # and the feature and weight gradients; and where the route engages
+    from repro_torch.runtime import trace
+    fused_vs = {}
+    for fused in (True, False):
+        f = floats.clone().requires_grad_(True)
+        wt = w_float.clone().requires_grad_(True)
+        st = cgtrans.edge_stream(src, dst, wt, mask, f.shape[:2], mesh=mesh,
+                                 impl="kernel")
+        if fused:
+            o = cgtrans.aggregate_stream(f, st, impl="kernel")
+        else:
+            o = collectives.reduce_scatter(gas.gas_scatter_weighted(
+                st.dst, gas.gas_gather(f[0], st.src, impl="kernel"),
+                st.weights, st.mask, st.n_rows, op="add", impl="kernel",
+                schedule=st.schedule).reshape(mesh.size, PART, F), mesh)[None]
+        (o * u).sum().backward()
+        fused_vs[fused] = [x.detach().numpy() for x in (o, f.grad, wt.grad)]
+    out["fused_vs_composition"] = fused_vs
+    with trace.recording():
+        for flow in FLOWS:
+            trace.reset()
+            edges(floats, w_float, dataflow=flow, impl="kernel")
+            out[("fused_count", flow)] = trace.summary()["counters"].get(
+                "gas.find.fused", 0)
+        trace.reset()
+
     # the schedule paid once at partition time, per rank, and one stream
     # over it read by two aggregations
     sched = cgtrans.build_edge_schedule(dst, mask, V, mesh=mesh)
@@ -609,6 +637,21 @@ def test_edge_stream_matches_reference(sharded, reference, P, op):
     want = reference(P)[("edges", op, "kernel")]
     for r, res in _slices(sharded, P):
         np.testing.assert_array_equal(res[("stream", op)], want[r:r + 1])
+
+
+@pytest.mark.parametrize("P", (2, 4))
+def test_fused_route_equals_the_composition_on_a_mesh(sharded, P):
+    """On each rank of the cgtrans mesh the fused route's result, feature
+    gradient and weight gradient equal the gather and the scatter called
+    directly, bit for bit on normal data; it engages once an aggregation
+    there and never on the baseline, which gathers before it ships."""
+    for _, res in _slices(sharded, P):
+        for a, b in zip(*(res["fused_vs_composition"][k]
+                          for k in (True, False))):
+            np.testing.assert_array_equal(a.view(np.int32), b.view(np.int32))
+        assert np.abs(res["fused_vs_composition"][True][2]).sum() > 0
+        assert res[("fused_count", "cgtrans")] == 1
+        assert res[("fused_count", "baseline")] == 0
 
 
 @pytest.mark.parametrize("P,flow,op,impl", [

@@ -437,6 +437,102 @@ def test_wrappers_check_their_arguments_after_a_warm_call(kernel_name):
 
 
 # ---------------------------------------------------------------------------
+# the banded walk's gathered row source
+# ---------------------------------------------------------------------------
+
+def _run_gathered(*args, **kwargs):
+    return K.gas_scatter_banded_gathered(*args, **kwargs)
+
+
+def _run_banded(*args, **kwargs):
+    return K.gas_scatter_banded(*args, **kwargs)
+
+
+def _bits(x):
+    return x.contiguous().view(torch.int32)
+
+
+@pytest.mark.parametrize("F,case", [
+    (F, case) for F in (32, 40, 602)
+    for case in ("dead_edges", "empty_blocks", "zero_block", "wide_table")])
+def test_gathered_walk_equals_the_banded_walk_over_the_rows(F, case):
+    """The gathered entry, the banded walk reading ``table[src]`` itself,
+    equals ``gas_scatter_banded`` over the stream the old composition
+    built (``table[src]``, padded by the wrapper) bit for bit: masked and
+    out-of-range edges and a 116-edge tile tail (``dead_edges``), row
+    blocks no edge reaches (``empty_blocks``), an all-zero feature block
+    skipped under an inf weight (``zero_block``), a table of 8× the rows
+    the edges reach (``wide_table``)."""
+    rng = np.random.default_rng([F, len(case)])
+    E, n_rows = 780, 300                      # 7 tiles: a tail of 116
+    V = 512 if case == "wide_table" else 64
+    table = rng.standard_normal((V, F)).astype(np.float32)
+    src = rng.integers(0, 64, E).astype(np.int32)
+    dst, mask = _edges(rng, E, n_rows, masked=case == "dead_edges",
+                       out_of_range=case == "dead_edges")
+    w = (rng.random(E) + 0.05).astype(np.float32)
+    if case == "empty_blocks":
+        n_rows = 700                          # edges reach rows < 300 only
+    if case == "zero_block":
+        table[:, :32] = 0.0
+        w[3] = np.inf
+    sched = ops.schedule_edges(_t(dst), _t(mask), n_rows)
+    perm = sched.perm.long()
+    s, d, ww = (_t(a)[perm] for a in (src, dst, w))
+    m = None if mask is None else _t(mask)[perm]
+    call = ops.fused_call(d, _t(table), ww, m, n_rows, op="add",
+                          schedule=sched, src=s)
+    assert call.kernel == "gas_scatter_banded_gathered"
+    work, dstp, srcp, tablep, R = call.args
+    fp = -(-F // 32) * 32
+    assert tuple(tablep.shape) == (V, fp) and tuple(srcp.shape) == (896,)
+    assert (srcp[E:] == -1).all() and torch.equal(srcp[:E], s)
+    old = ops.fused_call(d, _t(table)[s.long()], ww, m, n_rows, op="add",
+                         schedule=sched)
+    got = _run_gathered(*call.args, **call.kwargs)
+    want = _run_banded(*old.args, **old.kwargs)
+    assert torch.equal(_bits(got), _bits(want))
+    assert torch.equal(_bits(call.run()), _bits(want))
+    if case == "zero_block":
+        assert (got[:, :32] == 0).all()       # skipped, not inf · 0
+    if case == "empty_blocks":
+        assert (got[300:] == 0).all()
+    assert K.launch_counts() == {"gas_scatter_banded": 0,
+                                 "gas_scatter_dense": 0}
+
+
+def test_the_gathered_entry_checks_its_arguments():
+    """A warm call first; then each bad argument is refused, and only a
+    scheduled add takes a table with ``src=``."""
+    work = torch.zeros((3, 4), dtype=torch.int32)
+    dst = torch.zeros(256, dtype=torch.int32)
+    src = torch.zeros(256, dtype=torch.int32)
+    table = torch.ones(10, 64)
+
+    def call(d=dst, s=src, t=table, n=128, **kw):
+        return _run_gathered(work, d, s, t, n, **kw)
+
+    assert call().shape == (128, 64)
+    with pytest.raises(TypeError):
+        call(s=src.long())                          # src dtype
+    with pytest.raises(TypeError):
+        call(s=src[:128])                           # src of another E
+    with pytest.raises(TypeError):
+        call(t=table.to(torch.bfloat16))            # f32 tables only
+    with pytest.raises(ValueError):
+        call(t=torch.ones(10, 48))                  # F not a 32-multiple
+    with pytest.raises(ValueError):
+        call(t=table.to("meta"))                    # no kernel, no fallback
+    assert call(weights=torch.ones(256)).shape == (128, 64)
+    sched = ops.schedule_edges(dst, None, 128)
+    with pytest.raises(ValueError):
+        ops.fused_call(dst, table, None, None, 128, op="add", src=src)
+    with pytest.raises(ValueError):
+        ops.fused_call(dst, table, None, None, 128, op="max", schedule=sched,
+                       src=src)
+
+
+# ---------------------------------------------------------------------------
 # the unscheduled dispatch's row-sorted index
 # ---------------------------------------------------------------------------
 

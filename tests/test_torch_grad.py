@@ -419,3 +419,105 @@ def test_backward_of_a_suspended_forward_does_not_tick():
     np.testing.assert_array_equal(
         table.grad.numpy(),
         np.bincount(ids.numpy(), minlength=16)[:, None].repeat(4, 1))
+
+
+# ---------------------------------------------------------------------------
+# the fused gather-and-scatter against the composition it replaces
+# ---------------------------------------------------------------------------
+
+def _composition(table, stream):
+    """One add aggregation as the gather and the scatter, called directly:
+    what ``gas.gas_gather_scatter`` replaces on the kernel route."""
+    return gas.gas_scatter_weighted(
+        stream.dst, gas.gas_gather(table, stream.src, impl="kernel"),
+        stream.weights, stream.mask, stream.n_rows, op="add", impl="kernel",
+        schedule=stream.schedule)
+
+
+def _edge_world(rng, P, part, E, F):
+    """Normal features, (P, E) edges as ``partition_by_src`` lays them
+    out (local sources, global destinations with dead ones, a mask)."""
+    V = P * part
+    feats = rng.standard_normal((P, part, F)).astype(np.float32)
+    src = rng.integers(0, part, (P, E)).astype(np.int32)
+    dst = rng.integers(-2, V + 2, (P, E)).astype(np.int32)
+    w = (rng.random((P, E)) + 0.05).astype(np.float32)
+    mask = rng.random((P, E)) < 0.85
+    return feats, src, dst, w, mask
+
+
+def _bits(x):
+    return np.ascontiguousarray(x.detach().numpy()).view(np.int32)
+
+
+@pytest.mark.parametrize("F", [32, 40])
+@pytest.mark.parametrize("w_grad", [False, True])
+def test_fused_aggregation_equals_the_composition(F, w_grad):
+    """``aggregate_stream(impl="kernel")`` (the banded walk reading the
+    table) against the gather and the scatter called directly, on normal
+    data: the result, d/dfeats and, where the weights require one, d/dw,
+    bit for bit, and the same fwd+bwd dispatch counts."""
+    rng = np.random.default_rng([F, w_grad])
+    feats, src, dst, w, mask = _edge_world(rng, 2, 48, 300, F)
+    u = _t(rng.standard_normal((96, F)).astype(np.float32))
+    got = {}
+    for fused in (True, False):
+        f, wt = _t(feats, True), _t(w, w_grad)
+        with gas.count_dispatches() as c:
+            st = cgtrans.edge_stream(_t(src), _t(dst), wt, _t(mask),
+                                     f.shape[:2], impl="kernel")
+            out = (cgtrans.aggregate_stream(f, st, impl="kernel")
+                   .reshape(96, F) if fused
+                   else _composition(f.reshape(96, F), st))
+            (out * u).sum().backward()
+        got[fused] = (out, f.grad, wt.grad, dict(c))
+    (o1, f1, w1, c1), (o0, f0, w0, c0) = got[True], got[False]
+    np.testing.assert_array_equal(_bits(o1), _bits(o0))
+    np.testing.assert_array_equal(_bits(f1), _bits(f0))
+    assert (w1 is None) == (w0 is None) == (not w_grad)
+    if w_grad:
+        np.testing.assert_array_equal(_bits(w1), _bits(w0))
+        assert float(w1.abs().sum()) > 0
+    assert c1 == c0 == {"find": 1, "reduce": 2, "kernel_scatter": 2}
+
+
+def _composed_gcn(params, feats, *args):
+    """``gcn_forward_full``'s add layers with each aggregation the
+    composition, called directly."""
+    *edges, cfg = args
+    stream = cgtrans.edge_stream(*edges, feats.shape[:2], impl="kernel")
+    h = feats
+    for i in range(cfg.n_layers):
+        Pn, part, F = h.shape
+        agg = _composition(h.reshape(Pn * part, F), stream).reshape(h.shape)
+        h = torch.relu(torch.einsum("pvf,fh->pvh", torch.cat([h, agg], -1),
+                                    params[f"w{i}"]) + params[f"b{i}"])
+    return torch.einsum("pvh,hc->pvc", h, params["w_out"]) + params["b_out"]
+
+
+def test_a_training_step_equals_the_composition():
+    """A full-graph GCN training step's loss and every parameter's
+    gradient (and the input table's) through ``gcn_forward_full`` on the
+    fused route equal the same step over the composition, bit for bit."""
+    from repro_torch.core.gcn import GCNConfig, gcn_forward_full
+    rng = np.random.default_rng(7)
+    F, H, C = 40, 24, 5
+    feats, src, dst, w, mask = _edge_world(rng, 2, 48, 400, F)
+    cfg = GCNConfig(n_features=F, hidden=H, n_classes=C, impl="kernel")
+    shapes = {"w0": (2 * F, H), "b0": (H,), "w1": (2 * H, H), "b1": (H,),
+              "w_out": (H, C), "b_out": (C,)}
+    p0 = {k: (rng.standard_normal(s) / np.sqrt(s[0])).astype(np.float32)
+          for k, s in shapes.items()}
+    labels = torch.from_numpy(rng.integers(0, C, 96))
+    edges = tuple(_t(a) for a in (src, dst, w, mask))
+    got = []
+    for forward in (gcn_forward_full, _composed_gcn):
+        params = {k: _t(v, True) for k, v in p0.items()}
+        x = _t(feats, True)
+        logits = forward(params, x, *edges, cfg).reshape(96, C)
+        loss = torch.nn.functional.cross_entropy(logits, labels)
+        keys = sorted(params)
+        grads = torch.autograd.grad(loss, [params[k] for k in keys] + [x])
+        got.append([loss, *grads])
+    for a, b in zip(*got):
+        np.testing.assert_array_equal(_bits(a), _bits(b))

@@ -4,13 +4,16 @@ Off, a span is one shared no-op and a whole forward and backward records
 nothing. On (``trace.recording()``), at a tiny size on ``impl="kernel"``
 (the kernels' plain versions on the CPU): the spans nest under their
 parents with their root's call id through the forward and the gather
-backward, the wrapper's byte counters equal hand counts from the shapes
-and are the only counters, recording leaves ``count_dispatches``' static
-view as it was, and no device time is made up. The self-time
+backward, the wrapper's byte counters and the fused route's count equal
+hand counts from the shapes and are the only counters, the fused route
+engages where its input shows the case, recording leaves
+``count_dispatches``' static view as it was, and no device time is made
+up. The self-time
 arithmetic, the kept calls and the thread-local parents run on a recorder
 whose events are stand-ins with set times.
 """
 
+import dataclasses
 import threading
 
 import numpy as np
@@ -18,7 +21,7 @@ import pytest
 import torch
 
 from repro_torch.common.config import TrainConfig
-from repro_torch.core import gcn
+from repro_torch.core import cgtrans, gcn, sparse
 from repro_torch.graph import partition_by_src
 from repro_torch.graph.structure import COOGraph
 from repro_torch.kernels.gas_scatter import ops as gas_ops
@@ -112,13 +115,13 @@ def test_spans_nest_under_their_parents_with_their_root_call_id():
                for r in s.values())
 
 
-def _bytes(E_, widths):
-    """Pad bytes: each (E, f) f32 value stream padded to 32 features, a
-    read of E·f plus a write of E·fp, none at a multiple of 32."""
+def _bytes(n, widths):
+    """Pad bytes: each (n, f) f32 array padded to 32 features, a read of
+    n·f plus a write of n·fp, none at a multiple of 32."""
     pad = 0
     for f in widths:
         fp = -(-f // 32) * 32
-        pad += 4 * E_ * (f + fp) if fp != f else 0
+        pad += 4 * n * (f + fp) if fp != f else 0
     return pad
 
 
@@ -128,9 +131,13 @@ def test_wrapper_byte_counters_equal_hand_counts(F, H):
     with trace.recording():
         _step(*world)
     got = trace.summary()["counters"]
-    # the gather backward pads the (E, H) cotangent too
-    pad = _bytes(E, [F, H]) + _bytes(E, [H])
+    # each layer's banded walk reads its rows from the (V, f) table, which
+    # the wrapper pads once: no (E, f) stream is gathered or padded; the
+    # gather backward pads the (E, H) cotangent
+    pad = _bytes(V, [F, H]) + _bytes(E, [H])
     assert got["gas.pad.bytes"] == pad
+    # both layers took the fused route
+    assert got["gas.find.fused"] == 2
     # the banded kernel decides feature-block liveness from the rows it
     # stages: no pass outside it reads a value byte for it
     assert got["gas.liveness.bytes"] == 0
@@ -141,7 +148,50 @@ def test_wrapper_byte_counters_equal_hand_counts(F, H):
     E_pad, n_blocks = -(-E // 128) * 128, -(-V // 128)
     assert got["gas.dense.index.bytes"] == 28 * E_pad + 12 * (n_blocks + 1)
     assert set(got) == {"gas.pad.bytes", "gas.liveness.bytes",
-                        "gas.dense.index.bytes"}
+                        "gas.dense.index.bytes", "gas.find.fused"}
+
+
+def _fused_count(fn):
+    """``gas.find.fused`` over one run of ``fn``."""
+    trace.reset()
+    with trace.recording(), torch.no_grad():
+        fn()
+    return trace.summary()["counters"].get("gas.find.fused", 0)
+
+
+def test_the_fused_route_engages_where_its_input_shows_the_case():
+    """``gas.find.fused`` counts the aggregations whose kernel reads each
+    edge's row from the table: both layers of a forward of the
+    Reddit-shaped world (F 602), and none where the input does not show a
+    scheduled add of a dense float32 table on the kernel: max, no
+    schedule, ``impl="ref"``, a bf16 table, the packed (sparse) find, the
+    sampled path. ``gcn_forward_full`` reads the table packed at layer 0
+    only, so its layer 1 still fuses."""
+    params, feats, edges, cfg = _world(602, 64)
+
+    def fwd(x=feats, **kw):
+        return lambda: gcn.gcn_forward_full(params, x, *edges,
+                                            dataclasses.replace(cfg, **kw))
+    assert _fused_count(fwd()) == 2
+    assert _fused_count(fwd(aggregate="max")) == 0
+    assert _fused_count(fwd(scheduled=False)) == 0
+    assert _fused_count(fwd(impl="ref")) == 0
+    stream = cgtrans.edge_stream(*edges, feats.shape[:2], impl="kernel")
+    assert _fused_count(lambda: cgtrans.aggregate_stream(
+        feats.to(torch.bfloat16), stream, impl="kernel")) == 0
+    relu = torch.relu(feats - 1.5)
+    cap = sparse.table_capacity(relu)
+    assert sparse.sparse_fits(cap, 602)
+    assert _fused_count(lambda: cgtrans.aggregate_stream(
+        relu, stream, impl="kernel", features="sparse",
+        sparse_capacity=cap)) == 0
+    assert _fused_count(fwd(relu, features="sparse",
+                            sparse_capacity=cap)) == 1
+    nbrs = torch.from_numpy(np.random.default_rng(1).integers(
+        0, V, (1, 8, 4)).astype(np.int32))
+    assert _fused_count(lambda: cgtrans.aggregate_sampled(
+        feats, nbrs, torch.ones(nbrs.shape, dtype=torch.bool),
+        impl="kernel")) == 0
 
 
 def test_an_edge_pad_counts_both_copies():
