@@ -24,7 +24,11 @@ from typing import Tuple
 #   moe     full self-attention + MoE FFN (shared + routed experts)
 #   rglru   RG-LRU recurrent block + dense FFN (griffin/recurrentgemma)
 #   ssd     mamba2 state-space-duality mixer (no separate FFN)
-LAYER_KINDS = ("attn", "local", "cross", "dec", "enc", "moe", "rglru", "ssd")
+#   kda     Kimi Delta Attention mixer + MoE FFN (port only)
+#   kda_dense  Kimi Delta Attention mixer + dense FFN of d_ff_dense (port
+#           only: a leading dense layer that keeps its KDA mixer)
+LAYER_KINDS = ("attn", "local", "cross", "dec", "enc", "moe", "rglru", "ssd",
+               "kda", "kda_dense")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -81,7 +85,8 @@ class ModelConfig:
     mlp_bias: bool = False           # whisper: biases everywhere
     param_dtype: str = "float32"
     compute_dtype: str = "bfloat16"
-    remat: str = "block"             # none | block
+    remat: str = "block"             # none | block | layer (port only:
+                                     # every layer its own checkpoint)
     scan_layers: bool = True
     block_repeat: int = 1            # pattern periods per scan block (remat
                                      # stores one input per block: repeat>1
@@ -99,6 +104,14 @@ class ModelConfig:
                                      # aux), dropless over the held experts
                                      # [held_first, held_first+held_experts)
     routed_scale: float = 1.0        # held_experts: the weights x this
+    mla_nope: bool = False           # MLA without RoPE (q_r, k_r projected
+                                     # and left unrotated)
+    # --- port only (hybrid stacks: Kimi Linear) ---
+    layers: Tuple[str, ...] = ()     # every layer's kind, given outright in
+                                     # place of ``pattern``'s repeats
+    kda_heads: int = 0               # Kimi Delta Attention: heads,
+    kda_head_dim: int = 0            # the key and value width of a head,
+    kda_gate_rank: int = 0           # the rank of the decay and output gates
 
     @property
     def hd(self) -> int:
@@ -118,7 +131,11 @@ class ModelConfig:
         return -(-self.vocab // 32) * 32
 
     def layer_kinds(self) -> Tuple[str, ...]:
-        """Expanded per-layer kind list of length n_layers."""
+        """Expanded per-layer kind list of length n_layers: ``layers``
+        where a config gives it, else ``attn`` for the first
+        ``first_k_dense`` layers and ``pattern`` repeated after them."""
+        if self.layers:
+            return tuple(self.layers)
         kinds = []
         for i in range(self.n_layers):
             if i < self.first_k_dense:
@@ -129,14 +146,22 @@ class ModelConfig:
 
     def validate(self) -> None:
         assert self.n_layers > 0 and self.d_model > 0
-        for k in self.pattern:
+        assert self.remat in ("none", "block", "layer"), self.remat
+        if self.layers:
+            assert len(self.layers) == self.n_layers, (
+                len(self.layers), self.n_layers)
+        kinds = set(self.pattern) | set(self.layers)
+        for k in kinds:
             assert k in LAYER_KINDS, k
-        if "moe" in self.pattern:
+        if kinds & {"moe", "kda"}:
             assert self.n_experts > 0 and self.top_k > 0
-        if "ssd" in self.pattern:
+        if "ssd" in kinds:
             assert self.ssm_state > 0
-        if "local" in self.pattern:
+        if "local" in kinds:
             assert self.window > 0
+        if kinds & {"kda", "kda_dense"}:
+            assert self.kda_heads > 0 and self.kda_head_dim > 0 \
+                and self.kda_gate_rank > 0
         if self.is_encoder_decoder:
             assert self.n_enc_layers > 0
         if self.kv_lora_rank:

@@ -2,7 +2,8 @@
 
 ``get_config(arch)`` resolves one of the ten LM configurations of the JAX
 registry, value for value, or one of the port's own (``PORT_ONLY``:
-moonlight-16b-a3b, the DeepSeek-V3 block); ``smoke_config`` gives its
+moonlight-16b-a3b, the DeepSeek-V3 block; kimi-linear-48b-a3b, KDA beside
+rotary-free MLA); ``smoke_config`` gives its
 reduced CPU-test size. ``ARCHS``, ``SKIP_CELLS``, ``get_shape`` and ``cells`` are the JAX
 registry's (arch × shape) grid, with the cells it skips under the
 assignment's sub-quadratic rule.
@@ -17,6 +18,7 @@ from repro_torch.configs.deepseek_moe_16b import CONFIG as _deepseek
 from repro_torch.configs.gemma2_2b import CONFIG as _gemma2
 from repro_torch.configs.gemma3_12b import CONFIG as _gemma3
 from repro_torch.configs.graphic_gcn import CONFIG, PALLAS_CONFIG
+from repro_torch.configs.kimi_linear_48b_a3b import CONFIG as _kimi_linear
 from repro_torch.configs.llama_3_2_vision_90b import CONFIG as _llama_vis
 from repro_torch.configs.mamba2_780m import CONFIG as _mamba2
 from repro_torch.configs.moonlight_16b_a3b import CONFIG as _moonlight
@@ -37,7 +39,8 @@ ARCHS: List[str] = list(REGISTRY)
 
 # configurations of mechanisms the JAX package lacks: by name, outside the
 # JAX grid (ARCHS, cells)
-PORT_ONLY: Dict[str, ModelConfig] = {_moonlight.name: _moonlight}
+PORT_ONLY: Dict[str, ModelConfig] = {
+    c.name: c for c in (_moonlight, _kimi_linear)}
 
 # long_500k requires sub-quadratic context handling; pure full-attention
 # archs are skipped per the assignment

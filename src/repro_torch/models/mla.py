@@ -8,7 +8,9 @@ latent of L (``cfg.kv_lora_rank``)::
     [q_n ‖ q_r]_h   = (x W_q)_h                       per head, n + r
     [c_kv ‖ k_r]    = x W_kva                         L + r, k_r shared
     [k_n ‖ v]_h     = (RMSNorm(c_kv) W_kvb)_h         per head, n + v
-    q_r, k_r        = RoPE(q_r), RoPE(k_r)            interleaved pairs
+    q_r, k_r        = RoPE(q_r), RoPE(k_r)            interleaved pairs;
+                                                      unrotated where
+                                                      ``cfg.mla_nope``
     o_h             = softmax((q_h · k_h) / sqrt(n + r), causal) v_h
     out             = [o_1 ‖ … ‖ o_H] W_o
 
@@ -16,6 +18,9 @@ where q_h = [q_n ‖ q_r]_h and k_h = [k_n ‖ k_r]_h, the one k_r broadcast
 over the heads. RoPE rotates the pairs (2i, 2i+1) of the rotary width at
 frequency theta^(-2i/r), as DeepSeek-V3's code does (it de-interleaves the
 pairs before a half-split rotation; the dot products are the same).
+With ``cfg.mla_nope`` (Kimi Linear's ``mla_use_nope``) neither is rotated:
+q_r and k_r are still projected and the scale stays 1/sqrt(n + r), so the
+layer is the same attention with position left to the other layers.
 
 Attention runs in the compute dtype, chunked over queries: each chunk's
 scores (scaled, the causal mask added) are one batched product against
@@ -113,9 +118,11 @@ def mla_apply(p, x: torch.Tensor, ctx: LayerCtx) -> torch.Tensor:
         kva = x @ p["wkva"].to(dt)
         c_kv = rms_norm(kva[..., :cfg.kv_lora_rank], p["kv_norm"]["w"],
                         cfg.norm_eps, cfg.rms_zero_centered)
-        k_r = rope_pairs(kva[..., None, cfg.kv_lora_rank:], cos, sin)
+        k_r = kva[..., None, cfg.kv_lora_rank:]
         kv = (c_kv @ p["wkvb"].to(dt)).reshape(B, S, H, n + dv)
-        q = torch.cat([q[..., :n], rope_pairs(q[..., n:], cos, sin)], -1)
+        if not cfg.mla_nope:
+            k_r = rope_pairs(k_r, cos, sin)
+            q = torch.cat([q[..., :n], rope_pairs(q[..., n:], cos, sin)], -1)
         k = torch.cat([kv[..., :n], k_r.expand(B, S, H, r)], -1)
         heads = lambda t: t.transpose(1, 2).contiguous()  # noqa: E731
         o = causal_attention(heads(q), heads(k), heads(kv[..., n:]),

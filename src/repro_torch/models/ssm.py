@@ -95,10 +95,12 @@ def ssd_cache_schema(cfg: ModelConfig, batch: int) -> Dict[str, ParamDef]:
     }
 
 
-def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+def _causal_conv(x: torch.Tensor, w: torch.Tensor,
+                 b: Optional[torch.Tensor],
                  history: Optional[torch.Tensor] = None, act: bool = True):
-    """Depthwise causal conv along seq. x: (B,S,C); w: (K,C). Returns
-    (output, the last K-1 inputs as the next call's history)."""
+    """Depthwise causal conv along seq. x: (B,S,C); w: (K,C); b: (C,) or
+    None (no bias). Returns (output, the last K-1 inputs as the next
+    call's history)."""
     K = w.shape[0]
     if history is None:
         pad = x.new_zeros((x.shape[0], K - 1, x.shape[2]))
@@ -107,7 +109,8 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     xp = torch.cat([pad, x], dim=1)  # (B, S+K-1, C)
     S = x.shape[1]
     out = sum(xp[:, i:i + S] * w[i].to(x.dtype) for i in range(K))
-    out = out + b.to(x.dtype)
+    if b is not None:
+        out = out + b.to(x.dtype)
     if act:
         out = F.silu(out)
     return out, xp[:, -(K - 1):]

@@ -12,11 +12,16 @@ gradient once instead of zero-filling a whole stacked leaf per block.
 
 Three entry points, as in the JAX package: ``loss_fn`` (train; with
 ``cfg.remat == "block"`` each block of the loop is checkpointed, as
-``jax.checkpoint`` wraps the scan body; one ``lm.loss`` span), ``prefill``
+``jax.checkpoint`` wraps the scan body; with ``cfg.remat == "layer"`` each
+layer, the unrolled ones too; one ``lm.loss`` span), ``prefill``
 (last-token logits + populated cache) and ``decode_step`` (one token
 against the cache). A model with latent attention (``cfg.kv_lora_rank``,
 ``models/mla.py``) takes it in every self-attention layer in place of
-multi-head attention, and trains only: its prefill and decode raise.
+multi-head attention, and trains only: its prefill and decode raise, as
+they do for a model with Kimi Delta Attention layers (``kda``,
+``kda_dense``; ``models/kda.py``). A config that gives its layers outright
+(``cfg.layers``, a hybrid stack) loops the longest periodic run of them
+after the dense prefix and unrolls the rest (``stack_layout``).
 
 Each takes ``mesh=`` (a ``launch.mesh.Mesh``): then the parameters are
 this rank's blocks (``common.schema.shard_params``), the batch is this
@@ -51,7 +56,7 @@ from repro_torch.common.logical import batch_axes, dp_size
 from repro_torch.common.schema import ParamDef, stack as stack_schema
 from repro_torch.core import collectives
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.models import griffin, layers, mla, moe, ssm
+from repro_torch.models import griffin, kda, layers, mla, moe, ssm
 from repro_torch.launch.mesh import check_named_mesh
 from repro_torch.models.embedding import (chunked_softmax_xent, embed_lookup,
                                           vocab_logits)
@@ -98,6 +103,12 @@ def layer_schema(cfg: ModelConfig, kind: str) -> Dict[str, Any]:
     if kind == "moe":
         return {"norm": n(), "attn": _self_attn_schema(cfg),
                 "norm2": n(), "moe": moe.moe_schema(cfg)}
+    if kind == "kda":
+        return {"norm": n(), "mixer": kda.kda_schema(cfg),
+                "norm2": n(), "moe": moe.moe_schema(cfg)}
+    if kind == "kda_dense":
+        return {"norm": n(), "mixer": kda.kda_schema(cfg), "norm2": n(),
+                "mlp": layers.mlp_schema(cfg, cfg.d_ff_dense or cfg.d_ff)}
     if kind == "cross":
         return {"norm": n(),
                 "attn": layers.attn_schema(cfg, cross=True, gated=True),
@@ -138,6 +149,8 @@ def layer_cache_schema(cfg: ModelConfig, kind: str, batch: int,
                                                         cfg.enc_seq, **kw)}
     if kind == "enc":
         raise ValueError("encoder layers keep no decode cache")
+    if kind in ("kda", "kda_dense"):
+        raise ValueError("KDA layers keep no decode cache in the port")
     raise ValueError(kind)
 
 
@@ -183,6 +196,14 @@ def layer_apply(cfg: ModelConfig, kind: str, p, x, ctx: LayerCtx):
         h = apply_norm(p["norm"], x, cfg)
         x = x + _self_attn(cfg, p["attn"], h, ctx, "attn")
         h = apply_norm(p["norm2"], x, cfg)
+        out, aux = moe.moe_apply(p["moe"], h, cfg, mesh=m, rules=ctx.rules)
+        return x + out, aux
+    if kind in ("kda", "kda_dense"):
+        h = apply_norm(p["norm"], x, cfg)
+        x = x + kda.kda_apply(p["mixer"], h, cfg, mesh=m)
+        h = apply_norm(p["norm2"], x, cfg)
+        if kind == "kda_dense":
+            return x + layers.mlp_apply(p["mlp"], h, cfg, m), aux
         out, aux = moe.moe_apply(p["moe"], h, cfg, mesh=m, rules=ctx.rules)
         return x + out, aux
     if kind == "cross":
@@ -318,15 +339,32 @@ class StackLayout:
     suffix: Tuple[str, ...]      # remainder layers, unrolled
 
 
+def _period(body: Tuple[str, ...]) -> Tuple[str, ...]:
+    """The shortest run that, repeated from the start of ``body``, covers
+    the most of it at least twice (the whole of ``body`` where none
+    repeats)."""
+    best, cover = tuple(body), 0
+    for p in range(1, len(body) // 2 + 1):
+        n = 1
+        while body[n * p:(n + 1) * p] == body[:p]:
+            n += 1
+        if n >= 2 and n * p > cover:
+            best, cover = tuple(body[:p]), n * p
+    return best
+
+
 def stack_layout(cfg: ModelConfig) -> StackLayout:
     kinds = cfg.layer_kinds()
     pre = kinds[:cfg.first_k_dense]
     body = kinds[cfg.first_k_dense:]
-    pattern = cfg.pattern * max(cfg.block_repeat, 1)
+    base = _period(body) if cfg.layers else cfg.pattern
+    pattern = base * max(cfg.block_repeat, 1)
     period = len(pattern)
     if not cfg.scan_layers:
         return StackLayout(tuple(kinds), pattern, 0, ())
     n_blocks = len(body) // period
+    while n_blocks and body[:n_blocks * period] != pattern * n_blocks:
+        n_blocks -= 1
     if n_blocks <= 1:  # a single block is unrolled, as in the JAX package
         return StackLayout(tuple(kinds), pattern, 0, ())
     suffix = body[n_blocks * period:]
@@ -392,17 +430,26 @@ def _run_stack_apply(cfg: ModelConfig, params, x, ctx: LayerCtx):
     losses, in layer order."""
     lay = stack_layout(cfg)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    grad = torch.is_grad_enabled()
+
+    def one(kind, p, x, aux):
+        x, a = layer_apply(cfg, kind, p, x, ctx)
+        return x, aux + a
+
+    def layer(kind, p, x, aux):
+        if cfg.remat == "layer" and grad:
+            return checkpoint(one, kind, p, x, aux, use_reentrant=False)
+        return one(kind, p, x, aux)
+
     for i, kind in enumerate(lay.prefix):
-        x, a = layer_apply(cfg, kind, params[f"prefix_{i}"], x, ctx)
-        aux = aux + a
+        x, aux = layer(kind, params[f"prefix_{i}"], x, aux)
 
     def block_fn(x, aux, bp):
         for j, kind in enumerate(lay.pattern):
-            x, a = layer_apply(cfg, kind, bp[f"p{j}"], x, ctx)
-            aux = aux + a
+            x, aux = layer(kind, bp[f"p{j}"], x, aux)
         return x, aux
 
-    remat = cfg.remat == "block" and torch.is_grad_enabled()
+    remat = cfg.remat == "block" and grad
     if lay.n_blocks:
         for bp in _blocks(params["blocks"], lay.n_blocks):
             if remat:
@@ -411,8 +458,7 @@ def _run_stack_apply(cfg: ModelConfig, params, x, ctx: LayerCtx):
             else:
                 x, aux = block_fn(x, aux, bp)
     for i, kind in enumerate(lay.suffix):
-        x, a = layer_apply(cfg, kind, params[f"suffix_{i}"], x, ctx)
-        aux = aux + a
+        x, aux = layer(kind, params[f"suffix_{i}"], x, aux)
     return x, aux
 
 
@@ -583,11 +629,18 @@ def _valid_mesh(mesh):
     return mesh
 
 
-def _no_latent_cache(cfg: ModelConfig):
-    if cfg.kv_lora_rank:
+def _no_decode_cache(cfg: ModelConfig):
+    """Refuse a model whose decode state the port does not build: the
+    latent (MLA) KV cache, the KDA state cache, naming each missing."""
+    kinds = set(cfg.layer_kinds())
+    missing = [what for what, needed in (
+        ("the latent attention (MLA) KV cache", cfg.kv_lora_rank),
+        ("the Kimi Delta Attention (KDA) state cache",
+         kinds & {"kda", "kda_dense"})) if needed]
+    if missing:
         raise NotImplementedError(
-            f"{cfg.name}: latent attention (MLA) has no KV cache in the port "
-            "yet, so it has no prefill or decode; train it with loss_fn")
+            f"{cfg.name}: the port has no {' and no '.join(missing)} yet, "
+            "so it has no prefill or decode; train it with loss_fn")
 
 
 # ---------------------------------------------------------------------------
@@ -654,7 +707,7 @@ def prefill(params, batch: Mapping[str, Any], cfg: ModelConfig, *,
     rows of both (its rows under ``rules``, every vocab column of the
     logits), the caches in ``cache_layout``.
     """
-    _no_latent_cache(cfg)
+    _no_decode_cache(cfg)
     mesh = _valid_mesh(mesh)
     dev = params["embed"]["table"].device
     tokens = _on(batch["tokens"], dev)
@@ -686,7 +739,7 @@ def decode_step(params, token, caches, pos: int, cfg: ModelConfig, *,
 
     Returns (logits (B,V) f32, caches).
     """
-    _no_latent_cache(cfg)
+    _no_decode_cache(cfg)
     mesh = _valid_mesh(mesh)
     dev = params["embed"]["table"].device
     pos = int(pos)

@@ -362,3 +362,39 @@ def test_an_lm_step_records_the_moe_and_latent_attention_spans():
     forward = trace.calls()[0]["spans"]
     assert forward[-1] == {**forward[-1], "name": "lm.loss", "parent": None}
     assert {r["parent"] for r in forward[:-1]} == {"lm.loss"}
+
+
+def test_an_lm_step_records_the_kda_spans():
+    """One training step of a reduced Kimi Linear (a dense KDA layer, the
+    (KDA, KDA, MLA, KDA) period twice, the (KDA, MLA) tail), every layer
+    its own checkpoint: each KDA layer's ``kda.mixer`` and its scan's
+    ``kda.chunk`` in the forward and again in its recomputation, beside
+    the MLA and MoE spans."""
+    import dataclasses
+
+    from repro_torch.configs import kimi_linear_48b_a3b as kimi
+    from repro_torch.train import init_state, make_train_step
+
+    cfg = kimi.share(dataclasses.replace(
+        kimi.CONFIG, n_layers=11, d_model=64, n_heads=4, head_dim=16,
+        qk_rope_dim=8, v_head_dim=16, kv_lora_rank=32, d_ff=32,
+        d_ff_dense=96, n_experts=16, top_k=4, vocab=256,
+        layers=kimi.layer_kinds([1, 2, 3, 5, 6, 7, 9, 10], [4, 8, 11], 1),
+        kda_heads=2, kda_head_dim=16, kda_gate_rank=8,
+        compute_dtype="float32"), ep=8, vocab=256)
+    tc = TrainConfig()
+    state = init_state(cfg, tc, device="cpu")
+    tokens = torch.randint(0, 256, (2, 24))
+    with trace.recording():
+        make_train_step(cfg, tc)(state, {"tokens": tokens,
+                                         "labels": tokens})
+    s = trace.summary()
+    calls = {k: v["calls"] for k, v in s["spans"].items()}
+    assert calls == {"lm.loss": 1, "kda.mixer": 8 * 2, "kda.chunk": 8 * 2,
+                     "mla.attention": 3 * 2, "moe.route": 10 * 2,
+                     "moe.experts": 10 * 2, "moe.combine": 10 * 2,
+                     "adamw.update": 1}
+    forward = trace.calls()[0]["spans"]
+    parents = {r["name"]: r["parent"] for r in forward}
+    assert parents["kda.chunk"] == "kda.mixer"
+    assert parents["kda.mixer"] == "lm.loss"
